@@ -1,0 +1,115 @@
+"""The ``test`` subcommand: load a trained generator, upscale images.
+
+Accepts the reference's ``.pth`` and the JAX package's ``.ckpt``,
+strips a DDP ``module.`` prefix, names outputs ``upres-{basename}``,
+and offers tiled overlap-blend inference (``--tile``).  Runs on the
+CUDA device unless the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+from argparse import Namespace
+
+import numpy as np
+import torch
+
+from torchsr_tpu_torch.infer.tiled import upscale_image
+from torchsr_tpu_torch.utils import image_io
+from torchsr_tpu_torch.utils.checkpoint import (
+    find_checkpoint,
+    load_checkpoint,
+)
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on; raises when CUDA is asked for
+    and absent, rather than carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() "
+            f"is False; pass device='cpu' (--device cpu) to run on the "
+            f"CPU"
+        )
+    return dev
+
+
+def resolve_compute_dtype(args: Namespace, device: torch.device):
+    """Inference compute dtype: bfloat16 on CUDA unless ``--disable-amp``,
+    float32 on the CPU (whose bf16 convolutions are emulated)."""
+    if getattr(args, "disable_amp", False):
+        return torch.float32
+    return torch.bfloat16 if device.type == "cuda" else torch.float32
+
+
+def load_trained_generator(
+    args: Namespace, generator_cls, *, device: torch.device,
+    compute_dtype: torch.dtype,
+):
+    """Resolve the checkpoint, size the generator to it (RRDB count from
+    the ``blocks.{i}`` keys, scale from the ``upsample{k}`` stages),
+    and return it on ``device`` in eval mode, without gradients."""
+    model = args.model.lower()
+    ckpt_path = getattr(args, "checkpoint", None) or find_checkpoint(
+        f"{model}-gan-best.ckpt"
+    )
+    if ckpt_path is None:
+        raise FileNotFoundError(
+            f"no checkpoint found (looked for {model}-gan-best.ckpt / "
+            f".pth in the working directory); train a model first or "
+            f"pass --checkpoint"
+        )
+    checkpoint = load_checkpoint(ckpt_path, model)
+    if checkpoint is None:
+        raise FileNotFoundError(f"checkpoint not found: {ckpt_path}")
+    state = {k: v.float() for k, v in checkpoint["state"].items()}
+    num_blocks = len({k.split(".")[1] for k in state
+                      if k.startswith("blocks.")})
+    n_up = len({k.split(".")[0] for k in state
+                if k.startswith("upsample")})
+    generator = generator_cls(
+        num_rrdb_blocks=num_blocks or 23,
+        scale_factor=2 ** n_up if n_up else 4,
+        compute_dtype=compute_dtype,
+        device="meta",
+    )
+    generator.load_state_dict(state, assign=True)
+    return generator.to(device).eval().requires_grad_(False)
+
+
+def run_test(args: Namespace, generator_cls) -> str:
+    """Upscale ``args.image`` (a file, or every supported image in a
+    directory) with the best GAN checkpoint; returns the output path
+    (one image) or a summary (a directory)."""
+    device = resolve_device(getattr(args, "device", "cuda"))
+    generator = load_trained_generator(
+        args, generator_cls, device=device,
+        compute_dtype=resolve_compute_dtype(args, device),
+    )
+
+    def upscale_one(path: str) -> np.ndarray:
+        return upscale_image(
+            generator,
+            image_io.load_image(path),
+            scale=generator.scale_factor,
+            tile=getattr(args, "tile", 0) or 0,
+            overlap=getattr(args, "tile_overlap", 16),
+            tile_batch=getattr(args, "tile_batch", 8),
+            device=device,
+        )
+
+    if os.path.isdir(args.image):
+        paths = image_io.discover_images(args.image)
+        if not paths:
+            raise ValueError(
+                f"no supported images found in directory {args.image}"
+            )
+        for path in paths:
+            out_path = f"upres-{os.path.basename(path)}"
+            image_io.save_image(upscale_one(path), out_path)
+        return f"{len(paths)} images -> upres-* in {os.getcwd()}"
+
+    out_path = f"upres-{os.path.basename(args.image)}"
+    image_io.save_image(upscale_one(args.image), out_path)
+    return out_path

@@ -1,0 +1,478 @@
+"""``serve``: an HTTP daemon around a trained ESRGAN checkpoint.
+
+The PyTorch counterpart of the JAX package's checkpoint-backed serving
+daemon, on the standard library's ``http.server``.  The checkpoint is
+loaded into the live generator on the CUDA device (bf16 compute unless
+``--disable-amp``), and every frame is tiled through it on the device.
+
+Endpoints:
+
+- ``GET /healthz``: 200 once the warmup forward has run, 503 before.
+- ``GET /metadata``: the serving configuration as JSON.
+- ``GET /metrics``: request counters, JSON (or Prometheus text with
+  ``?format=prometheus`` or ``Accept: text/plain``).
+- ``POST /upscale``: an encoded image in (anything Pillow decodes); the
+  super-resolved image out, PNG by default, ``?format=jpeg|webp`` with
+  ``&quality=N``, ``?compress=N`` (PNG zlib level), ``?overlap=N``
+  (tiling halo in LR pixels).
+
+Admission: request bodies above ``max_request_mb`` and decoded inputs
+above ``max_input_mp`` get 413; beyond ``max_pending`` upscales in
+flight new ones get 503 with Retry-After.  A ``ThreadingHTTPServer``
+keeps decode and encode off the device path, and one lock serializes
+the device calls.  The serving-artifact backend is not ported yet
+(ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+_FORMATS = {
+    "png": "PNG", "jpeg": "JPEG", "jpg": "JPEG", "webp": "WEBP",
+}
+
+
+class RequestTooLarge(ValueError):
+    """Request exceeds an admission limit — mapped to HTTP 413."""
+
+
+class _Service:
+    """Transport-agnostic core: decode -> locked device call -> encode.
+    Subclasses implement ``_upscale(uint8 HWC) -> uint8 HWC`` and
+    ``warmup()``, and populate ``meta``."""
+
+    def __init__(
+        self,
+        overlap: int | None = None,
+        max_request_mb: float = 64,
+        max_input_mp: float = 32,
+        max_pending: int = 8,
+    ):
+        self.overlap = overlap
+        # Admission limits (0 disables): body bytes bound what a request
+        # makes the host allocate, decoded megapixels what it makes the
+        # device compute.
+        self.max_request_bytes = int(max_request_mb * 1e6)
+        self.max_input_pixels = int(max_input_mp * 1e6)
+        # Load shedding: device calls serialize behind _lock, so beyond
+        # max_pending in-flight upscales new ones get 503 + Retry-After
+        # instead of an unbounded queue.  0 = unbounded.
+        self.max_pending = int(max_pending)
+        self._in_flight = 0
+        self._shed = 0
+        self._admission_lock = threading.Lock()
+        self._lock = threading.Lock()
+        self.ready = False
+        self.meta: dict = {}
+        # counters for GET /metrics, under their own lock so a slow
+        # device call never blocks a scrape
+        self._stats_lock = threading.Lock()
+        self._started = time.time()
+        self._requests = 0
+        self._errors = 0
+        self._total_ms = 0.0
+        self._device_ms = 0.0
+        self._last_ms = 0.0
+
+    def metrics(self) -> dict:
+        """Counters since startup: request/error totals, mean and last
+        wall latency, the device-locked share of the mean, uptime."""
+        with self._stats_lock:
+            n = self._requests
+            with self._admission_lock:
+                in_flight, shed = self._in_flight, self._shed
+            return {
+                "ready": self.ready,
+                "uptime_s": round(time.time() - self._started, 1),
+                "requests": n,
+                "errors": self._errors,
+                "in_flight": in_flight,
+                "shed": shed,
+                "latency_ms_mean": round(self._total_ms / n, 1) if n else None,
+                "latency_ms_last": round(self._last_ms, 1) if n else None,
+                "device_ms_mean": round(self._device_ms / n, 1) if n else None,
+            }
+
+    def admit(self) -> bool:
+        """Reserve an upscale slot; False = shed this request (503)."""
+        with self._admission_lock:
+            if self.max_pending and self._in_flight >= self.max_pending:
+                self._shed += 1
+                return False
+            self._in_flight += 1
+            return True
+
+    def release(self) -> None:
+        with self._admission_lock:
+            self._in_flight -= 1
+
+    def _upscale(self, arr: np.ndarray, overlap: int | None) -> np.ndarray:
+        raise NotImplementedError
+
+    def warmup(self) -> None:
+        raise NotImplementedError
+
+    def upscale_bytes(
+        self,
+        body: bytes,
+        overlap: int | None = None,
+        fmt: str = "png",
+        quality: int = 92,
+        compress: int = 6,
+    ) -> tuple[bytes, str]:
+        """Decode ``body``, super-resolve, encode; returns
+        ``(payload, content_type)``."""
+        from PIL import Image
+
+        t0 = time.perf_counter()
+        try:
+            pil_fmt = _FORMATS.get(fmt.lower())
+            if pil_fmt is None:
+                raise ValueError(
+                    f"unsupported format {fmt!r} (use png, jpeg, or "
+                    f"webp)"
+                )
+            img = Image.open(io.BytesIO(body))
+            # the size comes from the header: check before .convert()
+            # decodes the whole image
+            if (
+                self.max_input_pixels
+                and img.width * img.height > self.max_input_pixels
+            ):
+                raise RequestTooLarge(
+                    f"input is {img.width}x{img.height} "
+                    f"({img.width * img.height / 1e6:.1f} MP); this "
+                    f"server caps inputs at "
+                    f"{self.max_input_pixels / 1e6:g} MP"
+                )
+            arr = np.asarray(img.convert("RGB"), np.uint8)
+            t_dev = time.perf_counter()
+            with self._lock:  # one device call at a time
+                sr = self._upscale(
+                    arr, overlap if overlap is not None else self.overlap
+                )
+            dev_ms = (time.perf_counter() - t_dev) * 1e3
+            out = Image.fromarray(np.asarray(sr, np.uint8))
+            buf = io.BytesIO()
+            if pil_fmt == "PNG":
+                level = min(max(int(compress), 0), 9)
+                out.save(buf, format="PNG", compress_level=level)
+            else:
+                out.save(buf, format=pil_fmt, quality=int(quality))
+            ctype = f"image/{pil_fmt.lower()}"
+        except Exception:
+            with self._stats_lock:
+                self._errors += 1
+            raise
+        with self._stats_lock:
+            self._requests += 1
+            self._last_ms = (time.perf_counter() - t0) * 1e3
+            self._total_ms += self._last_ms
+            self._device_ms += dev_ms
+        return buf.getvalue(), ctype
+
+
+class CheckpointUpscaleService(_Service):
+    """Checkpoint-backed service: the live generator on ``device``
+    (``"cuda"`` by default; ``"cpu"`` only when asked for), frames
+    tiled through it on the device and rounded to uint8 there."""
+
+    def __init__(
+        self,
+        model: str,
+        checkpoint: str | None = None,
+        tile: int = 0,
+        tile_batch: int = 16,
+        overlap: int | None = None,
+        disable_amp: bool = False,
+        device: str | torch.device = "cuda",
+        **limits,
+    ):
+        from argparse import Namespace
+
+        from torchsr_tpu_torch.infer.runner import (
+            load_trained_generator,
+            resolve_compute_dtype,
+            resolve_device,
+        )
+        from torchsr_tpu_torch.infer.tiled import DEFAULT_SERVING_TILE
+        from torchsr_tpu_torch.registry import select_test_model
+
+        super().__init__(overlap, **limits)
+        self.device = resolve_device(device)
+        model = model.lower()
+        args = Namespace(model=model, checkpoint=checkpoint,
+                         disable_amp=disable_amp)
+        dtype = resolve_compute_dtype(args, self.device)
+        self._generator = load_trained_generator(
+            args, select_test_model(args), device=self.device,
+            compute_dtype=dtype,
+        )
+        self.tile = int(tile) or DEFAULT_SERVING_TILE.get(model, 64)
+        self.tile_batch = int(tile_batch)
+        self.scale = int(self._generator.scale_factor)
+        self.meta = {
+            "backend": "checkpoint",
+            "model": model,
+            "checkpoint": checkpoint or f"{model}-gan-best",
+            "scale": self.scale,
+            "tile": self.tile,
+            "tile_batch": self.tile_batch,
+            "compute_dtype": str(dtype).removeprefix("torch."),
+            "device": (torch.cuda.get_device_name(self.device)
+                       if self.device.type == "cuda" else "cpu"),
+        }
+
+    def warmup(self) -> None:
+        """One tiled forward on a dummy frame slightly above the tile
+        size, so the first request finds the kernels built and loaded."""
+        dummy = np.zeros((self.tile + 8, self.tile + 8, 3), np.uint8)
+        with self._lock:
+            self._upscale(dummy, self.overlap)
+        self.ready = True
+
+    def _resolve_overlap(self, overlap: int | None) -> int:
+        if overlap is None:
+            overlap = 8
+        return max(0, min(int(overlap), self.tile - 1))
+
+    def _upscale(self, arr: np.ndarray, overlap: int | None) -> np.ndarray:
+        from torchsr_tpu_torch.infer.tiled import tiled_upscale
+
+        x = torch.tensor(arr, device=self.device)
+        out = tiled_upscale(
+            self._generator, x.float() / 255.0, scale=self.scale,
+            tile=self.tile, overlap=self._resolve_overlap(overlap),
+            tile_batch=self.tile_batch,
+        )
+        # round to uint8 on the device: the host copy moves 4x fewer
+        # bytes than the f32 frame
+        u8 = (out.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        return u8.cpu().numpy()
+
+
+_PROM_HELP = {
+    "ready": "1 once the warmup forward has completed",
+    "uptime_s": "seconds since service start",
+    "requests": "total upscale requests served",
+    "errors": "total failed upscale requests",
+    "in_flight": "upscales currently queued or executing",
+    "shed": "requests rejected 503 by load shedding",
+    "latency_ms_mean": "mean request wall latency",
+    "latency_ms_last": "last request wall latency",
+    "device_ms_mean": "mean device-locked share of latency",
+}
+
+_PROM_COUNTERS = {"requests", "errors", "shed"}
+
+
+def _prometheus(metrics: dict) -> str:
+    """Render the /metrics dict in Prometheus exposition format."""
+    lines = []
+    for key, value in metrics.items():
+        name = f"torchsr_{key}"
+        if value is None:
+            continue
+        if isinstance(value, bool):
+            value = int(value)
+        help_text = _PROM_HELP.get(key)
+        if help_text:
+            lines.append(f"# HELP {name} {help_text}")
+        kind = "counter" if key in _PROM_COUNTERS else "gauge"
+        lines.append(f"# TYPE {name} {kind}")
+        lines.append(f"{name} {value}")
+    return "\n".join(lines) + "\n"
+
+
+def _make_handler(service: _Service):
+    class Handler(BaseHTTPRequestHandler):
+        # HTTP/1.1 keep-alive: every response carries Content-Length
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # noqa: N802
+            pass
+
+        def _send(
+            self, code: int, body: bytes, ctype: str, headers=()
+        ) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            for key, value in headers:
+                self.send_header(key, value)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _send_json(self, code: int, obj, headers=()) -> None:
+            self._send(code, json.dumps(obj).encode(), "application/json",
+                       headers)
+
+        def do_GET(self):  # noqa: N802
+            path, _, query = self.path.partition("?")
+            if path == "/healthz":
+                meta = service.meta
+                self._send_json(200 if service.ready else 503, {
+                    "status": "ok" if service.ready else "warming up",
+                    "backend": meta.get("backend"),
+                    "model": meta.get("model", ""),
+                    "scale": meta.get("scale"),
+                    "compute_dtype": meta.get("compute_dtype"),
+                })
+            elif path == "/metadata":
+                self._send_json(200, service.meta)
+            elif path == "/metrics":
+                accept = self.headers.get("Accept", "")
+                if "format=prometheus" in query or "text/plain" in accept:
+                    self._send(
+                        200, _prometheus(service.metrics()).encode(),
+                        "text/plain; version=0.0.4",
+                    )
+                else:
+                    self._send_json(200, service.metrics())
+            else:
+                self._send_json(404, {"error": f"no route {path}"})
+
+        def do_POST(self):  # noqa: N802
+            path, _, query = self.path.partition("?")
+            if path != "/upscale":
+                self._send_json(404, {"error": f"no route {path}"})
+                return
+            if not service.ready:
+                self._send_json(503, {"error": "warming up"})
+                return
+            opts = {"overlap": None, "fmt": "png", "quality": 92,
+                    "compress": 6}
+            for part in filter(None, query.split("&")):
+                key, _, value = part.partition("=")
+                try:
+                    if key in ("overlap", "quality", "compress"):
+                        opts[key] = int(value)
+                    elif key == "format":
+                        opts["fmt"] = value
+                except ValueError:
+                    self._send_json(400, {"error": f"bad {part!r}"})
+                    return
+            length = int(self.headers.get("Content-Length", 0))
+            if length <= 0:
+                self._send_json(400, {"error": "empty request body"})
+                return
+            if (
+                service.max_request_bytes
+                and length > service.max_request_bytes
+            ):
+                # rejected before reading: the declared size is enough
+                self._send_json(413, {
+                    "error": f"request body {length} bytes exceeds the "
+                             f"{service.max_request_bytes / 1e6:g} MB "
+                             f"limit",
+                })
+                return
+            body = self.rfile.read(length)
+            if not service.admit():
+                self._send_json(
+                    503,
+                    {"error": f"server saturated ({service.max_pending} "
+                              f"upscales in flight); retry"},
+                    headers=(("Retry-After", "1"),),
+                )
+                return
+            # the slot is released before any response byte goes out,
+            # so a sequential client is never shed by its own last call
+            error = None
+            try:
+                payload, ctype = service.upscale_bytes(body, **opts)
+            except RequestTooLarge as exc:
+                error = (413, str(exc))
+            except Exception as exc:  # undecodable image, bad params
+                error = (400, str(exc))
+            finally:
+                service.release()
+            if error is not None:
+                self._send_json(error[0], {"error": error[1]})
+                return
+            self._send(200, payload, ctype)
+
+    return Handler
+
+
+def make_server(
+    service: _Service,
+    host: str = "127.0.0.1",
+    port: int = 8765,
+    warmup: bool = True,
+) -> ThreadingHTTPServer:
+    """Build (and warm up) the HTTP server around ``service``; the
+    caller runs ``serve_forever()``.  ``port=0`` binds an ephemeral
+    port (``server.server_address[1]`` reports it)."""
+    server = ThreadingHTTPServer((host, port), _make_handler(service))
+    server.service = service
+    if warmup:
+        service.warmup()
+    return server
+
+
+def run_server(args) -> None:
+    """The ``serve`` subcommand: serve ``args.checkpoint`` (or the
+    default ``{model}-gan-best`` checkpoint) until SIGTERM or Ctrl-C."""
+    import signal
+
+    service = CheckpointUpscaleService(
+        model=args.model,
+        checkpoint=args.checkpoint,
+        tile=args.tile,
+        tile_batch=args.tile_batch,
+        overlap=args.tile_overlap or None,
+        disable_amp=args.disable_amp,
+        device=args.device,
+        max_request_mb=args.max_request_mb,
+        max_input_mp=args.max_input_mp,
+        max_pending=args.max_pending,
+    )
+    server = make_server(service, host=args.host, port=args.port)
+
+    # Graceful drain on SIGTERM: finish in-flight requests, stop
+    # accepting, exit 0.  shutdown() must run off the main thread, which
+    # is inside serve_forever; installed before the readiness print so a
+    # supervisor that signals on first output never hits the default.
+    def _terminate(signum, frame):
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    try:
+        prev = signal.signal(signal.SIGTERM, _terminate)
+    except ValueError:  # not the main thread (library/test use)
+        prev = None
+
+    host, port = server.server_address[:2]
+    print(
+        f"Serving {service.meta['model']} checkpoint "
+        f"{service.meta['checkpoint']} on {service.meta['device']} at "
+        f"http://{host}:{port} (POST /upscale, GET /healthz, "
+        f"GET /metrics)", flush=True,
+    )
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        # handler threads are daemonic: wait (bounded) for in-flight
+        # requests so a SIGTERM drain completes the work it admitted
+        deadline = time.time() + 30
+        while service.metrics()["in_flight"] > 0 and time.time() < deadline:
+            time.sleep(0.05)
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+        stats = service.metrics()
+        print(
+            f"Server stopped cleanly after {stats['requests']} "
+            f"requests ({stats['errors']} errors, up "
+            f"{stats['uptime_s']} s)"
+        )

@@ -1,0 +1,101 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled at first
+use with ``nvcc`` for ``sm_90a`` into a shared library in the checkout's
+``build/kernels/`` (ignored by git), named by a hash of the source and
+flags so an edited source rebuilds, and loaded with ``ctypes``.  Tensors
+cross as ``data_ptr()`` integers and the stream as
+``torch.cuda.current_stream().cuda_stream``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# C signatures of each library's entry points: name -> (restype, argtypes)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "rdb_fwd": {
+        "rdb_conv3x3_launch": (
+            _I, (_I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+        ),
+        "rdb_error_string": (ctypes.c_char_p, (_I,)),
+    },
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        Path(cuda_home) / "bin" / "nvcc" if cuda_home else None,
+        Path("/usr/local/cuda/bin/nvcc"),
+    ):
+        if cand is not None and cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA toolkit is needed to build the kernels"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to; the hash covers source+flags."""
+    digest = hashlib.sha256(
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> dict | None:
+    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns
+    ``{"seconds", "ptxas"}`` when it built now (``ptxas`` is the
+    compiler's register/spill report), else None.  Raises with the
+    compiler's output when the build fails."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return {
+        "seconds": time.perf_counter() - t0,
+        "ptxas": [ln.strip() for ln in proc.stdout.splitlines()
+                  if "registers" in ln or "spill" in ln
+                  or "Compiling entry" in ln],
+    }
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; one handle per
+    process."""
+    build(name)
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (restype, argtypes) in SIGNATURES[name].items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
