@@ -68,7 +68,10 @@ from torchsr_tpu_torch.models.layers import leaky_relu  # noqa: E402
 from torchsr_tpu_torch.ops import _build  # noqa: E402
 from torchsr_tpu_torch.ops import rdb as rdb_ops  # noqa: E402
 from torchsr_tpu_torch.ops.resize import nearest_upsample  # noqa: E402
-from torchsr_tpu_torch.utils.checkpoint import save_checkpoint  # noqa: E402
+from torchsr_tpu_torch.utils.checkpoint import (  # noqa: E402
+    load_checkpoint,
+    save_checkpoint,
+)
 
 # H100 SXM published peaks (dense): the bound of a kernel is the larger
 # of its bytes over HBM bandwidth and its operations over the peak rate
@@ -115,10 +118,51 @@ TOL_GEN_F32 = 1e-5
 # a generator with wrong blocks reads against the f32 plain path.
 TOL_GEN_BF16 = 0.05
 GEN_BF16_FRAC = 0.25
+# The RDB backward kernel (B2) at the training shape: batch 64 of 128 px
+# HR crops, so 32 x 32 LR pixels through the generator's blocks.
+TRAIN_RDB_SHAPE = (64, 32, 32, 64)
+# One backward is a dgrad and a wgrad per conv: twice the forward's
+# operations.
+RDB_BWD_FLOP_PER_PX = 2 * RDB_FLOP_PER_PX
+# Each stage of the backward against the same computation (f32, TF32
+# off) of the kernel's own inputs to that stage: dW_i and db_i from the
+# da_i its dense gradient gives, and each slice of its dense gradient
+# from the dgrads of those da_i.  The products of working-dtype
+# operands are exact in f32 in both, so f32 and bf16 differ in summation
+# order only: sums of 65,536 pixels (dW, db) or 288-1,728 products (dF).
+BWD_STAGE_LIMITS = {torch.float32: (1e-4, 1e-4),
+                    torch.bfloat16: (1e-4, 1e-4)}
+# dx against dF[..., :64] + g rounded once to the working dtype (the
+# same f32 sum): exact, so rel 2^-9 is under half the smallest bf16 step.
+DX_LIMITS = (2**-9, 1e-6)
+# The whole backward against rdb_bwd_reference on the same inputs.  In
+# bf16 a dense-gradient value that lands on the other side of a rounding
+# step rounds the next conv's dy one step (2^-8) apart.
+BWD_BLOCK_LIMITS = {torch.float32: (1e-4, 1e-4),
+                    torch.bfloat16: (2**-7, 2**-6)}
+# The wrong backward kernels each limit must see (emulated in plain
+# PyTorch): conv 3's dW left at zero, LeakyReLU' taken as 1, the dgrad
+# taps not flipped, conv5's dense gradient not passed to convs 1-4.
+WRONG_BWD = ("dw3_zero", "lrelu_one", "taps_unflipped", "conv5_dropped")
+# train_grad: one L1 backward of the 23-RRDB generator, every parameter
+# gradient of the kernel path against the plain path (autograd through
+# rdb_reference), as max|kernel - plain| / max|plain| per tensor.
+TRAIN_GRAD_BATCH = 4
+TOL_GRAD = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 # A served frame against the same tiling of the generator, both rounded
 # to uint8: the same computation, so at most a rounding tie apart.
 TOL_SERVE_LEVELS = 1
 REQUEST_SIZES = ((64, 64), (128, 160), (120, 200))
+# train, the main path: seeded random PNGs, split 90/10 by the CLI
+# (36 train, 4 eval), one pretrain and one GAN epoch at batch 16, the
+# full-width generator (23 RRDBs) and the full VGG19 trunk, bf16.
+TRAIN_IMAGES = 40
+TRAIN_IMAGE_HW = (160, 160)
+TRAIN_BATCH = 16
+SAMPLE_HW = (48, 64)  # the per-epoch progress sample's LR size
+# Step times are also taken at the JAX package's default batch.
+SPEED_BATCHES = (16, 64)
+SPEED_STEPS = 5
 TEST_IMAGE = (100, 140)
 DEVICE = "cuda"
 
@@ -163,10 +207,16 @@ def rdb_bound_ms(shape, dtype) -> tuple[float, str]:
 
 def excess(got, ref, limits, base=None) -> float:
     """The largest ratio |got - ref| / (rel |ref| + frac max|ref - base|)
-    over the elements; at most 1 passes."""
+    over the elements (0 where both sides agree exactly); at most 1
+    passes."""
     rel, frac = limits
+    got, ref = got.float(), ref.float()
+    if base is not None:
+        base = base.float()
     scale = (ref if base is None else ref - base).abs().max()
-    return float(((got - ref).abs() / (rel * ref.abs() + frac * scale)).max())
+    diff = (got - ref).abs()
+    ratio = diff / (rel * ref.abs() + frac * scale)
+    return float(torch.where(diff == 0, 0.0, ratio).max())
 
 
 def conv3x3(f: torch.Tensor, k: torch.Tensor, b: torch.Tensor):
@@ -188,6 +238,102 @@ def grown_zero(y, kernels, biases, *, scale_ratio):
 
 
 WRONG_BLOCKS = {"conv5_skipped": conv5_skipped, "grown_zero": grown_zero}
+
+
+def emulated_bwd(g, feat, kernels, scale_ratio, fault=None):
+    """The arithmetic of ``rdb_bwd.cu`` in plain PyTorch, optionally with
+    one of the ``WRONG_BWD`` faults: (dx, dws, dbs, dfeat) as
+    ``rdb_bwd_cuda`` returns them."""
+    dt = feat.dtype
+    f = feat.permute(0, 3, 1, 2).float()
+    dfeat = torch.zeros_like(f)
+    da = g.permute(0, 3, 1, 2).float() * scale_ratio
+    dws, dbs = [None] * 5, [None] * 5
+    for i in reversed(range(5)):
+        cin = rdb_ops.CIN[i]
+        if i < 4:
+            s = rdb_ops._slot(i)
+            deriv = (1.0 if fault == "lrelu_one"
+                     else 0.2 + 0.8 * (f[:, s] > 0).float())
+            da = dfeat[:, s] * deriv
+        dy = da.to(dt).float()
+        k = kernels[i].to(dt).float()
+        w = k.permute(3, 2, 0, 1)
+        dbs[i] = da.sum(dim=(0, 2, 3))
+        dws[i] = torch.nn.grad.conv2d_weight(
+            f[:, :cin], w.shape, dy, padding=1).permute(2, 3, 1, 0)
+        if fault == "dw3_zero" and i == 2:
+            dws[i] = torch.zeros_like(dws[i])
+        wd = k.flip(0, 1).permute(3, 2, 0, 1) if fault == "taps_unflipped" \
+            else w
+        if not (fault == "conv5_dropped" and i == 4):
+            dfeat[:, :cin] += torch.nn.grad.conv2d_input(
+                f[:, :cin].shape, wd, dy, padding=1)
+    dx = (dfeat[:, :rdb_ops.CHANNELS]
+          + g.permute(0, 3, 1, 2).float()).to(dt)
+    return (dx.permute(0, 2, 3, 1), tuple(dws), tuple(dbs),
+            dfeat.permute(0, 2, 3, 1))
+
+
+def _dfeat_slices():
+    """(name, channel slice) of each stage's part of the dense gradient:
+    x's 64 channels (dx - g), then the four grown slices."""
+    return [("x", slice(0, rdb_ops.CHANNELS))] + [
+        (f"y{i + 1}", rdb_ops._slot(i)) for i in range(4)]
+
+
+def bwd_scores(g, feat, kernels, got, scale_ratio=SCALE) -> dict:
+    """Excess of each stage of a backward ``got`` = (dx, dws, dbs,
+    dfeat) against the same computation of its own inputs, and of the
+    whole against ``rdb_bwd_reference`` (see the limits above)."""
+    dt = feat.dtype
+    dx, dws, dbs, dfeat = got
+    f = feat.permute(0, 3, 1, 2).float()
+    dF = dfeat.permute(0, 3, 1, 2).float()
+    stage_ref = torch.zeros_like(dF)
+    da = g.permute(0, 3, 1, 2).float() * scale_ratio
+    limits = BWD_STAGE_LIMITS[dt]
+    dw_ex, db_ex = [None] * 5, [None] * 5
+    for i in reversed(range(5)):
+        cin = rdb_ops.CIN[i]
+        if i < 4:  # da_i from the kernel's own dense gradient
+            s = rdb_ops._slot(i)
+            da = dF[:, s] * (0.2 + 0.8 * (f[:, s] > 0).float())
+        dy = da.to(dt).float()
+        w = kernels[i].to(dt).float().permute(3, 2, 0, 1)
+        ref_dw = torch.nn.grad.conv2d_weight(
+            f[:, :cin], w.shape, dy, padding=1).permute(2, 3, 1, 0)
+        dw_ex[i] = excess(dws[i], ref_dw, limits)
+        db_ex[i] = excess(dbs[i], da.sum(dim=(0, 2, 3)), limits)
+        stage_ref[:, :cin] += torch.nn.grad.conv2d_input(
+            f[:, :cin].shape, w, dy, padding=1)
+    stage_ref = stage_ref.permute(0, 2, 3, 1)
+    dfeat_ex = {name: excess(dfeat[..., sl], stage_ref[..., sl], limits)
+                for name, sl in _dfeat_slices()}
+    dx_ref = (dfeat[..., :rdb_ops.CHANNELS] + g.float()).to(dt).float()
+    ref = rdb_ops.rdb_bwd_reference(g, feat, kernels, scale_ratio,
+                                     return_dfeat=True)
+    limits = BWD_BLOCK_LIMITS[dt]
+    block = {f"dw{i + 1}": excess(dws[i], ref[1][i], limits)
+             for i in range(5)}
+    block.update({f"db{i + 1}": excess(dbs[i], ref[2][i], limits)
+                  for i in range(5)})
+    block.update({f"dfeat_{name}": excess(dfeat[..., sl], ref[3][..., sl],
+                                          limits)
+                  for name, sl in _dfeat_slices()})
+    return {
+        "max_abs_err": float((dx.float() - ref[0].float()).abs().max()),
+        "stage_dw": dw_ex, "stage_db": db_ex, "stage_dfeat": dfeat_ex,
+        "dx": excess(dx.float(), dx_ref, DX_LIMITS),
+        "block": block,
+    }
+
+
+def _worst(row: dict) -> float:
+    """The largest excess of a ``bwd_scores`` row."""
+    return max(*row["stage_dw"], *row["stage_db"],
+               *row["stage_dfeat"].values(), row["dx"],
+               *row["block"].values())
 
 
 def plain_generator(gen: ESRGANGenerator, x: torch.Tensor,
@@ -230,25 +376,31 @@ def phase_probe() -> None:
 
 
 def phase_build() -> None:
+    """Both kernels' sources, one nvcc each, started together."""
     t0 = time.perf_counter()
-    built = _build.build("rdb_fwd")
-    regs, name = [], None
-    for line in (built or {}).get("ptxas", []):
-        m = re.search(r"entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            t = re.search(r"conv3x3_(\w+?)ILi(\d+)ELi(\d+)E", name)
-            if t:
-                name = f"{t.group(1)}/{t.group(2)}->{t.group(3)}"
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            regs.append(f"{name}:{m.group(1)}r")
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and m.group(1) != "0":
-            regs.append(f"{name}:SPILL{m.group(1)}")
-    _build.load_library("rdb_fwd")
-    say("build", seconds=round(time.perf_counter() - t0, 3),
-        nvcc_seconds=built and round(built["seconds"], 3), ptxas=regs)
+    built = _build.build_all()
+    report = {}
+    for lib, info in built.items():
+        regs, name = [], None
+        for line in info["ptxas"]:
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                t = re.search(r"(\w+?)_(bf16|f32)ILi(\d+)ELi(\d+)E", name)
+                if t:
+                    name = (f"{t.group(1)[-6:]}_{t.group(2)}/{t.group(3)}"
+                            f"->{t.group(4)}")
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs.append(f"{name}:{m.group(1)}r")
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and m.group(1) != "0":
+                regs.append(f"{name}:SPILL{m.group(1)}")
+        report[lib] = {"nvcc_seconds": round(info["seconds"], 3),
+                       "ptxas": regs}
+    for lib in _build.SIGNATURES:
+        _build.load_library(lib)
+    say("build", seconds=round(time.perf_counter() - t0, 3), **report)
 
 
 def _rdb_weights(gen: torch.Generator, device):
@@ -340,11 +492,174 @@ def phase_rdb(seed: int) -> dict:
     return rows
 
 
+def rdb_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
+    """The backward's bound: reads feat, g and the kernels once, writes
+    dx, dW and db once; dgrad + wgrad operations."""
+    b, h, w, c = shape
+    px = b * h * w
+    item = torch.finfo(dtype).bits // 8
+    weights = sum(9 * ci * co for ci, co in zip(rdb_ops.CIN, rdb_ops.COUT))
+    nbytes = (px * (rdb_ops.FEAT + 2 * c) * item + weights * (item + 4)
+              + 4 * sum(rdb_ops.COUT))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = px * RDB_BWD_FLOP_PER_PX / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes > t_ops else "operations")
+
+
+def hold_rdb_bwd(x: torch.Tensor, ks, bs, g: torch.Tensor) -> dict:
+    """One backward kernel run on the feature buffer the forward kernel
+    filled from ``x``; every stage and the whole held against plain
+    computations, beside what the ``WRONG_BWD`` kernels read."""
+    _, feat = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
+    before = rdb_ops.RDB_BWD_LAUNCHES
+    got = rdb_ops.rdb_bwd_cuda(g, feat, ks, scale_ratio=SCALE)
+    torch.cuda.synchronize()
+    check(rdb_ops.RDB_BWD_LAUNCHES == before + 1,
+          "rdb_bwd_cuda counted one backward")
+    check(all(bool(torch.isfinite(t).all())
+              for t in (got[0], *got[1], *got[2], got[3])),
+          "rdb_bwd outputs finite")
+    row = bwd_scores(g, feat, ks, got)
+    row["worst"] = _worst(row)
+    row["wrong"] = {fault: _worst(bwd_scores(
+        g, feat, ks, emulated_bwd(g, feat, ks, SCALE, fault)))
+        for fault in WRONG_BWD}
+    return row
+
+
+def phase_rdb_bwd(seed: int) -> dict:
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 3)
+    ks, bs = _rdb_weights(gen, dev)
+    x = (torch.randn(TRAIN_RDB_SHAPE, generator=gen) * 0.5).to(dev)
+    g = (torch.randn(TRAIN_RDB_SHAPE, generator=gen) * 0.1).to(dev)
+    b, h, w = RAGGED
+    rows = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = x.to(dtype), g.to(dtype)
+            kd = [k.to(dtype) for k in ks]
+            row = hold_rdb_bwd(xd, kd, bs, gd)
+            row["ragged"] = hold_rdb_bwd(xd[:b, :h, :w], kd, bs,
+                                         gd[:b, :h, :w])
+            _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
+            row["ms"] = median_ms(
+                lambda: rdb_ops.rdb_bwd_cuda(gd, feat, kd, scale_ratio=SCALE))
+            row["plain_ms"] = median_ms(
+                lambda: rdb_ops.rdb_bwd_reference(gd, feat, kd, SCALE))
+            row["bound_ms"], row["bound_by"] = rdb_bwd_bound_ms(
+                TRAIN_RDB_SHAPE, dtype)
+            px = TRAIN_RDB_SHAPE[0] * TRAIN_RDB_SHAPE[1] * TRAIN_RDB_SHAPE[2]
+            row["tflops"] = px * RDB_BWD_FLOP_PER_PX / row["ms"] / 1e9
+            name = str(dtype).removeprefix("torch.")
+            rows[name] = row
+            say(f"rdb_bwd[{name}]", shape=list(TRAIN_RDB_SHAPE),
+                ragged_shape=[*RAGGED, 64],
+                stage_limits=BWD_STAGE_LIMITS[dtype], dx_limits=DX_LIMITS,
+                block_limits=BWD_BLOCK_LIMITS[dtype], **row)
+            for r, where in ((row, "training"), (row["ragged"], "ragged")):
+                check(r["worst"] <= 1,
+                      f"rdb_bwd {name} {where} within its limits")
+                check(min(r["wrong"].values()) > 1,
+                      f"rdb_bwd {name} {where}: the limits see every "
+                      f"wrong kernel: {r['wrong']}")
+    return rows
+
+
+class _WrongBwdBlock(torch.autograd.Function):
+    """The plain block forward with the emulated backward carrying one
+    of the ``WRONG_BWD`` faults."""
+
+    @staticmethod
+    def forward(ctx, x, fault, *params):
+        ks, bs = params[:5], params[5:]
+        out, feat = rdb_ops._rdb_plain(x, ks, bs, SCALE)
+        ctx.fault = fault
+        ctx.save_for_backward(feat, *ks)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, *ks = ctx.saved_tensors
+        dx, dws, dbs, _ = emulated_bwd(g, feat, ks, SCALE, ctx.fault)
+        return (dx, None, *[d.to(k.dtype) for d, k in zip(dws, ks)], *dbs)
+
+
+def _rel_grads(got, ref) -> list:
+    return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(got, ref)]
+
+
+def phase_train_grad(seed: int) -> dict:
+    """One L1 backward of the full generator: the kernel path's gradient
+    of every parameter against the plain path's, in f32 and bf16."""
+    dev = torch.device(DEVICE)
+    gen = ESRGANGenerator(
+        num_rrdb_blocks=NUM_RRDB,
+        generator=torch.Generator().manual_seed(seed + 5)).to(dev)
+    g = torch.Generator().manual_seed(seed + 6)
+    x = torch.rand((TRAIN_GRAD_BATCH, 32, 32, 3), generator=g).to(dev)
+    hr = torch.rand((TRAIN_GRAD_BATCH, 128, 128, 3), generator=g).to(dev)
+    names, params = zip(*gen.named_parameters())
+
+    def grads(fn):
+        loss = (fn(x) - hr).abs().mean()
+        return torch.autograd.grad(loss, params)
+
+    def wrong(y, kernels, biases, *, scale_ratio):
+        return _WrongBwdBlock.apply(y, "lrelu_one", *kernels, *biases)
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen.compute_dtype = None if dtype == torch.float32 else dtype
+        fwd0, bwd0 = rdb_ops.RDB_FWD_LAUNCHES, rdb_ops.RDB_BWD_LAUNCHES
+        got = grads(gen)
+        torch.cuda.synchronize()
+        launches = (rdb_ops.RDB_FWD_LAUNCHES - fwd0,
+                    rdb_ops.RDB_BWD_LAUNCHES - bwd0)
+        ref = grads(lambda t: plain_generator(gen, t))
+        bad = grads(lambda t: plain_generator(gen, t, wrong))
+        rel, rel_wrong = _rel_grads(got, ref), _rel_grads(bad, ref)
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        name = str(dtype).removeprefix("torch.")
+        rows[name] = row = {
+            "launches_fwd_bwd": list(launches),
+            "max_rel": rel[worst], "worst_param": names[worst],
+            "wrong_lrelu_one_max_rel": max(rel_wrong),
+            "limit": TOL_GRAD[dtype],
+            "rdb_params_max_rel": max(r for n, r in zip(names, rel)
+                                      if ".RDB" in n),
+            "other_params_max_rel": max(r for n, r in zip(names, rel)
+                                        if ".RDB" not in n),
+        }
+        say(f"train_grad[{name}]", batch=TRAIN_GRAD_BATCH, rrdb=NUM_RRDB,
+            **row)
+        check(launches == (5 * 3 * NUM_RRDB, 3 * NUM_RRDB),
+              f"train_grad {name}: one kernel forward and backward per "
+              f"block: {launches}")
+        check(row["max_rel"] <= TOL_GRAD[dtype],
+              f"train_grad {name}: gradients within {TOL_GRAD[dtype]}")
+        check(row["wrong_lrelu_one_max_rel"] > TOL_GRAD[dtype],
+              f"train_grad {name}: the limit sees a wrong backward")
+    gen.compute_dtype = None
+    return rows
+
+
+_RDB_BWD_KERNELS = ("wgrad_bf16", "wgrad_f32", "dgrad_bf16", "dgrad_f32",
+                    "reduce_partials", "::prep<")
+
+
 def _kernel_class(name: str) -> str:
     if "conv3x3_bf16" in name or "conv3x3_f32" in name:
         return "rdb_fwd"
+    if any(k in name for k in _RDB_BWD_KERNELS):
+        return "rdb_bwd"
     low = name.lower()
-    if any(k in low for k in ("conv", "xmma", "implicit", "cudnn", "gemm")):
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "optimizer"
+    if any(k in low for k in ("conv", "xmma", "implicit", "cudnn", "gemm",
+                              "sm90_", "cutlass", "wgrad", "dgrad")):
         return "other_conv"
     if "copy" in low or "memcpy" in low or "memset" in low:
         return "copy"
@@ -353,10 +668,10 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_device_time(gen: ESRGANGenerator, x: torch.Tensor,
-                        batches: int = 3) -> dict:
-    """Device time per kernel class over ``batches`` forwards, and the
-    device's busy share of the span from the first kernel to the last."""
+def profile_device_time(fn, batches: int = 3) -> dict:
+    """Device time per kernel class over ``batches`` calls of ``fn``,
+    and the device's busy share of the span from the first kernel to
+    the last."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -364,7 +679,7 @@ def profile_device_time(gen: ESRGANGenerator, x: torch.Tensor,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(batches):
-            gen(x)
+            fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
@@ -460,7 +775,7 @@ def phase_generator(seed: int, rdb_bf16_ms: float) -> ESRGANGenerator:
         ms = median_ms(lambda: gen(x), reps=5, warmup=1)
         plain_ms = median_ms(lambda: plain_generator(gen, x), reps=5,
                              warmup=1)
-        prof = profile_device_time(gen, x)
+        prof = profile_device_time(lambda: gen(x))
     say("generator", rrdb=NUM_RRDB, params=sum(p.numel()
                                                for p in gen.parameters()),
         tile_batch=list(x.shape), **rows, bf16_ms=ms,
@@ -609,38 +924,229 @@ def phase_test(ckpt: str, seed: int) -> None:
     say("test", image=list(TEST_IMAGE), runs=rows)
 
 
+def _write_png(path: str, arr: np.ndarray) -> None:
+    from PIL import Image
+
+    Image.fromarray(arr).save(path)
+
+
+def _finite_metrics(path: str) -> dict:
+    """Every loss and quality value the run logged, each required
+    finite; returns the last value of each key."""
+    last = {}
+    with open(path) as fh:
+        for line in fh:
+            row = json.loads(line)
+            for k, v in row.items():
+                if k.endswith(("loss", "PSNR", "SSIM")):
+                    check(np.isfinite(v), f"{k} = {v} is finite")
+                    last[k] = v
+    return last
+
+
+def phase_train(seed: int) -> dict:
+    """``python -m torchsr_tpu_torch train`` (in this process) on seeded
+    random PNGs, then ``test`` on the GAN phase's best checkpoint."""
+    import contextlib
+    import shutil
+
+    workdir = os.path.join(ROOT, "build", "chip_smoke", "train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(os.path.join(workdir, "ds"))
+    os.makedirs(os.path.join(workdir, "media"))
+    rng = np.random.default_rng(seed)
+    for i in range(TRAIN_IMAGES):
+        _write_png(os.path.join(workdir, "ds", f"img{i:03d}.png"),
+                   rng.integers(0, 256, (*TRAIN_IMAGE_HW, 3), np.uint8))
+    _write_png(os.path.join(workdir, "media", "waterfalls-low-res.png"),
+               rng.integers(0, 256, (*SAMPLE_HW, 3), np.uint8))
+    n_eval = -(-TRAIN_IMAGES // 10)
+    steps = (TRAIN_IMAGES - n_eval) // TRAIN_BATCH  # per epoch
+    evals = -(-n_eval // TRAIN_BATCH)
+    # two epochs (pretrain, GAN): steps run the kernels forward and
+    # backward; evals and sample renders forward only
+    want_fwd = 5 * 3 * NUM_RRDB * 2 * (steps + evals + 1)
+    want_bwd = 3 * NUM_RRDB * 2 * steps
+    os.environ["WANDB_MODE"] = "disabled"  # never a network sink
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    log = io.StringIO()
+    try:
+        rdb_ops.RDB_FWD_LAUNCHES = rdb_ops.RDB_BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            cli.main(["train", "--train-dir", "ds", "--pretrain-epochs", "1",
+                      "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+                      "--seed", str(seed), "--metrics-file", "metrics.jsonl"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = (rdb_ops.RDB_FWD_LAUNCHES, rdb_ops.RDB_BWD_LAUNCHES)
+        text = log.getvalue()
+        ckpts = {f"{p}-{k}": os.path.exists(f"esrgan-{p}-{k}.pth")
+                 for p in ("psnr", "gan") for k in ("best", "latest")}
+        best = load_checkpoint("esrgan-gan-best.pth")
+        metrics = _finite_metrics("metrics.jsonl")
+        _write_png("photo.png", rng.integers(0, 256, (*TEST_IMAGE, 3),
+                                             np.uint8))
+        rdb_ops.RDB_FWD_LAUNCHES = 0
+        with contextlib.redirect_stdout(log):
+            cli.main(["test", "photo.png", "--checkpoint",
+                      "esrgan-gan-best.pth"])
+        test_launches = rdb_ops.RDB_FWD_LAUNCHES
+        with open("upres-photo.png", "rb") as fh:
+            sr = _unpng(fh.read())
+    finally:
+        os.chdir(cwd)
+    row = {
+        "images": TRAIN_IMAGES, "image_hw": list(TRAIN_IMAGE_HW),
+        "batch": TRAIN_BATCH, "steps_per_epoch": steps,
+        "eval_batches": evals, "wall_s": wall_s,
+        "rdb_fwd_launches": launches[0], "rdb_bwd_launches": launches[1],
+        "expected": [want_fwd, want_bwd], "checkpoints": ckpts,
+        "gan_best": {"epoch": best["epoch"], "phase": best["phase"],
+                     "step": best["extra"]["step"]},
+        "metrics": metrics, "test_rdb_fwd_launches": test_launches,
+    }
+    say("train", **row)
+    lines = text.splitlines()
+    check(any("RANDOM VGG features" in ln for ln in lines),
+          "the random-VGG warning was printed")
+    check("Initialized GAN phase from PSNR weights" in lines,
+          "the GAN phase started from psnr-latest")
+    check(all(ckpts.values()), f"the four checkpoints exist: {ckpts}")
+    check(best["phase"] == "esrgan-gan" and best["extra"]["step"]
+          == 2 * steps, "gan-best holds the GAN phase's training state")
+    check(launches == (want_fwd, want_bwd),
+          f"train: kernel launches {launches} == {(want_fwd, want_bwd)}")
+    check(test_launches == 5 * 3 * NUM_RRDB, "test ran the kernel once")
+    h, w = TEST_IMAGE
+    check(sr.shape == (4 * h, 4 * w, 3) and sr.max() > sr.min(),
+          "test on the trained checkpoint wrote a 4x non-constant image")
+    return row
+
+
+def phase_train_speed(seed: int) -> dict:
+    """Pretrain and GAN step times (host clock around synchronized
+    steps) at batch 16 and 64, and a profile of one GAN step at 64."""
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.data.loader import initialize_datasets
+    from torchsr_tpu_torch.train.trainer import ESRGANTrainer
+    from torchsr_tpu_torch.utils.logging import Logger
+
+    ds = os.path.join(ROOT, "build", "chip_smoke", "train", "ds")
+    rows = {}
+    prof = None
+    for batch in SPEED_BATCHES:
+        args = Namespace(batch_size=batch, epochs=1, pretrain_epochs=1,
+                         seed=seed, skip_image_save=True, disable_amp=False,
+                         metrics_file=None)
+        trainer = ESRGANTrainer(
+            args, *initialize_datasets(ds, batch, 128, seed=seed),
+            device=torch.device(DEVICE), logger=Logger())
+        g = torch.Generator().manual_seed(seed + batch)
+        crops = torch.randint(0, 256, (batch, 128, 128, 3), generator=g,
+                              dtype=torch.uint8).to(DEVICE)
+        flips = torch.randint(0, 2, (batch, 2), generator=g).bool().to(DEVICE)
+        row = {}
+        for name, step in (
+            ("pretrain", lambda: trainer.pretrain_step(crops, flips)),
+            ("gan", lambda: trainer.gan_step(crops, flips, 1e-4, 1e-4)),
+        ):
+            step()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(SPEED_STEPS):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.median(times)
+            row[name] = {"step_ms": ms, "crops_per_s": batch / ms * 1e3,
+                         "step_ms_all": times}
+        torch.cuda.reset_peak_memory_stats()
+        trainer.gan_step(crops, flips, 1e-4, 1e-4)
+        row["gan_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if batch == SPEED_BATCHES[-1]:
+            prof = profile_device_time(
+                lambda: trainer.gan_step(crops, flips, 1e-4, 1e-4), 1)
+        rows[batch] = row
+        del trainer
+    say("train_speed", dtype="bfloat16", rrdb=NUM_RRDB, crop=128,
+        **{f"batch{b}": r for b, r in rows.items()})
+    say("train_profile", batch=SPEED_BATCHES[-1], step="gan", **prof)
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument(
+        "--only", type=str, default="",
+        help="Comma-separated phases to run after probe and build (for "
+             "kernel work; prints no kernels or final line): rdb_fwd, "
+             "rdb_bwd, train_grad.")
     args = parser.parse_args()
     phase_probe()
     # f32 references in full f32: cuDNN convolutions default to TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
+    if args.only:
+        phases = {"rdb_fwd": phase_rdb, "rdb_bwd": phase_rdb_bwd,
+                  "train_grad": phase_train_grad, "train": phase_train,
+                  "train_speed": phase_train_speed}
+        for name in args.only.split(","):
+            phases[name](args.seed)
+        return
     rows = phase_rdb(args.seed)
+    bwd_rows = phase_rdb_bwd(args.seed)
+    phase_train_grad(args.seed)
     gen = phase_generator(args.seed, rows["bfloat16"]["ms"])
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     ckpt = os.path.join(workdir, "esrgan-gan-best.pth")
     save_checkpoint(ckpt, 1, "gan", gen.state_dict())
-    launches = phase_serve(gen, ckpt, args.seed)
+    serve_launches = phase_serve(gen, ckpt, args.seed)
     phase_test(ckpt, args.seed)
-    bf16 = rows["bfloat16"]
+    del gen
+    train = phase_train(args.seed)
+    phase_train_speed(args.seed)
+    # launches: the main paths' counts (serve, then train), each read
+    # with the counters set to 0 just before the path
+    fwd, bwd = rows["bfloat16"], bwd_rows["bfloat16"]
     print(json.dumps({"kernels": [{
         "name": "rdb_fwd",
         "route": "cuda",
         "source": "torchsr_tpu_torch/ops/csrc/rdb_fwd.cu",
         "replaces": "torchsr_tpu/ops/pallas/rdb.py:142",
-        "launches": launches,
-        "max_abs_err": bf16["max_abs_err"],
-        "ms": bf16["ms"],
-        "plain_ms": bf16["plain_ms"],
-        "bound_ms": bf16["bound_ms"],
-        "bound_by": bf16["bound_by"],
+        "launches": serve_launches + train["rdb_fwd_launches"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train["rdb_fwd_launches"]},
+        "max_abs_err": fwd["max_abs_err"],
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
         "library_ms": None,
         "dtype": "bfloat16",
         "shape": list(SERVE_RDB_SHAPE),
+    }, {
+        "name": "rdb_bwd",
+        "route": "cuda",
+        "source": "torchsr_tpu_torch/ops/csrc/rdb_bwd.cu",
+        "replaces": "torchsr_tpu/ops/pallas/rdb.py:495",
+        "launches": train["rdb_bwd_launches"],
+        "launches_by_path": {"serve": 0,
+                             "train": train["rdb_bwd_launches"]},
+        "max_abs_err": bwd["max_abs_err"],
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": None,
+        "dtype": "bfloat16",
+        "shape": list(TRAIN_RDB_SHAPE),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

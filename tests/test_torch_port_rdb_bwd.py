@@ -1,0 +1,189 @@
+"""The port's RDB backward against the JAX package's Pallas backward.
+
+On the CPU ``torchsr_tpu_torch.ops.rdb.fused_rdb`` is differentiable
+through the same ``torch.autograd.Function`` that runs the CUDA kernels
+on the card, here with the plain forward and the plain backward
+``rdb_bwd_reference``.  The JAX side is ``jax.grad`` of
+``fused_rdb(..., interpret=True)``, so its custom VJP runs the TPU
+kernel ``_rdb_bwd_kernel`` in interpret mode, as tests/test_pallas_rdb.py
+does.  Inputs come from numpy with a seed.  The CUDA kernel itself is
+held against ``rdb_bwd_reference`` on the card by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchsr_tpu.models.esrgan import ResidualDenseBlock as JaxRDB
+from torchsr_tpu.ops.pallas import rdb as jax_rdb
+from torchsr_tpu_torch.ops import rdb as rdb_ops
+
+# Limits are on max|port - jax| / max|jax| per gradient tensor.
+# f32 on both sides, summed in other orders: measured <= 5.2e-7.
+REL_F32 = 1e-5
+# bf16 backward alone, both fed the same bf16 feature buffer: the same
+# rounding of da to bf16 and f32 accumulation on both sides, measured
+# <= 2.5e-7.
+REL_BF16_SAME_FEAT = 1e-5
+# bf16 end to end: the two forwards round their bf16 convolutions
+# differently, and a pre-activation near 0 that rounds to the other
+# sign swaps LeakyReLU' between 1 and 0.2 at that pixel, so the limit
+# is on the mean instead: mean|port - jax| / mean|jax| per tensor,
+# measured <= 6e-3.
+MEAN_REL_BF16 = 2e-2
+SHAPES = [(2, 8, 8, 64), (1, 5, 7, 64)]  # 5 x 7: ragged tiles, edges
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 0.5, shape).astype(np.float32)
+    params = JaxRDB().init(jax.random.PRNGKey(seed), jnp.asarray(x))
+    ks = [np.array(params["params"][f"conv{i}"]["conv"]["kernel"])
+          for i in range(1, 6)]
+    # nonzero biases, so a pixel leaking across an image edge shows
+    bs = [rng.normal(0, 0.1, (k.shape[-1],)).astype(np.float32)
+          for k in ks]
+    g = rng.normal(0, 1, shape).astype(np.float32)
+    return x, ks, bs, g
+
+
+def _jax_grads(x, ks, bs, g, dtype):
+    gx, gk, gb = jax.grad(
+        lambda x, ks, bs: jnp.sum(
+            jax_rdb.fused_rdb(x, ks, bs, interpret=True)
+            .astype(jnp.float32) * g),
+        argnums=(0, 1, 2),
+    )(jnp.asarray(x, dtype), [jnp.asarray(k) for k in ks],
+      [jnp.asarray(b) for b in bs])
+    return [np.asarray(a, np.float32) for a in (gx, *gk, *gb)]
+
+
+def _port_grads(x, ks, bs, g, dtype):
+    xt = torch.from_numpy(x).to(dtype).requires_grad_()
+    kt = [torch.from_numpy(k).requires_grad_() for k in ks]
+    bt = [torch.from_numpy(b).requires_grad_() for b in bs]
+    before = rdb_ops.RDB_BWD_LAUNCHES
+    out = rdb_ops.fused_rdb(xt, kt, bt)
+    grads = torch.autograd.grad(out, [xt, *kt, *bt],
+                                torch.from_numpy(g).to(dtype))
+    assert rdb_ops.RDB_BWD_LAUNCHES == before  # the CPU runs no kernel
+    assert grads[0].dtype == dtype
+    assert all(t.dtype == torch.float32 for t in grads[1:])
+    return [t.float().numpy() for t in grads]
+
+
+def _rel(got, want):
+    return [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_backward_matches_pallas_interpret_f32(shape):
+    x, ks, bs, g = _inputs(shape, sum(shape))
+    want = _jax_grads(x, ks, bs, g, jnp.float32)
+    got = _port_grads(x, ks, bs, g, torch.float32)
+    # dx, five dW (HWIO), five db
+    assert [a.shape for a in got] == [b.shape for b in want]
+    assert max(_rel(got, want)) <= REL_F32, _rel(got, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_backward_matches_pallas_interpret_bf16(shape):
+    x, ks, bs, g = _inputs(shape, sum(shape))
+    want = _jax_grads(x, ks, bs, g, jnp.bfloat16)
+    got = _port_grads(x, ks, bs, g, torch.bfloat16)
+    mean_rel = [float(np.abs(a - b).mean() / np.abs(b).mean())
+                for a, b in zip(got, want)]
+    assert max(mean_rel) <= MEAN_REL_BF16, mean_rel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_backward_on_the_same_feature_buffer(shape, dtype):
+    """``rdb_bwd_reference`` against the JAX custom VJP's backward rule
+    (``_fused_rdb_bwd``, the Pallas kernel in interpret mode), both fed
+    the feature buffer the JAX forward saved."""
+    x, ks, bs, g = _inputs(shape, sum(shape))
+    jdt = jnp.dtype(dtype)
+    _, residuals = jax_rdb._fused_rdb_fwd(
+        jnp.asarray(x, jdt), tuple(jnp.asarray(k) for k in ks),
+        tuple(jnp.asarray(b) for b in bs), 0.2, True)
+    dx, dks, dbs = jax_rdb._fused_rdb_bwd(0.2, True, residuals,
+                                          jnp.asarray(g, jdt))
+    want = [np.asarray(a, np.float32) for a in (dx, *dks, *dbs)]
+    feat = np.asarray(residuals[0].astype(jnp.float32)).reshape(
+        *shape[:3], rdb_ops.FEAT)
+    tdt = getattr(torch, dtype)
+    got_dx, got_dw, got_db = rdb_ops.rdb_bwd_reference(
+        torch.from_numpy(g).to(tdt), torch.from_numpy(feat).to(tdt),
+        [torch.from_numpy(k) for k in ks], 0.2)
+    got = [t.float().numpy() for t in (got_dx, *got_dw, *got_db)]
+    limit = REL_F32 if dtype == "float32" else REL_BF16_SAME_FEAT
+    assert max(_rel(got, want)) <= limit, _rel(got, want)
+
+
+def test_plain_backward_matches_autograd_f64():
+    """The plain backward is exact: against torch autograd through
+    ``rdb_reference`` in f64 (measured 2.7e-15)."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 5, 7, 64))).requires_grad_()
+    ks = [torch.from_numpy(rng.normal(0, 0.05, (3, 3, ci, co)))
+          .requires_grad_() for ci, co in zip(rdb_ops.CIN, rdb_ops.COUT)]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, (co,))).requires_grad_()
+          for co in rdb_ops.COUT]
+    g = torch.from_numpy(rng.normal(0, 1, (2, 5, 7, 64)))
+    want = torch.autograd.grad(rdb_ops.rdb_reference(x, ks, bs),
+                               [x, *ks, *bs], g)
+    got = torch.autograd.grad(rdb_ops.fused_rdb(x, ks, bs), [x, *ks, *bs], g)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+
+
+def test_module_gradients_reach_the_f32_parameters():
+    """A block of the generator trains through the Function: its conv
+    parameters (OIHW, f32) get f32 gradients equal to autograd through
+    the plain block."""
+    from torchsr_tpu_torch.models.esrgan import ResidualDenseBlock
+
+    rdb = ResidualDenseBlock()
+    gen = torch.Generator().manual_seed(2)
+    for conv in rdb.convs():
+        conv.reset_parameters(gen)
+    x = torch.randn((2, 6, 5, 64), generator=gen)
+    params = [p for c in rdb.convs() for p in (c.weight, c.bias)]
+    got = torch.autograd.grad(rdb(x).square().sum(), params)
+    convs = rdb.convs()
+    ref = rdb_ops.rdb_reference(
+        x, [c.weight.permute(2, 3, 1, 0) for c in convs],
+        [c.bias for c in convs])
+    want = torch.autograd.grad(ref.square().sum(), params)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_backward_kernel_path_refuses_cpu_tensors():
+    x, ks, _, g = _inputs((1, 4, 4, 64), 1)
+    feat = torch.zeros((1, 4, 4, rdb_ops.FEAT))
+    with pytest.raises(ValueError, match="CUDA"):
+        rdb_ops.rdb_bwd_cuda(torch.from_numpy(g), feat,
+                             [torch.from_numpy(k) for k in ks])
+
+
+@pytest.mark.parametrize("bad", ["g_shape", "feat_width", "kernel_shape"])
+def test_backward_rejects_malformed_inputs(bad):
+    x, ks, _, g = _inputs((1, 4, 4, 64), 1)
+    feat = torch.zeros((1, 4, 4, rdb_ops.FEAT))
+    g, ks = torch.from_numpy(g), [torch.from_numpy(k) for k in ks]
+    if bad == "g_shape":
+        g = g[:, :3]
+    elif bad == "feat_width":
+        feat = feat[..., :128]
+    else:
+        ks[1] = ks[1][:, :, :64]
+    with pytest.raises(ValueError):
+        rdb_ops.rdb_bwd_reference(g, feat, ks) if bad != "kernel_shape" \
+            else rdb_ops.rdb_bwd_cuda(g, feat, ks)

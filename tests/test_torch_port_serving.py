@@ -258,8 +258,13 @@ def test_cli_registers_only_ported_flags():
     args = cli.parse_args(["test", "a.png"])
     assert (args.device, args.tile_batch, args.tile_overlap) == (
         "cuda", 8, 16)
-    for argv in (["train"], ["export", "x"], ["test", "a.png",
-                                              "--spatial-shard"],
+    args = cli.parse_args(["train"])
+    assert (args.device, args.batch_size, args.epochs, args.pretrain_epochs,
+            args.train_dir, args.model, args.seed) == (
+        "cuda", 64, 1000, 1000, "dataset", "ESRGAN", 0)
+    for argv in (["train", "--steps-per-call", "2"],
+                 ["train", "--fast-compile"], ["train", "--scale", "2"],
+                 ["export", "x"], ["test", "a.png", "--spatial-shard"],
                  ["serve", "--shard-tiles"], ["serve", "art.shlo"],
                  ["test", "a.png", "--tile", "8", "--tile-overlap", "8"]):
         with pytest.raises(SystemExit):

@@ -1,4 +1,4 @@
-"""CLI: ``python -m torchsr_tpu_torch test|serve``.
+"""CLI: ``python -m torchsr_tpu_torch train|test|serve``.
 
 The ported subcommands keep the JAX CLI's flag names and defaults, plus
 ``--device`` (default ``cuda``: the port runs on the card unless asked
@@ -12,7 +12,13 @@ import os
 from argparse import ArgumentParser, ArgumentTypeError, Namespace
 
 from torchsr_tpu_torch.__version__ import VERSION
-from torchsr_tpu_torch.constants import MODEL
+from torchsr_tpu_torch.constants import (
+    BATCH_SIZE,
+    EPOCHS,
+    MODEL,
+    PRE_EPOCHS,
+    TRAIN_DIR,
+)
 from torchsr_tpu_torch.registry import MODEL_NAMES, select_test_model
 
 
@@ -52,6 +58,88 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     commands = parser.add_subparsers(
         dest="function", metavar="function", required=True
     )
+
+    train = commands.add_parser(
+        "train", help="Train a super-resolution model against an HD "
+                      "dataset: L1 pretrain, then the GAN phase.",
+    )
+    train.add_argument(
+        "--train-dir", type=str, default=TRAIN_DIR,
+        help=f"Directory where training images are stored (90/10 "
+             f"train/eval split by --seed). Default: {TRAIN_DIR}.",
+    )
+    train.add_argument(
+        "--batch-size", type=positive_integer, default=BATCH_SIZE,
+        help=f"The number of images to include in every batch. "
+             f"Default: {BATCH_SIZE}.",
+    )
+    train.add_argument(
+        "--epochs", type=int, default=EPOCHS,
+        help=f"The number of epochs to run training for. "
+             f"Default: {EPOCHS}.",
+    )
+    train.add_argument(
+        "--pretrain-epochs", type=int, default=PRE_EPOCHS,
+        help=f"The number of epochs to run pretraining for. "
+             f"Default: {PRE_EPOCHS}.",
+    )
+    train.add_argument(
+        "--model", type=str, default=MODEL, choices=MODEL_NAMES,
+        help="Select the model to use for super resolution.",
+    )
+    train.add_argument(
+        "--crop-size", type=positive_integer,
+        help="Override the HR training crop size (default: 128 for "
+             "ESRGAN, the reference registry's).",
+    )
+    train.add_argument(
+        "--gen-blocks", type=positive_integer, dest="num_residual",
+        help="Override the generator's RRDB count (default 23); smaller "
+             "= faster/smaller models.",
+    )
+    train.add_argument(
+        "--vgg-convs", type=positive_integer,
+        help="Truncate the perceptual-loss VGG19 trunk to the first N "
+             "convolutions (default: the full 16-conv relu5_4 trunk).",
+    )
+    train.add_argument(
+        "--vgg-weights", type=str,
+        help="Path to a torchvision VGG19 .pth (or the JAX package's "
+             "converted .ckpt) for the perceptual loss. Without it, "
+             "weights are auto-discovered from TORCHSR_VGG_WEIGHTS, "
+             "~/.cache/torchsr_tpu/ or the torch hub cache; if none "
+             "exist a seeded random-feature VGG is used (with a loud "
+             "warning).",
+    )
+    train.add_argument(
+        "--disable-amp", action="store_true",
+        help="Train in float32 (default: bfloat16 compute with f32 "
+             "parameters on CUDA, float32 on the CPU).",
+    )
+    train.add_argument(
+        "--seed", type=int, default=0,
+        help="Seed of the data split, crops, flips and the seeded "
+             "initialization of every network.",
+    )
+    train.add_argument(
+        "--skip-image-save", action="store_true",
+        help="Skip generating and saving the per-epoch sample image.",
+    )
+    train.add_argument(
+        "--psnr-checkpoint", type=str,
+        help="Existing trained model for the PSNR-based training phase.",
+    )
+    train.add_argument(
+        "--gan-checkpoint", type=str,
+        help="Existing trained model for the GAN-based training phase.",
+    )
+    train.add_argument(
+        "--metrics-file", type=str, default=None,
+        help="Append every logged metric dict (per-step train-loss, "
+             "per-epoch PSNR/SSIM/val-loss/throughput/LRs) as one JSON "
+             "line to this file.",
+    )
+    _add_device(train)
 
     test = commands.add_parser(
         "test",
@@ -170,7 +258,11 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
 
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
-    if args.function == "test":
+    if args.function == "train":
+        from torchsr_tpu_torch.train.trainer import run_train
+
+        run_train(args)
+    elif args.function == "test":
         from torchsr_tpu_torch.infer.runner import run_test
 
         out = run_test(args, select_test_model(args))

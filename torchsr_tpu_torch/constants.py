@@ -1,5 +1,11 @@
-"""Default configuration constants (own copy of the JAX package's; the
-training defaults come with the training slice)."""
+"""Default configuration constants (the port's own copy of the JAX
+package's ``torchsr_tpu/constants.py``)."""
+
+BATCH_SIZE = 64
+EPOCHS = 1000
+PRE_EPOCHS = 1000
+
+TRAIN_DIR = "dataset"
 
 MODEL = "ESRGAN"
 

@@ -1,0 +1,212 @@
+"""Host-side loaders: threaded decode, uint8 crops, flip bits.
+
+The port of ``torchsr_tpu/data/loader.py`` (without packed datasets or
+windowed shuffles).  Decoded images sit in a bounded LRU cache in host
+RAM; each sample's crop position and flips are a splitmix64 hash of
+(seed, epoch, sample index), and the epoch order a permutation drawn
+from ``numpy.random.default_rng((seed, epoch))``, so for one seed and
+one directory the uint8 crops and flip bits are byte-identical to the
+JAX package's.  Train batches drop the final partial batch; eval
+batches are padded and carry their count of valid samples.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+import numpy as np
+
+from torchsr_tpu_torch.utils.image_io import load_image
+
+
+class _ImageCache:
+    """Bounded in-RAM LRU cache of decoded images (thread-safe).
+    Decoding happens outside the lock; a concurrent duplicate decode of
+    one image is possible but harmless."""
+
+    def __init__(self, max_bytes: int, reader=load_image) -> None:
+        self._max_bytes = max_bytes
+        self._reader = reader
+        self._used = 0
+        self._lock = threading.Lock()
+        self._data: "OrderedDict[str, np.ndarray]" = OrderedDict()
+
+    def get(self, path: str) -> np.ndarray:
+        with self._lock:
+            cached = self._data.get(path)
+            if cached is not None:
+                self._data.move_to_end(path)
+                return cached
+        arr = self._reader(path)
+        with self._lock:
+            if path not in self._data:
+                while self._data and self._used + arr.nbytes > self._max_bytes:
+                    _, old = self._data.popitem(last=False)
+                    self._used -= old.nbytes
+                if self._used + arr.nbytes <= self._max_bytes:
+                    self._data[path] = arr
+                    self._used += arr.nbytes
+        return arr
+
+
+_M64 = (1 << 64) - 1
+# RAM budgets of the decode caches (the JAX loaders' defaults)
+_TRAIN_CACHE_BYTES = 32 << 30
+_EVAL_CACHE_BYTES = 8 << 30
+
+
+def _splitmix64(x: int) -> int:
+    """One splitmix64 mixing round (per-sample randomness in O(1))."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return (x ^ (x >> 31)) & _M64
+
+
+def _sample_randoms(seed: int, epoch: int, idx: int) -> tuple[int, int, int]:
+    """Three deterministic 64-bit values for (crop_y, crop_x, flips)."""
+    r0 = _splitmix64(
+        ((seed + 1) * 0x9E3779B97F4A7C15 + (epoch + 1)) & _M64
+    )
+    r0 = _splitmix64(r0 ^ idx)
+    r1 = _splitmix64(r0)
+    r2 = _splitmix64(r1)
+    return r0, r1, r2
+
+
+def _crop_at(img: np.ndarray, size: int, r0: int, r1: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    if h < size or w < size:
+        raise ValueError(
+            f"image {(h, w)} smaller than crop size {size}; the "
+            "dataset must contain images at least crop_size x crop_size"
+        )
+    top = r0 % (h - size + 1)
+    left = r1 % (w - size + 1)
+    return img[top:top + size, left:left + size]
+
+
+class TrainLoader:
+    """Epoch loader of (uint8 HR crops (B, S, S, 3), flip bits (B, 2))."""
+
+    def __init__(
+        self,
+        paths: list[str],
+        batch_size: int,
+        crop_size: int,
+        workers: int = 8,
+        seed: int = 0,
+    ) -> None:
+        if not paths:
+            raise ValueError("TrainLoader needs at least one image")
+        self.paths = list(paths)
+        self.batch_size = batch_size
+        self.crop_size = crop_size
+        self.seed = seed
+        self._cache = _ImageCache(_TRAIN_CACHE_BYTES)
+        self._pool = ThreadPoolExecutor(max_workers=max(1, workers))
+        # full batches only (a tiny dataset wraps to fill one)
+        n = len(self.paths)
+        self.batches_per_epoch = max(1, n // batch_size)
+        self.samples_per_epoch = self.batches_per_epoch * batch_size
+
+    def __len__(self) -> int:
+        return self.batches_per_epoch
+
+    @property
+    def dataset_len(self) -> int:
+        return len(self.paths)
+
+    def _sample(self, path: str, epoch: int, idx: int):
+        r0, r1, r2 = _sample_randoms(self.seed, epoch, idx)
+        crop = _crop_at(self._cache.get(path), self.crop_size, r0, r1)
+        flips = np.array([r2 & 1, (r2 >> 1) & 1], dtype=bool)
+        return crop, flips
+
+    def epoch(self, epoch_idx: int) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Iterate one epoch's batches (0-based ``epoch_idx``)."""
+        rng = np.random.default_rng((self.seed, epoch_idx))
+        order = rng.permutation(len(self.paths))
+        if len(order) < self.samples_per_epoch:
+            order = np.tile(order, -(-self.samples_per_epoch // len(order)))
+        order = order[: self.samples_per_epoch]
+        bs = self.batch_size
+        for b in range(self.batches_per_epoch):
+            idx = order[b * bs:(b + 1) * bs]
+            results = list(self._pool.map(
+                lambda i: self._sample(self.paths[int(i)], epoch_idx,
+                                       int(i)),
+                idx,
+            ))
+            yield (np.stack([r[0] for r in results]),
+                   np.stack([r[1] for r in results]))
+
+
+class EvalLoader:
+    """Deterministic eval loader of padded uint8 crop batches: yields
+    ``(crops_u8, valid)``; crops are a fixed function of (seed, image
+    index), the same every epoch."""
+
+    def __init__(
+        self,
+        paths: list[str],
+        batch_size: int,
+        crop_size: int,
+        workers: int = 8,
+        seed: int = 0,
+    ) -> None:
+        if not paths:
+            raise ValueError("EvalLoader needs at least one image")
+        self.paths = list(paths)
+        self.batch_size = batch_size
+        self.crop_size = crop_size
+        self.seed = seed
+        self._cache = _ImageCache(_EVAL_CACHE_BYTES)
+        self._pool = ThreadPoolExecutor(max_workers=max(1, workers))
+        self.batches_per_epoch = -(-len(self.paths) // batch_size)
+
+    def __len__(self) -> int:
+        return self.batches_per_epoch
+
+    @property
+    def dataset_len(self) -> int:
+        return len(self.paths)
+
+    def _sample(self, i: int) -> np.ndarray:
+        r0, r1, _ = _sample_randoms(self.seed, -1, int(i))
+        return _crop_at(self._cache.get(self.paths[int(i)]), self.crop_size,
+                        r0, r1)
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, int]]:
+        bs = self.batch_size
+        for b in range(self.batches_per_epoch):
+            idx = range(b * bs, min((b + 1) * bs, len(self.paths)))
+            crops = list(self._pool.map(self._sample, idx))
+            valid = len(crops)
+            crops += [np.zeros_like(crops[0])] * (bs - valid)
+            yield np.stack(crops), valid
+
+
+def initialize_datasets(
+    train_directory: str, batch_size: int, crop_size: int = 128,
+    workers: int = 8, seed: int = 0,
+) -> tuple[TrainLoader, EvalLoader, int, int]:
+    """Discover, split 90/10 by ``seed``, and build the loaders:
+    (train_loader, test_loader, train_len, test_len), the reference's
+    ``initialize_datasets`` contract."""
+    from torchsr_tpu_torch.data.discovery import (
+        discover_images,
+        split_dataset,
+    )
+
+    train_paths, test_paths = split_dataset(
+        discover_images(train_directory), 0.1, seed)
+    train_loader = TrainLoader(train_paths, batch_size, crop_size,
+                               workers=workers, seed=seed)
+    eval_loader = EvalLoader(test_paths, batch_size, crop_size,
+                             workers=workers, seed=seed)
+    return (train_loader, eval_loader, train_loader.dataset_len,
+            eval_loader.dataset_len)

@@ -1,5 +1,9 @@
 """Networks of the PyTorch/CUDA port (NHWC, reference state_dict keys)."""
 
-from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
+from torchsr_tpu_torch.models.esrgan import (
+    ESRGANDiscriminator,
+    ESRGANGenerator,
+)
+from torchsr_tpu_torch.models.vgg import VGG19Features
 
-__all__ = ["ESRGANGenerator"]
+__all__ = ["ESRGANDiscriminator", "ESRGANGenerator", "VGG19Features"]

@@ -1,8 +1,8 @@
-"""ESRGAN RRDB generator on NHWC tensors, with the fused RDB kernel.
+"""ESRGAN RRDB generator and discriminator on NHWC tensors.
 
 The PyTorch counterpart of ``torchsr_tpu/models/esrgan.py``: the same
-graph, parameters in f32, compute in ``compute_dtype`` (bf16 under AMP
-on CUDA), and the output cast to f32.
+graphs, parameters in f32, compute in ``compute_dtype`` (bf16 under AMP
+on CUDA), and the outputs cast to f32.
 
   conv3(3->64) -> 23 RRDB (each 3 residual dense blocks of 5 dense
   convs, growth 32, residual scale 0.2) -> conv3 trunk -> long skip ->
@@ -10,7 +10,8 @@ on CUDA), and the output cast to f32.
   -> conv3(64->3).
 
 Every residual dense block runs through ``ops.rdb.fused_rdb``: the CUDA
-kernel on the card, the plain version on the CPU.  The final conv is a
+kernels on the card (forward, and backward when trained), the plain
+versions on the CPU.  The final conv is a
 plain conv; the JAX ``SubpixelSpaceConv`` tail is an exact relayout of
 it.  ``state_dict`` keys are the reference's (``conv1``,
 ``blocks.{i}.RDB{j}.conv{1..4}.0``, ``blocks.{i}.RDB{j}.conv5``,
@@ -25,7 +26,7 @@ import math
 import torch
 from torch import nn
 
-from torchsr_tpu_torch.models.layers import Conv, leaky_relu
+from torchsr_tpu_torch.models.layers import BatchNorm, Conv, Dense, leaky_relu
 from torchsr_tpu_torch.ops.rdb import CHANNELS, CIN, COUT, fused_rdb
 from torchsr_tpu_torch.ops.resize import nearest_upsample
 
@@ -166,3 +167,69 @@ class ESRGANGenerator(nn.Module):
         out = leaky_relu(self.conv3[0](out), 0.2)
         return self.conv4(out).float()
 
+
+
+# (channels, stride, batch norm) of the discriminator's ten conv stages
+DISC_STAGES = (
+    (64, 1, False), (64, 2, True), (128, 1, True), (128, 2, True),
+    (256, 1, True), (256, 2, True), (512, 1, True), (512, 2, True),
+    (512, 1, True), (512, 2, True),
+)
+
+
+class ESRGANDiscriminator(nn.Module):
+    """ESRGAN discriminator on NHWC images; returns raw logits (B, 1)
+    in f32.
+
+    Ten 3x3 conv stages (five of stride 2), BatchNorm on all but the
+    first, LeakyReLU(0.2), then ``Dense(100)``, LeakyReLU, ``Dense(1)``.
+    Module layout and keys are the reference's: ``features.{i}`` an
+    ``nn.Sequential`` of conv / BatchNorm / activation (convs at 0, 2,
+    5, ..., 26; BatchNorms at 3, 6, ..., 27) and ``classifier.{0,2}``.
+    The classifier reads the final (512, image_size / 32, image_size /
+    32) map flattened in CHW order, as the reference's ``torch.flatten``
+    of NCHW does.  ``compute_dtype`` as the generator's; BatchNorm
+    statistics stay f32.
+    """
+
+    def __init__(
+        self,
+        image_size: int = 128,
+        *,
+        compute_dtype: torch.dtype | None = None,
+        device=None,
+        dtype=None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if image_size % 32:
+            raise ValueError(
+                f"image_size must be a multiple of 32, got {image_size}"
+            )
+        self.compute_dtype = compute_dtype
+        kw = {"device": device, "dtype": dtype}
+        layers: list = []
+        in_ch = 3
+        for feat, stride, use_bn in DISC_STAGES:
+            layers.append(Conv(in_ch, feat, stride=stride, bias=not use_bn,
+                               **kw))
+            if use_bn:
+                layers.append(BatchNorm(feat, **kw))
+            layers.append(nn.LeakyReLU(0.2))
+            in_ch = feat
+        self.features = nn.Sequential(*layers)
+        fm = image_size // 32
+        self.classifier = nn.Sequential(
+            Dense(512 * fm * fm, 100, **kw), nn.LeakyReLU(0.2),
+            Dense(100, 1, **kw),
+        )
+        for module in self.modules():
+            if isinstance(module, (Conv, Dense)):
+                module.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, 3) -> (B, 1) f32 logits; BatchNorm uses batch
+        statistics (and updates its running ones) in train mode."""
+        out = self.features(x.to(self.compute_dtype or torch.float32))
+        out = out.permute(0, 3, 1, 2).reshape(out.shape[0], -1)
+        return self.classifier(out).float()

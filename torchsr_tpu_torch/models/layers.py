@@ -6,6 +6,10 @@ activations: the conv sees an NCHW *view* of a contiguous NHWC tensor,
 which is PyTorch's ``channels_last`` memory format, so no layout copy
 is made.  Padding is ``k // 2`` on every side, as in torch.
 
+``Dense`` is ``nn.Linear``'s layout computed in the input's dtype, and
+``BatchNorm`` is ``nn.BatchNorm2d`` on NHWC tensors with its statistics
+in f32 whatever the compute dtype (the JAX package's ``BatchNorm``).
+
 Initialization draws from a caller's ``torch.Generator`` on the CPU
 and copies to the parameter's device, so a seed gives the same weights
 on every device and the global RNG is never touched.
@@ -42,7 +46,9 @@ class Conv(nn.Module):
     ``kernel_std`` replaces the default kaiming-uniform(a=sqrt 5) kernel
     init by a normal draw with that standard deviation (the ESRGAN
     residual dense blocks use kaiming-normal x 0.1).  The bias keeps
-    torch's uniform(+-1/sqrt(fan_in)) either way.
+    torch's uniform(+-1/sqrt(fan_in)) either way; ``bias=False`` drops
+    it (the convs before a BatchNorm).  ``stride`` > 1 keeps torch's
+    symmetric ``k // 2`` padding.
     """
 
     def __init__(
@@ -51,6 +57,8 @@ class Conv(nn.Module):
         out_channels: int,
         kernel_size: int = 3,
         *,
+        stride: int = 1,
+        bias: bool = True,
         kernel_std: float | None = None,
         device=None,
         dtype=None,
@@ -60,7 +68,11 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(
             (out_channels, in_channels, kernel_size, kernel_size), **kw
         ))
-        self.bias = nn.Parameter(torch.empty((out_channels,), **kw))
+        if bias:
+            self.bias = nn.Parameter(torch.empty((out_channels,), **kw))
+        else:
+            self.register_parameter("bias", None)
+        self.stride = stride
         self.padding = kernel_size // 2
         self.kernel_std = kernel_std
 
@@ -80,16 +92,58 @@ class Conv(nn.Module):
             _draw(self.weight,
                   lambda t, g: t.normal_(0.0, std, generator=g),
                   generator)
-        _draw(self.bias,
-              lambda t, g: t.uniform_(-bound, bound, generator=g),
-              generator)
+        if self.bias is not None:
+            _draw(self.bias,
+                  lambda t, g: t.uniform_(-bound, bound, generator=g),
+                  generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``: (B, H, W, C_in) -> (B, H, W, C_out), in ``x.dtype``."""
+        """``x``: (B, H, W, C_in) -> (B, H/s, W/s, C_out), in ``x.dtype``."""
         y = F.conv2d(
             x.permute(0, 3, 1, 2),
             self.weight.to(x.dtype),
-            self.bias.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype),
+            stride=self.stride,
             padding=self.padding,
         )
         return y.permute(0, 2, 3, 1)
+
+
+class Dense(nn.Module):
+    """Fully connected layer (``nn.Linear`` keys and torch default
+    init), computed in the input's dtype."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype or torch.float32}
+        self.weight = nn.Parameter(
+            torch.empty((out_features, in_features), **kw))
+        self.bias = nn.Parameter(torch.empty((out_features,), **kw))
+
+    def reset_parameters(self, generator: torch.Generator | None) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        for param in (self.weight, self.bias):
+            _draw(param,
+                  lambda t, g: t.uniform_(-bound, bound, generator=g),
+                  generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm on NHWC tensors with torch semantics (momentum 0.1, eps
+    1e-5, unbiased running variance), the JAX package's
+    ``layers.BatchNorm``: statistics and normalization in f32 whatever
+    the compute dtype, the output cast back to it.  ``nn.BatchNorm2d``
+    keys (weight, bias, running_mean, running_var,
+    num_batches_tracked)."""
+
+    def __init__(self, channels: int, *, device=None, dtype=None):
+        super().__init__(channels, eps=1e-5, momentum=0.1, device=device,
+                         dtype=dtype or torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x.permute(0, 3, 1, 2).float())
+        return y.permute(0, 2, 3, 1).to(x.dtype)

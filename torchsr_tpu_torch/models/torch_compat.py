@@ -1,11 +1,20 @@
 """State-dict interop: reference ``.pth`` layouts and JAX parameters.
 
-The port's generator uses the reference's module names, so a reference
+The port's networks use the reference's module names, so a reference
 ``state_dict`` needs only its wrappers taken off (``strip_ddp_prefix``,
 ``unwrap_state_dict``).  ``from_jax_variables`` carries the JAX
-package's flax parameters across: conv kernels go from HWIO to OIHW and
-the flax tree names map to the reference's keys, the same mapping as
-``torchsr_tpu.models.torch_compat.export_esrgan_generator``.
+package's flax variables across, for the ESRGAN generator, the ESRGAN
+discriminator (parameters and BatchNorm statistics) and the VGG19
+trunk: conv kernels go from HWIO to OIHW, dense kernels from (in, out)
+to (out, in), and the flax tree names map to the reference's (or
+torchvision's) keys, the mapping of the JAX package's
+``torchsr_tpu.models.torch_compat`` converters run backwards.
+
+The one layout trap: the JAX discriminator's ``fc1`` consumes its final
+feature map flattened in HWC order (NHWC ``reshape``), the reference's
+``classifier.0`` in CHW order (``torch.flatten`` of NCHW).  The port
+keeps the reference's layout, so ``fc1``'s input axis is permuted from
+HWC to CHW on the way across.
 
 The public RRDBNet naming schemes (xinntao, BasicSR) are not mapped
 yet (ROADMAP A10).
@@ -48,7 +57,8 @@ def _t(arr) -> torch.Tensor:
 def _conv(node: Mapping[str, Any], prefix: str, sd: dict) -> None:
     conv = node["conv"]
     sd[f"{prefix}.weight"] = _t(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
-    sd[f"{prefix}.bias"] = _t(conv["bias"])
+    if "bias" in conv:
+        sd[f"{prefix}.bias"] = _t(conv["bias"])
 
 
 def _index(name: str, stem: str) -> int:
@@ -56,14 +66,26 @@ def _index(name: str, stem: str) -> int:
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> dict:
-    """JAX ESRGAN generator variables -> the port's ``state_dict``.
+    """JAX variables of an ESRGAN generator, an ESRGAN discriminator or
+    the VGG19 trunk -> the port's ``state_dict`` (f32 CPU tensors),
+    told apart by their tree: a discriminator has ``fc1``, a generator
+    ``block{i}``/``upsample{k}``, the VGG19 trunk only ``conv{i}``.
 
-    ``variables``: ``{"params": {...}}`` (or the params tree itself) as
-    numpy arrays: ``conv1/conv/{kernel,bias}``,
-    ``block{i}/rdb{j}/conv{c}/conv/...``, ``conv2``, ``upsample{k}``,
-    ``conv3``, ``conv4``.  Returns f32 CPU tensors under the reference's
-    keys."""
+    ``variables``: ``{"params": {...}, "batch_stats": {...}}`` (or the
+    params tree itself) as numpy arrays."""
     params = variables.get("params", variables)
+    if "fc1" in params:
+        return _discriminator_from_jax(
+            params, variables.get("batch_stats", {}))
+    if not any(k.startswith(("block", "upsample")) for k in params):
+        return _vgg19_from_jax(params)
+    return _generator_from_jax(params)
+
+
+def _generator_from_jax(params: Mapping[str, Any]) -> dict:
+    """The ESRGAN generator: ``conv1/conv/{kernel,bias}``,
+    ``block{i}/rdb{j}/conv{c}/conv/...``, ``conv2``, ``upsample{k}``,
+    ``conv3``, ``conv4``, under the reference's keys."""
     if "blocks_scan" in params:
         raise ValueError(
             "stacked nn.scan parameters (blocks_scan) are not supported; "
@@ -87,4 +109,46 @@ def from_jax_variables(variables: Mapping[str, Any]) -> dict:
         _conv(params[key], key, sd)
     _conv(params["conv3"], "conv3.0", sd)
     _conv(params["conv4"], "conv4", sd)
+    return sd
+
+
+# torch nn.Sequential indices of the discriminator's convs and
+# BatchNorms (models/esrgan.py DISC_STAGES; the reference's layout)
+_DISC_CONVS = (0, 2, 5, 8, 11, 14, 17, 20, 23, 26)
+_DISC_BNS = (None, 3, 6, 9, 12, 15, 18, 21, 24, 27)
+# torchvision's indices of the 16 convs of VGG19 features[:36]
+_VGG19_CONVS = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34)
+
+
+def _discriminator_from_jax(params: Mapping[str, Any],
+                            stats: Mapping[str, Any]) -> dict:
+    sd: dict = {}
+    for i, (ci, bi) in enumerate(zip(_DISC_CONVS, _DISC_BNS)):
+        _conv(params[f"conv{i}"], f"features.{ci}", sd)
+        if bi is not None:
+            bn, st = params[f"bn{i}"]["bn"], stats[f"bn{i}"]["bn"]
+            sd[f"features.{bi}.weight"] = _t(bn["scale"])
+            sd[f"features.{bi}.bias"] = _t(bn["bias"])
+            sd[f"features.{bi}.running_mean"] = _t(st["mean"])
+            sd[f"features.{bi}.running_var"] = _t(st["var"])
+            sd[f"features.{bi}.num_batches_tracked"] = torch.tensor(0)
+    # fc1: (h * w * 512, 100) over the HWC flattening -> (100, 512 * h *
+    # w) over the CHW flattening
+    kernel = np.asarray(params["fc1"]["dense"]["kernel"])
+    fm = int(round((kernel.shape[0] // 512) ** 0.5))
+    sd["classifier.0.weight"] = _t(
+        kernel.T.reshape(-1, fm, fm, 512).transpose(0, 3, 1, 2)
+        .reshape(kernel.shape[1], -1))
+    sd["classifier.0.bias"] = _t(params["fc1"]["dense"]["bias"])
+    sd["classifier.2.weight"] = _t(
+        np.asarray(params["fc2"]["dense"]["kernel"]).T)
+    sd["classifier.2.bias"] = _t(params["fc2"]["dense"]["bias"])
+    return sd
+
+
+def _vgg19_from_jax(params: Mapping[str, Any]) -> dict:
+    sd: dict = {}
+    n = len([k for k in params if k.startswith("conv")])
+    for i in range(n):
+        _conv(params[f"conv{i}"], f"features.{_VGG19_CONVS[i]}", sd)
     return sd

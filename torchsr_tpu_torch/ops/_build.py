@@ -34,6 +34,21 @@ SIGNATURES = {
         ),
         "rdb_error_string": (ctypes.c_char_p, (_I,)),
     },
+    "rdb_bwd": {
+        "rdb_bwd_prep_launch": (
+            _I, (_I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P)
+        ),
+        "rdb_bwd_wgrad_launch": (
+            _I, (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+        ),
+        "rdb_bwd_reduce_launch": (
+            _I, (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P)
+        ),
+        "rdb_bwd_dgrad_launch": (
+            _I, (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+        ),
+        "rdb_bwd_error_string": (ctypes.c_char_p, (_I,)),
+    },
 }
 
 
@@ -62,38 +77,50 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> dict | None:
-    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns
-    ``{"seconds", "ptxas"}`` when it built now (``ptxas`` is the
-    compiler's register/spill report), else None.  Raises with the
-    compiler's output when the build fails."""
-    out = library_path(name)
-    if out.exists():
-        return None
+def build_all(names=None) -> dict:
+    """Compile every ``csrc/<name>.cu`` (all of ``SIGNATURES`` by
+    default) whose library does not exist yet, one ``nvcc`` per source,
+    all started together.  Returns ``{name: {"seconds", "ptxas"}}`` for
+    the sources built now (``ptxas`` is the compiler's register/spill
+    report).  Raises with the compiler's output when a build fails."""
+    names = list(SIGNATURES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return {
-        "seconds": time.perf_counter() - t0,
-        "ptxas": [ln.strip() for ln in proc.stdout.splitlines()
-                  if "registers" in ln or "spill" in ln
-                  or "Compiling entry" in ln],
-    }
+    started = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        started[name] = (proc, tmp, out, time.perf_counter())
+    built, failed = {}, []
+    for name, (proc, tmp, out, t0) in started.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        built[name] = {
+            "seconds": time.perf_counter() - t0,
+            "ptxas": [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln],
+        }
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
 
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per
     process."""
-    build(name)
+    build_all([name])
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         getattr(lib, fn).restype = restype

@@ -1,7 +1,10 @@
 """Checkpoints: the reference's ``.pth`` and the JAX package's ``.ckpt``.
 
 A checkpoint is ``{"epoch", "phase", "state"}`` with the generator's
-``state_dict`` under ``state``, the reference's contract.  ``.pth``
+``state_dict`` under ``state``, the reference's contract; a training
+checkpoint also holds the rest of the training state under ``extra``
+(the discriminator's state_dict, the three optimizers' states, the
+step counter and the best PSNR), so a resume is lossless.  ``.pth``
 files are read and written with ``torch.save``/``torch.load``.
 ``.ckpt`` files are the JAX package's msgpack format (flax's encoding
 of numpy arrays); they are read here, and their flax parameters are
@@ -27,15 +30,29 @@ from torchsr_tpu_torch.models.torch_compat import (
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
 
+def _to_cpu(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 def save_checkpoint(
-    path: str, epoch: int, phase: str, state_dict: dict
+    path: str, epoch: int, phase: str, state_dict: dict,
+    extra: dict | None = None,
 ) -> None:
-    """Atomically write ``{"epoch", "phase", "state"}`` as a ``.pth``."""
+    """Atomically write ``{"epoch", "phase", "state"[, "extra"]}`` as a
+    ``.pth``; tensors go to the CPU first."""
     payload = {
         "epoch": int(epoch),
         "phase": str(phase),
         "state": {k: v.detach().cpu() for k, v in state_dict.items()},
     }
+    if extra is not None:
+        payload["extra"] = _to_cpu(extra)
     # a unique tmp name: two writers of one path each replace atomically
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
@@ -75,13 +92,17 @@ def _load_torch(path: str) -> dict:
         )
     else:
         state, epoch, phase = raw, 1, ""
-    return {"epoch": int(epoch), "phase": str(phase),
-            "state": unwrap_state_dict(state)}
+    out = {"epoch": int(epoch), "phase": str(phase),
+           "state": unwrap_state_dict(state)}
+    if isinstance(raw, dict) and "extra" in raw:
+        out["extra"] = raw["extra"]
+    return out
 
 
 def load_checkpoint(path: str, model: str | None = None) -> dict | None:
-    """Load a checkpoint as ``{"epoch", "phase", "state": state_dict}``;
-    None when the file does not exist.  ``model`` names the
+    """Load a checkpoint as ``{"epoch", "phase", "state": state_dict}``
+    (with ``extra`` where a ``.pth`` training checkpoint has it); None
+    when the file does not exist.  ``model`` names the
     architecture; only ``esrgan`` is ported."""
     if model is not None and model.lower() != "esrgan":
         raise RuntimeError(
