@@ -1,41 +1,83 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ESRGAN serving path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's ESRGAN serving and training paths on one
+CUDA card, every RDB kernel variant included.
 
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only PHASE,...]
 
-Phases, one line each:
+The script sets the RDB knobs of ``ops/rdb.py`` (``EXT_KERNEL``,
+``ILV_KERNEL``, ``BWD_XLA``) itself: off on the default paths, on for
+the drives that name them.  Each path's launch counters
+(``ops.rdb.RDB_*_LAUNCHES``) are set to 0 just before it and must read
+exactly what its steps, evals, renders and tile batches imply, with the
+``TORCHSR_RDB_BWD=xla`` counter at 0.  Phases, one line each:
 
 1. probe: requires a CUDA device; prints its name and power limit.
-2. build: compiles ``torchsr_tpu_torch/ops/csrc/rdb_fwd.cu`` with nvcc.
-3. rdb_fwd: the RDB kernel at the serving shape (16 tiles of 64x64, 64
-   channels) and at a ragged shape, in f32 and bf16.  Each of its five
-   launches is held against its own convolution of the feature buffer
-   the kernel filled, and the block against its plain PyTorch version;
-   each check also prints what a wrong kernel reads under its limit.
-   Median times over 30 calls (CUDA events) beside the card's bound.
-4. generator: the full-width 23-RRDB ESRGAN (seeded random weights) on
-   one tile batch, kernel path against plain path in f32 and in bf16,
-   both timed in bf16, and a ``profile`` line: ``torch.profiler``'s
-   device time per kernel class over three tile batches.
-5. serve, the main path: the weights saved as a .pth,
-   ``CheckpointUpscaleService`` on ``cuda`` behind ``make_server``, three
-   PNG requests over HTTP.  The kernel's launch counter is reset just
-   before the requests and must read 5 x 69 x the tile batches run; the
-   answers are held against the same tiling of the generator.
-6. test: ``python -m torchsr_tpu_torch test`` (called in this process)
-   on one image, whole-image and tiled, the counter reset before each.
+2. build: compiles every ``torchsr_tpu_torch/ops/csrc/*.cu`` (rdb_fwd,
+   rdb_bwd, rdb_ext, rdb_ilv), one nvcc each, started together.
+3. rdb_fwd (B1): the RDB forward at the serving shape (16 tiles of
+   64x64, 64 channels) and at a ragged shape, in f32 and bf16.  Each of
+   its five launches is held against its own convolution of the feature
+   buffer the kernel filled, and the block against its plain PyTorch
+   version; each check also prints what a wrong kernel reads under its
+   limit.  Median times over 30 calls (CUDA events) beside the bound.
+4. rdb_fwd_ext (B7): the row-extended forward, checked as rdb_fwd on the
+   data rows of its padded buffer, at the serving shape and a
+   row-ragged eligible one; its pad rows must be zero, what a kernel
+   that writes them reads is printed, and the block is held against B1
+   on the same inputs.  Routing: with the knob set, an ineligible width
+   (45) goes to B1.
+5. rdb_fwd_ilv (B6): the interleaved forward, checked as rdb_fwd on the
+   mid copies of its buffer (the up and dn copies must equal the rows
+   above and below), at the serving and the ragged shape, against B1,
+   with what a kernel that swaps one chunk's up and dn copies reads.
+   Routing: a forward that a backward follows goes to B1.
+6. rdb_bwd (B2): the RDB backward at the training shape (64, 32, 32, 64)
+   and a ragged one; every stage held against its own inputs, the whole
+   against ``rdb_bwd_reference``, beside four wrong kernels.
+7. rdb_bwd_ext (B8): the row-extended backward, checked as rdb_bwd on
+   the data rows, its dense gradient's pad rows against
+   ``rdb_bwd_ext_reference``, the whole against B2 on the same feature
+   buffer, beside two wrong kernels proper to the padded layout.
+8. train_grad, train_grad_ext, train_grad_xla: one L1 backward of the
+   23-RRDB generator, every parameter gradient of the kernel path
+   against the plain path: on B1/B2, with ``EXT_KERNEL`` on B7/B8, and
+   with ``BWD_XLA`` on B1 and the plain backward (its own counter).
+9. generator: the 23-RRDB ESRGAN (seeded random weights) on one tile
+   batch, kernel path against plain path in f32 and bf16, timed in
+   bf16, and a ``profile`` line (``torch.profiler`` device time per
+   kernel class over three tile batches).
+10. serve, the main path: the weights saved as a .pth,
+    ``CheckpointUpscaleService`` on ``cuda`` behind ``make_server``,
+    three PNG requests over HTTP, on B1; the answers held against the
+    same tiling of the generator.
+11. serve_ilv: the same three requests with ``ILV_KERNEL`` set, on B6.
+12. test: ``python -m torchsr_tpu_torch test`` (called in this process)
+    on one image, whole-image and tiled.
+13. train: ``python -m torchsr_tpu_torch train`` (in this process) on
+    seeded PNGs at full width, one pretrain and one GAN epoch, then
+    ``test`` on its gan-best; B1 and B2.
+14. train_ext: the same drive with ``EXT_KERNEL`` set (B7 and B8: the
+    32x32 crops and the 48x64 sample are eligible), then ``test`` on
+    its gan-best whole-image (W = 140 is not: B1) and tiled (64x64
+    tiles: B7).
+15. train_speed: pretrain and GAN step times at batch 16 and 64, and a
+    ``train_profile`` line for one GAN step at 64.
 
 Then a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-script exits non-zero and prints no last line.
+script exits non-zero and prints no last line.  ``--only`` runs the
+named phases after probe and build (for kernel work): rdb_fwd,
+rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, train_grad,
+train_grad_ext, train_grad_xla, train, train_ext, train_speed.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -83,8 +125,25 @@ RDB_FLOP_PER_PX = 2 * 9 * sum(
 )  # 479,232
 SERVE_RDB_SHAPE = (16, 64, 64, 64)  # tile_batch 16 of 64 px LR tiles
 RAGGED = (3, 37, 45)  # partial CTA tiles, as the whole-image `test` gives
+# The row-extended kernels (B7, B8) take the shapes the JAX package's
+# gate admits (H * W <= 4096, W % 16 == 0); the serving and training
+# shapes do.  This one also does, with 16-row tiles that straddle the
+# images' pad rows.  A width of 45 does not: with the knob set, such a
+# block must still go to B1.
+EXT_RAGGED = (3, 37, 48)
+EXT_INELIGIBLE = (2, 16, 45)
 SCALE = 0.2  # the blocks' residual scale
 NUM_RRDB = 23
+# The launch counters of ops/rdb.py, by kernel; "rdb_bwd_xla" counts the
+# TORCHSR_RDB_BWD=xla backward (no kernel), 0 on every path here.
+COUNTERS = {
+    "rdb_fwd": "RDB_FWD_LAUNCHES",
+    "rdb_bwd": "RDB_BWD_LAUNCHES",
+    "rdb_fwd_ext": "RDB_FWD_EXT_LAUNCHES",
+    "rdb_bwd_ext": "RDB_BWD_EXT_LAUNCHES",
+    "rdb_fwd_ilv": "RDB_FWD_ILV_LAUNCHES",
+    "rdb_bwd_xla": "RDB_BWD_XLA_LAUNCHES",
+}
 # Per-element limits.  A result passes when at every element
 #     |got - ref| <= rel * |ref| + frac * max|ref - base|,
 # where max|ref - base| is the largest value the checked computation
@@ -174,6 +233,32 @@ def say(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def reset_counters() -> None:
+    for attr in COUNTERS.values():
+        setattr(rdb_ops, attr, 0)
+
+
+def read_counters() -> dict:
+    return {name: getattr(rdb_ops, attr) for name, attr in COUNTERS.items()}
+
+
+def check_counts(path: str, got: dict, **want) -> None:
+    """Every counter equals ``want`` (0 where not named)."""
+    want = {name: want.get(name, 0) for name in COUNTERS}
+    check(got == want, f"{path}: kernel launches {got} == {want}")
+
+
+@contextlib.contextmanager
+def knob(name: str, value: bool = True):
+    """Set one of ops/rdb.py's knobs for the block; restore it after."""
+    old = getattr(rdb_ops, name)
+    setattr(rdb_ops, name, value)
+    try:
+        yield
+    finally:
+        setattr(rdb_ops, name, old)
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -358,7 +443,9 @@ def plain_generator(gen: ESRGANGenerator, x: torch.Tensor,
     return gen.conv4(out).float()
 
 
-def phase_probe() -> None:
+def phase_probe() -> str:
+    """Requires a CUDA device; prints and returns the card's name and
+    power limit as nvidia-smi gives them."""
     if not torch.cuda.is_available():
         raise SystemExit(
             "chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -373,6 +460,7 @@ def phase_probe() -> None:
     say("probe", device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
+    return smi
 
 
 def phase_build() -> None:
@@ -492,6 +580,212 @@ def phase_rdb(seed: int) -> dict:
     return rows
 
 
+def ext_emulated_fwd(x, ks, bs, fault=None):
+    """The data flow of ``rdb_ext.cu``'s forward in plain PyTorch (f32
+    sums, each launch rounded once to ``x.dtype``): a (B, H + 2, W, 192)
+    buffer, each conv computed over all H + 2 rows of each image and
+    stored on its data rows.  With ``fault="pad_rows_written"`` the pad
+    rows are stored too: a kernel that lost its row predicate."""
+    dt = x.dtype
+    b, h, w, _ = x.shape
+    buf = x.new_zeros((b, h + 2, w, rdb_ops.FEAT))
+    buf[:, 1:h + 1, :, :rdb_ops.CHANNELS] = x
+    rows = slice(None) if fault == "pad_rows_written" else slice(1, h + 1)
+    for i, (cin, cout) in enumerate(zip(rdb_ops.CIN, rdb_ops.COUT)):
+        acc = conv3x3(buf[..., :cin].float(), ks[i].float(), bs[i])
+        if i < 4:
+            buf[:, rows, :, cin:cin + cout] = F.leaky_relu(
+                acc[:, rows], 0.2).to(dt)
+    out = (x.float() + SCALE * acc[:, 1:h + 1]).to(dt)
+    return out, buf
+
+
+def hold_rdb_ext(x: torch.Tensor, ks, bs) -> dict:
+    """One row-extended forward (B7): each launch and the block held as
+    ``hold_rdb`` holds B1, on the data rows of the padded buffer; the
+    pad rows must read zero; the block against B1 on the same inputs."""
+    dt = x.dtype
+    before = rdb_ops.RDB_FWD_EXT_LAUNCHES
+    out, feat = rdb_ops.rdb_fwd_ext_cuda(x, ks, bs, scale_ratio=SCALE)
+    check(rdb_ops.RDB_FWD_EXT_LAUNCHES == before + 5,
+          "rdb_fwd_ext_cuda launched its kernel five times")
+    check(bool(torch.isfinite(out).all()), "rdb_fwd_ext output finite")
+    row = rdb_scores(x, ks, bs, out, feat[:, 1:-1])
+    row["pad_rows_max_abs"] = float(feat[:, [0, -1]].float().abs().max())
+    w_out, w_feat = ext_emulated_fwd(x, ks, bs, "pad_rows_written")
+    wrong = rdb_scores(x, ks, bs, w_out, w_feat[:, 1:-1])
+    row["pad_rows_written_excess"] = {
+        "stage": max(wrong["stage_excess"]), "block": wrong["block_excess"]}
+    out1, _ = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
+    row["vs_b1_block_excess"] = excess(out, out1, BLOCK_LIMITS[dt], x)
+    row["vs_b1_max_abs"] = float((out.float() - out1.float()).abs().max())
+    name = f"rdb_fwd_ext {dt} {tuple(x.shape)}"
+    check(max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1,
+          f"{name} within its limits: {row}")
+    check(row["pad_rows_max_abs"] == 0, f"{name}: pad rows zero")
+    check(row["vs_b1_block_excess"] <= 1, f"{name}: agrees with B1")
+    check(min(row["stage_wrong_excess"]) > 1
+          and min(row["block_wrong_excess"].values()) > 1
+          and row["pad_rows_written_excess"]["stage"] > 1,
+          f"{name}: the limits see a wrong kernel: {row}")
+    return row
+
+
+def ilv_emulated_fwd(x, ks, bs, swap_chunk=None):
+    """The data flow of ``rdb_ilv.cu`` in plain PyTorch (f32 sums, each
+    launch rounded once to ``x.dtype``): the (B, H, W, 576) buffer of
+    [up | mid | dn] chunks, each conv one product of its 3 C_in prefix
+    with the ``repack_ilv`` weight and the taps reduced.  With
+    ``swap_chunk`` = j, chunk j's up and dn copies trade places: a wrong
+    kernel."""
+    dt, g = x.dtype, rdb_ops.GROWTH
+    b, h, w, _ = x.shape
+    buf = x.new_zeros((b, h, w, 3 * rdb_ops.FEAT))
+
+    def grow(v, chunk0):
+        up = F.pad(v[:, :-1], (0, 0, 0, 0, 1, 0))
+        dn = F.pad(v[:, 1:], (0, 0, 0, 0, 0, 1))
+        for j in range(v.shape[-1] // g):
+            parts = (dn, v, up) if chunk0 + j == swap_chunk else (up, v, dn)
+            for p, src in enumerate(parts):
+                buf[..., rdb_ops.ilv_columns(chunk0 + j, p)] = \
+                    src[..., j * g:(j + 1) * g]
+
+    grow(x, 0)
+    for i, (cin, cout) in enumerate(zip(rdb_ops.CIN, rdb_ops.COUT)):
+        wi = rdb_ops.repack_ilv(rdb_ops.pack_kernel(ks[i].float()), cin)
+        acc = rdb_ops._reduce_taps(buf[..., :3 * cin].float() @ wi, cout) + \
+            bs[i].float()
+        if i < 4:
+            grow(F.leaky_relu(acc, 0.2).to(dt), cin // g)
+    return (x.float() + SCALE * acc).to(dt), buf
+
+
+def ilv_mid(buf: torch.Tensor) -> torch.Tensor:
+    """The slot feature buffer (B, H, W, 192) of an interleaved buffer:
+    the mid copy of each chunk."""
+    return torch.cat([buf[..., rdb_ops.ilv_columns(j, 1)]
+                      for j in range(rdb_ops.FEAT // rdb_ops.GROWTH)], -1)
+
+
+def ilv_copies_exact(buf: torch.Tensor) -> bool:
+    """Each chunk's up copy is the row above's mid (zero on an image's
+    first row), its dn copy the row below's (zero on the last)."""
+    ok = True
+    for j in range(rdb_ops.FEAT // rdb_ops.GROWTH):
+        up, mid, dn = (buf[..., rdb_ops.ilv_columns(j, p)] for p in range(3))
+        ok &= bool(torch.equal(up[:, 1:], mid[:, :-1])
+                   and torch.equal(dn[:, :-1], mid[:, 1:])
+                   and not up[:, 0].any() and not dn[:, -1].any())
+    return ok
+
+
+def hold_rdb_ilv(x: torch.Tensor, ks, bs) -> dict:
+    """One interleaved forward (B6): each launch and the block held as
+    ``hold_rdb`` holds B1, on the buffer's mid copies; the up and dn
+    copies exact; the block against B1 on the same inputs."""
+    dt = x.dtype
+    before = rdb_ops.RDB_FWD_ILV_LAUNCHES
+    out, buf = rdb_ops.rdb_fwd_ilv_cuda(x, ks, bs, scale_ratio=SCALE)
+    check(rdb_ops.RDB_FWD_ILV_LAUNCHES == before + 5,
+          "rdb_fwd_ilv_cuda launched its conv kernel five times")
+    check(bool(torch.isfinite(out).all()), "rdb_fwd_ilv output finite")
+    row = rdb_scores(x, ks, bs, out, ilv_mid(buf))
+    row["copies_exact"] = ilv_copies_exact(buf)
+    w_out, w_buf = ilv_emulated_fwd(x, ks, bs, swap_chunk=0)
+    wrong = rdb_scores(x, ks, bs, w_out, ilv_mid(w_buf))
+    row["up_dn_swapped_excess"] = {
+        "stage": max(wrong["stage_excess"]), "block": wrong["block_excess"]}
+    out1, _ = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
+    row["vs_b1_block_excess"] = excess(out, out1, BLOCK_LIMITS[dt], x)
+    row["vs_b1_max_abs"] = float((out.float() - out1.float()).abs().max())
+    name = f"rdb_fwd_ilv {dt} {tuple(x.shape)}"
+    check(max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1,
+          f"{name} within its limits: {row}")
+    check(row["copies_exact"], f"{name}: up/dn copies are the rows "
+                               f"above/below")
+    check(row["vs_b1_block_excess"] <= 1, f"{name}: agrees with B1")
+    check(min(row["stage_wrong_excess"]) > 1
+          and min(row["block_wrong_excess"].values()) > 1
+          and row["up_dn_swapped_excess"]["stage"] > 1,
+          f"{name}: the limits see a wrong kernel: {row}")
+    return row
+
+
+def ilv_traffic_ms(shape, dtype) -> float:
+    """The interleaved buffer's own traffic at the memory rate: x read
+    and its three copies stored, each conv's 3 C_in prefix read and its
+    three 32-channel copies stored, conv5's output stored."""
+    b, h, w, c = shape
+    px = b * h * w
+    item = torch.finfo(dtype).bits // 8
+    cols = 4 * c + sum(3 * ci for ci in rdb_ops.CIN) + 4 * 3 * 32 + c
+    return 1e3 * px * cols * item / HBM_BYTES_PER_S
+
+
+def routing_check(path: str, x: torch.Tensor, ks, bs, **want) -> None:
+    """One ``fused_rdb`` call goes to the kernel ``want`` names."""
+    reset_counters()
+    rdb_ops.fused_rdb(x, ks, bs, scale_ratio=SCALE)
+    torch.cuda.synchronize()
+    check_counts(path, read_counters(), **want)
+
+
+def phase_rdb_variant(seed: int, variant: str) -> dict:
+    """B7 (``variant="ext"``) or B6 (``"ilv"``) at the serving shape and
+    a ragged one, in f32 and bf16, on the weights of ``phase_rdb``."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator().manual_seed(seed)
+    ks, bs = _rdb_weights(g, dev)
+    x = (torch.randn(SERVE_RDB_SHAPE, generator=g) * 0.5).to(dev)
+    ext = variant == "ext"
+    hold, cuda_fn, plain_fn = (
+        (hold_rdb_ext, rdb_ops.rdb_fwd_ext_cuda, rdb_ops.rdb_ext_reference)
+        if ext else
+        (hold_rdb_ilv, rdb_ops.rdb_fwd_ilv_cuda, rdb_ops.rdb_ilv_reference))
+    b, h, w = EXT_RAGGED if ext else RAGGED
+    rows = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            kd = [k.to(dtype) for k in ks]
+            row = hold(xd, kd, bs)
+            row["ragged"] = hold(xd[:b, :h, :w], kd, bs)
+            row["ms"] = median_ms(
+                lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
+            row["b1_ms"] = median_ms(
+                lambda: rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE))
+            row["plain_ms"] = median_ms(
+                lambda: plain_fn(xd, kd, bs, scale_ratio=SCALE))
+            row["bound_ms"], row["bound_by"] = rdb_bound_ms(SERVE_RDB_SHAPE,
+                                                            dtype)
+            if not ext:
+                row["buffer_traffic_ms"] = ilv_traffic_ms(SERVE_RDB_SHAPE,
+                                                          dtype)
+            row["tflops"] = (SERVE_RDB_SHAPE[0] * 64 * 64 * RDB_FLOP_PER_PX
+                             / row["ms"] / 1e9)
+            name = str(dtype).removeprefix("torch.")
+            rows[name] = row
+            say(f"rdb_fwd_{variant}[{name}]", shape=list(SERVE_RDB_SHAPE),
+                ragged_shape=[b, h, w, 64], stage_limits=STAGE_LIMITS[dtype],
+                block_limits=BLOCK_LIMITS[dtype], **row)
+    # routing through fused_rdb, bf16, outside inference mode (a
+    # backward may follow)
+    xd = x.to(torch.bfloat16)
+    kd = [k.to(torch.bfloat16) for k in ks]
+    x45 = torch.randn((*EXT_INELIGIBLE, 64), generator=g).to(dev, xd.dtype)
+    with knob("EXT_KERNEL" if ext else "ILV_KERNEL"), torch.no_grad():
+        routing_check(f"{variant}: eligible, no backward", xd, kd, bs,
+                      **{f"rdb_fwd_{variant}": 5})
+        if ext:
+            routing_check("ext: W = 45", x45, kd, bs, rdb_fwd=5)
+    if not ext:
+        with knob("ILV_KERNEL"):
+            routing_check("ilv: a backward follows",
+                          xd.clone().requires_grad_(), kd, bs, rdb_fwd=5)
+    return rows
+
+
 def rdb_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
     """The backward's bound: reads feat, g and the kernels once, writes
     dx, dW and db once; dgrad + wgrad operations."""
@@ -567,6 +861,127 @@ def phase_rdb_bwd(seed: int) -> dict:
     return rows
 
 
+# The wrong row-extended backward kernels the limits must see (emulated
+# in plain PyTorch): dx3's three parts added at row offsets 2, 1, 0
+# instead of 0, 1, 2; da read one row up, from the pad row on.
+WRONG_BWD_EXT = ("row_offsets_swapped", "da_from_pad_rows")
+
+
+def emulated_bwd_ext(g, feat_padded, kernels, scale_ratio, fault=None):
+    """The data flow of ``rdb_bwd_ext_reference`` (the padded f32 dense
+    gradient, dx3 = dy @ W^T added at row offsets 0, 1, 2) in plain
+    PyTorch, optionally with one of the ``WRONG_BWD_EXT`` faults: (dx,
+    dws, dbs, the dense gradient's data rows)."""
+    dt = feat_padded.dtype
+    f = feat_padded.float()
+    b, hp, w, _ = f.shape
+    h = hp - 2
+    dfeat = torch.zeros_like(f)
+    da = g.float() * scale_ratio
+    rows = slice(0, h) if fault == "da_from_pad_rows" else slice(1, h + 1)
+    dws, dbs = [None] * 5, [None] * 5
+    for i in reversed(range(5)):
+        cin, cout = rdb_ops.CIN[i], rdb_ops.COUT[i]
+        if i < 4:
+            s = rdb_ops._slot(i)
+            da = dfeat[:, rows, :, s] * (
+                0.2 + 0.8 * (f[:, 1:h + 1, :, s] > 0).float())
+        dbs[i] = da.sum(dim=(0, 1, 2))
+        dy = torch.cat([F.pad(da[:, :, 1:], (0, 0, 0, 1)), da,
+                        F.pad(da[:, :, :-1], (0, 0, 1, 0))], dim=-1)
+        dy = dy.to(dt).float().reshape(-1, 3 * cout)
+        dws[i] = rdb_ops.unpack_kernel(torch.cat(
+            [f[:, o:o + h, :, :cin].reshape(-1, cin).T @ dy
+             for o in range(3)]), cin, cout)
+        dx3 = (dy @ rdb_ops.pack_kernel_t(kernels[i].to(dt)).float()).reshape(
+            b, h, w, 3 * cin)
+        for o in range(3):
+            at = 2 - o if fault == "row_offsets_swapped" else o
+            dfeat[:, at:at + h, :, :cin] += dx3[..., o * cin:(o + 1) * cin]
+    dx = (dfeat[:, 1:h + 1, :, :rdb_ops.CHANNELS] + g.float()).to(dt)
+    return dx, tuple(dws), tuple(dbs), dfeat[:, 1:h + 1]
+
+
+def hold_rdb_bwd_ext(x: torch.Tensor, ks, bs, g: torch.Tensor) -> dict:
+    """One row-extended backward (B8) on the padded buffer B7 filled
+    from ``x``: every stage and the whole held as ``hold_rdb_bwd`` holds
+    B2, on the data rows; the dense gradient's pad rows against
+    ``rdb_bwd_ext_reference``; everything against B2 on the same
+    feature buffer; beside the ``WRONG_BWD_EXT`` kernels."""
+    dt = x.dtype
+    _, featp = rdb_ops.rdb_fwd_ext_cuda(x, ks, bs, scale_ratio=SCALE)
+    before = rdb_ops.RDB_BWD_EXT_LAUNCHES
+    got = rdb_ops.rdb_bwd_ext_cuda(g, featp, ks, scale_ratio=SCALE)
+    torch.cuda.synchronize()
+    check(rdb_ops.RDB_BWD_EXT_LAUNCHES == before + 1,
+          "rdb_bwd_ext_cuda counted one backward")
+    dx, dws, dbs, dfp = got
+    check(all(bool(torch.isfinite(t).all()) for t in (dx, *dws, *dbs, dfp)),
+          "rdb_bwd_ext outputs finite")
+    feat = featp[:, 1:-1]
+    row = bwd_scores(g, feat, ks, (dx, dws, dbs, dfp[:, 1:-1]))
+    limits = BWD_BLOCK_LIMITS[dt]
+    ref_dfp = rdb_ops.rdb_bwd_ext_reference(g, featp, ks, SCALE,
+                                            return_dfeat=True)[3]
+    row["dfeat_pad_rows"] = excess(dfp[:, [0, -1]], ref_dfp[:, [0, -1]],
+                                   limits)
+    b2 = rdb_ops.rdb_bwd_cuda(g, feat.contiguous(), ks, scale_ratio=SCALE)
+    row["vs_b2"] = max(
+        excess(dx, b2[0], limits), excess(dfp[:, 1:-1], b2[3], limits),
+        *(excess(a, r, limits) for a, r in zip((*dws, *dbs),
+                                               (*b2[1], *b2[2]))))
+    row["vs_b2_dx_max_abs"] = float((dx.float() - b2[0].float()).abs().max())
+    row["worst"] = max(_worst(row), row["dfeat_pad_rows"], row["vs_b2"])
+    row["wrong"] = {fault: _worst(bwd_scores(
+        g, feat, ks, emulated_bwd_ext(g, featp, ks, SCALE, fault)))
+        for fault in WRONG_BWD_EXT}
+    return row
+
+
+def phase_rdb_bwd_ext(seed: int) -> dict:
+    """B8 at the training shape and a row-ragged eligible one, f32 and
+    bf16, on the inputs of ``phase_rdb_bwd``."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 3)
+    ks, bs = _rdb_weights(gen, dev)
+    x = (torch.randn(TRAIN_RDB_SHAPE, generator=gen) * 0.5).to(dev)
+    g = (torch.randn(TRAIN_RDB_SHAPE, generator=gen) * 0.1).to(dev)
+    b, h, w = EXT_RAGGED
+    rows = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = x.to(dtype), g.to(dtype)
+            kd = [k.to(dtype) for k in ks]
+            row = hold_rdb_bwd_ext(xd, kd, bs, gd)
+            row["ragged"] = hold_rdb_bwd_ext(xd[:b, :h, :w], kd, bs,
+                                             gd[:b, :h, :w])
+            _, featp = rdb_ops.rdb_fwd_ext_cuda(xd, kd, bs, scale_ratio=SCALE)
+            _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
+            row["ms"] = median_ms(lambda: rdb_ops.rdb_bwd_ext_cuda(
+                gd, featp, kd, scale_ratio=SCALE))
+            row["b2_ms"] = median_ms(lambda: rdb_ops.rdb_bwd_cuda(
+                gd, feat, kd, scale_ratio=SCALE))
+            row["plain_ms"] = median_ms(lambda: rdb_ops.rdb_bwd_ext_reference(
+                gd, featp, kd, SCALE))
+            row["bound_ms"], row["bound_by"] = rdb_bwd_bound_ms(
+                TRAIN_RDB_SHAPE, dtype)
+            px = TRAIN_RDB_SHAPE[0] * TRAIN_RDB_SHAPE[1] * TRAIN_RDB_SHAPE[2]
+            row["tflops"] = px * RDB_BWD_FLOP_PER_PX / row["ms"] / 1e9
+            name = str(dtype).removeprefix("torch.")
+            rows[name] = row
+            say(f"rdb_bwd_ext[{name}]", shape=list(TRAIN_RDB_SHAPE),
+                ragged_shape=[b, h, w, 64],
+                stage_limits=BWD_STAGE_LIMITS[dtype], dx_limits=DX_LIMITS,
+                block_limits=BWD_BLOCK_LIMITS[dtype], **row)
+            for r, where in ((row, "training"), (row["ragged"], "ragged")):
+                check(r["worst"] <= 1,
+                      f"rdb_bwd_ext {name} {where} within its limits")
+                check(min(r["wrong"].values()) > 1,
+                      f"rdb_bwd_ext {name} {where}: the limits see every "
+                      f"wrong kernel: {r['wrong']}")
+    return rows
+
+
 class _WrongBwdBlock(torch.autograd.Function):
     """The plain block forward with the emulated backward carrying one
     of the ``WRONG_BWD`` faults."""
@@ -591,9 +1006,28 @@ def _rel_grads(got, ref) -> list:
             for a, b in zip(got, ref)]
 
 
-def phase_train_grad(seed: int) -> dict:
+# train_grad's variants: the knob it sets and the forward and backward
+# counters the generator's blocks must move.
+TRAIN_GRAD_VARIANTS = {
+    "": (None, ("rdb_fwd", "rdb_bwd")),
+    "ext": ("EXT_KERNEL", ("rdb_fwd_ext", "rdb_bwd_ext")),
+    "xla": ("BWD_XLA", ("rdb_fwd", "rdb_bwd_xla")),
+}
+
+
+def phase_train_grad(seed: int, variant: str = "") -> dict:
     """One L1 backward of the full generator: the kernel path's gradient
-    of every parameter against the plain path's, in f32 and bf16."""
+    of every parameter against the plain path's, in f32 and bf16; on B1
+    and B2, with ``variant="ext"`` on B7 and B8 (the 32x32 input is
+    eligible), with ``"xla"`` on B1 and the plain backward
+    (``TORCHSR_RDB_BWD=xla``)."""
+    name, kernels = TRAIN_GRAD_VARIANTS[variant]
+    phase = f"train_grad_{variant}" if variant else "train_grad"
+    with knob(name) if name else contextlib.nullcontext():
+        return _train_grad(seed, phase, kernels)
+
+
+def _train_grad(seed: int, phase: str, kernels: tuple) -> dict:
     dev = torch.device(DEVICE)
     gen = ESRGANGenerator(
         num_rrdb_blocks=NUM_RRDB,
@@ -613,11 +1047,11 @@ def phase_train_grad(seed: int) -> dict:
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         gen.compute_dtype = None if dtype == torch.float32 else dtype
-        fwd0, bwd0 = rdb_ops.RDB_FWD_LAUNCHES, rdb_ops.RDB_BWD_LAUNCHES
+        reset_counters()
         got = grads(gen)
         torch.cuda.synchronize()
-        launches = (rdb_ops.RDB_FWD_LAUNCHES - fwd0,
-                    rdb_ops.RDB_BWD_LAUNCHES - bwd0)
+        counts = read_counters()
+        launches = tuple(counts[k] for k in kernels)
         ref = grads(lambda t: plain_generator(gen, t))
         bad = grads(lambda t: plain_generator(gen, t, wrong))
         rel, rel_wrong = _rel_grads(got, ref), _rel_grads(bad, ref)
@@ -633,15 +1067,15 @@ def phase_train_grad(seed: int) -> dict:
             "other_params_max_rel": max(r for n, r in zip(names, rel)
                                         if ".RDB" not in n),
         }
-        say(f"train_grad[{name}]", batch=TRAIN_GRAD_BATCH, rrdb=NUM_RRDB,
-            **row)
-        check(launches == (5 * 3 * NUM_RRDB, 3 * NUM_RRDB),
-              f"train_grad {name}: one kernel forward and backward per "
-              f"block: {launches}")
+        say(f"{phase}[{name}]", batch=TRAIN_GRAD_BATCH, rrdb=NUM_RRDB,
+            kernels=list(kernels), **row)
+        check_counts(f"{phase} {name}: one kernel forward and backward "
+                     f"per block", counts, **{kernels[0]: 5 * 3 * NUM_RRDB,
+                                              kernels[1]: 3 * NUM_RRDB})
         check(row["max_rel"] <= TOL_GRAD[dtype],
-              f"train_grad {name}: gradients within {TOL_GRAD[dtype]}")
+              f"{phase} {name}: gradients within {TOL_GRAD[dtype]}")
         check(row["wrong_lrelu_one_max_rel"] > TOL_GRAD[dtype],
-              f"train_grad {name}: the limit sees a wrong backward")
+              f"{phase} {name}: the limit sees a wrong backward")
     gen.compute_dtype = None
     return rows
 
@@ -806,7 +1240,17 @@ def _levels(a: np.ndarray, b: np.ndarray) -> dict:
     return {"mean": float(diff.mean()), "max": int(diff.max())}
 
 
-def phase_serve(gen: ESRGANGenerator, ckpt: str, seed: int) -> int:
+def phase_serve(gen: ESRGANGenerator, ckpt: str, seed: int,
+                ilv: bool = False, prior=None) -> tuple[dict, list]:
+    """Three PNG requests to the checkpoint-backed daemon; on B1, or with
+    ``ilv`` (``ILV_KERNEL`` set) on B6.  Returns the path's launch counts
+    and the answers; ``prior`` (the B1 answers) is compared with these."""
+    phase = "serve_ilv" if ilv else "serve"
+    with knob("ILV_KERNEL", ilv):
+        return _serve(gen, ckpt, seed, phase, prior)
+
+
+def _serve(gen, ckpt, seed, phase, prior):
     service = CheckpointUpscaleService(model="esrgan", checkpoint=ckpt,
                                        device=DEVICE)
     t0 = time.perf_counter()
@@ -826,7 +1270,7 @@ def phase_serve(gen: ESRGANGenerator, ckpt: str, seed: int) -> int:
     try:
         with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
             check(resp.status == 200, "/healthz 200 after warmup")
-        rdb_ops.RDB_FWD_LAUNCHES = 0  # the main path starts here
+        reset_counters()  # the main path starts here
         answers = []
         for frame, body in zip(frames, bodies):
             h, w = frame.shape[:2]
@@ -840,7 +1284,7 @@ def phase_serve(gen: ESRGANGenerator, ckpt: str, seed: int) -> int:
                 check(resp.status == 200, "/upscale 200")
                 answers.append(_unpng(resp.read()))
             latencies.append((time.perf_counter() - t0) * 1e3)
-        launches = rdb_ops.RDB_FWD_LAUNCHES
+        counts = read_counters()
         with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
             metrics = json.loads(resp.read())
     finally:
@@ -852,9 +1296,9 @@ def phase_serve(gen: ESRGANGenerator, ckpt: str, seed: int) -> int:
         check(sr.shape == (4 * h, 4 * w, 3) and sr.dtype == np.uint8,
               f"answer for {h}x{w} is a {4 * h}x{4 * w} RGB uint8 image")
         check(int(sr.max()) > int(sr.min()), "answer is not constant")
-    expected = 5 * 3 * NUM_RRDB * batches
-    check(launches == expected,
-          f"rdb_fwd launches on the main path {launches} == {expected}")
+    kernel = "rdb_fwd_ilv" if phase == "serve_ilv" else "rdb_fwd"
+    check_counts(f"{phase}: the main path", counts,
+                 **{kernel: 5 * 3 * NUM_RRDB * batches})
     check(metrics["requests"] == len(frames) and metrics["errors"] == 0,
           "/metrics counts the requests")
 
@@ -865,8 +1309,8 @@ def phase_serve(gen: ESRGANGenerator, ckpt: str, seed: int) -> int:
         return (out.clamp(0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
 
     # each answer against the same tiling of the generator (bf16, the
-    # kernel path); the first frame also against the f32 plain
-    # generator and against a generator whose blocks lost conv5
+    # kernel path the knobs select); the first frame also against the
+    # f32 plain generator and against a generator whose blocks lost conv5
     with torch.inference_mode():
         gen.compute_dtype = torch.bfloat16
         vs_direct = [_levels(sr, tiling(gen, f))
@@ -875,16 +1319,20 @@ def phase_serve(gen: ESRGANGenerator, ckpt: str, seed: int) -> int:
         ref = tiling(lambda b: plain_generator(gen, b), frames[0])
         wrong = tiling(lambda b: plain_generator(gen, b, conv5_skipped),
                        frames[0])
-    say("serve", sizes=[list(s) for s in REQUEST_SIZES],
+    extra = {}
+    if prior is not None:
+        extra["vs_b1_answers_levels"] = [_levels(a, b)
+                                         for a, b in zip(answers, prior)]
+    say(phase, sizes=[list(s) for s in REQUEST_SIZES],
         warmup_s=warmup_s, request_ms=latencies, tile_batches=batches,
-        rdb_fwd_launches=launches, vs_same_tiling_levels=vs_direct,
+        launches=counts, vs_same_tiling_levels=vs_direct,
         first_vs_f32_plain_levels=_levels(answers[0], ref),
         conv5_skipped_vs_f32_plain_levels=_levels(wrong, ref),
-        metrics=metrics, meta=service.meta)
+        **extra, metrics=metrics, meta=service.meta)
     check(max(d["max"] for d in vs_direct) <= TOL_SERVE_LEVELS,
           f"served frames within {TOL_SERVE_LEVELS} level of the "
           f"generator's own tiling: {vs_direct}")
-    return launches
+    return counts, answers
 
 
 def phase_test(ckpt: str, seed: int) -> None:
@@ -906,19 +1354,19 @@ def phase_test(ckpt: str, seed: int) -> None:
         for extra, batches in (([], 1),
                                (["--tile", "64", "--tile-batch", "16"],
                                 -(-tiles // 16))):
-            rdb_ops.RDB_FWD_LAUNCHES = 0
+            reset_counters()
             t0 = time.perf_counter()
             cli.main(["test", "photo.png", "--checkpoint", ckpt, *extra])
             wall_ms = (time.perf_counter() - t0) * 1e3
-            launches = rdb_ops.RDB_FWD_LAUNCHES
+            counts = read_counters()
             with Image.open("upres-photo.png") as img:
                 sr = np.asarray(img)
             check(sr.shape == (4 * h, 4 * w, 3) and sr.max() > sr.min(),
                   f"test {extra} wrote a non-constant {4 * h}x{4 * w} image")
-            check(launches == 5 * 3 * NUM_RRDB * batches,
-                  f"test {extra}: rdb_fwd launches {launches}")
+            check_counts(f"test {extra}", counts,
+                         rdb_fwd=5 * 3 * NUM_RRDB * batches)
             rows.append({"args": extra, "wall_ms": wall_ms,
-                         "rdb_fwd_launches": launches})
+                         "rdb_fwd_launches": counts["rdb_fwd"]})
     finally:
         os.chdir(cwd)
     say("test", image=list(TEST_IMAGE), runs=rows)
@@ -944,13 +1392,20 @@ def _finite_metrics(path: str) -> dict:
     return last
 
 
-def phase_train(seed: int) -> dict:
+def phase_train(seed: int, ext: bool = False) -> dict:
     """``python -m torchsr_tpu_torch train`` (in this process) on seeded
-    random PNGs, then ``test`` on the GAN phase's best checkpoint."""
-    import contextlib
+    random PNGs, then ``test`` on the GAN phase's best checkpoint: on
+    B1/B2, or with ``ext`` (``EXT_KERNEL`` set) on B7/B8, with ``test``
+    run whole-image (W = 140 is not eligible: B1) and tiled (B7)."""
+    phase = "train_ext" if ext else "train"
+    with knob("EXT_KERNEL", ext):
+        return _train(seed, phase, ext)
+
+
+def _train(seed: int, phase: str, ext: bool) -> dict:
     import shutil
 
-    workdir = os.path.join(ROOT, "build", "chip_smoke", "train")
+    workdir = os.path.join(ROOT, "build", "chip_smoke", phase)
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(os.path.join(workdir, "ds"))
     os.makedirs(os.path.join(workdir, "media"))
@@ -965,14 +1420,24 @@ def phase_train(seed: int) -> dict:
     evals = -(-n_eval // TRAIN_BATCH)
     # two epochs (pretrain, GAN): steps run the kernels forward and
     # backward; evals and sample renders forward only
-    want_fwd = 5 * 3 * NUM_RRDB * 2 * (steps + evals + 1)
-    want_bwd = 3 * NUM_RRDB * 2 * steps
+    fwd, bwd = ("rdb_fwd_ext", "rdb_bwd_ext") if ext else ("rdb_fwd",
+                                                            "rdb_bwd")
+    want = {fwd: 5 * 3 * NUM_RRDB * 2 * (steps + evals + 1),
+            bwd: 3 * NUM_RRDB * 2 * steps}
+    h, w = TEST_IMAGE
+    tiles = (len(_positions(h, 64, 48)) * len(_positions(w, 64, 48)))
+    # test: whole-image (B1 either way), and under ext tiled at 64 (B7)
+    tests = [([], {"rdb_fwd": 5 * 3 * NUM_RRDB})]
+    if ext:
+        tests.append((["--tile", "64", "--tile-batch", "16"],
+                      {"rdb_fwd_ext": 5 * 3 * NUM_RRDB * -(-tiles // 16)}))
     os.environ["WANDB_MODE"] = "disabled"  # never a network sink
     cwd = os.getcwd()
     os.chdir(workdir)
     log = io.StringIO()
+    test_rows = []
     try:
-        rdb_ops.RDB_FWD_LAUNCHES = rdb_ops.RDB_BWD_LAUNCHES = 0
+        reset_counters()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             cli.main(["train", "--train-dir", "ds", "--pretrain-epochs", "1",
@@ -980,7 +1445,7 @@ def phase_train(seed: int) -> dict:
                       "--seed", str(seed), "--metrics-file", "metrics.jsonl"])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = (rdb_ops.RDB_FWD_LAUNCHES, rdb_ops.RDB_BWD_LAUNCHES)
+        counts = read_counters()
         text = log.getvalue()
         ckpts = {f"{p}-{k}": os.path.exists(f"esrgan-{p}-{k}.pth")
                  for p in ("psnr", "gan") for k in ("best", "latest")}
@@ -988,26 +1453,27 @@ def phase_train(seed: int) -> dict:
         metrics = _finite_metrics("metrics.jsonl")
         _write_png("photo.png", rng.integers(0, 256, (*TEST_IMAGE, 3),
                                              np.uint8))
-        rdb_ops.RDB_FWD_LAUNCHES = 0
-        with contextlib.redirect_stdout(log):
-            cli.main(["test", "photo.png", "--checkpoint",
-                      "esrgan-gan-best.pth"])
-        test_launches = rdb_ops.RDB_FWD_LAUNCHES
-        with open("upres-photo.png", "rb") as fh:
-            sr = _unpng(fh.read())
+        for extra, want_test in tests:
+            reset_counters()
+            with contextlib.redirect_stdout(log):
+                cli.main(["test", "photo.png", "--checkpoint",
+                          "esrgan-gan-best.pth", *extra])
+            with open("upres-photo.png", "rb") as fh:
+                sr = _unpng(fh.read())
+            test_rows.append((extra, read_counters(), want_test, sr))
     finally:
         os.chdir(cwd)
     row = {
         "images": TRAIN_IMAGES, "image_hw": list(TRAIN_IMAGE_HW),
         "batch": TRAIN_BATCH, "steps_per_epoch": steps,
-        "eval_batches": evals, "wall_s": wall_s,
-        "rdb_fwd_launches": launches[0], "rdb_bwd_launches": launches[1],
-        "expected": [want_fwd, want_bwd], "checkpoints": ckpts,
+        "eval_batches": evals, "wall_s": wall_s, "launches": counts,
+        "expected": want, "checkpoints": ckpts,
         "gan_best": {"epoch": best["epoch"], "phase": best["phase"],
                      "step": best["extra"]["step"]},
-        "metrics": metrics, "test_rdb_fwd_launches": test_launches,
+        "metrics": metrics,
+        "test": [{"args": a, "launches": c} for a, c, _, _ in test_rows],
     }
-    say("train", **row)
+    say(phase, **row)
     lines = text.splitlines()
     check(any("RANDOM VGG features" in ln for ln in lines),
           "the random-VGG warning was printed")
@@ -1016,12 +1482,12 @@ def phase_train(seed: int) -> dict:
     check(all(ckpts.values()), f"the four checkpoints exist: {ckpts}")
     check(best["phase"] == "esrgan-gan" and best["extra"]["step"]
           == 2 * steps, "gan-best holds the GAN phase's training state")
-    check(launches == (want_fwd, want_bwd),
-          f"train: kernel launches {launches} == {(want_fwd, want_bwd)}")
-    check(test_launches == 5 * 3 * NUM_RRDB, "test ran the kernel once")
-    h, w = TEST_IMAGE
-    check(sr.shape == (4 * h, 4 * w, 3) and sr.max() > sr.min(),
-          "test on the trained checkpoint wrote a 4x non-constant image")
+    check_counts(phase, counts, **want)
+    for extra, got, want_test, sr in test_rows:
+        check_counts(f"{phase}: test {extra}", got, **want_test)
+        check(sr.shape == (4 * h, 4 * w, 3) and sr.max() > sr.min(),
+              f"{phase}: test {extra} on the trained checkpoint wrote a "
+              f"4x non-constant image")
     return row
 
 
@@ -1078,6 +1544,45 @@ def phase_train_speed(seed: int) -> dict:
     return rows
 
 
+# The kernels of the kernels line: (name, source, the TPU kernel it
+# replaces, the phase rows that time it).
+KERNELS = (
+    ("rdb_fwd", "rdb_fwd.cu", 142, "rdb_fwd"),
+    ("rdb_bwd", "rdb_bwd.cu", 495, "rdb_bwd"),
+    ("rdb_fwd_ext", "rdb_ext.cu", 299, "rdb_fwd_ext"),
+    ("rdb_bwd_ext", "rdb_ext.cu", 594, "rdb_bwd_ext"),
+    ("rdb_fwd_ilv", "rdb_ilv.cu", 223, "rdb_fwd_ilv"),
+)
+
+
+def kernels_line(timed: dict, paths: dict) -> dict:
+    """One entry per kernel: its bf16 time, plain time and bound from
+    its phase, and its launches on each main path (counters set to 0
+    just before each path)."""
+    out = []
+    for name, source, line, phase in KERNELS:
+        row = timed[phase]["bfloat16"]
+        by_path = {p: c[name] for p, c in paths.items()}
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"torchsr_tpu_torch/ops/csrc/{source}",
+            "replaces": f"torchsr_tpu/ops/pallas/rdb.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "dtype": "bfloat16",
+            "shape": list(TRAIN_RDB_SHAPE if "bwd" in name
+                          else SERVE_RDB_SHAPE),
+        })
+    return {"kernels": out}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1085,69 +1590,62 @@ def main() -> None:
         "--only", type=str, default="",
         help="Comma-separated phases to run after probe and build (for "
              "kernel work; prints no kernels or final line): rdb_fwd, "
-             "rdb_bwd, train_grad.")
+             "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, train_grad, "
+             "train_grad_ext, train_grad_xla, train, train_ext, "
+             "train_speed.")
     args = parser.parse_args()
-    phase_probe()
+    smi = phase_probe()
     # f32 references in full f32: cuDNN convolutions default to TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the default paths run with every knob off, whatever the environment
+    for name in ("EXT_KERNEL", "ILV_KERNEL", "BWD_XLA"):
+        setattr(rdb_ops, name, False)
     phase_build()
+    seed = args.seed
     if args.only:
-        phases = {"rdb_fwd": phase_rdb, "rdb_bwd": phase_rdb_bwd,
-                  "train_grad": phase_train_grad, "train": phase_train,
-                  "train_speed": phase_train_speed}
+        phases = {
+            "rdb_fwd": phase_rdb,
+            "rdb_fwd_ext": lambda s: phase_rdb_variant(s, "ext"),
+            "rdb_fwd_ilv": lambda s: phase_rdb_variant(s, "ilv"),
+            "rdb_bwd": phase_rdb_bwd, "rdb_bwd_ext": phase_rdb_bwd_ext,
+            "train_grad": phase_train_grad,
+            "train_grad_ext": lambda s: phase_train_grad(s, "ext"),
+            "train_grad_xla": lambda s: phase_train_grad(s, "xla"),
+            "train": phase_train,
+            "train_ext": lambda s: phase_train(s, ext=True),
+            "train_speed": phase_train_speed}
         for name in args.only.split(","):
-            phases[name](args.seed)
+            phases[name](seed)
         return
-    rows = phase_rdb(args.seed)
-    bwd_rows = phase_rdb_bwd(args.seed)
-    phase_train_grad(args.seed)
-    gen = phase_generator(args.seed, rows["bfloat16"]["ms"])
+    timed = {"rdb_fwd": phase_rdb(seed),
+             "rdb_fwd_ext": phase_rdb_variant(seed, "ext"),
+             "rdb_fwd_ilv": phase_rdb_variant(seed, "ilv"),
+             "rdb_bwd": phase_rdb_bwd(seed),
+             "rdb_bwd_ext": phase_rdb_bwd_ext(seed)}
+    for variant in TRAIN_GRAD_VARIANTS:
+        phase_train_grad(seed, variant)
+    gen = phase_generator(seed, timed["rdb_fwd"]["bfloat16"]["ms"])
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     ckpt = os.path.join(workdir, "esrgan-gan-best.pth")
     save_checkpoint(ckpt, 1, "gan", gen.state_dict())
-    serve_launches = phase_serve(gen, ckpt, args.seed)
-    phase_test(ckpt, args.seed)
+    paths = {}
+    paths["serve"], answers = phase_serve(gen, ckpt, seed)
+    paths["serve_ilv"], _ = phase_serve(gen, ckpt, seed, ilv=True,
+                                        prior=answers)
+    phase_test(ckpt, seed)
     del gen
-    train = phase_train(args.seed)
-    phase_train_speed(args.seed)
-    # launches: the main paths' counts (serve, then train), each read
-    # with the counters set to 0 just before the path
-    fwd, bwd = rows["bfloat16"], bwd_rows["bfloat16"]
-    print(json.dumps({"kernels": [{
-        "name": "rdb_fwd",
-        "route": "cuda",
-        "source": "torchsr_tpu_torch/ops/csrc/rdb_fwd.cu",
-        "replaces": "torchsr_tpu/ops/pallas/rdb.py:142",
-        "launches": serve_launches + train["rdb_fwd_launches"],
-        "launches_by_path": {"serve": serve_launches,
-                             "train": train["rdb_fwd_launches"]},
-        "max_abs_err": fwd["max_abs_err"],
-        "ms": fwd["ms"],
-        "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_ms"],
-        "bound_by": fwd["bound_by"],
-        "library_ms": None,
-        "dtype": "bfloat16",
-        "shape": list(SERVE_RDB_SHAPE),
-    }, {
-        "name": "rdb_bwd",
-        "route": "cuda",
-        "source": "torchsr_tpu_torch/ops/csrc/rdb_bwd.cu",
-        "replaces": "torchsr_tpu/ops/pallas/rdb.py:495",
-        "launches": train["rdb_bwd_launches"],
-        "launches_by_path": {"serve": 0,
-                             "train": train["rdb_bwd_launches"]},
-        "max_abs_err": bwd["max_abs_err"],
-        "ms": bwd["ms"],
-        "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"],
-        "library_ms": None,
-        "dtype": "bfloat16",
-        "shape": list(TRAIN_RDB_SHAPE),
-    }]}), flush=True)
+    for phase, ext in (("train", False), ("train_ext", True)):
+        row = phase_train(seed, ext=ext)
+        paths[phase] = row["launches"]
+        for t in row["test"]:
+            paths[" ".join([f"{phase}: test", *t["args"]])] = t["launches"]
+    phase_train_speed(seed)
+    # the card again, beside the results: the phase lines above can
+    # outgrow the part of the output a caller keeps
+    print(smi, flush=True)
+    print(json.dumps(kernels_line(timed, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

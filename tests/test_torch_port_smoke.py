@@ -166,3 +166,93 @@ def test_train_grad_limit_catches_a_wrong_backward():
 ])
 def test_profile_kernel_classes(name, cls):
     assert smoke._kernel_class(name) == cls
+
+
+EXT_SHAPE = (2, 6, 16, 64)  # eligible for the row-extended kernels
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ext_emulation_is_the_plain_version_and_its_fault_shows(dtype):
+    """chip_smoke's emulation of B7 equals ``rdb_ext_reference``; the
+    limits pass it, and see a kernel that writes the pad rows."""
+    x, ks, bs = _inputs(dtype)
+    x = x[:EXT_SHAPE[0], :EXT_SHAPE[1], :EXT_SHAPE[2]]
+    out, feat = smoke.ext_emulated_fwd(x, ks, bs)
+    want_out, want_feat = rdb_ops.rdb_ext_reference(x, ks, bs,
+                                                    scale_ratio=smoke.SCALE)
+    # the same products summed in another order (a convolution here, a
+    # matmul per row offset there)
+    assert smoke.excess(out, want_out, smoke.BLOCK_LIMITS[dtype], x) <= 1
+    assert smoke.excess(feat, want_feat, smoke.STAGE_LIMITS[dtype]) <= 1
+    assert not feat[:, [0, -1]].any()
+    row = smoke.rdb_scores(x, ks, bs, out, feat[:, 1:-1])
+    assert max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1, row
+    w_out, w_feat = smoke.ext_emulated_fwd(x, ks, bs, "pad_rows_written")
+    assert w_feat[:, [0, -1]].abs().max() > 0
+    wrong = smoke.rdb_scores(x, ks, bs, w_out, w_feat[:, 1:-1])
+    assert max(wrong["stage_excess"]) > 1, wrong
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ilv_emulation_is_the_plain_version_and_its_fault_shows(dtype):
+    """chip_smoke's emulation of B6 equals ``rdb_ilv_reference``; its
+    mid copies pass the limits and its up/dn copies are exact; a kernel
+    that swaps chunk 0's up and dn copies fails both."""
+    x, ks, bs = _inputs(dtype)
+    out, buf = smoke.ilv_emulated_fwd(x, ks, bs)
+    want_out, want_buf = rdb_ops.rdb_ilv_reference(x, ks, bs,
+                                                   scale_ratio=smoke.SCALE)
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+    torch.testing.assert_close(buf, want_buf, rtol=0, atol=0)
+    assert smoke.ilv_copies_exact(buf)
+    row = smoke.rdb_scores(x, ks, bs, out, smoke.ilv_mid(buf))
+    assert max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1, row
+    w_out, w_buf = smoke.ilv_emulated_fwd(x, ks, bs, swap_chunk=0)
+    assert not smoke.ilv_copies_exact(w_buf)
+    wrong = smoke.rdb_scores(x, ks, bs, w_out, smoke.ilv_mid(w_buf))
+    assert max(wrong["stage_excess"]) > 1, wrong
+
+
+def _bwd_ext_inputs(dtype):
+    x, ks, bs = _inputs(dtype)
+    x = x[:EXT_SHAPE[0], :EXT_SHAPE[1], :EXT_SHAPE[2]]
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        0, 0.1, x.shape).astype(np.float32)).to(dtype)
+    _, featp = rdb_ops.rdb_ext_reference(x, ks, bs, scale_ratio=smoke.SCALE)
+    return g, featp, ks
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_bwd_ext_emulation_is_the_plain_version(dtype):
+    g, featp, ks = _bwd_ext_inputs(dtype)
+    got = smoke.emulated_bwd_ext(g, featp, ks, smoke.SCALE)
+    want = rdb_ops.rdb_bwd_ext_reference(g, featp, ks, smoke.SCALE,
+                                         return_dfeat=True)
+    for a, b in zip((got[0], *got[1], *got[2], got[3]),
+                    (want[0], *want[1], *want[2], want[3][:, 1:-1])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert smoke._worst(smoke.bwd_scores(g, featp[:, 1:-1], ks, got)) <= 1
+
+
+@pytest.mark.parametrize("fault", smoke.WRONG_BWD_EXT)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_bwd_ext_limits_catch_each_wrong_kernel(dtype, fault):
+    g, featp, ks = _bwd_ext_inputs(dtype)
+    row = smoke.bwd_scores(g, featp[:, 1:-1], ks, smoke.emulated_bwd_ext(
+        g, featp, ks, smoke.SCALE, fault))
+    assert smoke._worst(row) > 1, row
+
+
+def test_check_counts_names_every_counter():
+    """The launch check holds every counter: one not named must be 0,
+    the TORCHSR_RDB_BWD=xla one included."""
+    smoke.reset_counters()
+    assert set(smoke.read_counters()) == set(smoke.COUNTERS)
+    assert all(hasattr(rdb_ops, a) for a in smoke.COUNTERS.values())
+    smoke.check_counts("none", smoke.read_counters())
+    try:
+        rdb_ops.RDB_BWD_XLA_LAUNCHES = 1
+        with pytest.raises(RuntimeError, match="kernel launches"):
+            smoke.check_counts("xla", smoke.read_counters())
+    finally:
+        smoke.reset_counters()

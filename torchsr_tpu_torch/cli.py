@@ -1,4 +1,4 @@
-"""CLI: ``python -m torchsr_tpu_torch train|test|serve``.
+"""CLI: ``python -m torchsr_tpu_torch train|test|serve|doctor``.
 
 The ported subcommands keep the JAX CLI's flag names and defaults, plus
 ``--device`` (default ``cuda``: the port runs on the card unless asked
@@ -245,6 +245,29 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     )
     _add_device(serve)
 
+    doctor = commands.add_parser(
+        "doctor",
+        help="Diagnose the environment: torch/CUDA versions, the card, "
+             "nvcc and the kernel libraries, the RDB kernel variant the "
+             "knobs select, env knobs, checkpoints in the working "
+             "directory, optional dataset and checkpoint checks.",
+    )
+    doctor.add_argument(
+        "--train-dir", type=str, default=None,
+        help="Also discover and split a dataset directory, reporting "
+             "image counts.",
+    )
+    doctor.add_argument(
+        "--checkpoint", type=str, default=None,
+        help="Inspect a checkpoint file on the host: format, epoch and "
+             "phase, parameter count, the block count and scale test "
+             "and serve would use.",
+    )
+    doctor.add_argument(
+        "--json", action="store_true",
+        help="Emit the report as JSON instead of text.",
+    )
+
     args = parser.parse_args(argv)
     tile = getattr(args, "tile", 0)
     if tile and getattr(args, "tile_overlap", 0) >= tile:
@@ -274,6 +297,10 @@ def main(argv: list[str] | None = None) -> None:
         from torchsr_tpu_torch.infer.server import run_server
 
         run_server(args)
+    elif args.function == "doctor":
+        from torchsr_tpu_torch.utils.doctor import run_doctor
+
+        run_doctor(args)
 
 
 if __name__ == "__main__":

@@ -49,6 +49,31 @@ SIGNATURES = {
         ),
         "rdb_bwd_error_string": (ctypes.c_char_p, (_I,)),
     },
+    "rdb_ext": {
+        "rdb_ext_fwd_launch": (
+            _I, (_I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+        ),
+        "rdb_ext_prep_launch": (
+            _I, (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)
+        ),
+        "rdb_ext_wgrad_launch": (
+            _I, (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+        ),
+        "rdb_ext_reduce_launch": (
+            _I, (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P)
+        ),
+        "rdb_ext_dgrad_launch": (
+            _I, (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+        ),
+        "rdb_ext_error_string": (ctypes.c_char_p, (_I,)),
+    },
+    "rdb_ilv": {
+        "rdb_ilv_grow_launch": (_I, (_I, _P, _P, _I, _I, _I, _I, _P)),
+        "rdb_ilv_conv_launch": (
+            _I, (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+        ),
+        "rdb_ilv_error_string": (ctypes.c_char_p, (_I,)),
+    },
 }
 
 
@@ -70,9 +95,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to; the hash covers source+flags."""
+    """Where ``csrc/<name>.cu`` builds to; the hash covers the source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in sources)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

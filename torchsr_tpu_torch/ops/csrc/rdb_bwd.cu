@@ -55,13 +55,16 @@
 // partials to device memory; wgmma fed by TMA and fusing prep into the
 // dgrad epilogue are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stddef.h>
-#include <stdint.h>
+#include "rdb_mma.cuh"
 
 namespace {
+
+using rdb::allow_smem;
+using rdb::from_f;
+using rdb::ldmatrix_x4;
+using rdb::ldmatrix_x4_trans;
+using rdb::mma_bf16;
+using rdb::to_f;
 
 constexpr int FEAT = 192;  // feature buffer width
 constexpr int CH = 64;     // block input/output channels
@@ -71,51 +74,6 @@ constexpr int HALO_W = TW + 2;
 constexpr int HALO_PX = (TH + 2) * HALO_W;
 constexpr int NT = 256;    // threads of a wgrad / bf16 dgrad CTA
 constexpr int CCHUNK = 32;  // input channels per wgrad CTA, dF channels per dgrad CTA
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The tile (b, y0, x0) of tile index `tl` in a batch of B images.
 struct Tile {
@@ -167,26 +125,6 @@ prep(const void* __restrict__ src, const T* __restrict__ feat,
     float total = 0.f;
     for (int k = 0; k < ROWS; ++k) total += red[k * COUT + c];
     db_part[(size_t)blockIdx.x * COUT + c] = total;
-  }
-}
-
-// -------------------------------------------------------------- reduce
-
-// dw[e] = sum_g dw_part[g][e] (e < n); db[c] = sum_b db_part[b][c].
-__global__ void __launch_bounds__(NT)
-reduce_partials(const float* __restrict__ dw_part, int groups, int n,
-       const float* __restrict__ db_part, int nblocks, int cout,
-       float* __restrict__ dw, float* __restrict__ db) {
-  const int e = blockIdx.x * NT + threadIdx.x;
-  if (e < n) {
-    float s = 0.f;
-    for (int g = 0; g < groups; ++g) s += dw_part[(size_t)g * n + e];
-    dw[e] = s;
-  } else if (e < n + cout) {
-    const int c = e - n;
-    float s = 0.f;
-    for (int b = 0; b < nblocks; ++b) s += db_part[(size_t)b * cout + c];
-    db[c] = s;
   }
 }
 
@@ -625,12 +563,6 @@ dgrad_f32(const float* __restrict__ dy, const float* __restrict__ wt,
 
 // ------------------------------------------------------------ launches
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int STAGE>
 cudaError_t launch_prep(bool bf16, const void* src, const void* feat,
                         void* dy, void* db_part, int M, int nblocks,
@@ -777,14 +709,8 @@ int rdb_bwd_dgrad_launch(int stage, int is_bf16, const void* dy,
 int rdb_bwd_reduce_launch(const void* dw_part, int groups, int n,
                           const void* db_part, int nblocks, int cout,
                           void* dw, void* db, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + cout + NT - 1) / NT;
-  reduce_partials<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dw_part), groups, n,
-      static_cast<const float*>(db_part), nblocks, cout,
-      static_cast<float*>(dw), static_cast<float*>(db));
-  return (int)cudaGetLastError();
+  return rdb::launch_reduce(dw_part, groups, n, db_part, nblocks, cout, dw,
+                            db, device, stream);
 }
 
 const char* rdb_bwd_error_string(int err) {

@@ -43,11 +43,7 @@
 // (wgmma fed by TMA with the staging pipelined, or one fused launch per
 // block with a 5-pixel recomputed halo) is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stddef.h>
-#include <stdint.h>
+#include "rdb_mma.cuh"
 
 namespace {
 
@@ -70,28 +66,8 @@ constexpr size_t smem_bytes() {
   return (size_t)(HALO_PX + 9 * COUT) * LDS * sizeof(__nv_bfloat16);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using rdb::ldmatrix_x4;
+using rdb::mma_bf16;
 
 // feat: (B, H, W, FEAT) bf16; w: HWIO (3, 3, CIN, COUT) bf16; bias:
 // (COUT,) f32.  LAST = false: dst == feat, writes channels
@@ -336,8 +312,7 @@ cudaError_t launch(bool bf16, const void* feat, const void* w,
   if (bf16) {
     auto kernel = tensor_core::conv3x3_bf16<CIN, COUT, LAST>;
     constexpr size_t smem = tensor_core::smem_bytes<COUT>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = rdb::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((W + tensor_core::TW - 1) / tensor_core::TW, (H + tensor_core::TH - 1) / tensor_core::TH, B);
     kernel<<<grid, tensor_core::NT, smem, stream>>>(
@@ -347,8 +322,7 @@ cudaError_t launch(bool bf16, const void* feat, const void* w,
   } else {
     auto kernel = cuda_core::conv3x3_f32<CIN, COUT, LAST>;
     constexpr size_t smem = cuda_core::smem_bytes<COUT>();
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = rdb::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((W + cuda_core::TW - 1) / cuda_core::TW,
                     (H + cuda_core::TH - 1) / cuda_core::TH, B);

@@ -19,6 +19,25 @@ plain versions, ``rdb_reference`` and ``rdb_bwd_reference``, through the
 same Function.  There is no fallback: on CUDA the kernel runs or the
 call raises.
 
+Two layout variants of the JAX package are selected by the same
+environment knobs, read once at import (``EXT_KERNEL``, ``ILV_KERNEL``;
+a test may flip the module flags):
+
+* ``TORCHSR_RDB_EXT=1``: on shapes ``_ext_eligible`` admits, forward and
+  backward run on a row-extended buffer (B, H + 2, W, 192) with a zero
+  pad row above and below each image (``csrc/rdb_ext.cu``, for the TPU
+  kernels ``_rdb_fwd_kernel_ext`` :299 and ``_rdb_bwd_kernel_ext`` :594);
+  plain versions ``rdb_ext_reference`` / ``rdb_bwd_ext_reference``.
+* ``TORCHSR_RDB_ILV=1``: a forward that no backward follows, and that
+  the ext variant did not take, runs on a chunk-interleaved buffer
+  (B*H*W, 576) (``csrc/rdb_ilv.cu``, for ``_rdb_fwd_kernel_ilv`` :223);
+  plain version ``rdb_ilv_reference``.
+
+The backward takes its variant from what the forward saved, never from
+the knobs.  ``TORCHSR_RDB_BWD=xla`` (``BWD_XLA``), the JAX package's
+gradient-debugging backend, runs every backward as ``rdb_bwd_reference``
+from the saved buffer instead of a kernel.
+
 Precision (the TPU kernels' contract): products take working-dtype
 operands (bf16 under AMP, else f32) and accumulate in f32; biases, dW,
 db and the dense-gradient accumulator stay f32; dx is stored in the
@@ -27,6 +46,8 @@ never rounded through bf16.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +65,28 @@ RDB_FWD_LAUNCHES = 0
 # (each one 20 launches of csrc/rdb_bwd.cu: prep, wgrad, reduce and
 # dgrad for each of the five convs).
 RDB_BWD_LAUNCHES = 0
+# The row-extended forward (five launches per block) and backward (one
+# per block backward, 20 launches), and the interleaved forward (five
+# conv launches per block; its one grow launch is not counted).
+RDB_FWD_EXT_LAUNCHES = 0
+RDB_BWD_EXT_LAUNCHES = 0
+RDB_FWD_ILV_LAUNCHES = 0
+# Block backwards run on CUDA by the TORCHSR_RDB_BWD=xla backend
+# (rdb_bwd_reference, no kernel); 0 on every default path.
+RDB_BWD_XLA_LAUNCHES = 0
+
+# The JAX package's knobs, names and defaults (torchsr_tpu/ops/pallas/
+# rdb.py:386, :403, :753), read once at import.
+EXT_KERNEL = os.environ.get("TORCHSR_RDB_EXT", "0") == "1"
+ILV_KERNEL = os.environ.get("TORCHSR_RDB_ILV", "0") == "1"
+BWD_XLA = os.environ.get("TORCHSR_RDB_BWD", "pallas") == "xla"
+# The JAX package's single-image row cap (rdb.py:68), which its ext gate
+# reads.
+_MAX_IMAGE_ROWS = 4096
+# The row-extended kernels' tiles are 16 columns wide; rows of the tall
+# buffer (B * (H + 2)) go in gridDim.y, 8 per f32 CTA.
+_EXT_TILE_W = 16
+_EXT_MAX_ROWS = 65535 * 8
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z, which carries the batch
@@ -82,6 +125,188 @@ def _check(x: torch.Tensor, kernels, biases) -> None:
             raise ValueError(
                 f"bias {i + 1} must be ({COUT[i]},), got {tuple(b.shape)}"
             )
+
+
+def _ext_eligible(hw: int, width: int) -> bool:
+    """The JAX package's gate for the row-extended kernels (rdb.py:406):
+    the knob, an image of at most 4096 pixels, and a width that is a
+    multiple of 16."""
+    return EXT_KERNEL and hw <= _MAX_IMAGE_ROWS and width % 16 == 0
+
+
+def _variant(x: torch.Tensor, params) -> str:
+    """The kernel variant the JAX package's ``_rdb_fwd`` (:444-445)
+    picks for this call: ``"ext"`` when the knob is set and the shape is
+    eligible; else ``"ilv"`` when ILV is set and no backward will follow
+    (grad mode off, or nothing requires grad); else ``"slot"`` (B1/B2)."""
+    _, h, w, _ = x.shape
+    if _ext_eligible(h * w, w):
+        return "ext"
+    grad_follows = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in params))
+    return "ilv" if ILV_KERNEL and not grad_follows else "slot"
+
+
+def pack_kernel(k: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, Ci, Co) -> the packed GEMM weight (3 Ci, 3 Co): row
+    (dy, ci), column (dx, co), as the JAX package's ``pack_kernel``."""
+    ky, kx, ci, co = k.shape
+    return k.permute(0, 2, 1, 3).reshape(ky * ci, kx * co)
+
+
+def unpack_kernel(packed: torch.Tensor, ci: int, co: int) -> torch.Tensor:
+    """Inverse of :func:`pack_kernel`: (3 Ci, 3 Co) -> HWIO."""
+    return packed.reshape(3, ci, 3, co).permute(0, 2, 1, 3)
+
+
+def pack_kernel_t(k: torch.Tensor) -> torch.Tensor:
+    """HWIO -> the transposed packed weight (3 Co, 3 Ci): row (dx, co),
+    column (dy, ci), the backward's operand."""
+    ky, kx, ci, co = k.shape
+    return k.permute(1, 3, 0, 2).reshape(kx * co, ky * ci)
+
+
+def repack_ilv(w: torch.Tensor, ci: int) -> torch.Tensor:
+    """Packed weight (rows (dy, ci)) -> chunk-interleaved rows (chunk,
+    dy, ci within the chunk); columns (dx, co) unchanged.  The JAX
+    package's ``_repack_ilv`` (rdb.py:291), element for element."""
+    r, c3 = w.shape
+    t = w.reshape(3, ci // GROWTH, GROWTH, c3)
+    return t.permute(1, 0, 2, 3).reshape(r, c3)
+
+
+def _reduce_taps(y: torch.Tensor, cout: int) -> torch.Tensor:
+    """The horizontal-tap reduction of a packed product y (B, H, W,
+    3 Co): out[x] = y[x - 1, dx 0] + y[x, dx 1] + y[x + 1, dx 2], the
+    neighbours outside the row dropped (first_col / last_col)."""
+    left = F.pad(y[:, :, :-1, :cout], (0, 0, 1, 0))
+    right = F.pad(y[:, :, 1:, 2 * cout:], (0, 0, 0, 1))
+    return left + y[..., cout:2 * cout] + right
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """Products of working-dtype operands summed in f32 (f64 for f64)."""
+    return torch.promote_types(dt, torch.float32)
+
+
+def rdb_ext_reference(x: torch.Tensor, kernels, biases,
+                      scale_ratio: float = 0.2):
+    """The plain version of the row-extended forward, with the data flow
+    of ``_rdb_fwd_kernel_ext`` (rdb.py:299): the features of each image
+    live once in a (H + 2, W, 192) buffer between two zero pad rows; a
+    conv's three dy operands are the row-offset views 0, 1, 2 of it,
+    multiplied by the packed weight (N = 3 C_out carries the horizontal
+    taps), the taps reduced with the column masks, and the 32 new
+    channels appended with one store.  Operands in ``x.dtype``, sums in
+    f32.  Returns the block output and the (B, H + 2, W, 192) buffer."""
+    _check(x, kernels, biases)
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    b, h, w, _ = x.shape
+    buf = x.new_zeros((b, h + 2, w, FEAT))
+    buf[:, 1:h + 1, :, :CHANNELS] = x
+    out = None
+    for i, (cin, cout) in enumerate(zip(CIN, COUT)):
+        wp = pack_kernel(kernels[i].to(dt)).to(acc)
+        y = sum(buf[:, s:s + h, :, :cin].to(acc) @ wp[s * cin:(s + 1) * cin]
+                for s in range(3))
+        out = _reduce_taps(y, cout) + biases[i].to(acc)
+        if i < 4:
+            buf[:, 1:h + 1, :, cin:cin + GROWTH] = F.leaky_relu(out, 0.2).to(dt)
+    return (out * scale_ratio + x.to(acc)).to(dt), buf
+
+
+def rdb_bwd_ext_reference(g: torch.Tensor, feat_padded: torch.Tensor,
+                          kernels, scale_ratio: float = 0.2, *,
+                          return_dfeat: bool = False):
+    """The plain version of the row-extended backward, with the data
+    flow of ``_rdb_bwd_kernel_ext`` (rdb.py:594): ``feat_padded`` is the
+    forward's (B, H + 2, W, 192) buffer; dW reads its three row-offset
+    views; dx3 = dy @ W^T is added into a padded f32 dense gradient
+    (B, H + 2, W, 192) at row offsets 0, 1, 2 with no shifts or masks
+    (what falls outside the image lands in the pad rows and is never
+    read).  Returns ``(dx, dws, dbs)`` as :func:`rdb_bwd_reference` does
+    (and the padded dense gradient with ``return_dfeat``)."""
+    if feat_padded.dim() != 4 or feat_padded.shape[-1] != FEAT:
+        raise ValueError(
+            f"feat_padded must be (B, H + 2, W, {FEAT}), got "
+            f"{tuple(feat_padded.shape)}")
+    b, hp, w, _ = feat_padded.shape
+    h = hp - 2
+    if tuple(g.shape) != (b, h, w, CHANNELS):
+        raise ValueError(
+            f"g must be ({b}, {h}, {w}, {CHANNELS}) beside feat_padded "
+            f"{tuple(feat_padded.shape)}, got {tuple(g.shape)}")
+    _check_kernels(kernels)
+    dt, acc = feat_padded.dtype, _acc_dtype(feat_padded.dtype)
+    f = feat_padded.to(acc)
+    dfeat = f.new_zeros((b, hp, w, FEAT))
+    g32 = g.to(acc)
+    da = g32 * scale_ratio
+    dws, dbs = [None] * 5, [None] * 5
+    for i in reversed(range(5)):
+        cin, cout = CIN[i], COUT[i]
+        dbs[i] = da.sum(dim=(0, 1, 2))
+        # the transpose of the tap reduction: dy_0[x] = da[x + 1] (zero
+        # on the last column), dy_2[x] = da[x - 1] (zero on the first)
+        dy = torch.cat([F.pad(da[:, :, 1:], (0, 0, 0, 1)), da,
+                        F.pad(da[:, :, :-1], (0, 0, 1, 0))], dim=-1)
+        dy = dy.to(dt).to(acc).reshape(-1, 3 * cout)
+        dws[i] = unpack_kernel(torch.cat(
+            [f[:, s:s + h, :, :cin].reshape(-1, cin).T @ dy
+             for s in range(3)]), cin, cout)
+        dx3 = (dy @ pack_kernel_t(kernels[i].to(dt)).to(acc)).reshape(
+            b, h, w, 3 * cin)
+        for s in range(3):
+            dfeat[:, s:s + h, :, :cin] += dx3[..., s * cin:(s + 1) * cin]
+        if i > 0:
+            sl = _slot(i - 1)
+            da = dfeat[:, 1:h + 1, :, sl] * (
+                0.2 + 0.8 * (f[:, 1:h + 1, :, sl] > 0).to(acc))
+    dx = (dfeat[:, 1:h + 1, :, :CHANNELS] + g32).to(g.dtype)
+    out = (dx.contiguous(), tuple(dws), tuple(dbs))
+    return (*out, dfeat) if return_dfeat else out
+
+
+def ilv_columns(chunk: int, part: int) -> slice:
+    """Columns of the interleaved buffer holding 32-channel chunk
+    ``chunk``'s copy ``part`` (0: up, the row above; 1: mid; 2: dn, the
+    row below)."""
+    lo = chunk * 3 * GROWTH + part * GROWTH
+    return slice(lo, lo + GROWTH)
+
+
+def rdb_ilv_reference(x: torch.Tensor, kernels, biases,
+                      scale_ratio: float = 0.2):
+    """The plain version of the interleaved forward, with the data flow
+    of ``_rdb_fwd_kernel_ilv`` (rdb.py:223): a (B, H, W, 576) buffer
+    whose 32-channel chunk j holds [up | mid | dn] (the chunk at the row
+    above, at the pixel, at the row below; zeros past the image's top
+    and bottom); each conv is one product of the contiguous 3 C_in
+    prefix with the ``repack_ilv`` weight, the taps reduced with the
+    column masks.  Operands in ``x.dtype``, sums in f32.  Returns the
+    block output and the buffer."""
+    _check(x, kernels, biases)
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    b, h, w, _ = x.shape
+    buf = x.new_zeros((b, h, w, 3 * FEAT))
+
+    def grow(v, chunk0):
+        up = F.pad(v[:, :-1], (0, 0, 0, 0, 1, 0))
+        dn = F.pad(v[:, 1:], (0, 0, 0, 0, 0, 1))
+        for j in range(v.shape[-1] // GROWTH):
+            sl = slice(j * GROWTH, (j + 1) * GROWTH)
+            for part, src in enumerate((up, v, dn)):
+                buf[..., ilv_columns(chunk0 + j, part)] = src[..., sl]
+
+    grow(x, 0)
+    out = None
+    for i, (cin, cout) in enumerate(zip(CIN, COUT)):
+        wi = repack_ilv(pack_kernel(kernels[i].to(dt)), cin).to(acc)
+        out = _reduce_taps(buf[..., :3 * cin].to(acc) @ wi, cout) + \
+            biases[i].to(acc)
+        if i < 4:
+            grow(F.leaky_relu(out, 0.2).to(dt), cin // GROWTH)
+    return (out * scale_ratio + x.to(acc)).to(dt), buf
 
 
 def _slot(i: int) -> slice:
@@ -170,32 +395,55 @@ def rdb_bwd_reference(
 
 class _FusedRDB(torch.autograd.Function):
     """The block with its feature buffer as the saved residual; kernels
-    on CUDA, plain versions on the CPU."""
+    on CUDA, plain versions on the CPU.  ``variant`` (``_variant``) picks
+    the layout; the backward reads it from ``ctx``."""
 
     @staticmethod
-    def forward(ctx, x, scale_ratio, *params):
+    def forward(ctx, x, scale_ratio, variant, *params):
         kernels, biases = params[:5], params[5:]
-        if x.device.type == "cuda":
+        cuda = x.device.type == "cuda"
+        feat = None
+        if variant == "ext":
+            out, feat = (rdb_fwd_ext_cuda if cuda else rdb_ext_reference)(
+                x, kernels, biases, scale_ratio=scale_ratio)
+        elif variant == "ilv":
+            out, _ = (rdb_fwd_ilv_cuda if cuda else rdb_ilv_reference)(
+                x, kernels, biases, scale_ratio=scale_ratio)
+        elif cuda:
             out, feat = rdb_fwd_cuda(x, kernels, biases,
                                      scale_ratio=scale_ratio)
         else:
             out, feat = _rdb_plain(x, kernels, biases, scale_ratio)
         ctx.scale_ratio = scale_ratio
-        if any(ctx.needs_input_grad):
+        ctx.variant = variant
+        if feat is not None and any(ctx.needs_input_grad):
             ctx.save_for_backward(feat, *kernels)
         return out
 
     @staticmethod
     def backward(ctx, g):
+        global RDB_BWD_XLA_LAUNCHES
+        if ctx.variant == "ilv":
+            raise RuntimeError(
+                "the interleaved RDB forward saves nothing to differentiate"
+            )
         feat, *kernels = ctx.saved_tensors
-        if feat.device.type == "cuda":
-            dx, dws, dbs, _ = rdb_bwd_cuda(g, feat, kernels,
-                                           scale_ratio=ctx.scale_ratio)
+        scale, ext = ctx.scale_ratio, ctx.variant == "ext"
+        if BWD_XLA:
+            if feat.device.type == "cuda":
+                RDB_BWD_XLA_LAUNCHES += 1
+            dx, dws, dbs = rdb_bwd_reference(
+                g.to(feat.dtype), feat[:, 1:-1] if ext else feat, kernels,
+                scale)
+        elif feat.device.type == "cuda":
+            dx, dws, dbs, _ = (rdb_bwd_ext_cuda if ext else rdb_bwd_cuda)(
+                g, feat, kernels, scale_ratio=scale)
         else:
-            dx, dws, dbs = rdb_bwd_reference(g.to(feat.dtype), feat,
-                                             kernels, ctx.scale_ratio)
+            dx, dws, dbs = (rdb_bwd_ext_reference if ext
+                            else rdb_bwd_reference)(
+                g.to(feat.dtype), feat, kernels, scale)
         dws = [dw.to(k.dtype) for dw, k in zip(dws, kernels)]
-        return (dx, None, *dws, *dbs)
+        return (dx, None, None, *dws, *dbs)
 
 
 def fused_rdb(
@@ -206,7 +454,8 @@ def fused_rdb(
     ``x``: (B, H, W, 64) NHWC, f32 or bf16.  ``kernels``: five HWIO
     (3, 3, C_in, C_out) kernels; ``biases``: five (C_out,) vectors.  On
     CUDA the kernels are used in ``x.dtype`` and the biases in f32.
-    Differentiable in x, the kernels and the biases."""
+    Differentiable in x, the kernels and the biases.  The layout variant
+    follows the knobs (module docstring, ``_variant``)."""
     kernels, biases = tuple(kernels), tuple(biases)
     _check(x, kernels, biases)
     if x.device.type not in ("cpu", "cuda"):
@@ -214,7 +463,9 @@ def fused_rdb(
             f"fused_rdb runs on CUDA (kernel) or CPU (plain version), "
             f"not on {x.device}"
         )
-    return _FusedRDB.apply(x, float(scale_ratio), *kernels, *biases)
+    variant = _variant(x, (*kernels, *biases))
+    return _FusedRDB.apply(x, float(scale_ratio), variant, *kernels,
+                           *biases)
 
 
 def _cuda_operands(x: torch.Tensor, tensors, what: str) -> None:
@@ -307,8 +558,6 @@ def rdb_bwd_cuda(
     gradient the launches accumulated (dx - g is its first 64 channels),
     so that each stage can be held against its own plain computation."""
     global RDB_BWD_LAUNCHES
-    from torchsr_tpu_torch.ops._build import load_library
-
     kernels = tuple(kernels)
     if feat.dim() != 4 or feat.shape[-1] != FEAT:
         raise ValueError(
@@ -327,17 +576,34 @@ def rdb_bwd_cuda(
             f"the RDB backward takes at most {_MAX_BWD_BATCH} images per "
             f"call, got {b}"
         )
-    dt = feat.dtype
+    out = _bwd_launches(
+        "rdb_bwd", g, feat, kernels, scale_ratio,
+        n_tiles=b * -(-h // 8) * -(-w // 32), prep_dims=(b * h * w,))
+    RDB_BWD_LAUNCHES += 1
+    return out
+
+
+def _bwd_launches(lib_name: str, g, feat, kernels, scale_ratio, *,
+                  n_tiles: int, prep_dims: tuple):
+    """The 20 launches of a block backward in library ``lib_name``
+    (``rdb_bwd`` on the (B, H, W, 192) ``feat``, or ``rdb_ext`` on the
+    (B, H + 2, W, 192) row-extended one): per conv, in reverse, prep (da
+    -> dy, db partials), wgrad (f32 dW partials over ``n_tiles`` tiles),
+    the fixed-order reduce, and dgrad into an f32 dense gradient shaped
+    like ``feat``.  ``prep_dims`` are the prep launch's size arguments.
+    Returns ``(dx, dws, dbs, dfeat)``."""
+    from torchsr_tpu_torch.ops._build import load_library
+
+    dt, dev = feat.dtype, feat.device
     feat = feat.contiguous()
     g = _aligned(g, dt)
     wts = [_aligned(flipped_kernel(k), dt) for k in kernels]
-    m = b * h * w
-    n_tiles = b * -(-h // 8) * -(-w // 32)
-    nblocks = -(-m // _PREP_PIXELS)
-    dev = feat.device
-    dfeat = torch.empty((b, h, w, FEAT), dtype=torch.float32, device=dev)
+    b, h, w, _ = g.shape
+    npix = feat.numel() // FEAT
+    nblocks = -(-npix // _PREP_PIXELS)
+    dfeat = torch.empty(feat.shape, dtype=torch.float32, device=dev)
     dx = torch.empty((b, h, w, CHANNELS), dtype=dt, device=dev)
-    dy = torch.empty((m, CHANNELS), dtype=dt, device=dev)
+    dy = torch.empty((npix, CHANNELS), dtype=dt, device=dev)
     db_part = torch.empty((nblocks, CHANNELS), dtype=torch.float32,
                           device=dev)
     groups = [min(n_tiles, max(1, _WGRAD_CTAS // (cin // 32)))
@@ -350,27 +616,156 @@ def rdb_bwd_cuda(
     dbs = [torch.empty((co,), dtype=torch.float32, device=dev)
            for co in COUT]
 
-    lib = load_library("rdb_bwd")
-    errstr = lib.rdb_bwd_error_string
+    lib = load_library(lib_name)
+    fn = {stage: getattr(lib, f"{lib_name}_{stage}_launch")
+          for stage in ("prep", "wgrad", "reduce", "dgrad")}
+    errstr = getattr(lib, f"{lib_name}_error_string")
     stream = torch.cuda.current_stream(dev).cuda_stream
     is_bf16 = int(dt == torch.bfloat16)
     idx = dev.index
     for i in reversed(range(5)):
         src = g if i == 4 else dfeat
-        _raise_on(lib.rdb_bwd_prep_launch(
+        _raise_on(fn["prep"](
             i, is_bf16, src.data_ptr(), feat.data_ptr(), dy.data_ptr(),
-            db_part.data_ptr(), m, nblocks, float(scale_ratio), idx,
-            stream), errstr, f"rdb_bwd prep {i + 1}")
-        _raise_on(lib.rdb_bwd_wgrad_launch(
+            db_part.data_ptr(), *prep_dims, nblocks, float(scale_ratio),
+            idx, stream), errstr, f"{lib_name} prep {i + 1}")
+        _raise_on(fn["wgrad"](
             i, is_bf16, feat.data_ptr(), dy.data_ptr(), dw_part.data_ptr(),
-            b, h, w, groups[i], idx, stream), errstr, f"rdb_bwd wgrad {i + 1}")
-        _raise_on(lib.rdb_bwd_reduce_launch(
+            b, h, w, groups[i], idx, stream), errstr,
+            f"{lib_name} wgrad {i + 1}")
+        _raise_on(fn["reduce"](
             dw_part.data_ptr(), groups[i], dws[i].numel(),
             db_part.data_ptr(), nblocks, COUT[i], dws[i].data_ptr(),
-            dbs[i].data_ptr(), idx, stream), errstr, f"rdb_bwd reduce {i + 1}")
-        _raise_on(lib.rdb_bwd_dgrad_launch(
+            dbs[i].data_ptr(), idx, stream), errstr,
+            f"{lib_name} reduce {i + 1}")
+        _raise_on(fn["dgrad"](
             i, is_bf16, dy.data_ptr(), wts[i].data_ptr(), dfeat.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), b, h, w, idx, stream),
-            errstr, f"rdb_bwd dgrad {i + 1}")
-    RDB_BWD_LAUNCHES += 1
+            g.data_ptr(), dx.data_ptr(), b, h, w, idx, stream), errstr,
+            f"{lib_name} dgrad {i + 1}")
     return dx, tuple(dws), tuple(dbs), dfeat
+
+
+def _ext_shape(b: int, h: int, w: int) -> None:
+    if w % _EXT_TILE_W:
+        raise ValueError(
+            f"the row-extended RDB kernels take widths that are multiples "
+            f"of {_EXT_TILE_W} (_ext_eligible), got {w}")
+    if b * (h + 2) > _EXT_MAX_ROWS:
+        raise ValueError(
+            f"the row-extended RDB kernels take at most {_EXT_MAX_ROWS} "
+            f"buffer rows (B * (H + 2)), got {b * (h + 2)}")
+
+
+def rdb_fwd_ext_cuda(
+    x: torch.Tensor, kernels, biases, *, scale_ratio: float = 0.2
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The row-extended forward on a CUDA ``x`` (``csrc/rdb_ext.cu``).
+    Returns the block output and the (B, H + 2, W, 192) buffer the five
+    launches filled: x and the four grown slices on each image's data
+    rows, the pad row above and below each image zero.  W must be a
+    multiple of 16."""
+    global RDB_FWD_EXT_LAUNCHES
+    from torchsr_tpu_torch.ops._build import load_library
+
+    kernels, biases = tuple(kernels), tuple(biases)
+    _check(x, kernels, biases)
+    _cuda_operands(x, (*kernels, *biases), "rdb_fwd_ext_cuda")
+    b, h, w, _ = x.shape
+    _ext_shape(b, h, w)
+    x = x.contiguous()
+    kernels = [_aligned(k, x.dtype) for k in kernels]
+    biases = [b_.to(torch.float32).contiguous() for b_ in biases]
+    feat = torch.empty((b, h + 2, w, FEAT), dtype=x.dtype, device=x.device)
+    feat[:, 0].zero_()
+    feat[:, h + 1].zero_()
+    feat[:, 1:h + 1, :, :CHANNELS].copy_(x)
+    out = torch.empty_like(x)
+
+    lib = load_library("rdb_ext")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    for i in range(5):
+        err = lib.rdb_ext_fwd_launch(
+            i, is_bf16, feat.data_ptr(), kernels[i].data_ptr(),
+            biases[i].data_ptr(), out.data_ptr(), b, h, w,
+            float(scale_ratio), x.device.index, stream,
+        )
+        _raise_on(err, lib.rdb_ext_error_string, f"rdb_fwd_ext conv {i + 1}")
+        RDB_FWD_EXT_LAUNCHES += 1
+    return out, feat
+
+
+def rdb_bwd_ext_cuda(
+    g: torch.Tensor, feat_padded: torch.Tensor, kernels, *,
+    scale_ratio: float = 0.2,
+):
+    """The row-extended backward on CUDA (``csrc/rdb_ext.cu``).  ``g``:
+    the (B, H, W, 64) output cotangent; ``feat_padded``: the (B, H + 2,
+    W, 192) buffer of :func:`rdb_fwd_ext_cuda`; ``kernels``: the five
+    HWIO kernels.
+
+    Returns ``(dx, dws, dbs, dfeat_padded)``: dx (B, H, W, 64) in the
+    buffer's dtype, five f32 HWIO dW, five f32 db, and the f32 (B, H + 2,
+    W, 192) dense gradient, pad rows included (they hold what the
+    TPU kernel's row-offset adds leave there), so that each stage can be
+    held against its own plain computation."""
+    global RDB_BWD_EXT_LAUNCHES
+    kernels = tuple(kernels)
+    if feat_padded.dim() != 4 or feat_padded.shape[-1] != FEAT:
+        raise ValueError(
+            f"feat_padded must be (B, H + 2, W, {FEAT}), got "
+            f"{tuple(feat_padded.shape)}")
+    b, hp, w, _ = feat_padded.shape
+    h = hp - 2
+    if tuple(g.shape) != (b, h, w, CHANNELS):
+        raise ValueError(
+            f"g must be ({b}, {h}, {w}, {CHANNELS}) beside feat_padded "
+            f"{tuple(feat_padded.shape)}, got {tuple(g.shape)}")
+    _check_kernels(kernels)
+    _cuda_operands(feat_padded, (g, *kernels), "rdb_bwd_ext_cuda")
+    _ext_shape(b, h, w)
+    out = _bwd_launches(
+        "rdb_ext", g, feat_padded, kernels, scale_ratio,
+        n_tiles=-(-(b * (h + 2)) // 16) * (w // 16), prep_dims=(b, h, w))
+    RDB_BWD_EXT_LAUNCHES += 1
+    return out
+
+
+def rdb_fwd_ilv_cuda(
+    x: torch.Tensor, kernels, biases, *, scale_ratio: float = 0.2
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The interleaved forward on a CUDA ``x`` (``csrc/rdb_ilv.cu``).
+    Returns the block output and the (B, H, W, 576) buffer the launches
+    filled (chunk j's [up | mid | dn] in columns ``ilv_columns``), so that
+    each launch can be held against its own convolution."""
+    global RDB_FWD_ILV_LAUNCHES
+    from torchsr_tpu_torch.ops._build import load_library
+
+    kernels, biases = tuple(kernels), tuple(biases)
+    _check(x, kernels, biases)
+    _cuda_operands(x, (*kernels, *biases), "rdb_fwd_ilv_cuda")
+    b, h, w, _ = x.shape
+    dt = x.dtype
+    x = x.contiguous()
+    weights = [_aligned(repack_ilv(pack_kernel(k.to(dt)), ci), dt)
+               for k, ci in zip(kernels, CIN)]
+    biases = [b_.to(torch.float32).contiguous() for b_ in biases]
+    buf = torch.empty((b, h, w, 3 * FEAT), dtype=dt, device=x.device)
+    out = torch.empty_like(x)
+
+    lib = load_library("rdb_ilv")
+    errstr = lib.rdb_ilv_error_string
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    is_bf16 = int(dt == torch.bfloat16)
+    idx = x.device.index
+    _raise_on(lib.rdb_ilv_grow_launch(is_bf16, x.data_ptr(), buf.data_ptr(),
+                                      b, h, w, idx, stream),
+              errstr, "rdb_fwd_ilv grow")
+    for i in range(5):
+        _raise_on(lib.rdb_ilv_conv_launch(
+            i, is_bf16, buf.data_ptr(), weights[i].data_ptr(),
+            biases[i].data_ptr(), x.data_ptr(), out.data_ptr(), b, h, w,
+            float(scale_ratio), idx, stream), errstr,
+            f"rdb_fwd_ilv conv {i + 1}")
+        RDB_FWD_ILV_LAUNCHES += 1
+    return out, buf
