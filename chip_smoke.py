@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ESRGAN serving and training paths on one
-CUDA card, every RDB kernel variant included.
+"""Drive the PyTorch/CUDA port's ESRGAN serving and training paths and its
+two bench tools' paths on one CUDA card, every kernel included.
 
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -10,13 +10,16 @@ CUDA toolkit:
 The script sets the RDB knobs of ``ops/rdb.py`` (``EXT_KERNEL``,
 ``ILV_KERNEL``, ``BWD_XLA``) itself: off on the default paths, on for
 the drives that name them.  Each path's launch counters
-(``ops.rdb.RDB_*_LAUNCHES``) are set to 0 just before it and must read
-exactly what its steps, evals, renders and tile batches imply, with the
-``TORCHSR_RDB_BWD=xla`` counter at 0.  Phases, one line each:
+(``ops.rdb.RDB_*_LAUNCHES``, ``ops.preprocess.PAIR_SYNTH_LAUNCHES``,
+``ops.pair_conv.PAIR_FWD_LAUNCHES`` and ``PAIR_BWD_LAUNCHES``) are set
+to 0 just before it and must read exactly what its steps, evals,
+renders, tile batches or tool calls imply, every other counter (the
+``TORCHSR_RDB_BWD=xla`` one included) at 0.  Phases, one line each:
 
 1. probe: requires a CUDA device; prints its name and power limit.
 2. build: compiles every ``torchsr_tpu_torch/ops/csrc/*.cu`` (rdb_fwd,
-   rdb_bwd, rdb_ext, rdb_ilv), one nvcc each, started together.
+   rdb_bwd, rdb_ext, rdb_ilv, pair_synth, pair_conv), one nvcc each,
+   started together.
 3. rdb_fwd (B1): the RDB forward at the serving shape (16 tiles of
    64x64, 64 channels) and at a ragged shape, in f32 and bf16.  Each of
    its five launches is held against its own convolution of the feature
@@ -41,36 +44,53 @@ exactly what its steps, evals, renders and tile batches imply, with the
    the data rows, its dense gradient's pad rows against
    ``rdb_bwd_ext_reference``, the whole against B2 on the same feature
    buffer, beside two wrong kernels proper to the padded layout.
-8. train_grad, train_grad_ext, train_grad_xla: one L1 backward of the
-   23-RRDB generator, every parameter gradient of the kernel path
-   against the plain path: on B1/B2, with ``EXT_KERNEL`` on B7/B8, and
-   with ``BWD_XLA`` on B1 and the plain backward (its own counter).
-9. generator: the 23-RRDB ESRGAN (seeded random weights) on one tile
-   batch, kernel path against plain path in f32 and bf16, timed in
-   bf16, and a ``profile`` line (``torch.profiler`` device time per
-   kernel class over three tile batches).
-10. serve, the main path: the weights saved as a .pth,
+8. pair_synth (B3): the fused pair synthesis at the bench tool's shape
+   (64, 96, 96, 3), the training crops' (64, 128, 128, 3) and an odd
+   size (3, 148, 148, 3) with each flip: HR bit for bit and LR within
+   one uint8 level at <= 0.1% of values against the plain version,
+   beside four wrong kernels; timed beside the plain version.
+9. pair_conv (B4, B5): the 3x3 64 -> 64 conv forward and backward at
+   the bench tool's shape (128, 24, 24, 64), a ragged multi-image one
+   and the gate's largest image, f32 and bf16: y, dx, dW and db per
+   element against the plain versions, beside five wrong kernels; timed
+   beside the plain versions and the library call (cuDNN's convolution
+   and its ``convolution_backward``).
+10. bench_preprocess, bench_pair_conv: the two bench tools
+    (``torchsr_tpu_torch/tools/``) at their default shapes, in this
+    process, printing their own lines; the pair counters must read what
+    their calls imply.
+11. train_grad, train_grad_ext, train_grad_xla: one L1 backward of the
+    23-RRDB generator, every parameter gradient of the kernel path
+    against the plain path: on B1/B2, with ``EXT_KERNEL`` on B7/B8, and
+    with ``BWD_XLA`` on B1 and the plain backward (its own counter).
+12. generator: the 23-RRDB ESRGAN (seeded random weights) on one tile
+    batch, kernel path against plain path in f32 and bf16, timed in
+    bf16, and a ``profile`` line (``torch.profiler`` device time per
+    kernel class over three tile batches).
+13. serve, the main path: the weights saved as a .pth,
     ``CheckpointUpscaleService`` on ``cuda`` behind ``make_server``,
     three PNG requests over HTTP, on B1; the answers held against the
     same tiling of the generator.
-11. serve_ilv: the same three requests with ``ILV_KERNEL`` set, on B6.
-12. test: ``python -m torchsr_tpu_torch test`` (called in this process)
+14. serve_ilv: the same three requests with ``ILV_KERNEL`` set, on B6.
+15. test: ``python -m torchsr_tpu_torch test`` (called in this process)
     on one image, whole-image and tiled.
-13. train: ``python -m torchsr_tpu_torch train`` (in this process) on
+16. train: ``python -m torchsr_tpu_torch train`` (in this process) on
     seeded PNGs at full width, one pretrain and one GAN epoch, then
     ``test`` on its gan-best; B1 and B2.
-14. train_ext: the same drive with ``EXT_KERNEL`` set (B7 and B8: the
+17. train_ext: the same drive with ``EXT_KERNEL`` set (B7 and B8: the
     32x32 crops and the 48x64 sample are eligible), then ``test`` on
     its gan-best whole-image (W = 140 is not: B1) and tiled (64x64
     tiles: B7).
-15. train_speed: pretrain and GAN step times at batch 16 and 64, and a
+18. train_speed: pretrain and GAN step times at batch 16 and 64, and a
     ``train_profile`` line for one GAN step at 64.
 
-Then a ``kernels`` JSON line, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-script exits non-zero and prints no last line.  ``--only`` runs the
-named phases after probe and build (for kernel work): rdb_fwd,
-rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, train_grad,
+Then a ``seconds`` line (each phase's wall time), the card's name and
+power limit again, a ``kernels`` JSON line (all eight kernels), and as
+the last line ``{"ok": true, "device": {...}}``.  Any failed check
+raises, so the script exits non-zero and prints no last line.
+``--only`` runs the named phases after probe and build (for kernel
+work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
+pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
 train_grad_ext, train_grad_xla, train, train_ext, train_speed.
 """
 
@@ -80,6 +100,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -107,9 +128,24 @@ from torchsr_tpu_torch.models.esrgan import (  # noqa: E402
     ResidualDenseBlock,
 )
 from torchsr_tpu_torch.models.layers import leaky_relu  # noqa: E402
+from torchsr_tpu_torch.data.preprocess import (  # noqa: E402
+    _apply_flips,
+    synthesize_pair,
+)
 from torchsr_tpu_torch.ops import _build  # noqa: E402
+from torchsr_tpu_torch.ops import pair_conv as pc_ops  # noqa: E402
+from torchsr_tpu_torch.ops import preprocess as ps_ops  # noqa: E402
 from torchsr_tpu_torch.ops import rdb as rdb_ops  # noqa: E402
-from torchsr_tpu_torch.ops.resize import nearest_upsample  # noqa: E402
+from torchsr_tpu_torch.ops.resize import (  # noqa: E402
+    INV_255,
+    _quantize_pixels,
+    nearest_upsample,
+    resample_matrix,
+)
+from torchsr_tpu_torch.tools import (  # noqa: E402
+    bench_pair_conv,
+    bench_preprocess,
+)
 from torchsr_tpu_torch.utils.checkpoint import (  # noqa: E402
     load_checkpoint,
     save_checkpoint,
@@ -134,15 +170,19 @@ EXT_RAGGED = (3, 37, 48)
 EXT_INELIGIBLE = (2, 16, 45)
 SCALE = 0.2  # the blocks' residual scale
 NUM_RRDB = 23
-# The launch counters of ops/rdb.py, by kernel; "rdb_bwd_xla" counts the
-# TORCHSR_RDB_BWD=xla backward (no kernel), 0 on every path here.
+# The launch counters, by kernel: (module, attribute).  "rdb_bwd_xla"
+# counts the TORCHSR_RDB_BWD=xla backward (no kernel), 0 on every path
+# here; the pair kernels run on the two bench tools' paths only.
 COUNTERS = {
-    "rdb_fwd": "RDB_FWD_LAUNCHES",
-    "rdb_bwd": "RDB_BWD_LAUNCHES",
-    "rdb_fwd_ext": "RDB_FWD_EXT_LAUNCHES",
-    "rdb_bwd_ext": "RDB_BWD_EXT_LAUNCHES",
-    "rdb_fwd_ilv": "RDB_FWD_ILV_LAUNCHES",
-    "rdb_bwd_xla": "RDB_BWD_XLA_LAUNCHES",
+    "rdb_fwd": (rdb_ops, "RDB_FWD_LAUNCHES"),
+    "rdb_bwd": (rdb_ops, "RDB_BWD_LAUNCHES"),
+    "rdb_fwd_ext": (rdb_ops, "RDB_FWD_EXT_LAUNCHES"),
+    "rdb_bwd_ext": (rdb_ops, "RDB_BWD_EXT_LAUNCHES"),
+    "rdb_fwd_ilv": (rdb_ops, "RDB_FWD_ILV_LAUNCHES"),
+    "rdb_bwd_xla": (rdb_ops, "RDB_BWD_XLA_LAUNCHES"),
+    "pair_synth": (ps_ops, "PAIR_SYNTH_LAUNCHES"),
+    "pair_fwd": (pc_ops, "PAIR_FWD_LAUNCHES"),
+    "pair_bwd": (pc_ops, "PAIR_BWD_LAUNCHES"),
 }
 # Per-element limits.  A result passes when at every element
 #     |got - ref| <= rel * |ref| + frac * max|ref - base|,
@@ -236,12 +276,13 @@ def check(cond: bool, what: str) -> None:
 
 
 def reset_counters() -> None:
-    for attr in COUNTERS.values():
-        setattr(rdb_ops, attr, 0)
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
 
 
 def read_counters() -> dict:
-    return {name: getattr(rdb_ops, attr) for name, attr in COUNTERS.items()}
+    return {name: getattr(module, attr)
+            for name, (module, attr) in COUNTERS.items()}
 
 
 def check_counts(path: str, got: dict, **want) -> None:
@@ -464,7 +505,7 @@ def phase_probe() -> str:
 
 
 def phase_build() -> None:
-    """Both kernels' sources, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together."""
     t0 = time.perf_counter()
     built = _build.build_all()
     report = {}
@@ -982,6 +1023,344 @@ def phase_rdb_bwd_ext(seed: int) -> dict:
     return rows
 
 
+# The pair synthesis (B3) at the bench tool's shape (64 crops of 96 px),
+# at the training crops' (64 of 128 px) and at an odd size (37 * 4),
+# whose three samples take one flip, the other, and both.
+PAIR_SYNTH_SHAPES = ((64, 96), (64, 128), (3, 148))
+ODD_FLIPS = ((1, 0), (0, 1), (1, 1))
+# HR holds bit for bit: one f32 product per value in both.  LR: the same
+# f32 sums, taken in another order, round a value that sits at a tie of
+# the uint8 quantization one level the other way; so every LR value
+# within 1/255 (+1e-6), and at most 0.1% of them differing.  A kernel
+# that runs the H pass first, or skips the quantization between the
+# passes, is also within one level: the fraction is what sees it.
+SYNTH_LR_ATOL = 1 / 255 + 1e-6
+SYNTH_LR_FRACTION = 1e-3
+WRONG_SYNTH = ("h_first", "no_mid_quant", "flips_swapped", "true_div")
+
+
+def emulated_synth(crops, flips, factor=4, fault=None):
+    """The plain pair synthesis, optionally with one of the
+    ``WRONG_SYNTH`` faults: ``(lr, hr)``."""
+    if fault == "flips_swapped":
+        flips = flips[:, [1, 0]]
+    x = crops.float()
+    # a tensor divisor: PyTorch's CUDA division by a scalar multiplies by
+    # its reciprocal, which is the right product
+    hr = _apply_flips(x / torch.full_like(x, 255.0) if fault == "true_div"
+                      else x * INV_255, flips)
+    size = hr.shape[1]
+    m = torch.from_numpy(resample_matrix(size, size // factor)).to(hr.device)
+    passes = ("ow,bhwc->bhoc", "oh,bhwc->bowc")
+    if fault == "h_first":
+        passes = passes[::-1]
+    lr = torch.einsum(passes[0], m, hr)
+    if fault != "no_mid_quant":
+        lr = _quantize_pixels(lr)
+    return _quantize_pixels(torch.einsum(passes[1], m, lr)), hr
+
+
+def synth_scores(got, ref) -> dict:
+    (lr, hr), (ref_lr, ref_hr) = got, ref
+    diff = (lr - ref_lr).abs()
+    return {"hr_equal": bool(torch.equal(hr, ref_hr)),
+            "hr_max_abs": float((hr - ref_hr).abs().max()),
+            "lr_max_abs": float(diff.max()),
+            "lr_frac_differing": float((diff > 0).float().mean())}
+
+
+def synth_ok(row: dict) -> bool:
+    return (row["hr_equal"] and row["lr_max_abs"] <= SYNTH_LR_ATOL
+            and row["lr_frac_differing"] <= SYNTH_LR_FRACTION)
+
+
+def synth_bound_ms(b: int, size: int, factor: int = 4) -> tuple:
+    """Crops and flips in, HR and LR out; the band's f32 FMAs (the
+    nonzero taps of the resampling matrix) over the f32 peak."""
+    s = size // factor
+    nbytes = b * size * size * 3 * (1 + 4) + 2 * b + b * s * s * 3 * 4
+    taps = int(np.count_nonzero(resample_matrix(size, s)))
+    flops = 2 * 3 * b * (size * taps + s * taps)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes > t_ops else "operations")
+
+
+def phase_pair_synth(seed: int) -> dict:
+    """B3 at ``PAIR_SYNTH_SHAPES``: HR bit for bit and LR within its
+    limits against the plain version, beside the ``WRONG_SYNTH``
+    kernels; each shape timed beside its plain version and bound."""
+    rng = np.random.default_rng(seed + 7)
+    rows = {}
+    for b, size in PAIR_SYNTH_SHAPES:
+        crops = torch.from_numpy(rng.integers(
+            0, 256, (b, size, size, 3), dtype=np.uint8)).to(DEVICE)
+        flips = (torch.tensor(ODD_FLIPS, dtype=torch.bool) if b == 3 else
+                 torch.from_numpy(rng.random((b, 2)) < 0.5)).to(DEVICE)
+        before = ps_ops.PAIR_SYNTH_LAUNCHES
+        got = ps_ops.synthesize_pair_cuda(crops, flips)
+        torch.cuda.synchronize()
+        check(ps_ops.PAIR_SYNTH_LAUNCHES == before + 1,
+              "synthesize_pair_cuda launched its kernel once")
+        lr, hr = got
+        s = size // 4
+        check(lr.shape == (b, s, s, 3) and hr.shape == crops.shape
+              and lr.dtype == hr.dtype == torch.float32,
+              "pair_synth returns (lr, hr) in f32")
+        ref = synthesize_pair(crops, flips)
+        row = synth_scores(got, ref)
+        row["wrong"] = {f: synth_scores(emulated_synth(crops, flips,
+                                                       fault=f), ref)
+                        for f in WRONG_SYNTH}
+        name = f"pair_synth {(b, size, size, 3)}"
+        check(synth_ok(row), f"{name} within its limits: {row}")
+        check(not any(synth_ok(w) for w in row["wrong"].values()),
+              f"{name}: the limits see every wrong kernel: {row['wrong']}")
+        row["max_abs_err"] = row["lr_max_abs"]
+        row["ms"] = median_ms(lambda: ps_ops.synthesize_pair_cuda(crops,
+                                                                  flips))
+        row["plain_ms"] = median_ms(lambda: synthesize_pair(crops, flips))
+        row["profile"] = profile_device_time(
+            lambda: ps_ops.synthesize_pair_cuda(crops, flips), 10,
+            _kernel_name)
+        row["bound_ms"], row["bound_by"] = synth_bound_ms(b, size)
+        row["library_ms"] = None  # no single PyTorch call computes it
+        rows[f"{b}x{size}"] = row
+        say(f"pair_synth[{b}x{size}]", shape=[b, size, size, 3],
+            lr_atol=SYNTH_LR_ATOL, lr_fraction=SYNTH_LR_FRACTION, **row)
+    b, size = PAIR_SYNTH_SHAPES[0]
+    return {"uint8": rows[f"{b}x{size}"]}
+
+
+# The 3x3 64 -> 64 conv (B4, B5) at the bench tool's shape (128 images
+# of 24 x 24), at a ragged multi-image one, and at the JAX gate's largest
+# image (128 x 256: 16384 pixel pairs).
+PAIR_CONV_SHAPES = ((128, 24, 24), (3, 5, 10), (1, 128, 256))
+# The forward and dx against pair_conv_reference / pair_conv_bwd_reference
+# (f32 convs, TF32 off, of the same operands) take STAGE_LIMITS: f32
+# differs in summation order only, bf16 also rounds once at the end,
+# where a tie may go the other way.  dW and db, sums over up to 73,728
+# pixels in another order, take BWD_STAGE_LIMITS.
+WRONG_PAIR_FWD = ("k_transposed", "no_column_mask", "bias_dropped")
+WRONG_PAIR_BWD = ("dx_unflipped", "dw_partial_dropped")
+
+
+def conv_no_column_mask(x, k, bias):
+    """A forward that masks rows but not columns: a tap left of column 0
+    reads the row above's last pixel, right of the last column the row
+    below's first, as in the flat NHWC buffer."""
+    b, h, w, c = x.shape
+    xp = F.pad(x.float().reshape(b, h * w, c), (0, 0, w + 1, w + 1))
+    kk = k.to(x.dtype).float()
+    rows = torch.arange(h, device=x.device)
+    y = bias.float().expand(b, h, w, c)
+    for ky in range(3):
+        valid = ((rows + ky - 1 >= 0) & (rows + ky - 1 < h)).float()
+        for kx in range(3):
+            start = (w + 1) + (ky - 1) * w + (kx - 1)
+            win = xp[:, start:start + h * w].reshape(b, h, w, c)
+            y = y + (win * valid.view(1, h, 1, 1)) @ kk[ky, kx]
+    return y.to(x.dtype)
+
+
+def dw_partial_dropped(x, k, g):
+    """The backward whose reduce skips the wgrad partial of group 0 (the
+    tiles ``pc_ops.wgrad_groups`` gives it): ``(dW, db)``."""
+    b, h, w, _ = x.shape
+    th, tw = pc_ops._WGRAD_TILE
+    nh, nw = -(-h // th), -(-w // tw)
+    dev = x.device
+    tile = (torch.arange(b, device=dev).view(b, 1, 1) * nh * nw
+            + (torch.arange(h, device=dev) // th).view(1, h, 1) * nw
+            + (torch.arange(w, device=dev) // tw).view(1, 1, w))
+    keep = tile % pc_ops.wgrad_groups(b, h, w) != 0
+    _, dw, db = pc_ops.pair_conv_bwd_reference(
+        x, k, g * keep[..., None].to(g.dtype))
+    return dw, db
+
+
+def pair_scores(x, k, bias, g, y, grads) -> dict:
+    """Excess of the forward ``y`` and of the backward ``grads`` = (dx,
+    dW, db) against the plain versions on the same inputs, and the
+    largest absolute errors of y and dx."""
+    dt = x.dtype
+    ref_y = pc_ops.pair_conv_reference(x, k, bias)
+    ref = pc_ops.pair_conv_bwd_reference(x, k, g)
+    return {"fwd": excess(y, ref_y, STAGE_LIMITS[dt]),
+            "dx": excess(grads[0], ref[0], STAGE_LIMITS[dt]),
+            "dw": excess(grads[1], ref[1], BWD_STAGE_LIMITS[dt]),
+            "db": excess(grads[2], ref[2], BWD_STAGE_LIMITS[dt]),
+            "max_abs_err": float((y.float() - ref_y.float()).abs().max()),
+            "dx_max_abs_err": float((grads[0].float()
+                                     - ref[0].float()).abs().max())}
+
+
+def pair_wrong_scores(x, k, bias, g) -> dict:
+    """What the ``WRONG_PAIR_FWD`` and ``WRONG_PAIR_BWD`` kernels read
+    under the same limits (the worst of dW and db for the dropped
+    partial)."""
+    dt = x.dtype
+    zeros = torch.zeros_like(bias)
+    ref_y = pc_ops.pair_conv_reference(x, k, bias)
+    ref_dx, ref_dw, ref_db = pc_ops.pair_conv_bwd_reference(x, k, g)
+    fwd = {"k_transposed": pc_ops.pair_conv_reference(x, k.transpose(2, 3),
+                                                      bias),
+           "no_column_mask": conv_no_column_mask(x, k, bias),
+           "bias_dropped": pc_ops.pair_conv_reference(x, k, zeros)}
+    rows = {name: excess(y, ref_y, STAGE_LIMITS[dt])
+            for name, y in fwd.items()}
+    unflipped = pc_ops.pair_conv_reference(g.to(dt), k.transpose(2, 3),
+                                           zeros)
+    rows["dx_unflipped"] = excess(unflipped, ref_dx, STAGE_LIMITS[dt])
+    dw, db = dw_partial_dropped(x, k, g)
+    rows["dw_partial_dropped"] = max(
+        excess(dw, ref_dw, BWD_STAGE_LIMITS[dt]),
+        excess(db, ref_db, BWD_STAGE_LIMITS[dt]))
+    return rows
+
+
+def hold_pair_conv(x, k, bias, g) -> dict:
+    """One forward and one backward kernel call, each output held
+    against the plain versions, beside the wrong kernels."""
+    fwd0, bwd0 = pc_ops.PAIR_FWD_LAUNCHES, pc_ops.PAIR_BWD_LAUNCHES
+    y = pc_ops.pair_conv_fwd_cuda(x, k, bias)
+    grads = pc_ops.pair_conv_bwd_cuda(x, k, g)
+    torch.cuda.synchronize()
+    check(pc_ops.PAIR_FWD_LAUNCHES == fwd0 + 1
+          and pc_ops.PAIR_BWD_LAUNCHES == bwd0 + 1,
+          "one forward and one backward counted")
+    check(all(bool(torch.isfinite(t).all()) for t in (y, *grads)),
+          "pair_conv outputs finite")
+    row = pair_scores(x, k, bias, g, y, grads)
+    row["wrong"] = pair_wrong_scores(x, k, bias, g)
+    name = f"pair_conv {x.dtype} {tuple(x.shape)}"
+    check(max(row[key] for key in ("fwd", "dx", "dw", "db")) <= 1,
+          f"{name} within its limits: {row}")
+    check(min(row["wrong"].values()) > 1,
+          f"{name}: the limits see every wrong kernel: {row['wrong']}")
+    return row
+
+
+def pair_conv_bound_ms(shape, dtype, backward: bool = False) -> tuple:
+    """The forward reads x, the kernel and the bias once and writes y;
+    the backward reads x, g and the kernel and writes dx, dW and db,
+    with twice the forward's operations."""
+    b, h, w = shape
+    px = b * h * w
+    item = torch.finfo(dtype).bits // 8
+    kbytes = 9 * pc_ops.C * pc_ops.C
+    if backward:
+        nbytes = 3 * px * pc_ops.C * item + kbytes * (item + 4) + 4 * pc_ops.C
+    else:
+        nbytes = 2 * px * pc_ops.C * item + kbytes * item + 4 * pc_ops.C
+    flops = 2 * kbytes * px * (2 if backward else 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes > t_ops else "operations")
+
+
+def conv_backward(g, x, k):
+    """One PyTorch call for dx, dW and db of a SAME 3x3 conv of NCHW
+    views (cuDNN's backward): B5's library yardstick."""
+    return torch.ops.aten.convolution_backward(
+        g, x, k, [k.shape[0]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, True, True])
+
+
+def phase_pair_conv(seed: int) -> dict:
+    """B4 and B5 at ``PAIR_CONV_SHAPES`` in f32 and bf16, every output
+    held against the plain versions; at the tool's shape each timed
+    beside its plain version, the library call (cuDNN's channels-last
+    convolution and its ``convolution_backward``, TF32 off) and its
+    bound."""
+    gen = torch.Generator().manual_seed(seed + 8)
+    k = (torch.randn((3, 3, 64, 64), generator=gen) * 0.05).to(DEVICE)
+    bias = (torch.randn((64,), generator=gen) * 0.1).to(DEVICE)
+    inputs = {shape: [(torch.randn((*shape, 64), generator=gen) * s).to(
+        DEVICE) for s in (0.5, 0.1)] for shape in PAIR_CONV_SHAPES}
+    timed = {"pair_fwd": {}, "pair_bwd": {}}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            rows = {}
+            for shape in PAIR_CONV_SHAPES:
+                x, g = (t.to(dtype) for t in inputs[shape])
+                rows["x".join(map(str, shape))] = hold_pair_conv(x, k, bias,
+                                                                 g)
+            shape = PAIR_CONV_SHAPES[0]
+            x, g = (t.to(dtype) for t in inputs[shape])
+            xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            kn = k.to(dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            bn = bias.to(dtype)
+            tool = rows["x".join(map(str, shape))]
+            name = str(dtype).removeprefix("torch.")
+            calls = {  # kernel, plain version, library call
+                "fwd": (lambda: pc_ops.pair_conv_fwd_cuda(x, k, bias),
+                        lambda: pc_ops.pair_conv_reference(x, k, bias),
+                        lambda: F.conv2d(xn, kn, bn, padding=1)),
+                "bwd": (lambda: pc_ops.pair_conv_bwd_cuda(x, k, g),
+                        lambda: pc_ops.pair_conv_bwd_reference(x, k, g),
+                        lambda: conv_backward(gn, xn, kn)),
+            }
+            for part, (kernel, plain, library) in calls.items():
+                backward = part == "bwd"
+                row = {"max_abs_err": tool["dx_max_abs_err" if backward
+                                           else "max_abs_err"],
+                       "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+                       "library_ms": median_ms(library),
+                       "profile": profile_device_time(kernel, 10,
+                                                      _kernel_name),
+                       "library_profile": profile_device_time(
+                           library, 10, _kernel_name)}
+                row["bound_ms"], row["bound_by"] = pair_conv_bound_ms(
+                    shape, dtype, backward)
+                flops = 2 * 9 * 64 * 64 * math.prod(shape) * (1 + backward)
+                row["tflops"] = flops / row["ms"] / 1e9
+                timed[f"pair_{part}"][name] = row
+            say(f"pair_conv[{name}]", shapes=[[*s, 64] for s in
+                                              PAIR_CONV_SHAPES],
+                fwd_limits=STAGE_LIMITS[dtype],
+                dw_limits=BWD_STAGE_LIMITS[dtype], checks=rows,
+                fwd=timed["pair_fwd"][name], bwd=timed["pair_bwd"][name])
+    return timed
+
+
+# Calls of bench_preprocess's kernel path: one warm-up, then --steps.
+BENCH_PREPROCESS_STEPS = 20
+
+
+def phase_bench_preprocess(seed: int) -> dict:
+    """``tools/bench_preprocess.py``'s port at its default shape, in
+    this process; B3 launched once per call of its kernel path."""
+    reset_counters()
+    bench_preprocess.main(["--steps", str(BENCH_PREPROCESS_STEPS)])
+    torch.cuda.synchronize()
+    counts = read_counters()
+    say("bench_preprocess", launches=counts)
+    check_counts("bench_preprocess", counts,
+                 pair_synth=BENCH_PREPROCESS_STEPS + 1)
+    return counts
+
+
+def phase_bench_pair_conv(seed: int) -> dict:
+    """``tools/bench_pair_conv.py``'s port at its defaults (bf16, both
+    modes), in this process.  Each measurement of the kernel path runs
+    each chain length three times (warm-up, two phases), one conv per
+    link: forward chains call B4 once a link, forward-backward chains
+    B4 and B5 once a link."""
+    reset_counters()
+    bench_pair_conv.main([])
+    torch.cuda.synchronize()
+    counts = read_counters()
+    calls = 3 * (bench_pair_conv.REPS_LO + bench_pair_conv.REPS_HI)
+    say("bench_pair_conv", launches=counts)
+    check_counts("bench_pair_conv", counts, pair_fwd=2 * calls,
+                 pair_bwd=calls)
+    return counts
+
+
 class _WrongBwdBlock(torch.autograd.Function):
     """The plain block forward with the emulated backward carrying one
     of the ``WRONG_BWD`` faults."""
@@ -1102,10 +1481,10 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_device_time(fn, batches: int = 3) -> dict:
-    """Device time per kernel class over ``batches`` calls of ``fn``,
-    and the device's busy share of the span from the first kernel to
-    the last."""
+def profile_device_time(fn, batches: int = 3, key=_kernel_class) -> dict:
+    """Device time per kernel class (or per ``key`` of the kernel's
+    name) over ``batches`` calls of ``fn``, and the device's busy share
+    of the span from the first kernel to the last."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1121,7 +1500,7 @@ def profile_device_time(fn, batches: int = 3) -> dict:
     by_class: dict = {}
     busy, cur_start, cur_end = 0.0, None, None
     for start, end, name in spans:
-        cls = _kernel_class(name)
+        cls = key(name)
         by_class[cls] = by_class.get(cls, 0.0) + (end - start) / 1e3
         if cur_end is None or start > cur_end:
             if cur_end is not None:
@@ -1139,6 +1518,13 @@ def profile_device_time(fn, batches: int = 3) -> dict:
         "kernels_per_batch": len(spans) / batches,
         "busy_share_of_span": busy / (spans[-1][1] - spans[0][0]),
     }
+
+
+def _kernel_name(name: str) -> str:
+    """A kernel's name without return type, namespaces' noise and
+    arguments."""
+    return name.removeprefix("void ").replace(
+        "(anonymous namespace)::", "").split("(")[0][:60]
 
 
 def _dist(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -1545,29 +1931,42 @@ def phase_train_speed(seed: int) -> dict:
 
 
 # The kernels of the kernels line: (name, source, the TPU kernel it
-# replaces, the phase rows that time it).
+# replaces under torchsr_tpu/ops/pallas/, the timed rows and their key,
+# the timed shape).
 KERNELS = (
-    ("rdb_fwd", "rdb_fwd.cu", 142, "rdb_fwd"),
-    ("rdb_bwd", "rdb_bwd.cu", 495, "rdb_bwd"),
-    ("rdb_fwd_ext", "rdb_ext.cu", 299, "rdb_fwd_ext"),
-    ("rdb_bwd_ext", "rdb_ext.cu", 594, "rdb_bwd_ext"),
-    ("rdb_fwd_ilv", "rdb_ilv.cu", 223, "rdb_fwd_ilv"),
+    ("rdb_fwd", "rdb_fwd.cu", "rdb.py:142", "rdb_fwd", "bfloat16",
+     SERVE_RDB_SHAPE),
+    ("rdb_bwd", "rdb_bwd.cu", "rdb.py:495", "rdb_bwd", "bfloat16",
+     TRAIN_RDB_SHAPE),
+    ("rdb_fwd_ext", "rdb_ext.cu", "rdb.py:299", "rdb_fwd_ext", "bfloat16",
+     SERVE_RDB_SHAPE),
+    ("rdb_bwd_ext", "rdb_ext.cu", "rdb.py:594", "rdb_bwd_ext", "bfloat16",
+     TRAIN_RDB_SHAPE),
+    ("rdb_fwd_ilv", "rdb_ilv.cu", "rdb.py:223", "rdb_fwd_ilv", "bfloat16",
+     SERVE_RDB_SHAPE),
+    ("pair_synth", "pair_synth.cu", "preprocess.py:45", "pair_synth",
+     "uint8", (*PAIR_SYNTH_SHAPES[0], PAIR_SYNTH_SHAPES[0][1], 3)),
+    ("pair_fwd", "pair_conv.cu", "pair_conv.py:134", "pair_fwd", "bfloat16",
+     (*PAIR_CONV_SHAPES[0], 64)),
+    ("pair_bwd", "pair_conv.cu", "pair_conv.py:148", "pair_bwd", "bfloat16",
+     (*PAIR_CONV_SHAPES[0], 64)),
 )
 
 
 def kernels_line(timed: dict, paths: dict) -> dict:
-    """One entry per kernel: its bf16 time, plain time and bound from
-    its phase, and its launches on each main path (counters set to 0
-    just before each path)."""
+    """One entry per kernel: its time, plain time, bound and library
+    time (where one PyTorch call computes it) from its phase, and its
+    launches on each main path (counters set to 0 just before each
+    path)."""
     out = []
-    for name, source, line, phase in KERNELS:
-        row = timed[phase]["bfloat16"]
+    for name, source, replaces, phase, key, shape in KERNELS:
+        row = timed[phase][key]
         by_path = {p: c[name] for p, c in paths.items()}
         out.append({
             "name": name,
             "route": "cuda",
             "source": f"torchsr_tpu_torch/ops/csrc/{source}",
-            "replaces": f"torchsr_tpu/ops/pallas/rdb.py:{line}",
+            "replaces": f"torchsr_tpu/ops/pallas/{replaces}",
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"],
@@ -1575,10 +1974,9 @@ def kernels_line(timed: dict, paths: dict) -> dict:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            "library_ms": None,
-            "dtype": "bfloat16",
-            "shape": list(TRAIN_RDB_SHAPE if "bwd" in name
-                          else SERVE_RDB_SHAPE),
+            "library_ms": row.get("library_ms"),
+            "dtype": key,
+            "shape": list(shape),
         })
     return {"kernels": out}
 
@@ -1590,7 +1988,8 @@ def main() -> None:
         "--only", type=str, default="",
         help="Comma-separated phases to run after probe and build (for "
              "kernel work; prints no kernels or final line): rdb_fwd, "
-             "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, train_grad, "
+             "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, pair_synth, "
+             "pair_conv, bench_preprocess, bench_pair_conv, train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, "
              "train_speed.")
     args = parser.parse_args()
@@ -1601,7 +2000,15 @@ def main() -> None:
     # the default paths run with every knob off, whatever the environment
     for name in ("EXT_KERNEL", "ILV_KERNEL", "BWD_XLA"):
         setattr(rdb_ops, name, False)
-    phase_build()
+    seconds = {}
+
+    def run(name, fn, *fn_args, **fn_kwargs):
+        t0 = time.perf_counter()
+        out = fn(*fn_args, **fn_kwargs)
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    run("build", phase_build)
     seed = args.seed
     if args.only:
         phases = {
@@ -1609,6 +2016,9 @@ def main() -> None:
             "rdb_fwd_ext": lambda s: phase_rdb_variant(s, "ext"),
             "rdb_fwd_ilv": lambda s: phase_rdb_variant(s, "ilv"),
             "rdb_bwd": phase_rdb_bwd, "rdb_bwd_ext": phase_rdb_bwd_ext,
+            "pair_synth": phase_pair_synth, "pair_conv": phase_pair_conv,
+            "bench_preprocess": phase_bench_preprocess,
+            "bench_pair_conv": phase_bench_pair_conv,
             "train_grad": phase_train_grad,
             "train_grad_ext": lambda s: phase_train_grad(s, "ext"),
             "train_grad_xla": lambda s: phase_train_grad(s, "xla"),
@@ -1616,32 +2026,42 @@ def main() -> None:
             "train_ext": lambda s: phase_train(s, ext=True),
             "train_speed": phase_train_speed}
         for name in args.only.split(","):
-            phases[name](seed)
+            run(name, phases[name], seed)
+        say("seconds", **seconds)
         return
-    timed = {"rdb_fwd": phase_rdb(seed),
-             "rdb_fwd_ext": phase_rdb_variant(seed, "ext"),
-             "rdb_fwd_ilv": phase_rdb_variant(seed, "ilv"),
-             "rdb_bwd": phase_rdb_bwd(seed),
-             "rdb_bwd_ext": phase_rdb_bwd_ext(seed)}
+    timed = {"rdb_fwd": run("rdb_fwd", phase_rdb, seed),
+             "rdb_fwd_ext": run("rdb_fwd_ext", phase_rdb_variant, seed,
+                                "ext"),
+             "rdb_fwd_ilv": run("rdb_fwd_ilv", phase_rdb_variant, seed,
+                                "ilv"),
+             "rdb_bwd": run("rdb_bwd", phase_rdb_bwd, seed),
+             "rdb_bwd_ext": run("rdb_bwd_ext", phase_rdb_bwd_ext, seed),
+             "pair_synth": run("pair_synth", phase_pair_synth, seed),
+             **run("pair_conv", phase_pair_conv, seed)}
+    paths = {"bench_preprocess": run("bench_preprocess",
+                                     phase_bench_preprocess, seed),
+             "bench_pair_conv": run("bench_pair_conv",
+                                    phase_bench_pair_conv, seed)}
     for variant in TRAIN_GRAD_VARIANTS:
-        phase_train_grad(seed, variant)
-    gen = phase_generator(seed, timed["rdb_fwd"]["bfloat16"]["ms"])
+        run("train_grad", phase_train_grad, seed, variant)
+    gen = run("generator", phase_generator, seed,
+              timed["rdb_fwd"]["bfloat16"]["ms"])
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     ckpt = os.path.join(workdir, "esrgan-gan-best.pth")
     save_checkpoint(ckpt, 1, "gan", gen.state_dict())
-    paths = {}
-    paths["serve"], answers = phase_serve(gen, ckpt, seed)
-    paths["serve_ilv"], _ = phase_serve(gen, ckpt, seed, ilv=True,
-                                        prior=answers)
-    phase_test(ckpt, seed)
+    paths["serve"], answers = run("serve", phase_serve, gen, ckpt, seed)
+    paths["serve_ilv"], _ = run("serve", phase_serve, gen, ckpt, seed,
+                                ilv=True, prior=answers)
+    run("test", phase_test, ckpt, seed)
     del gen
     for phase, ext in (("train", False), ("train_ext", True)):
-        row = phase_train(seed, ext=ext)
+        row = run(phase, phase_train, seed, ext=ext)
         paths[phase] = row["launches"]
         for t in row["test"]:
             paths[" ".join([f"{phase}: test", *t["args"]])] = t["launches"]
-    phase_train_speed(seed)
+    run("train_speed", phase_train_speed, seed)
+    say("seconds", **seconds)
     # the card again, beside the results: the phase lines above can
     # outgrow the part of the output a caller keeps
     print(smi, flush=True)

@@ -7,7 +7,11 @@ chip_smoke.py's own ``emulated_bwd``), and chip_smoke.py's scoring must
 pass that emulation and fail the same emulation with a fault put in:
 a forward launch left at zero or with its taps mirrored; a backward
 with one conv's dW left at zero, LeakyReLU' taken as 1, the dgrad taps
-not flipped, or conv5's dense gradient not passed to convs 1-4.
+not flipped, or conv5's dense gradient not passed to convs 1-4.  The
+same for the pair synthesis (B3: H pass first, no quantization between
+the passes, flip columns swapped, a true division by 255) and the 3x3
+64 -> 64 conv (B4, B5: K transposed, no column mask, bias dropped, dx
+with the unflipped kernel, one CTA's dW partial dropped).
 """
 
 import importlib.util
@@ -18,6 +22,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from torchsr_tpu_torch.ops import pair_conv as pc_ops
+from torchsr_tpu_torch.ops import preprocess as ps_ops
 from torchsr_tpu_torch.ops import rdb as rdb_ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -243,12 +249,85 @@ def test_bwd_ext_limits_catch_each_wrong_kernel(dtype, fault):
     assert smoke._worst(row) > 1, row
 
 
+SYNTH_SHAPE = (4, 32)  # crops, side: mixed flips
+
+
+def _synth_inputs():
+    rng = np.random.default_rng(11)
+    b, s = SYNTH_SHAPE
+    crops = torch.from_numpy(rng.integers(0, 256, (b, s, s, 3),
+                                          dtype=np.uint8))
+    flips = torch.tensor([[1, 0], [0, 1], [1, 1], [0, 0]], dtype=torch.bool)
+    return crops, flips
+
+
+def test_synth_limits_pass_the_plain_arithmetic():
+    """The kernel's arithmetic (the plain version, and chip_smoke's own
+    emulation of it) passes B3's limits."""
+    crops, flips = _synth_inputs()
+    ref = smoke.synthesize_pair(crops, flips)
+    row = smoke.synth_scores(ps_ops.synthesize_pair_cuda(crops, flips), ref)
+    assert smoke.synth_ok(row) and row["lr_max_abs"] == 0, row
+    assert smoke.synth_ok(smoke.synth_scores(
+        smoke.emulated_synth(crops, flips), ref))
+
+
+@pytest.mark.parametrize("fault", smoke.WRONG_SYNTH)
+def test_synth_limits_catch_each_wrong_kernel(fault):
+    """H pass first, no quantization between the passes, the flip columns
+    swapped, or a true division by 255: each fails B3's limits."""
+    crops, flips = _synth_inputs()
+    row = smoke.synth_scores(smoke.emulated_synth(crops, flips, fault=fault),
+                             smoke.synthesize_pair(crops, flips))
+    assert not smoke.synth_ok(row), row
+
+
+PAIR_SHAPE = (3, 5, 10, 64)  # ragged, several images, W = 10
+
+
+def _pair_inputs(dtype):
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(0, 0.5, PAIR_SHAPE).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 0.1, PAIR_SHAPE).astype(np.float32))
+    k = torch.from_numpy(rng.normal(0, 0.05, (3, 3, 64, 64)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, (64,)).astype(np.float32))
+    return x.to(dtype), k, b, g.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_pair_conv_limits_pass_the_kernels_arithmetic(dtype):
+    """The kernels' arithmetic (the plain versions: f32 sums rounded once
+    to x's dtype) passes B4's and B5's limits."""
+    x, k, b, g = _pair_inputs(dtype)
+    y = pc_ops.pair_conv_reference(x, k, b)
+    row = smoke.pair_scores(x, k, b, g, y,
+                            pc_ops.pair_conv_bwd_reference(x, k, g))
+    assert max(row[key] for key in ("fwd", "dx", "dw", "db")) <= 1, row
+    # with a zero column at each side the emulated column-mask fault
+    # wraps onto zeros only: its fault is the wrap and nothing else
+    masked = smoke.conv_no_column_mask(F.pad(x, (0, 0, 1, 1)), k, b)
+    assert smoke.excess(masked[:, :, 1:-1], y, smoke.STAGE_LIMITS[dtype]) \
+        <= 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_pair_conv_limits_catch_each_wrong_kernel(dtype):
+    """K transposed, no column mask, bias dropped (forward); dx with the
+    unflipped kernel, one CTA's dW partial dropped (backward): each
+    reads over its limit."""
+    x, k, b, g = _pair_inputs(dtype)
+    wrong = smoke.pair_wrong_scores(x, k, b, g)
+    assert set(wrong) == set(smoke.WRONG_PAIR_FWD + smoke.WRONG_PAIR_BWD)
+    assert min(wrong.values()) > 1, wrong
+
+
 def test_check_counts_names_every_counter():
     """The launch check holds every counter: one not named must be 0,
     the TORCHSR_RDB_BWD=xla one included."""
     smoke.reset_counters()
     assert set(smoke.read_counters()) == set(smoke.COUNTERS)
-    assert all(hasattr(rdb_ops, a) for a in smoke.COUNTERS.values())
+    assert all(hasattr(m, a) for m, a in smoke.COUNTERS.values())
     smoke.check_counts("none", smoke.read_counters())
     try:
         rdb_ops.RDB_BWD_XLA_LAUNCHES = 1

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from torchsr_tpu_torch.ops.resize import bicubic_resize
+from torchsr_tpu_torch.ops.resize import INV_255, bicubic_resize
 
 
 def _apply_flips(hr: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
@@ -29,7 +29,7 @@ def synthesize_pair(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """uint8 HR crops (B, S, S, 3) + flip bits (B, 2) -> (lr, hr) f32
     batches in [0, 1], on the crops' device."""
-    hr = _apply_flips(crops_u8.float() / 255.0, flips)
+    hr = _apply_flips(crops_u8.float() * INV_255, flips)
     lr_size = hr.shape[1] // upscale_factor
     lr = bicubic_resize(hr, (lr_size, lr_size), quantize=True)
     return lr, hr
@@ -40,7 +40,7 @@ def synthesize_eval_triple(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """uint8 HR crops -> (lr, bicubic re-upscale of lr, hr), no
     augmentation (the reference's TestData triple)."""
-    hr = crops_u8.float() / 255.0
+    hr = crops_u8.float() * INV_255
     size = hr.shape[1]
     lr_size = size // upscale_factor
     lr = bicubic_resize(hr, (lr_size, lr_size), quantize=True)

@@ -1,1 +1,2 @@
-"""Tensor operations: the RDB kernel wrapper and its plain version, resizing."""
+"""Tensor operations: the kernel wrappers (RDB, pair synthesis, 3x3 conv)
+and their plain versions, resizing."""

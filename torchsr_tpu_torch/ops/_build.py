@@ -74,6 +74,22 @@ SIGNATURES = {
         ),
         "rdb_ilv_error_string": (ctypes.c_char_p, (_I,)),
     },
+    "pair_synth": {
+        "pair_synth_launch": (
+            _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+        ),
+        "pair_synth_error_string": (ctypes.c_char_p, (_I,)),
+    },
+    "pair_conv": {
+        "pair_conv_launch": (_I, (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+        "pair_conv_wgrad_launch": (
+            _I, (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+        ),
+        "pair_conv_reduce_launch": (
+            _I, (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P)
+        ),
+        "pair_conv_error_string": (ctypes.c_char_p, (_I,)),
+    },
 }
 
 

@@ -63,9 +63,16 @@ def resample_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat.astype(np.float32)
 
 
+# 1/255 as an f32 constant.  The JAX package writes ``/ 255.0``, and XLA
+# compiles that as a multiply by the f32 reciprocal; a true division
+# differs from that product by one ulp for 126 of the 256 uint8 values,
+# so the port multiplies by the same constant.
+INV_255 = float(np.float32(1) / np.float32(255))
+
+
 def _quantize_pixels(x: torch.Tensor) -> torch.Tensor:
     """Clamp to [0, 1] and snap to the uint8 grid (k/255 values)."""
-    return torch.round(x.clamp(0.0, 1.0) * 255.0) / 255.0
+    return torch.round(x.clamp(0.0, 1.0) * 255.0) * INV_255
 
 
 def bicubic_resize(
@@ -76,7 +83,7 @@ def bicubic_resize(
     emulates PIL's uint8 pipeline: clamp and round after the width pass
     and again after the height pass."""
     if not x.is_floating_point():
-        x = x.float() / 255.0
+        x = x.float() * INV_255
     else:
         x = x.float()
     h_in, w_in = x.shape[-3], x.shape[-2]
