@@ -50,11 +50,15 @@ renders, tile batches or tool calls imply, every other counter (the
    one uint8 level at <= 0.1% of values against the plain version,
    beside four wrong kernels; timed beside the plain version.
 9. pair_conv (B4, B5): the 3x3 64 -> 64 conv forward and backward at
-   the bench tool's shape (128, 24, 24, 64), a ragged multi-image one
-   and the gate's largest image, f32 and bf16: y, dx, dW and db per
-   element against the plain versions, beside five wrong kernels; timed
-   beside the plain versions and the library call (cuDNN's convolution
-   and its ``convolution_backward``).
+   the bench tool's shape (128, 24, 24, 64), a ragged multi-image one,
+   the gate's largest image, an all-edge (4, 3, 2, 64) and a ragged
+   persistent schedule (7, 33, 46, 64), f32 and bf16: y, dx, dW and db
+   per element against the plain versions, beside five wrong kernels
+   (six where a persistent CTA walks several runs: ``stale_stage``); two
+   backwards' dW and db bit-equal; timed beside the plain versions and
+   the library call (cuDNN's convolution and its
+   ``convolution_backward``), each call's profile holding only its own
+   kernels (one for B4, three for B5).
 10. bench_preprocess, bench_pair_conv: the two bench tools
     (``torchsr_tpu_torch/tools/``) at their default shapes, in this
     process, printing their own lines; the pair counters must read what
@@ -1134,9 +1138,12 @@ def phase_pair_synth(seed: int) -> dict:
 
 
 # The 3x3 64 -> 64 conv (B4, B5) at the bench tool's shape (128 images
-# of 24 x 24), at a ragged multi-image one, and at the JAX gate's largest
-# image (128 x 256: 16384 pixel pairs).
-PAIR_CONV_SHAPES = ((128, 24, 24), (3, 5, 10), (1, 128, 256))
+# of 24 x 24), at a ragged multi-image one, at the JAX gate's largest
+# image (128 x 256: 16384 pixel pairs), at one where every pixel lies on
+# an edge, and at one where the persistent schedule's runs are ragged at
+# widths no run divides.
+PAIR_CONV_SHAPES = ((128, 24, 24), (3, 5, 10), (1, 128, 256), (4, 3, 2),
+                    (7, 33, 46))
 # The forward and dx against pair_conv_reference / pair_conv_bwd_reference
 # (f32 convs, TF32 off, of the same operands) take STAGE_LIMITS: f32
 # differs in summation order only, bf16 also rounds once at the end,
@@ -1144,6 +1151,9 @@ PAIR_CONV_SHAPES = ((128, 24, 24), (3, 5, 10), (1, 128, 256))
 # pixels in another order, take BWD_STAGE_LIMITS.
 WRONG_PAIR_FWD = ("k_transposed", "no_column_mask", "bias_dropped")
 WRONG_PAIR_BWD = ("dx_unflipped", "dw_partial_dropped")
+# Held where some persistent CTA walks more than one run (elsewhere the
+# fault changes nothing): the bench tool's shape and the gate's largest.
+WRONG_PAIR_STALE = "stale_stage"
 
 
 def conv_no_column_mask(x, k, bias):
@@ -1165,19 +1175,33 @@ def conv_no_column_mask(x, k, bias):
 
 
 def dw_partial_dropped(x, k, g):
-    """The backward whose reduce skips the wgrad partial of group 0 (the
-    tiles ``pc_ops.wgrad_groups`` gives it): ``(dW, db)``."""
-    b, h, w, _ = x.shape
-    th, tw = pc_ops._WGRAD_TILE
-    nh, nw = -(-h // th), -(-w // tw)
-    dev = x.device
-    tile = (torch.arange(b, device=dev).view(b, 1, 1) * nh * nw
-            + (torch.arange(h, device=dev) // th).view(1, h, 1) * nw
-            + (torch.arange(w, device=dev) // tw).view(1, 1, w))
-    keep = tile % pc_ops.wgrad_groups(b, h, w) != 0
+    """The backward whose reduce skips the wgrad's partial 0 (the pixels
+    ``pc_ops.wgrad_partition`` gives it): ``(dW, db)``."""
+    keep = pc_ops.wgrad_partition(*x.shape[:3], x.dtype) != 0
     _, dw, db = pc_ops.pair_conv_bwd_reference(
-        x, k, g * keep[..., None].to(g.dtype))
+        x, k, g * keep[..., None].to(g.device, g.dtype))
     return dw, db
+
+
+def multi_run(shape) -> bool:
+    """Some persistent CTA of the bf16 conv walks more than one run."""
+    return max(map(len, pc_ops.conv_schedule(*shape))) > 1
+
+
+def stale_stage(x, k, bias):
+    """A forward whose CTAs compute each run after their first from the
+    stage of the run before: each such run takes the output of the
+    CTA's previous run (as many pixels as both hold)."""
+    b, h, w, c = x.shape
+    ref = pc_ops.pair_conv_reference(x, k, bias).reshape(b, h * w, c)
+    out = ref.clone()
+    runs = pc_ops.conv_runs(b, h, w)
+    for walk in pc_ops.conv_schedule(b, h, w):
+        for prev, cur in zip(walk, walk[1:]):
+            (pi, pp, pn), (ci, cp, cn) = runs[prev], runs[cur]
+            n = min(pn, cn)
+            out[ci, cp:cp + n] = ref[pi, pp:pp + n]
+    return out.view(b, h, w, c)
 
 
 def pair_scores(x, k, bias, g, y, grads) -> dict:
@@ -1199,7 +1223,7 @@ def pair_scores(x, k, bias, g, y, grads) -> dict:
 def pair_wrong_scores(x, k, bias, g) -> dict:
     """What the ``WRONG_PAIR_FWD`` and ``WRONG_PAIR_BWD`` kernels read
     under the same limits (the worst of dW and db for the dropped
-    partial)."""
+    partial), and ``WRONG_PAIR_STALE`` where ``multi_run``."""
     dt = x.dtype
     zeros = torch.zeros_like(bias)
     ref_y = pc_ops.pair_conv_reference(x, k, bias)
@@ -1208,6 +1232,8 @@ def pair_wrong_scores(x, k, bias, g) -> dict:
                                                       bias),
            "no_column_mask": conv_no_column_mask(x, k, bias),
            "bias_dropped": pc_ops.pair_conv_reference(x, k, zeros)}
+    if multi_run(x.shape[:3]):
+        fwd[WRONG_PAIR_STALE] = stale_stage(x, k, bias)
     rows = {name: excess(y, ref_y, STAGE_LIMITS[dt])
             for name, y in fwd.items()}
     unflipped = pc_ops.pair_conv_reference(g.to(dt), k.transpose(2, 3),
@@ -1221,15 +1247,19 @@ def pair_wrong_scores(x, k, bias, g) -> dict:
 
 
 def hold_pair_conv(x, k, bias, g) -> dict:
-    """One forward and one backward kernel call, each output held
-    against the plain versions, beside the wrong kernels."""
+    """One forward and two backward kernel calls, each output held
+    against the plain versions, beside the wrong kernels; the two
+    backwards' dW and db must be bit-equal."""
     fwd0, bwd0 = pc_ops.PAIR_FWD_LAUNCHES, pc_ops.PAIR_BWD_LAUNCHES
     y = pc_ops.pair_conv_fwd_cuda(x, k, bias)
     grads = pc_ops.pair_conv_bwd_cuda(x, k, g)
+    again = pc_ops.pair_conv_bwd_cuda(x, k, g)
     torch.cuda.synchronize()
     check(pc_ops.PAIR_FWD_LAUNCHES == fwd0 + 1
-          and pc_ops.PAIR_BWD_LAUNCHES == bwd0 + 1,
-          "one forward and one backward counted")
+          and pc_ops.PAIR_BWD_LAUNCHES == bwd0 + 2,
+          "one forward and two backwards counted")
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"pair_conv {x.dtype} {tuple(x.shape)}: two backwards bit-equal")
     check(all(bool(torch.isfinite(t).all()) for t in (y, *grads)),
           "pair_conv outputs finite")
     row = pair_scores(x, k, bias, g, y, grads)
@@ -1269,12 +1299,27 @@ def conv_backward(g, x, k):
         [True, True, True])
 
 
+# The kernels one call of B4 (one) and of B5 (three) may launch: no copy
+# or cast kernel beside them.
+PAIR_KERNELS = {False: ("conv_",), True: ("conv_", "wgrad_", "reduce_partials")}
+
+
+def check_pair_profile(prof: dict, dtype, backward: bool) -> None:
+    names = PAIR_KERNELS[backward]
+    kinds = prof["device_ms_per_batch"]
+    check(prof["kernels_per_batch"] == len(names)
+          and len(kinds) == len(names)
+          and all(any(n in k for n in names) for k in kinds),
+          f"one pair_conv {'backward' if backward else 'forward'} "
+          f"({dtype}) launches only {names}: {kinds}")
+
+
 def phase_pair_conv(seed: int) -> dict:
     """B4 and B5 at ``PAIR_CONV_SHAPES`` in f32 and bf16, every output
     held against the plain versions; at the tool's shape each timed
     beside its plain version, the library call (cuDNN's channels-last
     convolution and its ``convolution_backward``, TF32 off) and its
-    bound."""
+    bound, and each call's profile held to its own kernels."""
     gen = torch.Generator().manual_seed(seed + 8)
     k = (torch.randn((3, 3, 64, 64), generator=gen) * 0.05).to(DEVICE)
     bias = (torch.randn((64,), generator=gen) * 0.1).to(DEVICE)
@@ -1314,6 +1359,7 @@ def phase_pair_conv(seed: int) -> dict:
                                                       _kernel_name),
                        "library_profile": profile_device_time(
                            library, 10, _kernel_name)}
+                check_pair_profile(row["profile"], dtype, backward)
                 row["bound_ms"], row["bound_by"] = pair_conv_bound_ms(
                     shape, dtype, backward)
                 flops = 2 * 9 * 64 * 64 * math.prod(shape) * (1 + backward)
@@ -1953,9 +1999,16 @@ KERNELS = (
 )
 
 
+def _profiled_ms(prof) -> float | None:
+    """Device time per call of a phase's profile (None: not profiled)."""
+    return None if prof is None else sum(
+        prof["device_ms_per_batch"].values())
+
+
 def kernels_line(timed: dict, paths: dict) -> dict:
     """One entry per kernel: its time, plain time, bound and library
-    time (where one PyTorch call computes it) from its phase, and its
+    time (where one PyTorch call computes it) from its phase, the device
+    time of both where the phase profiles them, and its
     launches on each main path (counters set to 0 just before each
     path)."""
     out = []
@@ -1975,6 +2028,8 @@ def kernels_line(timed: dict, paths: dict) -> dict:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
+            "device_ms": _profiled_ms(row.get("profile")),
+            "library_device_ms": _profiled_ms(row.get("library_profile")),
             "dtype": key,
             "shape": list(shape),
         })

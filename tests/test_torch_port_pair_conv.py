@@ -152,11 +152,67 @@ def test_kernel_paths_take_cuda_tensors_only():
 
 
 def test_wgrad_groups():
-    """The wgrad's f32 partials: one per 8 x 32 pixel tile, at most
-    132."""
+    """The wgrad's f32 partials: in bf16 one per persistent CTA (one per
+    128-pixel run, at most 132), in f32 one per 8 x 32 pixel tile, at
+    most 132."""
     assert pc.wgrad_groups(128, 24, 24) == 132
     assert pc.wgrad_groups(3, 5, 10) == 3
-    assert pc.wgrad_groups(1, 128, 256) == 128
+    assert pc.wgrad_groups(1, 128, 256) == 132
+    f32 = torch.float32
+    assert pc.wgrad_groups(128, 24, 24, f32) == 132
+    assert pc.wgrad_groups(3, 5, 10, f32) == 3
+    assert pc.wgrad_groups(1, 128, 256, f32) == 128
+
+
+# chip_smoke.py's pair_conv shapes
+SMOKE_SHAPES = [(128, 24, 24), (3, 5, 10), (1, 128, 256), (4, 3, 2),
+                (7, 33, 46)]
+
+
+@pytest.mark.parametrize("shape", SMOKE_SHAPES, ids=str)
+def test_schedule_covers_each_pixel_once(shape):
+    """The persistent schedule's mirror: the CTAs' walks split the runs
+    between them, the runs cover each output pixel exactly once (within
+    one image, at most 128 pixels, inside a row where W > 64), the grid
+    is what the wrappers launch, and the wgrad's partials own disjoint
+    pixel sets that cover the batch."""
+    b, h, w = shape
+    runs = pc.conv_runs(b, h, w)
+    walks = pc.conv_schedule(b, h, w)
+    assert len(walks) == pc.conv_ctas(b, h, w) == pc.wgrad_groups(b, h, w)
+    assert sorted(t for walk in walks for t in walk) == list(range(len(runs)))
+    seen = np.zeros((b, h * w), np.int64)
+    for img, p0, n in runs:
+        assert 0 < n <= 128
+        if w > 64:
+            assert p0 // w == (p0 + n - 1) // w
+        seen[img, p0:p0 + n] += 1
+    assert (seen == 1).all()
+    part = pc.wgrad_partition(b, h, w, torch.bfloat16).view(b, h * w)
+    for cta, walk in enumerate(walks):
+        mask = np.zeros((b, h * w), bool)
+        for t in walk:
+            img, p0, n = runs[t]
+            mask[img, p0:p0 + n] = True
+        assert ((part.numpy() == cta) == mask).all()
+
+
+def _halo_pixels(w, p0, n):
+    """A run's halo as the kernels stage it (``run_of`` in
+    csrc/pair_conv.cu): the image rows it touches and one above and
+    below, whole rows plus two pad columns where w <= 64, else its own
+    n + 2 columns."""
+    rows = (p0 + n - 1) // w - p0 // w + 3
+    return rows * (w + 2 if w <= 64 else n + 2)
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 7, 40], ids=str)
+def test_every_run_halo_fits_a_stage(h):
+    """A stage of the bf16 kernels holds 392 halo pixels: no width's run
+    needs more."""
+    need = max(_halo_pixels(w, p0, n) for w in range(1, 400)
+               for _, p0, n in pc.conv_runs(1, h, w))
+    assert need <= pc._HALO_MAX
 
 
 def test_bench_tool_runs_on_the_cpu(capsys):

@@ -322,6 +322,29 @@ def test_pair_conv_limits_catch_each_wrong_kernel(dtype):
     assert min(wrong.values()) > 1, wrong
 
 
+STALE_SHAPE = (133, 2, 2, 64)  # 133 one-run images: CTA 0 walks two runs
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_pair_conv_limits_catch_a_stale_stage(dtype):
+    """A persistent CTA that computes a run from the stage of its
+    previous run reads over B4's limit; the plain arithmetic passes the
+    same limit at the same shape, and the fault is only held where a CTA
+    walks several runs."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(0, 0.5, STALE_SHAPE).astype(
+        np.float32)).to(dtype)
+    _, k, b, _ = _pair_inputs(dtype)
+    ref = pc_ops.pair_conv_reference(x, k, b)
+    limits = smoke.STAGE_LIMITS[dtype]
+    assert smoke.multi_run(STALE_SHAPE[:3])
+    assert not smoke.multi_run(PAIR_SHAPE[:3])
+    assert smoke.excess(smoke.stale_stage(x, k, b), ref, limits) > 1
+    assert smoke.excess(pc_ops.pair_conv_reference(x, k, b), ref,
+                        limits) <= 1
+    assert smoke.WRONG_PAIR_STALE in smoke.pair_wrong_scores(x, k, b, x)
+
+
 def test_check_counts_names_every_counter():
     """The launch check holds every counter: one not named must be 0,
     the TORCHSR_RDB_BWD=xla one included."""

@@ -81,7 +81,9 @@ SIGNATURES = {
         "pair_synth_error_string": (ctypes.c_char_p, (_I,)),
     },
     "pair_conv": {
-        "pair_conv_launch": (_I, (_I, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+        "pair_conv_launch": (
+            _I, (_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+        ),
         "pair_conv_wgrad_launch": (
             _I, (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
         ),

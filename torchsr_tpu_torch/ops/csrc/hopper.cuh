@@ -1,0 +1,103 @@
+// Hopper (sm_90a) helpers for the kernels that stage tiles asynchronously
+// and multiply on warpgroups: cp.async with zero-fill and its commit
+// groups, the proxy fence, the wgmma shared-memory descriptor, and the
+// bf16 m64n64k16 wgmma with A in registers, with its fence, commit and
+// wait.  Shared-memory tiles that wgmma or ldmatrix read are rows of
+// 128 bytes (64 bf16) in the 128-byte swizzle: the 16-byte chunk c of row
+// r lies at chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes, aligned
+// to 1024), as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk `c` of 128-byte row `r` in the swizzle.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// 16 bytes global -> shared, asynchronous; `valid` false writes zeros
+// (the source is then not read, but must be a mapped address).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to
+// the async proxy (wgmma's operand reads); a barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers the asynchronous wgmma reads or writes: the compiler
+// may not move their uses across this point.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Descriptor of a 128-byte-swizzled operand tile at shared address
+// `addr` (its atom 1024-aligned; a K step inside the row adds its byte
+// offset to addr).  Both strides are one atom, 1024 bytes: the stride
+// between 8-row groups, and (an N of 64 is one atom wide) the unused one.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 64 f32, the warpgroup's accumulator fragment) += A (64 x 16
+// bf16, in registers: each warp's 16 rows as mma.sync's m16n8k16 A
+// fragment) * B (16 x 64 bf16 at descriptor `b`); TRANS_B 0: B stored
+// K-major ([n][k], rows of k), 1: MN-major ([k][n], rows of n).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TRANS_B),
+        "r"(1));
+}
+
+}  // namespace hopper

@@ -21,7 +21,11 @@ kernel's dtype; db sums the rounded g in f32.
 
 The TPU kernels pack two pixels per 128-lane row to fill the MXU; the
 Hopper kernels (``csrc/pair_conv.cu``, design and bound in its header)
-compute the plain conv.  A CUDA tensor runs them through ``_PairConv``;
+compute the plain conv: in bf16 on ``wgmma`` over a persistent grid that
+walks runs of up to 128 output pixels, ``conv_runs`` and
+``conv_schedule`` below mirroring their schedule.  The kernels read the
+caller's kernel (f32 or x's dtype) and round and flip it themselves, so
+no weight copy is made on the host.  A CUDA tensor runs them through ``_PairConv``;
 a CPU tensor runs the plain versions, ``pair_conv_reference`` and
 ``pair_conv_bwd_reference``, through the same Function.  There is no
 fallback: on CUDA the kernel runs or the call raises.  The JAX
@@ -34,12 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from torchsr_tpu_torch.ops.rdb import (
-    _aligned,
-    _cuda_operands,
-    _raise_on,
-    flipped_kernel,
-)
+from torchsr_tpu_torch.ops.rdb import _aligned, _cuda_operands, _raise_on
 
 C = 64  # the only channel count the gate admits
 # The JAX package's per-image cap (pair_conv.py:58): H * W / 2 pair rows
@@ -49,10 +48,19 @@ _MAX_IMAGE_PAIR_ROWS = 16384
 # that its path went through the kernels.
 PAIR_FWD_LAUNCHES = 0
 PAIR_BWD_LAUNCHES = 0
-# CTAs per 32-channel chunk of a wgrad launch, each writing an f32
-# partial of dW: with the two chunks, two per SM of the H100's 132
-_WGRAD_GROUPS = 132
-_WGRAD_TILE = (8, 32)  # rows, columns of the wgrad's pixel tiles
+# The bf16 kernels' schedule (csrc/pair_conv.cu): runs of up to _RUN
+# output pixels of one image, across row ends where W <= _NARROW_W, else
+# inside one row; min(runs, _CTAS) persistent CTAs, one per SM of the
+# H100 (a CTA's stages take most of an SM's shared memory), CTA c
+# walking runs c, c + grid, ...  A stage holds _HALO_MAX halo pixels.
+_RUN = 128
+_NARROW_W = 64
+_CTAS = 132
+_HALO_MAX = 392
+# The f32 wgrad: CTAs per 32-channel chunk, each summing the 8 x 32
+# pixel tiles k, k + groups, ... into an f32 partial of dW
+_F32_WGRAD_GROUPS = 132
+_F32_WGRAD_TILE = (8, 32)
 
 
 def pair_conv_supported(shape, kernel_shape=(3, 3, C, C)) -> bool:
@@ -157,12 +165,65 @@ def _check_cuda(x: torch.Tensor, kernel: torch.Tensor, what: str) -> None:
             f"got {tuple(x.shape)} and {tuple(kernel.shape)}")
 
 
-def wgrad_groups(b: int, h: int, w: int) -> int:
-    """The wgrad's partials for a (b, h, w) batch: CTA ``k`` of a
-    channel chunk sums the pixel tiles ``k``, ``k + groups``, ...,
-    numbered image by image, row by row."""
-    th, tw = _WGRAD_TILE
-    return max(1, min(_WGRAD_GROUPS, b * -(-h // th) * -(-w // tw)))
+def conv_runs(b: int, h: int, w: int) -> list:
+    """The bf16 kernels' tiles, image by image: ``(image, p0, n)``, the
+    output pixels p0 .. p0 + n - 1 of the image flattened as y * w + x."""
+    if w <= _NARROW_W:
+        per = [(p0, min(_RUN, h * w - p0)) for p0 in range(0, h * w, _RUN)]
+    else:
+        per = [(y * w + x0, min(_RUN, w - x0)) for y in range(h)
+               for x0 in range(0, w, _RUN)]
+    return [(i, p0, n) for i in range(b) for p0, n in per]
+
+
+def conv_ctas(b: int, h: int, w: int) -> int:
+    """The bf16 kernels' persistent grid: min(runs, _CTAS), counted as
+    the kernels count the runs."""
+    per = -(-h * w // _RUN) if w <= _NARROW_W else h * -(-w // _RUN)
+    return min(b * per, _CTAS)
+
+
+def conv_schedule(b: int, h: int, w: int) -> list:
+    """The runs (indices into ``conv_runs``) each persistent CTA of the
+    bf16 conv and wgrad walks, in order; the wgrad's CTA c writes dW's
+    partial c."""
+    runs, ctas = len(conv_runs(b, h, w)), conv_ctas(b, h, w)
+    return [list(range(c, runs, ctas)) for c in range(ctas)]
+
+
+def wgrad_groups(b: int, h: int, w: int, dtype=torch.bfloat16) -> int:
+    """The wgrad's f32 partials of dW for a (b, h, w) batch: one per
+    persistent CTA in bf16, one per group of 8 x 32 tiles in f32."""
+    if dtype == torch.bfloat16:
+        return conv_ctas(b, h, w)
+    th, tw = _F32_WGRAD_TILE
+    return max(1, min(_F32_WGRAD_GROUPS, b * -(-h // th) * -(-w // tw)))
+
+
+def wgrad_partition(b: int, h: int, w: int, dtype) -> torch.Tensor:
+    """The partial of dW each pixel's products go to: (b, h, w) int64."""
+    if dtype == torch.bfloat16:
+        part = torch.empty((b, h * w), dtype=torch.int64)
+        runs = conv_runs(b, h, w)
+        for cta, walk in enumerate(conv_schedule(b, h, w)):
+            for t in walk:
+                img, p0, n = runs[t]
+                part[img, p0:p0 + n] = cta
+        return part.view(b, h, w)
+    th, tw = _F32_WGRAD_TILE
+    nh, nw = -(-h // th), -(-w // tw)
+    tile = (torch.arange(b).view(b, 1, 1) * nh * nw
+            + (torch.arange(h) // th).view(1, h, 1) * nw
+            + (torch.arange(w) // tw).view(1, 1, w))
+    return tile % wgrad_groups(b, h, w, dtype)
+
+
+def _kernel_operand(kernel: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """The kernel as the CUDA kernels read it: f32 or x's dtype, as the
+    caller passed it (copied only to make it so, contiguous or 16-byte
+    aligned)."""
+    kdt = kernel.dtype if kernel.dtype in (torch.float32, dt) else dt
+    return _aligned(kernel, kdt)
 
 
 def pair_conv_fwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
@@ -175,14 +236,15 @@ def pair_conv_fwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
     _cuda_operands(x, (kernel, bias), "pair_conv_fwd_cuda")
     dt = x.dtype
     x = _aligned(x, dt)
-    kernel = _aligned(kernel, dt)
+    kernel = _kernel_operand(kernel, dt)
     bias = bias.to(torch.float32).contiguous()
     y = torch.empty_like(x)
     b, h, w, _ = x.shape
     lib = load_library("pair_conv")
     err = lib.pair_conv_launch(
-        int(dt == torch.bfloat16), x.data_ptr(), kernel.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), b, h, w, x.device.index,
+        int(dt == torch.bfloat16), int(kernel.dtype == torch.float32), 0,
+        x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(), b,
+        h, w, conv_ctas(b, h, w), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib.pair_conv_error_string, "pair_conv forward")
     PAIR_FWD_LAUNCHES += 1
@@ -191,10 +253,11 @@ def pair_conv_fwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
 
 def pair_conv_bwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
                        g: torch.Tensor):
-    """The backward kernels on CUDA: the dgrad (the forward kernel on g
-    with the flipped, transposed kernel), the wgrad's f32 partials of dW
-    and db, and their fixed-order reduce.  Returns ``(dx, dW, db)``: dx
-    in x's dtype, dW (3, 3, 64, 64) and db (64,) in f32."""
+    """The backward kernels on CUDA: the dgrad (the forward kernel on g,
+    reading the kernel flipped and transposed), the wgrad's f32 partials
+    of dW and db, and their fixed-order reduce: three launches.  Returns
+    ``(dx, dW, db)``: dx in x's dtype, dW (3, 3, 64, 64) and db (64,) in
+    f32."""
     global PAIR_BWD_LAUNCHES
     from torchsr_tpu_torch.ops._build import load_library
 
@@ -206,9 +269,9 @@ def pair_conv_bwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
     dt, dev = x.dtype, x.device
     x = _aligned(x, dt)
     g = _aligned(g, dt)
-    wt = _aligned(flipped_kernel(kernel), dt)
+    kernel = _kernel_operand(kernel, dt)
     b, h, w, _ = x.shape
-    groups = wgrad_groups(b, h, w)
+    groups = wgrad_groups(b, h, w, dt)
     dx = torch.empty_like(x)
     dw_part = torch.empty((groups, 3, 3, C, C), dtype=torch.float32,
                           device=dev)
@@ -220,8 +283,9 @@ def pair_conv_bwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
     is_bf16 = int(dt == torch.bfloat16)
     errstr = lib.pair_conv_error_string
     _raise_on(lib.pair_conv_launch(
-        is_bf16, g.data_ptr(), wt.data_ptr(), None, dx.data_ptr(), b, h, w,
-        dev.index, stream), errstr, "pair_conv dgrad")
+        is_bf16, int(kernel.dtype == torch.float32), 1, g.data_ptr(),
+        kernel.data_ptr(), None, dx.data_ptr(), b, h, w,
+        conv_ctas(b, h, w), dev.index, stream), errstr, "pair_conv dgrad")
     _raise_on(lib.pair_conv_wgrad_launch(
         is_bf16, x.data_ptr(), g.data_ptr(), dw_part.data_ptr(),
         db_part.data_ptr(), b, h, w, groups, dev.index, stream), errstr,
