@@ -38,12 +38,15 @@ renders, tile batches or tool calls imply, every other counter (the
    with what a kernel that swaps one chunk's up and dn copies reads.
    Routing: a forward that a backward follows goes to B1.
 6. rdb_bwd (B2): the RDB backward at the training shape (64, 32, 32, 64)
-   and a ragged one; every stage held against its own inputs, the whole
-   against ``rdb_bwd_reference``, beside four wrong kernels.
+   and a ragged one; every stage (each cotangent dy_j of the kernel's DY
+   buffer, dx, each dW and db) held against a plain computation of the
+   kernel's own inputs to it, the whole against ``rdb_bwd_reference``,
+   beside five wrong kernels; dW and db bit-equal over two backwards; a
+   call's profile holding only its own kernels (at most eight in bf16),
+   with its device time by kernel.
 7. rdb_bwd_ext (B8): the row-extended backward, checked as rdb_bwd on
-   the data rows, its dense gradient's pad rows against
-   ``rdb_bwd_ext_reference``, the whole against B2 on the same feature
-   buffer, beside two wrong kernels proper to the padded layout.
+   the data rows, DY's pad rows zero, the whole against B2 on the same
+   feature buffer, beside two wrong kernels proper to the padded layout.
 8. pair_synth (B3): the fused pair synthesis at the bench tool's shape
    (64, 96, 96, 3), the training crops' (64, 128, 128, 3) and an odd
    size (3, 148, 148, 3) with each flip: HR bit for bit and LR within
@@ -228,16 +231,19 @@ TRAIN_RDB_SHAPE = (64, 32, 32, 64)
 # operations.
 RDB_BWD_FLOP_PER_PX = 2 * RDB_FLOP_PER_PX
 # Each stage of the backward against the same computation (f32, TF32
-# off) of the kernel's own inputs to that stage: dW_i and db_i from the
-# da_i its dense gradient gives, and each slice of its dense gradient
-# from the dgrads of those da_i.  The products of working-dtype
-# operands are exact in f32 in both, so f32 and bf16 differ in summation
-# order only: sums of 65,536 pixels (dW, db) or 288-1,728 products (dF).
+# off) of the kernel's own inputs to that stage: dW_i from feat and the
+# kernel's dy_i, db_i from the da_i that the kernel's later cotangents
+# give.  The products of working-dtype operands are exact in f32 in
+# both, so f32 and bf16 differ in summation order only: sums of 65,536
+# pixels.
 BWD_STAGE_LIMITS = {torch.float32: (1e-4, 1e-4),
                     torch.bfloat16: (1e-4, 1e-4)}
-# dx against dF[..., :64] + g rounded once to the working dtype (the
-# same f32 sum): exact, so rel 2^-9 is under half the smallest bf16 step.
-DX_LIMITS = (2**-9, 1e-6)
+# Each cotangent dy_j, and dx, against the same sum of dgrads of the
+# kernel's own later cotangents (288-1,728 products), times LeakyReLU'
+# (plus g for dx), rounded once to the working dtype.  The sums differ
+# in order only; in bf16 a sum at a rounding tie rounds one step either
+# way, at most 2^-7 of the value.  f32 as BWD_STAGE_LIMITS.
+DY_LIMITS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2**-7, 1e-4)}
 # The whole backward against rdb_bwd_reference on the same inputs.  In
 # bf16 a dense-gradient value that lands on the other side of a rounding
 # step rounds the next conv's dy one step (2^-8) apart.
@@ -245,8 +251,14 @@ BWD_BLOCK_LIMITS = {torch.float32: (1e-4, 1e-4),
                     torch.bfloat16: (2**-7, 2**-6)}
 # The wrong backward kernels each limit must see (emulated in plain
 # PyTorch): conv 3's dW left at zero, LeakyReLU' taken as 1, the dgrad
-# taps not flipped, conv5's dense gradient not passed to convs 1-4.
-WRONG_BWD = ("dw3_zero", "lrelu_one", "taps_unflipped", "conv5_dropped")
+# taps not flipped, conv5's cotangent dy_4 left out of every dense
+# gradient (dx's included), and each slot conv's K stopping short of
+# the farthest cotangent (dy_4), dx's conv reading all of DY.
+WRONG_BWD = ("dw3_zero", "lrelu_one", "taps_unflipped", "conv5_dropped",
+             "dy_suffix_short")
+# At most this many kernels in one bf16 backward call's profile: prep,
+# four slot convs, dx, wgrad, reduce (no flip or cast beside them).
+BWD_BF16_KERNELS = 8
 # train_grad: one L1 backward of the 23-RRDB generator, every parameter
 # gradient of the kernel path against the plain path (autograd through
 # rdb_reference), as max|kernel - plain| / max|plain| per tensor.
@@ -370,91 +382,118 @@ def grown_zero(y, kernels, biases, *, scale_ratio):
 WRONG_BLOCKS = {"conv5_skipped": conv5_skipped, "grown_zero": grown_zero}
 
 
-def emulated_bwd(g, feat, kernels, scale_ratio, fault=None):
-    """The arithmetic of ``rdb_bwd.cu`` in plain PyTorch, optionally with
-    one of the ``WRONG_BWD`` faults: (dx, dws, dbs, dfeat) as
-    ``rdb_bwd_cuda`` returns them."""
+def _dgrad_sum(f, ks, dy, convs, lo, hi, flip=(2, 3)):
+    """sum over ``convs`` k of the dgrad of conv k's cotangent (DY's
+    channels of dy_k, NCHW f32) onto feat channels lo .. hi: the
+    transposed conv by the kernel rounded to the working dtype (``ks``,
+    HWIO f32), its taps flipped along ``flip`` (both: the right dgrad)."""
+    out = 0
+    for k in convs:
+        cin, cout = rdb_ops.CIN[k], rdb_ops.COUT[k]
+        w = ks[k].permute(3, 2, 0, 1)
+        if flip != (2, 3):  # conv2d_input flips both; undo the ones kept
+            keep = tuple(d for d in (2, 3) if d not in flip)
+            w = w.flip(keep)
+        out = out + torch.nn.grad.conv2d_input(
+            f[:, :cin].shape, w, dy[:, 32 * k:32 * k + cout],
+            padding=1)[:, lo:hi]
+    return out
+
+
+def emulated_bwd(g, feat, kernels, scale_ratio, fault=None, sign=None):
+    """The data flow of the bf16 backward kernels (``rdb_bwd_sm90.cuh``)
+    in plain PyTorch, optionally with one of the ``WRONG_BWD`` faults (or
+    ``WRONG_BWD_EXT``'s ``row_offsets_swapped``): dy_4 = round(scale g);
+    for j = 3..0 slot j's dense gradient as the sum of the later convs'
+    dgrads, times LeakyReLU' (from ``sign``'s slot, feat's by default),
+    rounded into DY; dx from all of DY.  Returns (dx, dws, dbs, DY) as
+    ``rdb_bwd_cuda`` does."""
     dt = feat.dtype
     f = feat.permute(0, 3, 1, 2).float()
-    dfeat = torch.zeros_like(f)
-    da = g.permute(0, 3, 1, 2).float() * scale_ratio
-    dws, dbs = [None] * 5, [None] * 5
-    for i in reversed(range(5)):
-        cin = rdb_ops.CIN[i]
-        if i < 4:
-            s = rdb_ops._slot(i)
-            deriv = (1.0 if fault == "lrelu_one"
-                     else 0.2 + 0.8 * (f[:, s] > 0).float())
-            da = dfeat[:, s] * deriv
-        dy = da.to(dt).float()
-        k = kernels[i].to(dt).float()
-        w = k.permute(3, 2, 0, 1)
-        dbs[i] = da.sum(dim=(0, 2, 3))
-        dws[i] = torch.nn.grad.conv2d_weight(
-            f[:, :cin], w.shape, dy, padding=1).permute(2, 3, 1, 0)
-        if fault == "dw3_zero" and i == 2:
-            dws[i] = torch.zeros_like(dws[i])
-        wd = k.flip(0, 1).permute(3, 2, 0, 1) if fault == "taps_unflipped" \
-            else w
-        if not (fault == "conv5_dropped" and i == 4):
-            dfeat[:, :cin] += torch.nn.grad.conv2d_input(
-                f[:, :cin].shape, wd, dy, padding=1)
-    dx = (dfeat[:, :rdb_ops.CHANNELS]
-          + g.permute(0, 3, 1, 2).float()).to(dt)
+    s_f = f if sign is None else sign.permute(0, 3, 1, 2).float()
+    ks = [k.to(dt).float() for k in kernels]
+    flip = {"taps_unflipped": (), "row_offsets_swapped": (3,)}.get(fault,
+                                                                   (2, 3))
+    dy = torch.zeros_like(f)
+    das = [None] * 5
+    das[4] = g.permute(0, 3, 1, 2).float() * scale_ratio
+    dy[:, 128:] = das[4].to(dt).float()
+    late = () if fault == "conv5_dropped" else (4,)
+    for j in reversed(range(4)):
+        s = rdb_ops._slot(j)
+        convs = [*range(j + 1, 4)]
+        if fault != "dy_suffix_short":
+            convs += late
+        deriv = (1.0 if fault == "lrelu_one"
+                 else 0.2 + 0.8 * (s_f[:, s] > 0).float())
+        das[j] = _dgrad_sum(f, ks, dy, convs, s.start, s.stop, flip) * deriv
+        dy[:, 32 * j:32 * j + 32] = das[j].to(dt).float()
+    dx = _dgrad_sum(f, ks, dy, [*range(4), *late], 0, rdb_ops.CHANNELS, flip)
+    dx = (dx + g.permute(0, 3, 1, 2).float()).to(dt)
+    dws, dbs = [], []
+    for i, (cin, cout) in enumerate(zip(rdb_ops.CIN, rdb_ops.COUT)):
+        dw = torch.nn.grad.conv2d_weight(
+            f[:, :cin], (cout, cin, 3, 3), dy[:, 32 * i:32 * i + cout],
+            padding=1).permute(2, 3, 1, 0)
+        dws.append(torch.zeros_like(dw) if fault == "dw3_zero" and i == 2
+                   else dw)
+        dbs.append(das[i].sum(dim=(0, 2, 3)))
     return (dx.permute(0, 2, 3, 1), tuple(dws), tuple(dbs),
-            dfeat.permute(0, 2, 3, 1))
+            dy.to(dt).permute(0, 2, 3, 1))
 
 
-def _dfeat_slices():
-    """(name, channel slice) of each stage's part of the dense gradient:
-    x's 64 channels (dx - g), then the four grown slices."""
-    return [("x", slice(0, rdb_ops.CHANNELS))] + [
-        (f"y{i + 1}", rdb_ops._slot(i)) for i in range(4)]
+def _dy_slices():
+    """(name, DY channels) of each conv's cotangent: dy1..dy5."""
+    return [(f"dy{i + 1}", slice(32 * i, 32 * i + co))
+            for i, co in enumerate(rdb_ops.COUT)]
 
 
 def bwd_scores(g, feat, kernels, got, scale_ratio=SCALE) -> dict:
-    """Excess of each stage of a backward ``got`` = (dx, dws, dbs,
-    dfeat) against the same computation of its own inputs, and of the
-    whole against ``rdb_bwd_reference`` (see the limits above)."""
+    """Excess of each stage of a backward ``got`` = (dx, dws, dbs, DY)
+    against the same computation of its own inputs, and of the whole
+    against ``rdb_bwd_reference`` (see the limits above)."""
     dt = feat.dtype
-    dx, dws, dbs, dfeat = got
+    dx, dws, dbs, dy = got
     f = feat.permute(0, 3, 1, 2).float()
-    dF = dfeat.permute(0, 3, 1, 2).float()
-    stage_ref = torch.zeros_like(dF)
-    da = g.permute(0, 3, 1, 2).float() * scale_ratio
-    limits = BWD_STAGE_LIMITS[dt]
-    dw_ex, db_ex = [None] * 5, [None] * 5
-    for i in reversed(range(5)):
-        cin = rdb_ops.CIN[i]
-        if i < 4:  # da_i from the kernel's own dense gradient
-            s = rdb_ops._slot(i)
-            da = dF[:, s] * (0.2 + 0.8 * (f[:, s] > 0).float())
-        dy = da.to(dt).float()
-        w = kernels[i].to(dt).float().permute(3, 2, 0, 1)
+    dyk = dy.permute(0, 3, 1, 2).float()
+    ks = [k.to(dt).float() for k in kernels]
+    limits, dy_lim = BWD_STAGE_LIMITS[dt], DY_LIMITS[dt]
+    das = [None] * 5
+    das[4] = g.permute(0, 3, 1, 2).float() * scale_ratio
+    for j in range(4):  # da_j from the kernel's own later cotangents
+        s = rdb_ops._slot(j)
+        das[j] = _dgrad_sum(f, ks, dyk, range(j + 1, 5), s.start, s.stop) * (
+            0.2 + 0.8 * (f[:, s] > 0).float())
+    dy_ex, dw_ex, db_ex = {}, [None] * 5, [None] * 5
+    for i, (name, sl) in enumerate(_dy_slices()):
+        ref = das[i].to(dt).float().permute(0, 2, 3, 1)
+        dy_ex[name] = excess(dy[..., sl], ref, dy_lim)
+        cin, cout = rdb_ops.CIN[i], rdb_ops.COUT[i]
         ref_dw = torch.nn.grad.conv2d_weight(
-            f[:, :cin], w.shape, dy, padding=1).permute(2, 3, 1, 0)
+            f[:, :cin], (cout, cin, 3, 3), dyk[:, sl],
+            padding=1).permute(2, 3, 1, 0)
         dw_ex[i] = excess(dws[i], ref_dw, limits)
-        db_ex[i] = excess(dbs[i], da.sum(dim=(0, 2, 3)), limits)
-        stage_ref[:, :cin] += torch.nn.grad.conv2d_input(
-            f[:, :cin].shape, w, dy, padding=1)
-    stage_ref = stage_ref.permute(0, 2, 3, 1)
-    dfeat_ex = {name: excess(dfeat[..., sl], stage_ref[..., sl], limits)
-                for name, sl in _dfeat_slices()}
-    dx_ref = (dfeat[..., :rdb_ops.CHANNELS] + g.float()).to(dt).float()
+        db_ex[i] = excess(dbs[i], das[i].sum(dim=(0, 2, 3)), limits)
+    dx_ref = (_dgrad_sum(f, ks, dyk, range(5), 0, rdb_ops.CHANNELS)
+              + g.permute(0, 3, 1, 2).float()).to(dt).permute(0, 2, 3, 1)
     ref = rdb_ops.rdb_bwd_reference(g, feat, kernels, scale_ratio,
                                      return_dfeat=True)
-    limits = BWD_BLOCK_LIMITS[dt]
-    block = {f"dw{i + 1}": excess(dws[i], ref[1][i], limits)
-             for i in range(5)}
-    block.update({f"db{i + 1}": excess(dbs[i], ref[2][i], limits)
+    blim = BWD_BLOCK_LIMITS[dt]
+    block = {f"dw{i + 1}": excess(dws[i], ref[1][i], blim) for i in range(5)}
+    block.update({f"db{i + 1}": excess(dbs[i], ref[2][i], blim)
                   for i in range(5)})
-    block.update({f"dfeat_{name}": excess(dfeat[..., sl], ref[3][..., sl],
-                                          limits)
-                  for name, sl in _dfeat_slices()})
+    # the reference's cotangents: its dense gradient's slots times
+    # LeakyReLU', and scale * g, rounded as the kernel rounds them
+    ref_dy = [ref[3][..., rdb_ops._slot(j)] * (
+        0.2 + 0.8 * (feat[..., rdb_ops._slot(j)].float() > 0).float())
+        for j in range(4)] + [g.float() * scale_ratio]
+    block.update({name: excess(dy[..., sl], r.to(dt), blim)
+                  for (name, sl), r in zip(_dy_slices(), ref_dy)})
+    block["dx"] = excess(dx, ref[0], blim)
     return {
         "max_abs_err": float((dx.float() - ref[0].float()).abs().max()),
-        "stage_dw": dw_ex, "stage_db": db_ex, "stage_dfeat": dfeat_ex,
-        "dx": excess(dx.float(), dx_ref, DX_LIMITS),
+        "stage_dw": dw_ex, "stage_db": db_ex, "stage_dy": dy_ex,
+        "dx": excess(dx.float(), dx_ref, dy_lim),
         "block": block,
     }
 
@@ -462,7 +501,7 @@ def bwd_scores(g, feat, kernels, got, scale_ratio=SCALE) -> dict:
 def _worst(row: dict) -> float:
     """The largest excess of a ``bwd_scores`` row."""
     return max(*row["stage_dw"], *row["stage_db"],
-               *row["stage_dfeat"].values(), row["dx"],
+               *row["stage_dy"].values(), row["dx"],
                *row["block"].values())
 
 
@@ -846,25 +885,76 @@ def rdb_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
         "bytes" if t_bytes > t_ops else "operations")
 
 
+def bwd_profile(fn, calls: int = 10) -> dict:
+    """``fn`` (one backward call) under ``torch.profiler``: device ms per
+    call, kernels per call, and each launch of a call by its position
+    (name and device ms, averaged over the calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(bool(spans) and len(spans) % calls == 0,
+          f"the profiler recorded whole calls ({len(spans)} kernels)")
+    per = len(spans) // calls
+    by_launch = [[_kernel_name(spans[i][2]), sum(
+        spans[c * per + i][1] - spans[c * per + i][0]
+        for c in range(calls)) / calls / 1e3] for i in range(per)]
+    return {"device_ms": sum(ms for _, ms in by_launch),
+            "kernels_per_call": per, "by_launch": by_launch}
+
+
 def hold_rdb_bwd(x: torch.Tensor, ks, bs, g: torch.Tensor) -> dict:
     """One backward kernel run on the feature buffer the forward kernel
     filled from ``x``; every stage and the whole held against plain
-    computations, beside what the ``WRONG_BWD`` kernels read."""
+    computations, beside what the ``WRONG_BWD`` kernels read; a second
+    run's dW and db bit-equal to the first's."""
     _, feat = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
     before = rdb_ops.RDB_BWD_LAUNCHES
     got = rdb_ops.rdb_bwd_cuda(g, feat, ks, scale_ratio=SCALE)
+    again = rdb_ops.rdb_bwd_cuda(g, feat, ks, scale_ratio=SCALE)
     torch.cuda.synchronize()
-    check(rdb_ops.RDB_BWD_LAUNCHES == before + 1,
-          "rdb_bwd_cuda counted one backward")
+    check(rdb_ops.RDB_BWD_LAUNCHES == before + 2,
+          "rdb_bwd_cuda counted one backward a call")
     check(all(bool(torch.isfinite(t).all())
               for t in (got[0], *got[1], *got[2], got[3])),
           "rdb_bwd outputs finite")
     row = bwd_scores(g, feat, ks, got)
+    row["dw_db_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+        (*got[1], *got[2]), (*again[1], *again[2])))
     row["worst"] = _worst(row)
     row["wrong"] = {fault: _worst(bwd_scores(
         g, feat, ks, emulated_bwd(g, feat, ks, SCALE, fault)))
         for fault in WRONG_BWD}
     return row
+
+
+def check_bwd_row(row: dict, name: str) -> None:
+    """A backward row (``hold_rdb_bwd``, ``hold_rdb_bwd_ext``) within its
+    limits, its wrong kernels over them, dW and db bit-equal."""
+    check(row["worst"] <= 1, f"{name} within its limits")
+    check(min(row["wrong"].values()) > 1,
+          f"{name}: the limits see every wrong kernel: {row['wrong']}")
+    check(row["dw_db_bit_equal"], f"{name}: dW and db bit-equal over two "
+                                  f"backwards")
+
+
+def check_bwd_profile(prof: dict, dtype, name: str) -> None:
+    """A bf16 backward call launches at most ``BWD_BF16_KERNELS`` kernels,
+    all its own (no flip or cast beside them)."""
+    if dtype != torch.bfloat16:
+        return
+    names = [n for n, _ in prof["by_launch"]]
+    check(prof["kernels_per_call"] <= BWD_BF16_KERNELS
+          and all("rdb_bwd_" in n for n in names),
+          f"{name}: one bf16 call launches only its own kernels, at most "
+          f"{BWD_BF16_KERNELS}: {names}")
 
 
 def phase_rdb_bwd(seed: int) -> dict:
@@ -883,8 +973,12 @@ def phase_rdb_bwd(seed: int) -> dict:
             row["ragged"] = hold_rdb_bwd(xd[:b, :h, :w], kd, bs,
                                          gd[:b, :h, :w])
             _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
-            row["ms"] = median_ms(
-                lambda: rdb_ops.rdb_bwd_cuda(gd, feat, kd, scale_ratio=SCALE))
+
+            def call():
+                return rdb_ops.rdb_bwd_cuda(gd, feat, kd, scale_ratio=SCALE)
+
+            row["ms"] = median_ms(call)
+            row["profile"] = bwd_profile(call)
             row["plain_ms"] = median_ms(
                 lambda: rdb_ops.rdb_bwd_reference(gd, feat, kd, SCALE))
             row["bound_ms"], row["bound_by"] = rdb_bwd_bound_ms(
@@ -895,91 +989,70 @@ def phase_rdb_bwd(seed: int) -> dict:
             rows[name] = row
             say(f"rdb_bwd[{name}]", shape=list(TRAIN_RDB_SHAPE),
                 ragged_shape=[*RAGGED, 64],
-                stage_limits=BWD_STAGE_LIMITS[dtype], dx_limits=DX_LIMITS,
+                stage_limits=BWD_STAGE_LIMITS[dtype],
+                dy_limits=DY_LIMITS[dtype],
                 block_limits=BWD_BLOCK_LIMITS[dtype], **row)
             for r, where in ((row, "training"), (row["ragged"], "ragged")):
-                check(r["worst"] <= 1,
-                      f"rdb_bwd {name} {where} within its limits")
-                check(min(r["wrong"].values()) > 1,
-                      f"rdb_bwd {name} {where}: the limits see every "
-                      f"wrong kernel: {r['wrong']}")
+                check_bwd_row(r, f"rdb_bwd {name} {where}")
+            check_bwd_profile(row["profile"], dtype, f"rdb_bwd {name}")
     return rows
 
 
 # The wrong row-extended backward kernels the limits must see (emulated
-# in plain PyTorch): dx3's three parts added at row offsets 2, 1, 0
-# instead of 0, 1, 2; da read one row up, from the pad row on.
+# in plain PyTorch): the slot convs' halo rows taken at offsets 2, 1, 0
+# instead of 0, 1, 2 (the vertical taps unflipped); LeakyReLU' read one
+# buffer row up, from the pad row on.
 WRONG_BWD_EXT = ("row_offsets_swapped", "da_from_pad_rows")
 
 
 def emulated_bwd_ext(g, feat_padded, kernels, scale_ratio, fault=None):
-    """The data flow of ``rdb_bwd_ext_reference`` (the padded f32 dense
-    gradient, dx3 = dy @ W^T added at row offsets 0, 1, 2) in plain
-    PyTorch, optionally with one of the ``WRONG_BWD_EXT`` faults: (dx,
-    dws, dbs, the dense gradient's data rows)."""
-    dt = feat_padded.dtype
-    f = feat_padded.float()
-    b, hp, w, _ = f.shape
-    h = hp - 2
-    dfeat = torch.zeros_like(f)
-    da = g.float() * scale_ratio
-    rows = slice(0, h) if fault == "da_from_pad_rows" else slice(1, h + 1)
-    dws, dbs = [None] * 5, [None] * 5
-    for i in reversed(range(5)):
-        cin, cout = rdb_ops.CIN[i], rdb_ops.COUT[i]
-        if i < 4:
-            s = rdb_ops._slot(i)
-            da = dfeat[:, rows, :, s] * (
-                0.2 + 0.8 * (f[:, 1:h + 1, :, s] > 0).float())
-        dbs[i] = da.sum(dim=(0, 1, 2))
-        dy = torch.cat([F.pad(da[:, :, 1:], (0, 0, 0, 1)), da,
-                        F.pad(da[:, :, :-1], (0, 0, 1, 0))], dim=-1)
-        dy = dy.to(dt).float().reshape(-1, 3 * cout)
-        dws[i] = rdb_ops.unpack_kernel(torch.cat(
-            [f[:, o:o + h, :, :cin].reshape(-1, cin).T @ dy
-             for o in range(3)]), cin, cout)
-        dx3 = (dy @ rdb_ops.pack_kernel_t(kernels[i].to(dt)).float()).reshape(
-            b, h, w, 3 * cin)
-        for o in range(3):
-            at = 2 - o if fault == "row_offsets_swapped" else o
-            dfeat[:, at:at + h, :, :cin] += dx3[..., o * cin:(o + 1) * cin]
-    dx = (dfeat[:, 1:h + 1, :, :rdb_ops.CHANNELS] + g.float()).to(dt)
-    return dx, tuple(dws), tuple(dbs), dfeat[:, 1:h + 1]
+    """``emulated_bwd`` on the row-extended layout, optionally with one
+    of the ``WRONG_BWD_EXT`` faults: (dx, dws, dbs, DY) with DY in the
+    (B, H + 2, W, 192) layout, its pad rows zero."""
+    sign = feat_padded[:, :-2] if fault == "da_from_pad_rows" else None
+    dx, dws, dbs, dy = emulated_bwd(
+        g, feat_padded[:, 1:-1], kernels, scale_ratio,
+        "row_offsets_swapped" if fault == "row_offsets_swapped" else None,
+        sign)
+    return dx, dws, dbs, F.pad(dy, (0, 0, 0, 0, 1, 1))
 
 
 def hold_rdb_bwd_ext(x: torch.Tensor, ks, bs, g: torch.Tensor) -> dict:
     """One row-extended backward (B8) on the padded buffer B7 filled
     from ``x``: every stage and the whole held as ``hold_rdb_bwd`` holds
-    B2, on the data rows; the dense gradient's pad rows against
-    ``rdb_bwd_ext_reference``; everything against B2 on the same
-    feature buffer; beside the ``WRONG_BWD_EXT`` kernels."""
+    B2, on the data rows; DY's pad rows zero; everything against B2 on
+    the same feature buffer; beside the ``WRONG_BWD_EXT`` kernels."""
     dt = x.dtype
     _, featp = rdb_ops.rdb_fwd_ext_cuda(x, ks, bs, scale_ratio=SCALE)
     before = rdb_ops.RDB_BWD_EXT_LAUNCHES
     got = rdb_ops.rdb_bwd_ext_cuda(g, featp, ks, scale_ratio=SCALE)
+    again = rdb_ops.rdb_bwd_ext_cuda(g, featp, ks, scale_ratio=SCALE)
     torch.cuda.synchronize()
-    check(rdb_ops.RDB_BWD_EXT_LAUNCHES == before + 1,
-          "rdb_bwd_ext_cuda counted one backward")
-    dx, dws, dbs, dfp = got
-    check(all(bool(torch.isfinite(t).all()) for t in (dx, *dws, *dbs, dfp)),
+    check(rdb_ops.RDB_BWD_EXT_LAUNCHES == before + 2,
+          "rdb_bwd_ext_cuda counted one backward a call")
+    dx, dws, dbs, dyp = got
+    check(all(bool(torch.isfinite(t).all()) for t in (dx, *dws, *dbs, dyp)),
           "rdb_bwd_ext outputs finite")
     feat = featp[:, 1:-1]
-    row = bwd_scores(g, feat, ks, (dx, dws, dbs, dfp[:, 1:-1]))
+    row = bwd_scores(g, feat, ks, (dx, dws, dbs, dyp[:, 1:-1]))
+    row["dw_db_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+        (*dws, *dbs), (*again[1], *again[2])))
+    row["dy_pad_rows_max_abs"] = float(dyp[:, [0, -1]].float().abs().max())
     limits = BWD_BLOCK_LIMITS[dt]
-    ref_dfp = rdb_ops.rdb_bwd_ext_reference(g, featp, ks, SCALE,
-                                            return_dfeat=True)[3]
-    row["dfeat_pad_rows"] = excess(dfp[:, [0, -1]], ref_dfp[:, [0, -1]],
-                                   limits)
     b2 = rdb_ops.rdb_bwd_cuda(g, feat.contiguous(), ks, scale_ratio=SCALE)
     row["vs_b2"] = max(
-        excess(dx, b2[0], limits), excess(dfp[:, 1:-1], b2[3], limits),
+        excess(dx, b2[0], limits), excess(dyp[:, 1:-1], b2[3], limits),
         *(excess(a, r, limits) for a, r in zip((*dws, *dbs),
                                                (*b2[1], *b2[2]))))
     row["vs_b2_dx_max_abs"] = float((dx.float() - b2[0].float()).abs().max())
-    row["worst"] = max(_worst(row), row["dfeat_pad_rows"], row["vs_b2"])
-    row["wrong"] = {fault: _worst(bwd_scores(
-        g, feat, ks, emulated_bwd_ext(g, featp, ks, SCALE, fault)))
-        for fault in WRONG_BWD_EXT}
+    row["worst"] = max(_worst(row), row["vs_b2"])
+    row["wrong"] = {}
+    for fault in WRONG_BWD_EXT:
+        *grads, wrong_dyp = emulated_bwd_ext(g, featp, ks, SCALE, fault)
+        row["wrong"][fault] = _worst(bwd_scores(
+            g, feat, ks, (*grads, wrong_dyp[:, 1:-1])))
+    check(row["dy_pad_rows_max_abs"] == 0,
+          f"rdb_bwd_ext {dt} {tuple(x.shape)}: DY's pad rows zero")
     return row
 
 
@@ -1002,8 +1075,13 @@ def phase_rdb_bwd_ext(seed: int) -> dict:
                                              gd[:b, :h, :w])
             _, featp = rdb_ops.rdb_fwd_ext_cuda(xd, kd, bs, scale_ratio=SCALE)
             _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
-            row["ms"] = median_ms(lambda: rdb_ops.rdb_bwd_ext_cuda(
-                gd, featp, kd, scale_ratio=SCALE))
+
+            def call():
+                return rdb_ops.rdb_bwd_ext_cuda(gd, featp, kd,
+                                                scale_ratio=SCALE)
+
+            row["ms"] = median_ms(call)
+            row["profile"] = bwd_profile(call)
             row["b2_ms"] = median_ms(lambda: rdb_ops.rdb_bwd_cuda(
                 gd, feat, kd, scale_ratio=SCALE))
             row["plain_ms"] = median_ms(lambda: rdb_ops.rdb_bwd_ext_reference(
@@ -1016,14 +1094,12 @@ def phase_rdb_bwd_ext(seed: int) -> dict:
             rows[name] = row
             say(f"rdb_bwd_ext[{name}]", shape=list(TRAIN_RDB_SHAPE),
                 ragged_shape=[b, h, w, 64],
-                stage_limits=BWD_STAGE_LIMITS[dtype], dx_limits=DX_LIMITS,
+                stage_limits=BWD_STAGE_LIMITS[dtype],
+                dy_limits=DY_LIMITS[dtype],
                 block_limits=BWD_BLOCK_LIMITS[dtype], **row)
             for r, where in ((row, "training"), (row["ragged"], "ragged")):
-                check(r["worst"] <= 1,
-                      f"rdb_bwd_ext {name} {where} within its limits")
-                check(min(r["wrong"].values()) > 1,
-                      f"rdb_bwd_ext {name} {where}: the limits see every "
-                      f"wrong kernel: {r['wrong']}")
+                check_bwd_row(r, f"rdb_bwd_ext {name} {where}")
+            check_bwd_profile(row["profile"], dtype, f"rdb_bwd_ext {name}")
     return rows
 
 
@@ -1505,8 +1581,11 @@ def _train_grad(seed: int, phase: str, kernels: tuple) -> dict:
     return rows
 
 
-_RDB_BWD_KERNELS = ("wgrad_bf16", "wgrad_f32", "dgrad_bf16", "dgrad_f32",
-                    "reduce_partials", "::prep<")
+# The RDB backward's kernels: bf16 (csrc/rdb_bwd_sm90.cuh, every name
+# holding "rdb_bwd_") and f32 (rdb_bwd.cu's FFMA kernels and the shared
+# reduce).
+_RDB_BWD_KERNELS = ("rdb_bwd_", "wgrad_f32", "dgrad_f32", "reduce_partials",
+                    "::prep<")
 
 
 def _kernel_class(name: str) -> str:
@@ -2000,9 +2079,13 @@ KERNELS = (
 
 
 def _profiled_ms(prof) -> float | None:
-    """Device time per call of a phase's profile (None: not profiled)."""
-    return None if prof is None else sum(
-        prof["device_ms_per_batch"].values())
+    """Device time per call of a phase's profile (None: not profiled):
+    ``bwd_profile``'s or ``profile_device_time``'s."""
+    if prof is None:
+        return None
+    if "device_ms" in prof:
+        return prof["device_ms"]
+    return sum(prof["device_ms_per_batch"].values())
 
 
 def kernels_line(timed: dict, paths: dict) -> dict:

@@ -187,3 +187,106 @@ def test_backward_rejects_malformed_inputs(bad):
     with pytest.raises(ValueError):
         rdb_ops.rdb_bwd_reference(g, feat, ks) if bad != "kernel_shape" \
             else rdb_ops.rdb_bwd_cuda(g, feat, ks)
+
+
+def _dy_reference_grads(x, ks, bs, g, dtype, padded=False):
+    """The port's plain forward, then ``rdb_bwd_dy_reference`` (the data
+    flow of the bf16 backward kernels) on its feature buffer."""
+    kt = [torch.from_numpy(k) for k in ks]
+    xt = torch.from_numpy(x).to(dtype)
+    if padded:
+        _, feat = rdb_ops.rdb_ext_reference(xt, kt, [torch.from_numpy(b)
+                                                     for b in bs])
+    else:
+        _, feat = rdb_ops._rdb_plain(xt, kt, [torch.from_numpy(b)
+                                              for b in bs], 0.2)
+    dx, dws, dbs, dy = rdb_ops.rdb_bwd_dy_reference(
+        torch.from_numpy(g).to(dtype), feat, kt, 0.2, padded=padded)
+    assert dx.dtype == dtype and dy.dtype == dtype
+    assert dy.shape == (*feat.shape[:3], rdb_ops.FEAT)
+    assert all(t.dtype == torch.float32 for t in (*dws, *dbs))
+    return [t.float().numpy() for t in (dx, *dws, *dbs)], feat, dy
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_dy_reference_matches_pallas_interpret(shape, dtype):
+    """``rdb_bwd_dy_reference`` against the JAX package's block gradient
+    (``fused_rdb`` under ``jax.grad``, the Pallas kernels in interpret
+    mode): f32 per tensor within REL_F32, bf16 in the mean within
+    MEAN_REL_BF16 (the two forwards round differently)."""
+    x, ks, bs, g = _inputs(shape, sum(shape))
+    want = _jax_grads(x, ks, bs, g, jnp.dtype(dtype))
+    got, _, _ = _dy_reference_grads(x, ks, bs, g, getattr(torch, dtype))
+    assert [a.shape for a in got] == [b.shape for b in want]
+    if dtype == "float32":
+        assert max(_rel(got, want)) <= REL_F32, _rel(got, want)
+    else:
+        mean_rel = [float(np.abs(a - b).mean() / np.abs(b).mean())
+                    for a, b in zip(got, want)]
+        assert max(mean_rel) <= MEAN_REL_BF16, mean_rel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dy_reference_ext_form_matches_ext_reference(dtype):
+    """The padded form of ``rdb_bwd_dy_reference`` (DY in the (B, H + 2,
+    W, 192) layout, pad rows zero) against ``rdb_bwd_ext_reference`` on
+    the same row-extended buffer, and equal to the unpadded form on its
+    data rows."""
+    shape = (2, 6, 16, 64)
+    x, ks, bs, g = _inputs(shape, 3)
+    tdt = getattr(torch, dtype)
+    got, featp, dyp = _dy_reference_grads(x, ks, bs, g, tdt, padded=True)
+    assert featp.shape == (2, 8, 16, rdb_ops.FEAT)
+    assert not dyp[:, [0, -1]].any()
+    kt = [torch.from_numpy(k) for k in ks]
+    dx, dws, dbs = rdb_ops.rdb_bwd_ext_reference(
+        torch.from_numpy(g).to(tdt), featp, kt, 0.2)
+    want = [t.float().numpy() for t in (dx, *dws, *dbs)]
+    if dtype == "float32":
+        assert max(_rel(got, want)) <= REL_F32, _rel(got, want)
+    else:
+        mean_rel = [float(np.abs(a - b).mean() / np.abs(b).mean())
+                    for a, b in zip(got, want)]
+        assert max(mean_rel) <= MEAN_REL_BF16, mean_rel
+    flat = rdb_ops.rdb_bwd_dy_reference(torch.from_numpy(g).to(tdt),
+                                        featp[:, 1:-1], kt, 0.2)
+    assert torch.equal(flat[3], dyp[:, 1:-1])
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 32), (3, 37, 45), (2, 3, 130),
+                                   (1, 63, 63)], ids=str)
+def test_bwd_schedule_covers_every_pixel_and_slot_once(shape):
+    """The mirror of the bf16 backward's persistent schedule: every slot
+    conv (dx's two halves included) takes every (run, K chunk) item
+    once, the runs cover every pixel of every image once, every run's
+    halo fits a stage, and each kernel's stages fit the H100's shared
+    memory."""
+    from torchsr_tpu_torch.ops.pair_conv import conv_runs
+
+    b, h, w = shape
+    runs = conv_runs(b, h, w)
+    sched = rdb_ops.bwd_schedule(b, h, w)
+    assert sched["runs"] == len(runs)
+    covered = np.zeros((b, h * w), dtype=np.int64)
+    for img, p0, n in runs:
+        covered[img, p0:p0 + n] += 1
+        assert n <= rdb_ops._BWD_RUN
+        rows = (p0 + n - 1) // w - p0 // w + 3
+        halo_w = w + 2 if w <= rdb_ops._BWD_NARROW_W else n + 2
+        assert rows * halo_w <= rdb_ops._BWD_HALO_MAX
+    assert (covered == 1).all()
+    for slot in range(6):
+        walks = rdb_ops.bwd_walk(b, h, w, slot)
+        items = [it for walk in walks for it in walk]
+        nch = rdb_ops._BWD_SLOT_CHUNKS[slot]
+        assert sorted(items) == [(t, c) for t in range(len(runs))
+                                 for c in range(nch)]
+        assert len(walks) <= rdb_ops._BWD_CTAS // (1 if slot < 4 else 2)
+    assert sched["wgrad_ctas"] * rdb_ops._BWD_WGRAD_TILES <= rdb_ops._BWD_CTAS
+    assert rdb_ops._BWD_CONV_SMEM <= rdb_ops.SMEM_LIMIT
+    assert rdb_ops._BWD_WGRAD_SMEM <= rdb_ops.SMEM_LIMIT
+    # the K chunks of slot s cover the DY suffix it reads, in 64s
+    for s, k0 in enumerate(rdb_ops._BWD_SLOT_K0):
+        assert 64 * (rdb_ops._BWD_SLOT_CHUNKS[s] - 1) < rdb_ops.FEAT - k0 \
+            <= 64 * rdb_ops._BWD_SLOT_CHUNKS[s]

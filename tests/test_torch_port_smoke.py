@@ -7,7 +7,8 @@ chip_smoke.py's own ``emulated_bwd``), and chip_smoke.py's scoring must
 pass that emulation and fail the same emulation with a fault put in:
 a forward launch left at zero or with its taps mirrored; a backward
 with one conv's dW left at zero, LeakyReLU' taken as 1, the dgrad taps
-not flipped, or conv5's dense gradient not passed to convs 1-4.  The
+not flipped, conv5's cotangent left out of every dense gradient, or the
+slot convs stopping short of it.  The
 same for the pair synthesis (B3: H pass first, no quantization between
 the passes, flip columns swapped, a true division by 255) and the 3x3
 64 -> 64 conv (B4, B5: K transposed, no column mask, bias dropped, dx
@@ -101,15 +102,38 @@ def _bwd_inputs(dtype, shape=SHAPE):
     return g, feat, ks
 
 
+def _held(got, want, dtype) -> float:
+    """The largest excess of a backward (dx, dws, dbs, DY) against
+    another on the same inputs, at the whole backward's limits (in bf16 a
+    cotangent rounded one step apart feeds the next slot's sum)."""
+    lim = smoke.BWD_BLOCK_LIMITS[dtype]
+    return max(smoke.excess(a, b, lim) for a, b in zip(
+        (got[0], *got[1], *got[2], got[3]),
+        (want[0], *want[1], *want[2], want[3])))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_bwd_emulation_is_the_plain_backward(dtype):
+    """chip_smoke's emulation of the bf16 kernels' data flow (a sum of
+    dgrads per slot) against ``rdb_bwd_dy_reference`` (one conv over the
+    DY suffix per slot): the same products summed in another order."""
     g, feat, ks = _bwd_inputs(dtype)
     got = smoke.emulated_bwd(g, feat, ks, smoke.SCALE)
-    want = rdb_ops.rdb_bwd_reference(g, feat, ks, smoke.SCALE,
-                                     return_dfeat=True)
-    for a, b in zip((got[0], *got[1], *got[2], got[3]),
-                    (want[0], *want[1], *want[2], want[3])):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    want = rdb_ops.rdb_bwd_dy_reference(g, feat, ks, smoke.SCALE)
+    assert [t.shape for t in (got[0], got[3])] == \
+        [t.shape for t in (want[0], want[3])]
+    assert _held(got, want, dtype) <= 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_bwd_limits_pass_the_dy_reference(dtype):
+    """``rdb_bwd_dy_reference``, the plain version of the kernels' data
+    flow, passes every stage and block limit of chip_smoke's backward
+    check."""
+    g, feat, ks = _bwd_inputs(dtype)
+    row = smoke.bwd_scores(g, feat, ks, rdb_ops.rdb_bwd_dy_reference(
+        g, feat, ks, smoke.SCALE))
+    assert smoke._worst(row) <= 1, row
 
 
 @pytest.mark.parametrize("shape", [SHAPE, (1, 5, 7, 64)], ids=str)
@@ -160,8 +184,11 @@ def test_train_grad_limit_catches_a_wrong_backward():
 @pytest.mark.parametrize("name, cls", [
     ("void (anonymous namespace)::tensor_core::conv3x3_bf16<64, 32, false>"
      "(...)", "rdb_fwd"),
-    ("void (anonymous namespace)::tensor_core::wgrad_bf16<192, 64>(...)",
-     "rdb_bwd"),
+    ("void rdb_bwd_sm90::rdb_bwd_slot_conv(__nv_bfloat16*, ...)", "rdb_bwd"),
+    ("void rdb_bwd_sm90::rdb_bwd_wgrad(...)", "rdb_bwd"),
+    ("void rdb_bwd_sm90::rdb_bwd_prep<float>(...)", "rdb_bwd"),
+    ("void (anonymous namespace)::tensor_core::wgrad_bf16(...)",
+     "other_conv"),
     ("void (anonymous namespace)::reduce_partials(...)", "rdb_bwd"),
     ("void (anonymous namespace)::prep<4, __nv_bfloat16>(...)", "rdb_bwd"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel"
@@ -230,22 +257,31 @@ def _bwd_ext_inputs(dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_bwd_ext_emulation_is_the_plain_version(dtype):
+    """chip_smoke's emulation of B8 against ``rdb_bwd_dy_reference`` on
+    the padded layout (DY's pad rows zero in both), its gradients against
+    ``rdb_bwd_ext_reference``, and within chip_smoke's limits."""
     g, featp, ks = _bwd_ext_inputs(dtype)
     got = smoke.emulated_bwd_ext(g, featp, ks, smoke.SCALE)
-    want = rdb_ops.rdb_bwd_ext_reference(g, featp, ks, smoke.SCALE,
-                                         return_dfeat=True)
-    for a, b in zip((got[0], *got[1], *got[2], got[3]),
-                    (want[0], *want[1], *want[2], want[3][:, 1:-1])):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert smoke._worst(smoke.bwd_scores(g, featp[:, 1:-1], ks, got)) <= 1
+    want = rdb_ops.rdb_bwd_dy_reference(g, featp, ks, smoke.SCALE,
+                                        padded=True)
+    assert got[3].shape == want[3].shape == (*featp.shape[:3], rdb_ops.FEAT)
+    assert not got[3][:, [0, -1]].any() and not want[3][:, [0, -1]].any()
+    assert _held(got, want, dtype) <= 1
+    ext = rdb_ops.rdb_bwd_ext_reference(g, featp, ks, smoke.SCALE)
+    lim = smoke.BWD_BLOCK_LIMITS[dtype]
+    assert max(smoke.excess(a, b, lim) for a, b in zip(
+        (got[0], *got[1], *got[2]), (ext[0], *ext[1], *ext[2]))) <= 1
+    unpadded = (*got[:3], got[3][:, 1:-1])
+    assert smoke._worst(smoke.bwd_scores(g, featp[:, 1:-1], ks,
+                                         unpadded)) <= 1
 
 
 @pytest.mark.parametrize("fault", smoke.WRONG_BWD_EXT)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_bwd_ext_limits_catch_each_wrong_kernel(dtype, fault):
     g, featp, ks = _bwd_ext_inputs(dtype)
-    row = smoke.bwd_scores(g, featp[:, 1:-1], ks, smoke.emulated_bwd_ext(
-        g, featp, ks, smoke.SCALE, fault))
+    *grads, dyp = smoke.emulated_bwd_ext(g, featp, ks, smoke.SCALE, fault)
+    row = smoke.bwd_scores(g, featp[:, 1:-1], ks, (*grads, dyp[:, 1:-1]))
     assert smoke._worst(row) > 1, row
 
 
@@ -358,3 +394,31 @@ def test_check_counts_names_every_counter():
             smoke.check_counts("xla", smoke.read_counters())
     finally:
         smoke.reset_counters()
+
+
+def test_kernels_line_reads_both_profile_shapes():
+    """The kernels line takes each kernel's device time from its phase's
+    profile: a backward's ``bwd_profile`` (``device_ms``) or another
+    phase's ``profile_device_time`` (``device_ms_per_batch``)."""
+    timed, want = {}, {}
+    for i, (name, _, _, phase, key, _) in enumerate(smoke.KERNELS):
+        row = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0,
+               "bound_ms": 0.5, "bound_by": "operations"}
+        if phase.startswith("rdb_bwd"):
+            row["profile"] = {"device_ms": 0.25 + i, "kernels_per_call": 8,
+                              "by_launch": [["prep", 0.25 + i]]}
+            want[name] = 0.25 + i
+        elif i % 2:
+            row["profile"] = {"device_ms_per_batch": {"a": 0.5, "b": i}}
+            want[name] = 0.5 + i
+        else:
+            want[name] = None
+        timed.setdefault(phase, {})[key] = row
+    paths = {"train": {name: 3 for name, *_ in smoke.KERNELS}}
+    line = smoke.kernels_line(timed, paths)
+    assert [k["name"] for k in line["kernels"]] == [
+        name for name, *_ in smoke.KERNELS]
+    for k in line["kernels"]:
+        assert k["device_ms"] == want[k["name"]]
+        assert k["library_device_ms"] is None
+        assert k["launches"] == 3

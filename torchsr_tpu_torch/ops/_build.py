@@ -27,6 +27,12 @@ NVCC_FLAGS = (
 )
 # C signatures of each library's entry points: name -> (restype, argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The bf16 block backward's one entry (rdb_bwd.cu, rdb_ext.cu): g, feat,
+# the kernels' pointer and stride arrays, w_f32, dy, dx, four scratch and
+# output buffers, dw, db, B, H, W, scale, nblocks, P, the three grids,
+# device, stream.
+_BWD_BF16 = (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+             _I, _I, _I, _I, _I, _I, _P)
 SIGNATURES = {
     "rdb_fwd": {
         "rdb_conv3x3_launch": (
@@ -35,17 +41,16 @@ SIGNATURES = {
         "rdb_error_string": (ctypes.c_char_p, (_I,)),
     },
     "rdb_bwd": {
-        "rdb_bwd_prep_launch": (
-            _I, (_I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P)
-        ),
+        "rdb_bwd_bf16_launch": (_I, _BWD_BF16),
+        "rdb_bwd_prep_launch": (_I, (_I, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
         "rdb_bwd_wgrad_launch": (
-            _I, (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+            _I, (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
         ),
         "rdb_bwd_reduce_launch": (
             _I, (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P)
         ),
         "rdb_bwd_dgrad_launch": (
-            _I, (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+            _I, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
         ),
         "rdb_bwd_error_string": (ctypes.c_char_p, (_I,)),
     },
@@ -53,17 +58,18 @@ SIGNATURES = {
         "rdb_ext_fwd_launch": (
             _I, (_I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
         ),
+        "rdb_ext_bwd_bf16_launch": (_I, _BWD_BF16),
         "rdb_ext_prep_launch": (
-            _I, (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)
+            _I, (_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)
         ),
         "rdb_ext_wgrad_launch": (
-            _I, (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+            _I, (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
         ),
         "rdb_ext_reduce_launch": (
             _I, (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P)
         ),
         "rdb_ext_dgrad_launch": (
-            _I, (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+            _I, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
         ),
         "rdb_ext_error_string": (ctypes.c_char_p, (_I,)),
     },

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) helpers for the kernels that stage tiles asynchronously
 // and multiply on warpgroups: cp.async with zero-fill and its commit
 // groups, the proxy fence, the wgmma shared-memory descriptor, and the
-// bf16 m64n64k16 wgmma with A in registers, with its fence, commit and
-// wait.  Shared-memory tiles that wgmma or ldmatrix read are rows of
-// 128 bytes (64 bf16) in the 128-byte swizzle: the 16-byte chunk c of row
-// r lies at chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes, aligned
-// to 1024), as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them.
+// bf16 m64n64k16 and m64n32k16 wgmma with A in registers, with their
+// fence, commit and wait.  Shared-memory tiles that wgmma or ldmatrix
+// read are rows of 128 bytes (64 bf16) in the 128-byte swizzle: the
+// 16-byte chunk c of row r lies at chunk c ^ (r % 8), in atoms of 8 rows
+// (1024 bytes, aligned to 1024), as TMA's CU_TENSOR_MAP_SWIZZLE_128B
+// writes them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,6 +97,25 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TRANS_B),
+        "r"(1));
+}
+
+// As wgmma_m64n64k16 with N = 32: d is 64 x 32 f32 (16 registers a
+// thread, the same fragment layout over four 8-column groups).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TRANS_B),
         "r"(1));
 }

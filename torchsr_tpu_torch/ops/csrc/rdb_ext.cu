@@ -32,28 +32,31 @@
 // 192 channels) and copies x into channels [0, 64) first.  Launch 5
 // writes out = x + scale * (conv5 + b5), unpadded.
 //
-// Backward (per conv, i = 4..0: prep, wgrad, reduce, dgrad):
-//  * prep writes dy_i over the whole tall layout: da_i on data rows
-//    (from g, or from dF's slot of conv i times LeakyReLU'), zeros on
-//    pad rows, with f32 block partials of da_i for db.
+// Backward, bf16 (AMP): the eight launches of csrc/rdb_bwd_sm90.cuh (B2's
+// kernels) with the layout's row stride and offset: image b's row y is
+// buffer row b (H + 2) + 1 + y.  DY = [dy_0 | ... | dy_4] takes the same
+// (B, H + 2, W, 192) layout, its pad rows zeroed by the prep launch; the
+// halo staging zero-fills rows outside the image (cp.async), so pad rows
+// are never read.  The TPU kernel's row-offset scatter of dx3 = dy @ W^T
+// into a padded f32 dF (rdb.py:594) becomes each slot's gather conv over
+// DY, and no dF exists.
+//
+// Backward, f32 (per conv, i = 4..0: prep, wgrad, reduce, dgrad):
+//  * prep writes dy_i into DY over the whole tall layout: da_i on data
+//    rows (from g, or from dF's slot of conv i times LeakyReLU'), zeros
+//    on pad rows, with f32 block partials of da_i for db.
 //  * wgrad: dW_i = sum over the tall image of feat[r + dy - 1] *
 //    dy_i[r] (the row-offset views of the padded feat); pad rows carry
 //    dy = 0 and add nothing.  Per-CTA f32 partials, summed by
 //  * reduce in a fixed order (deterministic; no atomics), as in
 //    rdb_bwd.cu.
-//  * dgrad.  The TPU kernel adds the three parts of dx3 = dy @ W^T into
-//    one padded dF at row offsets 0 / W / 2W, relying on its sequential
-//    grid.  CTAs run in parallel, and a CTA owning a row tile would
-//    write the rows of its neighbours.  This kernel GATHERS instead:
-//    each CTA owns its dF rows and computes them as the direct conv of
-//    the zero-padded dy_i (pad rows written once by prep) with the
-//    flipped, transposed kernel, over every row of the tall layout, pad
-//    rows included.  Linearity makes the pad rows of dF hold exactly
-//    what the TPU kernel's scatter leaves there (the out-of-image
-//    contributions, never read back); prep reads data rows only.  Every
-//    dF element has one writer: no atomics, no ordering between CTAs.
-//    Conv 5 stores dF, the others add into it; conv 1 also writes
-//    dx = dF[data rows, :64] + g, unpadded.
+//  * dgrad GATHERS instead of the TPU's sequential scatter: each CTA owns
+//    its dF rows and computes them as the direct conv of the zero-padded
+//    dy_i with the flipped, transposed kernel, over every row of the tall
+//    layout, pad rows included (they hold the out-of-image contributions,
+//    never read back).  Every dF element has one writer.  Conv 5 stores
+//    dF, the others add into it; conv 1 also writes dx = dF[data rows,
+//    :64] + g, unpadded.
 //
 // GEMM formulation.  Each conv is B1's direct conv (nine taps, each an
 // implicit GEMM over C_in), not the TPU kernel's N-packed product (N = 3
@@ -61,9 +64,9 @@
 // products summed in the same order as B1, so the forward equals B1's
 // bit for bit and only the layout differs between the two.
 //
-// bf16 (AMP): mma.sync m16n8k16 bf16 -> f32 fed by ldmatrix; a CTA is
-// 8 warps over a 16 x 16 pixel tile, each warp two rows of 16 pixels.
-// f32: FFMA on the CUDA cores (tensor cores would round to TF32), 8 x 16
+// Forward bf16 (AMP): mma.sync m16n8k16 bf16 -> f32 fed by ldmatrix; a
+// CTA is 8 warps over a 16 x 16 pixel tile, each warp two rows of 16
+// pixels.  f32: FFMA on the CUDA cores (tensor cores would round to TF32), 8 x 16
 // tiles, 4 pixels x 8 channels per thread.
 //
 // Bound on this card (H100 SXM).  Forward at the serving shape (16, 64,
@@ -71,19 +74,17 @@
 // TFLOP/s f32); its bytes (x in, out) 16.8 MB bf16, 0.005 ms: compute-
 // bound, as B1.  Backward at the training shape (64, 32, 32, 64): 62.8
 // GFLOP, 0.0635 ms bf16 (0.94 ms f32) against 0.013 ms of bytes.  Like
-// B1/B2 this simple version stages synchronously on mma.sync; wgmma fed
-// by TMA is later work.
+// B1 the forward stages synchronously on mma.sync; wgmma is later work.
 
+#include "rdb_bwd_sm90.cuh"
 #include "rdb_mma.cuh"
 
 namespace {
 
 using rdb::allow_smem;
-using rdb::from_f;
 using rdb::leaky;
 using rdb::load2;
 using rdb::store2;
-using rdb::to_f;
 
 constexpr int FEAT = 192;   // feature buffer width
 constexpr int CH = 64;      // block input/output channels
@@ -194,7 +195,6 @@ struct DgradEpi {
 namespace tensor_core {
 
 using rdb::ldmatrix_x4;
-using rdb::ldmatrix_x4_trans;
 using rdb::mma_bf16;
 
 constexpr int TH = 16;  // tile rows: two per warp
@@ -302,118 +302,6 @@ conv_bf16(const __nv_bfloat16* __restrict__ src,
       for (int h = 0; h < 2; ++h)
         row(x0 + g + 8 * h, co0 + n * 8 + 2 * q, acc[j][n][2 * h],
             acc[j][n][2 * h + 1]);
-  }
-}
-
-// ---------------------------------------------------------- bf16 wgrad
-
-template <int COUT>
-__host__ __device__ constexpr int ldy() { return COUT + 8; }
-
-template <int COUT>
-constexpr size_t wgrad_smem() {
-  return ((size_t)HALO_PX * LDS + (size_t)TH * TW * ldy<COUT>()) *
-         sizeof(__nv_bfloat16);
-}
-
-// part[grp]: this CTA's (3, 3, CIN, COUT) f32 partial of dW for input
-// channels [32 blockIdx.y, +32) over the tall-layout tiles grp, grp +
-// groups, ...  The warp mapping of rdb_bwd.cu's wgrad_bf16.
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(NT)
-wgrad_bf16(const __nv_bfloat16* __restrict__ feat,
-           const __nv_bfloat16* __restrict__ dy, float* __restrict__ part,
-           int groups, Tall t) {
-  constexpr int LDY = ldy<COUT>();
-  constexpr int COMBOS = 2 * (COUT / 16);  // (M tile, N-tile pair)
-  constexpr int TS = 8 / COMBOS;           // warps sharing a combo
-  constexpr int TPW = (9 + TS - 1) / TS;   // taps per warp
-  static_assert(COMBOS * TS == 8, "warp mapping");
-  extern __shared__ __align__(16) __nv_bfloat16 smem_w[];
-  __nv_bfloat16* in_s = smem_w;                  // [HALO_PX][LDS]
-  __nv_bfloat16* dy_s = smem_w + HALO_PX * LDS;  // [TH * TW][LDY]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int combo = warp % COMBOS;
-  const int mt = combo % 2, ng = combo / 2;
-  const int tap0 = (warp / COMBOS) * TPW;
-  const int c0 = blockIdx.y * CCHUNK;
-  const int grp = blockIdx.x;
-  const int tiles_x = t.W / TW;
-  const int n_tiles = ((t.R + TH - 1) / TH) * tiles_x;
-
-  float acc[TPW][2][4];
-#pragma unroll
-  for (int tt = 0; tt < TPW; ++tt)
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[tt][n][e] = 0.f;
-
-  for (int tl = grp; tl < n_tiles; tl += groups) {
-    const int r0 = (tl / tiles_x) * TH, x0 = (tl % tiles_x) * TW;
-    __syncthreads();  // the previous tile is fully consumed
-    for (int i = tid; i < HALO_PX * (CCHUNK / 8); i += NT) {
-      const int px = i / (CCHUNK / 8), ch = i % (CCHUNK / 8);
-      const int r = t.clamp_row(r0 - 1 + px / HALO_W);
-      const int gx = x0 - 1 + px % HALO_W;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (gx >= 0 && gx < t.W)
-        v = *reinterpret_cast<const uint4*>(
-            feat + ((size_t)r * t.W + gx) * FEAT + c0 + ch * 8);
-      *reinterpret_cast<uint4*>(in_s + px * LDS + ch * 8) = v;
-    }
-    // rows past the end clamp to the last row, a pad row: dy = 0
-    for (int i = tid; i < TH * TW * (COUT / 8); i += NT) {
-      const int p = i / (COUT / 8), ch = i % (COUT / 8);
-      const int r = t.clamp_row(r0 + p / TW);
-      *reinterpret_cast<uint4*>(dy_s + p * LDY + ch * 8) =
-          *reinterpret_cast<const uint4*>(
-              dy + ((size_t)r * t.W + x0 + p % TW) * COUT + ch * 8);
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int ty = 0; ty < TH; ++ty) {
-      // B = dy[pixel][co]: rows k = the 16 pixels of tile row ty
-      uint32_t b[4];
-      ldmatrix_x4_trans(
-          b, dy_s + (ty * TW + (lane % 8) + 8 * ((lane / 8) % 2)) * LDY +
-                 (2 * ng + lane / 16) * 8);
-#pragma unroll
-      for (int tt = 0; tt < TPW; ++tt) {
-        const int tap = tap0 + tt;
-        if (tap < 9) {
-          const int ky = tap / 3, kx = tap % 3;
-          // A = feat[pixel + tap offset][ci], transposed: M = ci
-          uint32_t a[4];
-          ldmatrix_x4_trans(
-              a, in_s + ((ty + ky) * HALO_W + kx + (lane % 8) +
-                         8 * (lane / 16)) * LDS +
-                     mt * 16 + 8 * ((lane / 8) % 2));
-          mma_bf16(acc[tt][0], a, b[0], b[1]);
-          mma_bf16(acc[tt][1], a, b[2], b[3]);
-        }
-      }
-    }
-  }
-
-  const int g = lane / 4, q = lane % 4;
-  float* out = part + (size_t)grp * 9 * CIN * COUT;
-#pragma unroll
-  for (int tt = 0; tt < TPW; ++tt) {
-    const int tap = tap0 + tt;
-    if (tap >= 9) continue;
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      const int co = (2 * ng + n) * 8 + 2 * q;
-      const int ci = c0 + mt * 16 + g;
-      float* o = out + ((size_t)tap * CIN + ci) * COUT + co;
-      o[0] = acc[tt][n][0];
-      o[1] = acc[tt][n][1];
-      o[8 * COUT] = acc[tt][n][2];
-      o[8 * COUT + 1] = acc[tt][n][3];
-    }
   }
 }
 
@@ -534,8 +422,11 @@ constexpr size_t wgrad_smem() {
   return ((size_t)WHALO_PX * LDX + (size_t)WTH * WTW * COUT) * sizeof(float);
 }
 
-// As tensor_core::wgrad_bf16 in f32 FFMA: thread t owns input channel
-// t % 32 and the C_out / 8 output channels of group t / 32, nine taps.
+// part[grp]: this CTA's (3, 3, CIN, COUT) f32 partial of dW for input
+// channels [32 blockIdx.y, +32) over the tall-layout tiles grp, grp +
+// groups, ...; dy_i is DY's channels CIN - 64 .. +COUT.  Thread t owns
+// input channel t % 32 and the C_out / 8 output channels of group t / 32,
+// nine taps.
 template <int CIN, int COUT>
 __global__ void __launch_bounds__(NT)
 wgrad_f32(const float* __restrict__ feat, const float* __restrict__ dy,
@@ -573,7 +464,7 @@ wgrad_f32(const float* __restrict__ feat, const float* __restrict__ dy,
     for (int i = tid; i < WTH * WTW * COUT; i += NT) {
       const int p = i / COUT, c = i % COUT;
       const int r = t.clamp_row(r0 + p / WTW);
-      dy_s[i] = dy[((size_t)r * t.W + x0 + p % WTW) * COUT + c];
+      dy_s[i] = dy[((size_t)r * t.W + x0 + p % WTW) * FEAT + CIN - CH + c];
     }
     __syncthreads();
 
@@ -605,14 +496,15 @@ wgrad_f32(const float* __restrict__ feat, const float* __restrict__ dy,
 
 // ---------------------------------------------------------------- prep
 
-// dy_i over the whole tall layout (npix = R * W pixels): da_i on data
-// rows, zero on pad rows; per-block f32 partial sums of da_i.  STAGE 4
-// reads g (unpadded, M x 64) and scales it; stages 0..3 read the f32
-// dF's slot [lo, lo + 32) and the sign of the same slot of feat.
-template <int STAGE, typename T>
+// f32 dy_i into DY (channels 32 STAGE .. +C_out) over the whole tall
+// layout (npix = R * W pixels): da_i on data rows, zero on pad rows;
+// per-block f32 partial sums of da_i.  STAGE 4 reads g (unpadded, M x
+// 64) and scales it; stages 0..3 read the f32 dF's slot [lo, lo + 32)
+// and the sign of the same slot of feat.
+template <int STAGE>
 __global__ void __launch_bounds__(NT)
-prep(const void* __restrict__ src, const T* __restrict__ feat,
-     T* __restrict__ dy, float* __restrict__ db_part, int npix, int ppb,
+prep(const float* __restrict__ src, const float* __restrict__ feat,
+     float* __restrict__ dy, float* __restrict__ db_part, int npix, int ppb,
      float scale, Tall t) {
   constexpr int COUT = STAGE == 4 ? CH : 32;
   constexpr int ROWS = NT / COUT;
@@ -627,15 +519,14 @@ prep(const void* __restrict__ src, const T* __restrict__ feat,
     float da = 0.f;
     if (q >= 0) {
       if constexpr (STAGE == 4) {
-        da = to_f(static_cast<const T*>(src)[(q + p % t.W) * CH + c]) *
-             scale;
+        da = src[(q + p % t.W) * CH + c] * scale;
       } else {
-        const float act = to_f(feat[(size_t)p * FEAT + LO + c]);
-        da = static_cast<const float*>(src)[(size_t)p * FEAT + LO + c] *
+        const float act = feat[(size_t)p * FEAT + LO + c];
+        da = src[(size_t)p * FEAT + LO + c] *
              (0.2f + 0.8f * (act > 0.f ? 1.f : 0.f));
       }
     }
-    dy[(size_t)p * COUT + c] = from_f<T>(da);
+    dy[(size_t)p * FEAT + 32 * STAGE + c] = da;
     sum += da;
   }
   red[threadIdx.x] = sum;
@@ -698,65 +589,42 @@ cudaError_t fwd(bool bf16, void* buf, const void* w, const void* bias,
                                                    t, s);
 }
 
-// dgrad of conv (CIN_I -> COUT_I): dy_i has COUT_I channels, the kernel
-// wt is (3, 3, COUT_I, CIN_I), and dF channels [0, CIN_I) are written.
-template <int CIN_I, int COUT_I, bool ACCUM, bool FINAL, typename T>
-cudaError_t launch_dgrad(const void* dy, const void* wt, void* dF,
-                         const void* g, void* dx, Tall t, cudaStream_t s) {
-  DgradEpi<T, ACCUM, FINAL> epi{static_cast<float*>(dF),
-                                static_cast<const T*>(g), static_cast<T*>(dx),
-                                t};
-  return launch_conv<COUT_I, COUT_I, CIN_I, CCHUNK, T>(dy, wt, epi, t, s);
-}
-
+// f32 dgrad of conv (CIN_I -> COUT_I): dy_i is DY's channels CIN_I - 64
+// .. +COUT_I, the kernel wt is (3, 3, COUT_I, CIN_I), and dF channels
+// [0, CIN_I) are written.
 template <int CIN_I, int COUT_I, bool ACCUM, bool FINAL>
-cudaError_t dgrad(bool bf16, const void* dy, const void* wt, void* dF,
-                  const void* g, void* dx, Tall t, cudaStream_t s) {
-  return bf16 ? launch_dgrad<CIN_I, COUT_I, ACCUM, FINAL, __nv_bfloat16>(
-                    dy, wt, dF, g, dx, t, s)
-              : launch_dgrad<CIN_I, COUT_I, ACCUM, FINAL, float>(
-                    dy, wt, dF, g, dx, t, s);
+cudaError_t dgrad(const void* dy, const void* wt, void* dF, const void* g,
+                  void* dx, Tall t, cudaStream_t s) {
+  DgradEpi<float, ACCUM, FINAL> epi{static_cast<float*>(dF),
+                                    static_cast<const float*>(g),
+                                    static_cast<float*>(dx), t};
+  return launch_conv<COUT_I, FEAT, CIN_I, CCHUNK, float>(
+      static_cast<const float*>(dy) + (CIN_I - CH), wt, epi, t, s);
 }
 
 template <int STAGE>
-cudaError_t launch_prep(bool bf16, const void* src, const void* feat,
-                        void* dy, void* db_part, int nblocks, float scale,
-                        Tall t, cudaStream_t s) {
+cudaError_t launch_prep(const void* src, const void* feat, void* dy,
+                        void* db_part, int nblocks, float scale, Tall t,
+                        cudaStream_t s) {
   const int npix = t.R * t.W;
   const int ppb = (npix + nblocks - 1) / nblocks;
-  if (bf16)
-    prep<STAGE, __nv_bfloat16><<<nblocks, NT, 0, s>>>(
-        src, static_cast<const __nv_bfloat16*>(feat),
-        static_cast<__nv_bfloat16*>(dy), static_cast<float*>(db_part), npix,
-        ppb, scale, t);
-  else
-    prep<STAGE, float><<<nblocks, NT, 0, s>>>(
-        src, static_cast<const float*>(feat), static_cast<float*>(dy),
-        static_cast<float*>(db_part), npix, ppb, scale, t);
+  prep<STAGE><<<nblocks, NT, 0, s>>>(
+      static_cast<const float*>(src), static_cast<const float*>(feat),
+      static_cast<float*>(dy), static_cast<float*>(db_part), npix, ppb,
+      scale, t);
   return cudaGetLastError();
 }
 
 template <int CIN, int COUT>
-cudaError_t launch_wgrad(bool bf16, const void* feat, const void* dy,
-                         void* part, int groups, Tall t, cudaStream_t s) {
-  const dim3 grid(groups, CIN / CCHUNK);
-  if (bf16) {
-    auto kernel = tensor_core::wgrad_bf16<CIN, COUT>;
-    constexpr size_t smem = tensor_core::wgrad_smem<COUT>();
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, s>>>(static_cast<const __nv_bfloat16*>(feat),
-                                  static_cast<const __nv_bfloat16*>(dy),
-                                  static_cast<float*>(part), groups, t);
-  } else {
-    auto kernel = cuda_core::wgrad_f32<CIN, COUT>;
-    constexpr size_t smem = cuda_core::wgrad_smem<COUT>();
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, s>>>(static_cast<const float*>(feat),
-                                  static_cast<const float*>(dy),
-                                  static_cast<float*>(part), groups, t);
-  }
+cudaError_t launch_wgrad(const void* feat, const void* dy, void* part,
+                         int groups, Tall t, cudaStream_t s) {
+  auto kernel = cuda_core::wgrad_f32<CIN, COUT>;
+  constexpr size_t smem = cuda_core::wgrad_smem<COUT>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(groups, CIN / CCHUNK), NT, smem, s>>>(
+      static_cast<const float*>(feat), static_cast<const float*>(dy),
+      static_cast<float*>(part), groups, t);
   return cudaGetLastError();
 }
 
@@ -788,45 +656,60 @@ int rdb_ext_fwd_launch(int stage, int is_bf16, void* feat, const void* w,
   }
 }
 
-// prep of conv `stage`: src is g (B, H, W, 64) for stage 4, else the
-// f32 tall dF; writes dy (R * W, C_out) over every row of the tall
-// layout (pad rows zero) and `nblocks` rows of partial db sums.
-int rdb_ext_prep_launch(int stage, int is_bf16, const void* src,
-                        const void* feat, void* dy, void* db_part, int B,
-                        int H, int W, int nblocks, float scale, int device,
-                        void* stream) {
+// The bf16 block backward on the (B, H + 2, W, 192) buffer `feat`: the
+// eight launches of csrc/rdb_bwd_sm90.cuh on the row-extended layout, DY
+// in the same layout with its pad rows zero; arguments as
+// rdb_bwd.cu's rdb_bwd_bf16_launch.
+int rdb_ext_bwd_bf16_launch(const void* g, const void* feat, const void* wptr,
+                            const void* wstride, int w_f32, void* dy,
+                            void* dx, void* wpack, void* dw_part,
+                            void* db_part, void* dw, void* db, int B, int H,
+                            int W, float scale, int nblocks, int P,
+                            int g_conv, int g_dx, int g_wgrad, int device,
+                            void* stream) {
+  return rdb_bwd_sm90::launch_bwd_entry(
+      g, feat, static_cast<const void* const*>(wptr),
+      static_cast<const long long*>(wstride), w_f32, dy, dx, wpack, dw_part,
+      db_part, dw, db, B, H, W, 1, scale, nblocks, P, g_conv, g_dx, g_wgrad,
+      device, stream);
+}
+
+// f32 prep of conv `stage`: src is g (B, H, W, 64) for stage 4, else the
+// f32 tall dF; writes dy_stage into the tall DY (R * W, 192) over every
+// row (pad rows zero) and `nblocks` rows of partial db sums.
+int rdb_ext_prep_launch(int stage, const void* src, const void* feat,
+                        void* dy, void* db_part, int B, int H, int W,
+                        int nblocks, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf16 = is_bf16 != 0;
   const Tall t = tall_of(B, H, W);
   switch (stage) {
-    case 0: return (int)launch_prep<0>(bf16, src, feat, dy, db_part, nblocks, scale, t, s);
-    case 1: return (int)launch_prep<1>(bf16, src, feat, dy, db_part, nblocks, scale, t, s);
-    case 2: return (int)launch_prep<2>(bf16, src, feat, dy, db_part, nblocks, scale, t, s);
-    case 3: return (int)launch_prep<3>(bf16, src, feat, dy, db_part, nblocks, scale, t, s);
-    case 4: return (int)launch_prep<4>(bf16, src, feat, dy, db_part, nblocks, scale, t, s);
+    case 0: return (int)launch_prep<0>(src, feat, dy, db_part, nblocks, scale, t, s);
+    case 1: return (int)launch_prep<1>(src, feat, dy, db_part, nblocks, scale, t, s);
+    case 2: return (int)launch_prep<2>(src, feat, dy, db_part, nblocks, scale, t, s);
+    case 3: return (int)launch_prep<3>(src, feat, dy, db_part, nblocks, scale, t, s);
+    case 4: return (int)launch_prep<4>(src, feat, dy, db_part, nblocks, scale, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// wgrad of conv `stage`: `groups` f32 partials of dW, (groups, 3, 3,
-// C_in, C_out), into part.
-int rdb_ext_wgrad_launch(int stage, int is_bf16, const void* feat,
-                         const void* dy, void* part, int B, int H, int W,
-                         int groups, int device, void* stream) {
+// f32 wgrad of conv `stage`: `groups` f32 partials of dW, (groups, 3, 3,
+// C_in, C_out), into part, from the tall feat and DY.
+int rdb_ext_wgrad_launch(int stage, const void* feat, const void* dy,
+                         void* part, int B, int H, int W, int groups,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (W % 16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf16 = is_bf16 != 0;
   const Tall t = tall_of(B, H, W);
   switch (stage) {
-    case 0: return (int)launch_wgrad<64, 32>(bf16, feat, dy, part, groups, t, s);
-    case 1: return (int)launch_wgrad<96, 32>(bf16, feat, dy, part, groups, t, s);
-    case 2: return (int)launch_wgrad<128, 32>(bf16, feat, dy, part, groups, t, s);
-    case 3: return (int)launch_wgrad<160, 32>(bf16, feat, dy, part, groups, t, s);
-    case 4: return (int)launch_wgrad<192, 64>(bf16, feat, dy, part, groups, t, s);
+    case 0: return (int)launch_wgrad<64, 32>(feat, dy, part, groups, t, s);
+    case 1: return (int)launch_wgrad<96, 32>(feat, dy, part, groups, t, s);
+    case 2: return (int)launch_wgrad<128, 32>(feat, dy, part, groups, t, s);
+    case 3: return (int)launch_wgrad<160, 32>(feat, dy, part, groups, t, s);
+    case 4: return (int)launch_wgrad<192, 64>(feat, dy, part, groups, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -840,24 +723,24 @@ int rdb_ext_reduce_launch(const void* dw_part, int groups, int n,
                             db, device, stream);
 }
 
-// dgrad of conv `stage` into the f32 tall dF (every row): wt is its
-// flipped, transposed kernel, HWIO (3, 3, C_out, C_in); stage 4 stores,
-// the others add, and stage 0 also writes dx (B, H, W, 64) = dF + g.
-int rdb_ext_dgrad_launch(int stage, int is_bf16, const void* dy,
-                         const void* wt, void* dF, const void* g, void* dx,
-                         int B, int H, int W, int device, void* stream) {
+// f32 dgrad of conv `stage` from the tall DY into the f32 tall dF (every
+// row): wt is its flipped, transposed kernel, HWIO (3, 3, C_out, C_in);
+// stage 4 stores, the others add, and stage 0 also writes dx (B, H, W,
+// 64) = dF + g.
+int rdb_ext_dgrad_launch(int stage, const void* dy, const void* wt, void* dF,
+                         const void* g, void* dx, int B, int H, int W,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (W % 16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf16 = is_bf16 != 0;
   const Tall t = tall_of(B, H, W);
   switch (stage) {
-    case 0: return (int)dgrad<64, 32, true, true>(bf16, dy, wt, dF, g, dx, t, s);
-    case 1: return (int)dgrad<96, 32, true, false>(bf16, dy, wt, dF, g, dx, t, s);
-    case 2: return (int)dgrad<128, 32, true, false>(bf16, dy, wt, dF, g, dx, t, s);
-    case 3: return (int)dgrad<160, 32, true, false>(bf16, dy, wt, dF, g, dx, t, s);
-    case 4: return (int)dgrad<192, 64, false, false>(bf16, dy, wt, dF, g, dx, t, s);
+    case 0: return (int)dgrad<64, 32, true, true>(dy, wt, dF, g, dx, t, s);
+    case 1: return (int)dgrad<96, 32, true, false>(dy, wt, dF, g, dx, t, s);
+    case 2: return (int)dgrad<128, 32, true, false>(dy, wt, dF, g, dx, t, s);
+    case 3: return (int)dgrad<160, 32, true, false>(dy, wt, dF, g, dx, t, s);
+    case 4: return (int)dgrad<192, 64, false, false>(dy, wt, dF, g, dx, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,11 +13,14 @@ whose saved residual is the forward's post-activation (B, H, W, 192)
 feature buffer (x, then the four grown slices), as the JAX custom VJP
 saves it.  A CUDA tensor runs the hand-written kernels: ``csrc/rdb_fwd.cu``
 (one direct-conv kernel launched five times, filling the feature buffer)
-and, in the backward, ``csrc/rdb_bwd.cu`` (the five convs reversed from
-the buffer; design and bound in the headers).  A CPU tensor runs the
-plain versions, ``rdb_reference`` and ``rdb_bwd_reference``, through the
-same Function.  There is no fallback: on CUDA the kernel runs or the
-call raises.
+and, in the backward, ``csrc/rdb_bwd.cu``: in bf16 the eight launches of
+``csrc/rdb_bwd_sm90.cuh``, where each slot's dense gradient is one conv
+over the later convs' cotangents, held in one working-dtype buffer DY
+(``rdb_bwd_dy_reference`` is that data flow in plain PyTorch); in f32
+twenty FFMA launches through an f32 dense gradient (design and bound in
+the headers).  A CPU tensor runs the plain versions, ``rdb_reference``
+and ``rdb_bwd_reference``, through the same Function.  There is no
+fallback: on CUDA the kernel runs or the call raises.
 
 Two layout variants of the JAX package are selected by the same
 environment knobs, read once at import (``EXT_KERNEL``, ``ILV_KERNEL``;
@@ -40,9 +43,9 @@ from the saved buffer instead of a kernel.
 
 Precision (the TPU kernels' contract): products take working-dtype
 operands (bf16 under AMP, else f32) and accumulate in f32; biases, dW,
-db and the dense-gradient accumulator stay f32; dx is stored in the
-working dtype.  The weight gradients reach the f32 parameters in f32,
-never rounded through bf16.
+db and every sum stay f32 (the f32 backward's dense gradient too); dx
+and the cotangents dy_i are stored in the working dtype.  The weight
+gradients reach the f32 parameters in f32, never rounded through bf16.
 """
 
 from __future__ import annotations
@@ -62,12 +65,12 @@ FEAT = CIN[-1]
 # it to show that its path went through the kernel.
 RDB_FWD_LAUNCHES = 0
 # Block backwards run by the backward kernels on CUDA: one per block
-# (each one 20 launches of csrc/rdb_bwd.cu: prep, wgrad, reduce and
-# dgrad for each of the five convs).
+# backward (eight launches of csrc/rdb_bwd.cu in bf16, twenty in f32).
 RDB_BWD_LAUNCHES = 0
 # The row-extended forward (five launches per block) and backward (one
-# per block backward, 20 launches), and the interleaved forward (five
-# conv launches per block; its one grow launch is not counted).
+# per block backward, eight or twenty launches), and the interleaved
+# forward (five conv launches per block; its one grow launch is not
+# counted).
 RDB_FWD_EXT_LAUNCHES = 0
 RDB_BWD_EXT_LAUNCHES = 0
 RDB_FWD_ILV_LAUNCHES = 0
@@ -90,14 +93,45 @@ _EXT_MAX_ROWS = 65535 * 8
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z, which carries the batch
-# The backward's dgrad launches carry batch x (C_in / 32) CTAs in z
+# The f32 backward's dgrad launches carry batch x (C_in / 32) CTAs in z
 _MAX_BWD_BATCH = _MAX_GRID_Z // (FEAT // 32)
-# Pixels summed into one block partial of db by the prep launches
+# Buffer pixels summed into one partial of db by an f32 prep block, and
+# into one partial of db_4 by a bf16 one (csrc/rdb_bwd_sm90.cuh
+# PREP_PIXELS: 256 blocks at the training shape, two an SM)
 _PREP_PIXELS = 1024
-# CTAs of a wgrad launch, each writing an f32 partial of dW over its
-# share of the 8 x 32-pixel tiles: two per SM of the H100's 132, and
-# few partials for the reduce launch to sum
+_BWD_PREP_PIXELS = 256
+# CTAs of an f32 wgrad launch, each writing an f32 partial of dW over
+# its share of the 8 x 32-pixel tiles: two per SM of the H100's 132
 _WGRAD_CTAS = 264
+# The bf16 backward's schedule (csrc/rdb_bwd_sm90.cuh): runs of up to
+# _BWD_RUN output pixels of one image, across row ends where W <=
+# _BWD_NARROW_W, else inside one row (ops/pair_conv.py's runs).  Each slot
+# conv takes min(runs, _BWD_CTAS) persistent CTAs (one per SM: its stages
+# take 208 KB), CTA c walking runs c, c + grid, ..., each run's K chunks
+# of 64 DY channels in order; dx's two 32-channel halves take half as
+# many each.  The wgrad's seven tiles take min(runs, _BWD_WGRAD_CTAS)
+# CTAs each (126 in all).  A halo stage holds _BWD_HALO_MAX pixels.
+_BWD_RUN = 128
+_BWD_NARROW_W = 64
+_BWD_HALO_MAX = 392
+_BWD_CTAS = 132
+_BWD_WGRAD_TILES = 7
+_BWD_WGRAD_CTAS = 18
+# Slot s's first DY channel and K chunks (slots 0-3: conv s's output
+# slot; 4, 5: dx's halves), and the packed weights (bf16 elements)
+_BWD_SLOT_K0 = (32, 64, 96, 128, 0, 0)
+_BWD_SLOT_CHUNKS = tuple(-(-(FEAT - k0) // 64) for k0 in _BWD_SLOT_K0)
+_BWD_WPACK = sum(_BWD_SLOT_CHUNKS) * 9 * GROWTH * 64
+# Shared memory of a slot conv CTA (1024 alignment slack, three chunks of
+# weights, two halo stages, the db exchange) and of a wgrad CTA (slack,
+# two stages of feat halo and DY run); the H100's per-block limit
+_BWD_CONV_SMEM = (1024 + 3 * 9 * GROWTH * 128 + 2 * _BWD_HALO_MAX * 128
+                  + 1024)
+_BWD_WGRAD_SMEM = 1024 + 2 * (_BWD_HALO_MAX * 128 + _BWD_RUN * 128)
+SMEM_LIMIT = 232448
+# Each library's one entry of the bf16 backward
+_BWD_BF16_ENTRY = {"rdb_bwd": "rdb_bwd_bf16_launch",
+                   "rdb_ext": "rdb_ext_bwd_bf16_launch"}
 
 
 def _check_kernels(kernels) -> None:
@@ -393,6 +427,71 @@ def rdb_bwd_reference(
     return out
 
 
+def _slot_weight(kernels, ci0: int, k0: int, dt, acc) -> torch.Tensor:
+    """The OIHW weight of one slot conv: output channels ci0 .. ci0 + n of
+    feat, input channels DY[k0:] (dy_k of conv k, k0 at a conv's first
+    cotangent channel), taps flipped: weight[n][d][ky][kx] = K_k[2 - ky]
+    [2 - kx][ci0 + n][co]."""
+    n = CHANNELS if ci0 == 0 else GROWTH
+    return torch.cat(
+        [kernels[k].to(dt).to(acc).flip(0, 1)[:, :, ci0:ci0 + n]
+         .permute(2, 3, 0, 1) for k in range(min(k0 // GROWTH, 4), 5)],
+        dim=1)
+
+
+def rdb_bwd_dy_reference(
+    g: torch.Tensor, feat: torch.Tensor, kernels, scale_ratio: float = 0.2,
+    *, padded: bool = False,
+):
+    """The plain version of the bf16 backward kernels' data flow
+    (``csrc/rdb_bwd_sm90.cuh``).  Every cotangent goes into one buffer DY
+    = [dy_0 | dy_1 | dy_2 | dy_3 | dy_4] (192 channels, ``feat.dtype``):
+    dy_4 = round(scale * g); then, for slot j = 3..0, one conv of the
+    suffix DY[:, 32 (j + 1):] with the flipped kernels of convs j + 1..4
+    gives slot j's dense gradient, da_j = that * LeakyReLU'(feat's slot
+    j) and dy_j = round(da_j); dx = round(the conv of all of DY onto
+    feat's first 64 channels + g).  dW_i sums feat's windows times dy_i;
+    db_i sums da_i (f32, unrounded).  Operands in ``feat.dtype``, sums in
+    f32 (f64 for f64).  ``padded``: ``feat`` is the row-extended (B, H +
+    2, W, 192) buffer and DY comes back in that layout, its pad rows zero.
+    Returns ``(dx, dws, dbs, dy)``."""
+    if padded:
+        dx, dws, dbs, dy = rdb_bwd_dy_reference(g, feat[:, 1:-1], kernels,
+                                                scale_ratio)
+        return dx, dws, dbs, F.pad(dy, (0, 0, 0, 0, 1, 1))
+    if feat.dim() != 4 or feat.shape[-1] != FEAT:
+        raise ValueError(
+            f"feat must be NHWC (B, H, W, {FEAT}), got {tuple(feat.shape)}")
+    if tuple(g.shape) != (*feat.shape[:3], CHANNELS):
+        raise ValueError(
+            f"g must be (B, H, W, {CHANNELS}) beside feat "
+            f"{tuple(feat.shape)}, got {tuple(g.shape)}")
+    _check_kernels(kernels)
+    dt, acc = feat.dtype, _acc_dtype(feat.dtype)
+    f = feat.permute(0, 3, 1, 2).to(acc)
+    dy = torch.zeros_like(f)
+    das = [None] * 5
+    das[4] = g.permute(0, 3, 1, 2).to(acc) * scale_ratio
+    dy[:, 4 * GROWTH:] = das[4].to(dt).to(acc)
+    for j in reversed(range(4)):
+        k0, s = GROWTH * (j + 1), _slot(j)
+        w = _slot_weight(kernels, s.start, k0, dt, acc)
+        das[j] = F.conv2d(dy[:, k0:], w, padding=1) * (
+            0.2 + 0.8 * (f[:, s] > 0).to(acc))
+        dy[:, GROWTH * j:k0] = das[j].to(dt).to(acc)
+    dx = F.conv2d(dy, _slot_weight(kernels, 0, 0, dt, acc), padding=1)
+    dx = (dx + g.permute(0, 3, 1, 2).to(acc)).to(g.dtype)
+    dws, dbs = [], []
+    for i, (cin, cout) in enumerate(zip(CIN, COUT)):
+        lo = GROWTH * i
+        dws.append(torch.nn.grad.conv2d_weight(
+            f[:, :cin], (cout, cin, 3, 3), dy[:, lo:lo + cout],
+            padding=1).permute(2, 3, 1, 0))
+        dbs.append(das[i].sum(dim=(0, 2, 3)))
+    return (dx.permute(0, 2, 3, 1).contiguous(), tuple(dws), tuple(dbs),
+            dy.to(dt).permute(0, 2, 3, 1).contiguous())
+
+
 class _FusedRDB(torch.autograd.Function):
     """The block with its feature buffer as the saved residual; kernels
     on CUDA, plain versions on the CPU.  ``variant`` (``_variant``) picks
@@ -553,10 +652,11 @@ def rdb_bwd_cuda(
     64) output cotangent; ``feat``: the forward's (B, H, W, 192) feature
     buffer in the working dtype; ``kernels``: the five HWIO kernels.
 
-    Returns ``(dx, dws, dbs, dfeat)``: dx (B, H, W, 64) in ``feat.dtype``,
-    five f32 HWIO dW, five f32 db, and the f32 (B, H, W, 192) dense
-    gradient the launches accumulated (dx - g is its first 64 channels),
-    so that each stage can be held against its own plain computation."""
+    Returns ``(dx, dws, dbs, dy)``: dx (B, H, W, 64) in ``feat.dtype``,
+    five f32 HWIO dW, five f32 db, and DY, the (B, H, W, 192) buffer of
+    every conv's cotangent [dy_0 | ... | dy_4] in ``feat.dtype``, so that
+    each stage can be held against a plain computation of the kernel's
+    own inputs."""
     global RDB_BWD_LAUNCHES
     kernels = tuple(kernels)
     if feat.dim() != 4 or feat.shape[-1] != FEAT:
@@ -583,27 +683,59 @@ def rdb_bwd_cuda(
     return out
 
 
+def bwd_schedule(b: int, h: int, w: int) -> dict:
+    """The bf16 backward's persistent grids, as its kernels count the
+    runs: ``conv_ctas`` for each slot conv, ``dx_ctas`` for each of dx's
+    two halves, ``wgrad_ctas`` for each wgrad tile."""
+    per = (-(-h * w // _BWD_RUN) if w <= _BWD_NARROW_W
+           else h * -(-w // _BWD_RUN))
+    runs = b * per
+    return {"runs": runs, "conv_ctas": min(runs, _BWD_CTAS),
+            "dx_ctas": min(runs, _BWD_CTAS // 2),
+            "wgrad_ctas": min(runs, _BWD_WGRAD_CTAS)}
+
+
+def bwd_walk(b: int, h: int, w: int, slot: int) -> list:
+    """The (run, K chunk) items each CTA of slot ``slot``'s conv takes, in
+    order: one list per CTA (dx's halves, slots 4 and 5, one grid each)."""
+    sched = bwd_schedule(b, h, w)
+    ctas = sched["conv_ctas" if slot < 4 else "dx_ctas"]
+    nch = _BWD_SLOT_CHUNKS[slot]
+    return [[(t, c) for t in range(cta, sched["runs"], ctas)
+             for c in range(nch)] for cta in range(ctas)]
+
+
 def _bwd_launches(lib_name: str, g, feat, kernels, scale_ratio, *,
                   n_tiles: int, prep_dims: tuple):
-    """The 20 launches of a block backward in library ``lib_name``
-    (``rdb_bwd`` on the (B, H, W, 192) ``feat``, or ``rdb_ext`` on the
-    (B, H + 2, W, 192) row-extended one): per conv, in reverse, prep (da
-    -> dy, db partials), wgrad (f32 dW partials over ``n_tiles`` tiles),
-    the fixed-order reduce, and dgrad into an f32 dense gradient shaped
-    like ``feat``.  ``prep_dims`` are the prep launch's size arguments.
-    Returns ``(dx, dws, dbs, dfeat)``."""
+    """One block backward in library ``lib_name`` (``rdb_bwd`` on the (B,
+    H, W, 192) ``feat``, or ``rdb_ext`` on the (B, H + 2, W, 192)
+    row-extended one), into DY shaped like ``feat``.  bf16: one call of
+    the library's eight launches (``_bwd_bf16``).  f32: the twenty FFMA
+    launches, per conv in reverse: prep (da -> dy_i into DY, db
+    partials), wgrad (f32 dW partials over ``n_tiles`` tiles), the
+    fixed-order reduce, and dgrad into an f32 dense gradient shaped like
+    ``feat``; ``prep_dims`` are the prep launch's size arguments.
+    Returns ``(dx, dws, dbs, dy)``."""
     from torchsr_tpu_torch.ops._build import load_library
 
     dt, dev = feat.dtype, feat.device
     feat = feat.contiguous()
     g = _aligned(g, dt)
-    wts = [_aligned(flipped_kernel(k), dt) for k in kernels]
     b, h, w, _ = g.shape
     npix = feat.numel() // FEAT
-    nblocks = -(-npix // _PREP_PIXELS)
-    dfeat = torch.empty(feat.shape, dtype=torch.float32, device=dev)
     dx = torch.empty((b, h, w, CHANNELS), dtype=dt, device=dev)
-    dy = torch.empty((npix, CHANNELS), dtype=dt, device=dev)
+    dy = torch.empty(feat.shape, dtype=dt, device=dev)
+    lib = load_library(lib_name)
+    errstr = getattr(lib, f"{lib_name}_error_string")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dt == torch.bfloat16:
+        return _bwd_bf16(lib, lib_name, g, feat, kernels, scale_ratio, dx,
+                         dy, -(-npix // _BWD_PREP_PIXELS), stream)
+
+    nblocks = -(-npix // _PREP_PIXELS)
+
+    wts = [_aligned(flipped_kernel(k), dt) for k in kernels]
+    dfeat = torch.empty(feat.shape, dtype=torch.float32, device=dev)
     db_part = torch.empty((nblocks, CHANNELS), dtype=torch.float32,
                           device=dev)
     groups = [min(n_tiles, max(1, _WGRAD_CTAS // (cin // 32)))
@@ -615,34 +747,70 @@ def _bwd_launches(lib_name: str, g, feat, kernels, scale_ratio, *,
            for ci, co in zip(CIN, COUT)]
     dbs = [torch.empty((co,), dtype=torch.float32, device=dev)
            for co in COUT]
-
-    lib = load_library(lib_name)
     fn = {stage: getattr(lib, f"{lib_name}_{stage}_launch")
           for stage in ("prep", "wgrad", "reduce", "dgrad")}
-    errstr = getattr(lib, f"{lib_name}_error_string")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    is_bf16 = int(dt == torch.bfloat16)
     idx = dev.index
     for i in reversed(range(5)):
         src = g if i == 4 else dfeat
         _raise_on(fn["prep"](
-            i, is_bf16, src.data_ptr(), feat.data_ptr(), dy.data_ptr(),
+            i, src.data_ptr(), feat.data_ptr(), dy.data_ptr(),
             db_part.data_ptr(), *prep_dims, nblocks, float(scale_ratio),
             idx, stream), errstr, f"{lib_name} prep {i + 1}")
         _raise_on(fn["wgrad"](
-            i, is_bf16, feat.data_ptr(), dy.data_ptr(), dw_part.data_ptr(),
-            b, h, w, groups[i], idx, stream), errstr,
-            f"{lib_name} wgrad {i + 1}")
+            i, feat.data_ptr(), dy.data_ptr(), dw_part.data_ptr(), b, h, w,
+            groups[i], idx, stream), errstr, f"{lib_name} wgrad {i + 1}")
         _raise_on(fn["reduce"](
             dw_part.data_ptr(), groups[i], dws[i].numel(),
             db_part.data_ptr(), nblocks, COUT[i], dws[i].data_ptr(),
             dbs[i].data_ptr(), idx, stream), errstr,
             f"{lib_name} reduce {i + 1}")
         _raise_on(fn["dgrad"](
-            i, is_bf16, dy.data_ptr(), wts[i].data_ptr(), dfeat.data_ptr(),
+            i, dy.data_ptr(), wts[i].data_ptr(), dfeat.data_ptr(),
             g.data_ptr(), dx.data_ptr(), b, h, w, idx, stream), errstr,
             f"{lib_name} dgrad {i + 1}")
-    return dx, tuple(dws), tuple(dbs), dfeat
+    return dx, tuple(dws), tuple(dbs), dy
+
+
+def _bwd_bf16(lib, lib_name, g, feat, kernels, scale_ratio, dx, dy,
+              nblocks, stream):
+    """The bf16 backward's one entry: the kernels go as they are (f32 or
+    bf16, any strides; the prep launch rounds and packs them), the
+    scratch and the flat dW / db come from here."""
+    import ctypes
+
+    dev = feat.device
+    b, h, w, _ = g.shape
+    sched = bwd_schedule(b, h, w)
+    parts = max(nblocks, sched["conv_ctas"])
+    f32 = torch.float32
+    w_f32 = all(k.dtype == f32 for k in kernels)
+    if not w_f32:
+        kernels = [k.to(torch.bfloat16) for k in kernels]
+    ptrs = (ctypes.c_void_p * 5)(*(k.data_ptr() for k in kernels))
+    strides = (ctypes.c_longlong * 20)(*(s for k in kernels
+                                         for s in k.stride()))
+    wpack = torch.empty(_BWD_WPACK, dtype=torch.bfloat16, device=dev)
+    dw_part = torch.empty((_BWD_WGRAD_TILES, sched["wgrad_ctas"], 9,
+                           CHANNELS, CHANNELS), dtype=f32, device=dev)
+    db_part = torch.empty((5, parts, CHANNELS), dtype=f32, device=dev)
+    dw = torch.empty(sum(9 * ci * co for ci, co in zip(CIN, COUT)),
+                     dtype=f32, device=dev)
+    db = torch.empty(FEAT, dtype=f32, device=dev)
+    entry = getattr(lib, _BWD_BF16_ENTRY[lib_name])
+    _raise_on(entry(
+        g.data_ptr(), feat.data_ptr(), ctypes.addressof(ptrs),
+        ctypes.addressof(strides), int(w_f32), dy.data_ptr(), dx.data_ptr(),
+        wpack.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), b, h, w, float(scale_ratio), nblocks,
+        parts, sched["conv_ctas"], sched["dx_ctas"], sched["wgrad_ctas"],
+        dev.index, stream), getattr(lib, f"{lib_name}_error_string"),
+        f"{lib_name} bf16 backward")
+    dws, o = [], 0
+    for ci, co in zip(CIN, COUT):
+        dws.append(dw[o:o + 9 * ci * co].view(3, 3, ci, co))
+        o += 9 * ci * co
+    dbs = tuple(db[GROWTH * i:GROWTH * i + co] for i, co in enumerate(COUT))
+    return dx, tuple(dws), dbs, dy
 
 
 def _ext_shape(b: int, h: int, w: int) -> None:
@@ -704,11 +872,8 @@ def rdb_bwd_ext_cuda(
     W, 192) buffer of :func:`rdb_fwd_ext_cuda`; ``kernels``: the five
     HWIO kernels.
 
-    Returns ``(dx, dws, dbs, dfeat_padded)``: dx (B, H, W, 64) in the
-    buffer's dtype, five f32 HWIO dW, five f32 db, and the f32 (B, H + 2,
-    W, 192) dense gradient, pad rows included (they hold what the
-    TPU kernel's row-offset adds leave there), so that each stage can be
-    held against its own plain computation."""
+    Returns ``(dx, dws, dbs, dy)`` as :func:`rdb_bwd_cuda` does, with DY
+    in the buffer's (B, H + 2, W, 192) layout, its pad rows zero."""
     global RDB_BWD_EXT_LAUNCHES
     kernels = tuple(kernels)
     if feat_padded.dim() != 4 or feat_padded.shape[-1] != FEAT:
