@@ -21,17 +21,29 @@ renders, tile batches or tool calls imply, every other counter (the
    rdb_bwd, rdb_ext, rdb_ilv, pair_synth, pair_conv), one nvcc each,
    started together.
 3. rdb_fwd (B1): the RDB forward at the serving shape (16 tiles of
-   64x64, 64 channels) and at a ragged shape, in f32 and bf16.  Each of
-   its five launches is held against its own convolution of the feature
-   buffer the kernel filled, and the block against its plain PyTorch
-   version; each check also prints what a wrong kernel reads under its
-   limit.  Median times over 30 calls (CUDA events) beside the bound.
+   64x64, 64 channels), at a ragged shape, at a width (140) whose runs
+   lie inside a row and at the training shape (64, 32, 32, 64), whose
+   runs are whole rows, in f32 and bf16.  Each of its five convs is
+   held against its own convolution of the feature buffer the kernel
+   filled, and the block against its plain PyTorch version; each check
+   also prints what a wrong kernel reads under its limit, among them the
+   faults proper to the bf16 kernels' kx-packed product
+   (``WRONG_KXPACK``: row-end masks dropped, y0 and y2 exchanged, and at
+   the wide shape a run's extension pixels left at zero), which must
+   fail.  In bf16 a call with f32 permuted views of the weights (the
+   trainer's) must equal the call with bf16 contiguous ones bit for bit,
+   and a call's profile must hold only its own kernels (at most six);
+   at each shape the schedule the launches run (runs, grids, halo box,
+   ring) must be the one ``ops.rdb.fwd_schedule`` mirrors.  Median
+   times over 30 calls (CUDA events) and the device time beside the
+   bound.
 4. rdb_fwd_ext (B7): the row-extended forward, checked as rdb_fwd on the
-   data rows of its padded buffer, at the serving shape and a
-   row-ragged eligible one; its pad rows must be zero, what a kernel
-   that writes them reads is printed, and the block is held against B1
-   on the same inputs.  Routing: with the knob set, an ineligible width
-   (45) goes to B1.
+   data rows of its padded buffer, at the serving shape, a row-ragged
+   eligible one, a wide eligible one (W = 144) and the training shape;
+   its pad rows must be zero, what a kernel that writes them reads is
+   printed, and the block must equal B1's on the same inputs bit for
+   bit.  Routing: with the knob set, an ineligible width (45) goes to
+   B1.
 5. rdb_fwd_ilv (B6): the interleaved forward, checked as rdb_fwd on the
    mid copies of its buffer (the up and dn copies must equal the rows
    above and below), at the serving and the ragged shape, against B1,
@@ -168,6 +180,11 @@ RDB_FLOP_PER_PX = 2 * 9 * sum(
 )  # 479,232
 SERVE_RDB_SHAPE = (16, 64, 64, 64)  # tile_batch 16 of 64 px LR tiles
 RAGGED = (3, 37, 45)  # partial CTA tiles, as the whole-image `test` gives
+# Wider than 64: the bf16 forward's runs lie inside a row, two a row,
+# each with an extension pixel at each end (``run_edge_lost`` shows);
+# the second is also eligible for the row-extended kernels.
+WIDE = (2, 6, 140)
+EXT_WIDE = (2, 6, 144)
 # The row-extended kernels (B7, B8) take the shapes the JAX package's
 # gate admits (H * W <= 4096, W % 16 == 0); the serving and training
 # shapes do.  This one also does, with 16-row tiles that straddle the
@@ -224,8 +241,8 @@ TOL_GEN_F32 = 1e-5
 # a generator with wrong blocks reads against the f32 plain path.
 TOL_GEN_BF16 = 0.05
 GEN_BF16_FRAC = 0.25
-# The RDB backward kernel (B2) at the training shape: batch 64 of 128 px
-# HR crops, so 32 x 32 LR pixels through the generator's blocks.
+# The RDB kernels at the training shape: batch 64 of 128 px HR crops,
+# so 32 x 32 LR pixels through the generator's blocks.
 TRAIN_RDB_SHAPE = (64, 32, 32, 64)
 # One backward is a dgrad and a wgrad per conv: twice the forward's
 # operations.
@@ -380,6 +397,88 @@ def grown_zero(y, kernels, biases, *, scale_ratio):
 
 
 WRONG_BLOCKS = {"conv5_skipped": conv5_skipped, "grown_zero": grown_zero}
+# The wrong bf16 forward kernels proper to the kx-packed product
+# (csrc/rdb_fwd_sm90.cuh), emulated by ``kxpack_emulated_fwd``: the
+# column masks dropped, so a row end takes the neighbour row's y; y left
+# at zero at a run's two extension pixels (runs inside a row, W > 64:
+# ``edge_runs``); y0 and y2 exchanged.
+WRONG_KXPACK = ("col_mask_dropped", "run_edge_lost", "kx_swapped")
+# At most this many kernels in one bf16 forward call's profile: prep and
+# five convs (no cast or copy beside them).
+FWD_BF16_KERNELS = 6
+
+
+def kxpack_emulated_fwd(x, ks, bs, fault=None):
+    """The data flow of the bf16 forward kernels in plain PyTorch (f32
+    sums, each conv rounded once to ``x.dtype``): per conv, y = the sum
+    over ky of the ky-shifted pixels times W[ky] as (C_in, 3 C_out); out
+    = y0 one pixel left + y1 + y2 one pixel right (in image order,
+    masked at the row ends) + b.  ``fault``, one of ``WRONG_KXPACK``,
+    puts in a wrong kernel's fault.  Returns (out, feat) as
+    ``rdb_fwd_cuda`` does."""
+    dt = x.dtype
+    b, h, w, _ = x.shape
+    feat = x.new_zeros((b, h, w, rdb_ops.FEAT))
+    feat[..., :rdb_ops.CHANNELS] = x
+    col = torch.arange(h * w, device=x.device) % w
+    keep_l, keep_r = (col > 0)[:, None], (col < w - 1)[:, None]
+    runs = [r for r in rdb_ops.fwd_runs(b, h, w) if r[3]] or [(0, 0, 1)]
+    first = torch.tensor([(i, p0) for i, p0, *_ in runs], device=x.device)
+    last = first + torch.tensor([(0, n - 1) for _, _, n, *_ in runs],
+                                device=x.device)
+    for i, (cin, cout) in enumerate(zip(rdb_ops.CIN, rdb_ops.COUT)):
+        k = ks[i].float()
+        if fault == "kx_swapped":
+            k = k.flip(1)
+        wp = rdb_ops.pack_kernel(k)
+        rows = F.pad(feat[..., :cin].float(), (0, 0, 0, 0, 1, 1))
+        y = sum(rows[:, s:s + h] @ wp[s * cin:(s + 1) * cin]
+                for s in range(3)).reshape(b, h * w, 3 * cout)
+        left = F.pad(y[:, :-1, :cout], (0, 0, 1, 0))
+        right = F.pad(y[:, 1:, 2 * cout:], (0, 0, 0, 1))
+        if fault != "col_mask_dropped":
+            left, right = left * keep_l, right * keep_r
+        if fault == "run_edge_lost":
+            left[first[:, 0], first[:, 1]] = 0
+            right[last[:, 0], last[:, 1]] = 0
+        acc = (left + y[..., cout:2 * cout] + right + bs[i].float()).reshape(
+            b, h, w, cout)
+        if i < 4:
+            feat[..., cin:cin + cout] = F.leaky_relu(acc, 0.2).to(dt)
+    return (x.float() + SCALE * acc).to(dt), feat
+
+
+def edge_runs(shape) -> bool:
+    """Whether a run of the bf16 forward at ``shape`` (B, H, W, C) has an
+    extension pixel inside its row, where ``run_edge_lost`` shows."""
+    b, h, w, _ = shape
+    return any(e and (p0 % w or p0 % w + n < w)
+               for _, p0, n, e, *_ in rdb_ops.fwd_runs(b, h, w))
+
+
+def kxpack_wrong_excess(x, ks, bs) -> dict:
+    """The largest launch excess of each ``WRONG_KXPACK`` kernel that can
+    show at x's shape."""
+    return {fault: max(rdb_scores(x, ks, bs, *kxpack_emulated_fwd(
+        x, ks, bs, fault))["stage_excess"]) for fault in WRONG_KXPACK
+        if fault != "run_edge_lost" or edge_runs(x.shape)}
+
+
+def f32_views(ks):
+    """HWIO views of f32 OIHW tensors holding ``ks``: the layout and type
+    in which the trainer hands its parameters to the forward."""
+    return [k.float().permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+            for k in ks]
+
+
+def check_fwd_profile(prof: dict, name: str) -> None:
+    """A bf16 forward call launches at most ``FWD_BF16_KERNELS`` kernels,
+    all its own (no cast or copy beside them)."""
+    names = [n for n, _ in prof["by_launch"]]
+    check(prof["kernels_per_call"] <= FWD_BF16_KERNELS
+          and all("rdb_fwd_" in n for n in names),
+          f"{name}: one bf16 call launches only its own kernels, at most "
+          f"{FWD_BF16_KERNELS}: {names}")
 
 
 def _dgrad_sum(f, ks, dy, convs, lo, hi, flip=(2, 3)):
@@ -585,9 +684,11 @@ def _rdb_weights(gen: torch.Generator, device):
     return ks, bs
 
 
-def hold_rdb(x: torch.Tensor, ks, bs) -> dict:
+def hold_rdb(x: torch.Tensor, ks, bs, ks32=None) -> dict:
     """One ``fused_rdb`` on the card, each launch and the whole block
-    held against plain convolutions in f32 (see the limits above)."""
+    held against plain convolutions in f32 (see the limits above),
+    beside the wrong kernels; in bf16 also the call with f32 views of
+    ``ks32`` (the f32 weights ``ks`` were rounded from) bit-equal."""
     before = rdb_ops.RDB_FWD_LAUNCHES
     out, feat = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
     check(rdb_ops.RDB_FWD_LAUNCHES == before + 5,
@@ -597,9 +698,25 @@ def hold_rdb(x: torch.Tensor, ks, bs) -> dict:
     name = f"rdb_fwd {x.dtype} {tuple(x.shape)}"
     check(max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1,
           f"{name} within its limits: {row}")
+    row["kxpack_wrong_excess"] = kxpack_wrong_excess(x, ks, bs)
     check(min(row["stage_wrong_excess"]) > 1
-          and min(row["block_wrong_excess"].values()) > 1,
+          and min(row["block_wrong_excess"].values()) > 1
+          and min(row["kxpack_wrong_excess"].values()) > 1,
           f"{name}: the limits see a wrong kernel: {row}")
+    if x.dtype == torch.bfloat16 and ks32 is not None:
+        out32, feat32 = rdb_ops.rdb_fwd_cuda(x, f32_views(ks32), bs,
+                                             scale_ratio=SCALE)
+        row["f32_views_bit_equal"] = bool(torch.equal(out32, out)
+                                          and torch.equal(feat32, feat))
+        check(row["f32_views_bit_equal"],
+              f"{name}: f32 weight views give the bf16 weights' block")
+    if x.dtype == torch.bfloat16:
+        b, h, w, _ = x.shape
+        sched = rdb_ops.fwd_kernel_schedule(b, h, w)
+        row["schedule"] = sched
+        check(sched == rdb_ops.fwd_schedule(b, h, w),
+              f"{name}: the kernel runs the schedule fwd_schedule mirrors: "
+              f"{sched} vs {rdb_ops.fwd_schedule(b, h, w)}")
     return row
 
 
@@ -641,15 +758,25 @@ def phase_rdb(seed: int) -> dict:
     g = torch.Generator().manual_seed(seed)
     ks, bs = _rdb_weights(g, dev)
     x = (torch.randn(SERVE_RDB_SHAPE, generator=g) * 0.5).to(dev)
+    xw = (torch.randn((*WIDE, 64), generator=g) * 0.5).to(dev)
+    xt = (torch.randn(TRAIN_RDB_SHAPE, generator=g) * 0.5).to(dev)
     b, h, w = RAGGED
     rows = {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
             kd = [k.to(dtype) for k in ks]
-            row = hold_rdb(xd, kd, bs)
-            row["ragged"] = hold_rdb(xd[:b, :h, :w], kd, bs)
+            row = hold_rdb(xd, kd, bs, ks)
+            row["ragged"] = hold_rdb(xd[:b, :h, :w], kd, bs, ks)
+            row["wide"] = hold_rdb(xw.to(dtype), kd, bs, ks)
+            row["train"] = hold_rdb(xt.to(dtype), kd, bs, ks)
+            check("run_edge_lost" in row["wide"]["kxpack_wrong_excess"],
+                  "rdb_fwd: the wide shape holds run_edge_lost")
             row["ms"] = median_ms(lambda: rdb_ops.fused_rdb(xd, kd, bs))
+            row["profile"] = bwd_profile(
+                lambda: rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE))
+            if dtype == torch.bfloat16:
+                check_fwd_profile(row["profile"], "rdb_fwd bfloat16")
             row["plain_ms"] = median_ms(
                 lambda: rdb_ops.rdb_reference(xd, kd, bs))
             row["bound_ms"], row["bound_by"] = rdb_bound_ms(SERVE_RDB_SHAPE,
@@ -684,10 +811,12 @@ def ext_emulated_fwd(x, ks, bs, fault=None):
     return out, buf
 
 
-def hold_rdb_ext(x: torch.Tensor, ks, bs) -> dict:
+def hold_rdb_ext(x: torch.Tensor, ks, bs, ks32=None) -> dict:
     """One row-extended forward (B7): each launch and the block held as
-    ``hold_rdb`` holds B1, on the data rows of the padded buffer; the
-    pad rows must read zero; the block against B1 on the same inputs."""
+    ``hold_rdb`` holds B1, on the data rows of the padded buffer, beside
+    the same wrong kernels; the pad rows must read zero; the block equal
+    to B1's on the same inputs bit for bit; in bf16 the call with f32
+    views of ``ks32`` bit-equal."""
     dt = x.dtype
     before = rdb_ops.RDB_FWD_EXT_LAUNCHES
     out, feat = rdb_ops.rdb_fwd_ext_cuda(x, ks, bs, scale_ratio=SCALE)
@@ -703,15 +832,25 @@ def hold_rdb_ext(x: torch.Tensor, ks, bs) -> dict:
     out1, _ = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
     row["vs_b1_block_excess"] = excess(out, out1, BLOCK_LIMITS[dt], x)
     row["vs_b1_max_abs"] = float((out.float() - out1.float()).abs().max())
+    row["kxpack_wrong_excess"] = kxpack_wrong_excess(x, ks, bs)
     name = f"rdb_fwd_ext {dt} {tuple(x.shape)}"
     check(max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1,
           f"{name} within its limits: {row}")
     check(row["pad_rows_max_abs"] == 0, f"{name}: pad rows zero")
-    check(row["vs_b1_block_excess"] <= 1, f"{name}: agrees with B1")
+    check(row["vs_b1_block_excess"] <= 1 and row["vs_b1_max_abs"] == 0,
+          f"{name}: equals B1 bit for bit")
     check(min(row["stage_wrong_excess"]) > 1
           and min(row["block_wrong_excess"].values()) > 1
-          and row["pad_rows_written_excess"]["stage"] > 1,
+          and row["pad_rows_written_excess"]["stage"] > 1
+          and min(row["kxpack_wrong_excess"].values()) > 1,
           f"{name}: the limits see a wrong kernel: {row}")
+    if dt == torch.bfloat16 and ks32 is not None:
+        out32, feat32 = rdb_ops.rdb_fwd_ext_cuda(x, f32_views(ks32), bs,
+                                                 scale_ratio=SCALE)
+        row["f32_views_bit_equal"] = bool(torch.equal(out32, out)
+                                          and torch.equal(feat32, feat))
+        check(row["f32_views_bit_equal"],
+              f"{name}: f32 weight views give the bf16 weights' block")
     return row
 
 
@@ -822,7 +961,10 @@ def phase_rdb_variant(seed: int, variant: str) -> dict:
     g = torch.Generator().manual_seed(seed)
     ks, bs = _rdb_weights(g, dev)
     x = (torch.randn(SERVE_RDB_SHAPE, generator=g) * 0.5).to(dev)
+    xw = (torch.randn((*EXT_WIDE, 64), generator=g) * 0.5).to(dev)
     ext = variant == "ext"
+    xt = ((torch.randn(TRAIN_RDB_SHAPE, generator=g) * 0.5).to(dev)
+          if ext else None)
     hold, cuda_fn, plain_fn = (
         (hold_rdb_ext, rdb_ops.rdb_fwd_ext_cuda, rdb_ops.rdb_ext_reference)
         if ext else
@@ -833,10 +975,21 @@ def phase_rdb_variant(seed: int, variant: str) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
             kd = [k.to(dtype) for k in ks]
-            row = hold(xd, kd, bs)
-            row["ragged"] = hold(xd[:b, :h, :w], kd, bs)
+            extra = (ks,) if ext else ()
+            row = hold(xd, kd, bs, *extra)
+            row["ragged"] = hold(xd[:b, :h, :w], kd, bs, *extra)
+            if ext:
+                row["wide"] = hold(xw.to(dtype), kd, bs, ks)
+                row["train"] = hold(xt.to(dtype), kd, bs, ks)
+                check("run_edge_lost" in row["wide"]["kxpack_wrong_excess"],
+                      "rdb_fwd_ext: the wide shape holds run_edge_lost")
             row["ms"] = median_ms(
                 lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
+            if ext:
+                row["profile"] = bwd_profile(
+                    lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
+                if dtype == torch.bfloat16:
+                    check_fwd_profile(row["profile"], "rdb_fwd_ext bfloat16")
             row["b1_ms"] = median_ms(
                 lambda: rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE))
             row["plain_ms"] = median_ms(
@@ -885,22 +1038,43 @@ def rdb_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
         "bytes" if t_bytes > t_ops else "operations")
 
 
+# Profiler windows a profile may take: torch.profiler now and then
+# returns a window without a single device event although its kernels
+# ran; such a window is run again.
+PROFILE_WINDOWS = 3
+
+
+def device_spans(fn, calls: int) -> list:
+    """(start, end, name) of every device kernel of ``calls`` calls of
+    ``fn`` under ``torch.profiler``, in order of start, after one call
+    outside the window (its allocations and caches).  A window with no
+    device event is run again, ``PROFILE_WINDOWS`` windows at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+    check(bool(spans), "the profiler recorded device events")
+    return spans
+
+
 def bwd_profile(fn, calls: int = 10) -> dict:
     """``fn`` (one backward call) under ``torch.profiler``: device ms per
     call, kernels per call, and each launch of a call by its position
     (name and device ms, averaged over the calls)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(bool(spans) and len(spans) % calls == 0,
+    spans = device_spans(fn, calls)
+    check(len(spans) % calls == 0,
           f"the profiler recorded whole calls ({len(spans)} kernels)")
     per = len(spans) // calls
     by_launch = [[_kernel_name(spans[i][2]), sum(
@@ -1589,7 +1763,7 @@ _RDB_BWD_KERNELS = ("rdb_bwd_", "wgrad_f32", "dgrad_f32", "reduce_partials",
 
 
 def _kernel_class(name: str) -> str:
-    if "conv3x3_bf16" in name or "conv3x3_f32" in name:
+    if "conv3x3_" in name or "rdb_fwd_" in name:
         return "rdb_fwd"
     if any(k in name for k in _RDB_BWD_KERNELS):
         return "rdb_bwd"
@@ -1610,18 +1784,7 @@ def profile_device_time(fn, batches: int = 3, key=_kernel_class) -> dict:
     """Device time per kernel class (or per ``key`` of the kernel's
     name) over ``batches`` calls of ``fn``, and the device's busy share
     of the span from the first kernel to the last."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(batches):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(bool(spans), "the profiler recorded device events")
+    spans = device_spans(fn, batches)
     by_class: dict = {}
     busy, cur_start, cur_end = 0.0, None, None
     for start, end, name in spans:

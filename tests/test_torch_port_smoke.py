@@ -85,6 +85,50 @@ def test_limits_catch_one_wrong_launch(stage, fault):
     assert row["block_excess"] > 1, row
 
 
+# Whole-row runs (W <= 64), and runs inside a row with extension pixels
+# mid-row (W = 140: two runs a row)
+KXPACK_SHAPES = [(2, 12, 24, 64), (1, 4, 140, 64)]
+
+
+@pytest.mark.parametrize("shape", KXPACK_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_kxpack_emulation_passes_and_its_faults_show(dtype, shape):
+    """chip_smoke's emulation of the bf16 kernels' kx-packed data flow is
+    ``rdb_fwd_kxpack_reference`` and passes the launch and block limits;
+    each ``WRONG_KXPACK`` fault (row-end masks dropped, a run's
+    extension pixels at zero, y0 and y2 exchanged) fails them where it
+    can show: a run's extension pixels lie mid-row only where W > 64."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(0, 0.5, shape).astype(np.float32))
+    x = x.to(dtype)
+    _, ks, bs = _inputs(dtype)
+    out, feat = smoke.kxpack_emulated_fwd(x, ks, bs)
+    want = rdb_ops.rdb_fwd_kxpack_reference(x, ks, bs,
+                                            scale_ratio=smoke.SCALE)
+    assert torch.equal(out, want[0]) and torch.equal(feat, want[1])
+    row = smoke.rdb_scores(x, ks, bs, out, feat)
+    assert max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1, row
+    wrong = smoke.kxpack_wrong_excess(x, ks, bs)
+    wide = shape[2] > rdb_ops._FWD_NARROW_W
+    assert smoke.edge_runs(shape) == wide
+    assert set(wrong) == set(smoke.WRONG_KXPACK) - (
+        set() if wide else {"run_edge_lost"})
+    assert min(wrong.values()) > 1, wrong
+
+
+def test_fwd_profile_check_takes_only_own_kernels():
+    """A bf16 forward call's profile passes with its prep and five convs
+    and fails with a cast beside them or a seventh kernel."""
+    own = [["rdb_fwd_sm90::rdb_fwd_prep<float>", 0.01]] + [
+        ["rdb_fwd_sm90::rdb_fwd_conv", 0.02]] * 5
+    smoke.check_fwd_profile({"kernels_per_call": 6, "by_launch": own}, "ok")
+    cast = own[:5] + [["at::native::vectorized_elementwise_kernel", 0.01]]
+    for bad in ({"kernels_per_call": 6, "by_launch": cast},
+                {"kernels_per_call": 7, "by_launch": own + own[:1]}):
+        with pytest.raises(RuntimeError, match="own kernels"):
+            smoke.check_fwd_profile(bad, "bad")
+
+
 def test_kernel_path_refuses_cpu_tensors():
     """The kernel path takes CUDA tensors only; the CPU goes through
     ``fused_rdb``'s plain version."""
@@ -184,6 +228,8 @@ def test_train_grad_limit_catches_a_wrong_backward():
 @pytest.mark.parametrize("name, cls", [
     ("void (anonymous namespace)::tensor_core::conv3x3_bf16<64, 32, false>"
      "(...)", "rdb_fwd"),
+    ("void rdb_fwd_sm90::rdb_fwd_conv(__nv_bfloat16*, ...)", "rdb_fwd"),
+    ("void rdb_fwd_sm90::rdb_fwd_prep<float>(...)", "rdb_fwd"),
     ("void rdb_bwd_sm90::rdb_bwd_slot_conv(__nv_bfloat16*, ...)", "rdb_bwd"),
     ("void rdb_bwd_sm90::rdb_bwd_wgrad(...)", "rdb_bwd"),
     ("void rdb_bwd_sm90::rdb_bwd_prep<float>(...)", "rdb_bwd"),

@@ -41,10 +41,12 @@ def _rdb_std(fan_in: int) -> float:
 class ResidualDenseBlock(nn.Module):
     """Five dense convs, each seeing all earlier outputs; x + 0.2 * conv5.
 
-    The forward hands the HWIO kernels in the activation dtype to
-    ``fused_rdb``.  Under ``torch.inference_mode`` that repacking is
-    cached, keyed on the weights' storage and version counters, so a
-    serving loop repacks only after the weights change."""
+    The forward hands the HWIO kernels to ``fused_rdb``: in training,
+    permuted f32 views of the OIHW weights (the bf16 kernels round them
+    as they pack them); under ``torch.inference_mode``, contiguous
+    copies in the activation dtype, cached on that dtype and the
+    weights' storage and version counters, so a serving loop repacks
+    only after the weights change."""
 
     def __init__(self, scale_ratio: float = 0.2, *, device=None,
                  dtype=None):

@@ -33,10 +33,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # device, stream.
 _BWD_BF16 = (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
              _I, _I, _I, _I, _I, _I, _P)
+# The bf16 block forward's one entry (rdb_fwd.cu, rdb_ext.cu): x, feat,
+# out, the kernels' pointer and stride arrays, w_f32, the biases' pointer
+# array, the packed-weight scratch, B, H, W, scale, device, stream.
+_FWD_BF16 = (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P)
 SIGNATURES = {
     "rdb_fwd": {
-        "rdb_conv3x3_launch": (
-            _I, (_I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+        "rdb_fwd_bf16_launch": (_I, _FWD_BF16),
+        "rdb_fwd_bf16_schedule": (_I, (_I, _I, _I, _P)),
+        "rdb_fwd_f32_launch": (
+            _I, (_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
         ),
         "rdb_error_string": (ctypes.c_char_p, (_I,)),
     },
@@ -55,8 +61,9 @@ SIGNATURES = {
         "rdb_bwd_error_string": (ctypes.c_char_p, (_I,)),
     },
     "rdb_ext": {
-        "rdb_ext_fwd_launch": (
-            _I, (_I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+        "rdb_ext_fwd_bf16_launch": (_I, _FWD_BF16),
+        "rdb_ext_fwd_f32_launch": (
+            _I, (_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
         ),
         "rdb_ext_bwd_bf16_launch": (_I, _BWD_BF16),
         "rdb_ext_prep_launch": (

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) helpers for the kernels that stage tiles asynchronously
 // and multiply on warpgroups: cp.async with zero-fill and its commit
-// groups, the proxy fence, the wgmma shared-memory descriptor, and the
-// bf16 m64n64k16 and m64n32k16 wgmma with A in registers, with their
-// fence, commit and wait.  Shared-memory tiles that wgmma or ldmatrix
-// read are rows of 128 bytes (64 bf16) in the 128-byte swizzle: the
-// 16-byte chunk c of row r lies at chunk c ^ (r % 8), in atoms of 8 rows
-// (1024 bytes, aligned to 1024), as TMA's CU_TENSOR_MAP_SWIZZLE_128B
-// writes them.
+// groups, the tensor memory accelerator's (TMA) tiled loads and stores
+// with their mbarriers and bulk groups, the proxy fence, the wgmma
+// shared-memory descriptor, and the bf16 m64n96k16, m64n64k16 and
+// m64n32k16 wgmma with A in registers, with their fence, commit and wait.
+// Shared-memory tiles that wgmma or ldmatrix read are rows of 128 bytes
+// (64 bf16) in the 128-byte swizzle: the 16-byte chunk c of row r lies at
+// chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes, aligned to 1024), as
+// TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -23,6 +25,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // Byte offset of 16-byte chunk `c` of 128-byte row `r` in the swizzle.
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// `p` advanced to the next 1024-byte boundary of shared memory (a
+// swizzle atom).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // 16 bytes global -> shared, asynchronous; `valid` false writes zeros
@@ -40,6 +48,78 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// An mbarrier in shared memory at `bar`, `count` arrivals a phase; the
+// init fence makes it visible to the TMA unit.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Arrive on `bar` expecting `bytes` more of transactions this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// One arrival on `bar`.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Wait until phase `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3), innermost first, of the
+// 4-D tensor `map` into shared memory at `dst` (zeros where the box
+// leaves the tensor), completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+// TMA: shared memory at `src` into the box at (c0, c1, c2, c3) of `map`
+// (what leaves the tensor is not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (READ) or are in flight at all.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Makes this thread's generic-proxy writes to shared memory visible to
@@ -116,6 +196,34 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16],
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TRANS_B),
+        "r"(1));
+}
+
+// As wgmma_m64n64k16 with N = 96: d is 64 x 96 f32 (48 registers a
+// thread, the same fragment layout over twelve 8-column groups).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %53;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TRANS_B),
         "r"(1));
 }

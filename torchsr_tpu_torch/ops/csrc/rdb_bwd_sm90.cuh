@@ -73,9 +73,13 @@
 
 namespace rdb_bwd_sm90 {
 
+using hopper::align_1024;
 using hopper::swz;
+using rdb::Layout;
 using rdb::load2;
 using rdb::store2;
+using rdb::Weights;
+using rdb::weights_of;
 
 constexpr int FEAT = 192;  // feature buffer and DY width
 constexpr int CH = 64;     // block input/output channels
@@ -127,19 +131,6 @@ constexpr size_t conv_smem() {  // align slack, weights, ring, db exchange
          (CONV_NT / 32) * SLOT_N * sizeof(float);
 }
 constexpr size_t wgrad_smem() { return 1024 + 2 * (STAGE_X + STAGE_G); }
-
-// Image b's row y is buffer row b * HP + Y0 + y: HP = H, Y0 = 0 for B2;
-// HP = H + 2, Y0 = 1 for the row-extended buffer.  g and dx are
-// unpadded (B, H, W, 64) in both.
-struct Layout {
-  int B, H, W, HP, Y0;
-  __device__ __forceinline__ size_t pix(int b, int y, int x) const {
-    return ((size_t)b * HP + Y0 + y) * W + x;
-  }
-  __device__ __forceinline__ size_t dense(int b, int y, int x) const {
-    return ((size_t)b * H + y) * W + x;
-  }
-};
 
 __host__ __device__ inline int runs_per_image(int H, int W) {
   return W <= NARROW_W ? (H * W + RUN - 1) / RUN : H * ((W + RUN - 1) / RUN);
@@ -213,19 +204,7 @@ __device__ __forceinline__ void stage_run(
   }
 }
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
-
 // ----------------------------------------------------------------- prep
-
-// The caller's five HWIO kernels: element (ky, kx, ci, co) of kernel i at
-// p[i] + ky s[i][0] + kx s[i][1] + ci s[i][2] + co s[i][3].
-template <typename TW>
-struct Weights {
-  const TW* p[5];
-  long long s[5][4];
-};
 
 // Blocks [0, nblocks): dy_4 and db_4's partials (PREP_PIXELS buffer
 // pixels each), pad rows zeroed; the rest: 8 packed weights a thread.
@@ -653,16 +632,6 @@ cudaError_t launch_bwd(const __nv_bfloat16* g, const __nv_bfloat16* feat,
   rdb_bwd_reduce<<<(DW_TOTAL + FEAT + 255) / 256, 256, 0, s>>>(
       dw_part, g_wgrad, db_part, P, g_conv, nblocks, dw, db);
   return cudaGetLastError();
-}
-
-template <typename TW>
-Weights<TW> weights_of(const void* const* wptr, const long long* wstride) {
-  Weights<TW> w;
-  for (int i = 0; i < 5; ++i) {
-    w.p[i] = static_cast<const TW*>(wptr[i]);
-    for (int k = 0; k < 4; ++k) w.s[i][k] = wstride[4 * i + k];
-  }
-  return w;
 }
 
 // The C entry's body: the five kernels come as pointers and (ky, kx, ci,

@@ -17,20 +17,27 @@
 // (B, H + 2, W, C) NHWC, each image between a zero pad row above and one
 // below.  Read as one tall image of R = B * (H + 2) rows, every 3x3
 // window centred on a data row reads rows of its own image or that
-// image's pad rows, so the staging has no row predicates: only the
-// column edges (x = -1, x = W) are masked, as first_col/last_col are on
-// the TPU.  A tile row that falls past the buffer's ends is clamped to
-// the nearest row; it feeds only outputs on pad rows, which are never
-// stored (forward) or multiply a zero dy (wgrad).  W % 16 == 0 (the gate)
-// makes the 16-column tiles exact.  The forward computes the 2 pad rows
-// of each image too and drops them: 2 / (H + 2) extra work (3% at the
-// serving shape, 6% at the training shape).
+// image's pad rows, so the f32 kernels' staging has no row predicates:
+// only the column edges (x = -1, x = W) are masked, as first_col/last_col
+// are on the TPU.  A tile row that falls past the buffer's ends is
+// clamped to the nearest row; it feeds only outputs on pad rows, which
+// are never stored (forward) or multiply a zero dy (wgrad).  W % 16 == 0
+// (the gate) makes the 16-column tiles exact.  The f32 forward computes
+// the 2 pad rows of each image too and drops them: 2 / (H + 2) extra
+// work (3% at the serving shape, 6% at the training shape).
 //
-// Forward (five launches of conv_bf16 / conv_f32 with FwdEpi): launch i
-// reads channels [0, C_in) of the buffer and writes [C_in, C_in + 32) of
-// its data rows; the wrapper zeroes both pad rows of every image (all
-// 192 channels) and copies x into channels [0, 64) first.  Launch 5
-// writes out = x + scale * (conv5 + b5), unpadded.
+// Forward, bf16 (AMP): the six launches of csrc/rdb_fwd_sm90.cuh (B1's
+// kernels) with the layout's row stride and offset: image b's row y is
+// buffer row b (H + 2) + 1 + y.  Its prep launch zeroes the pad rows;
+// conv 1 copies x into channels [0, 64) of the data rows; the halo boxes
+// and the stores cover the image rows only, so pad rows are never read or
+// computed, and the block equals B1's bit for bit.
+//
+// Forward, f32 (five launches of conv_f32 with FwdEpi): launch i reads
+// channels [0, C_in) of the buffer and writes [C_in, C_in + 32) of its
+// data rows; the wrapper zeroes both pad rows of every image (all 192
+// channels) and copies x into channels [0, 64) first.  Launch 5 writes
+// out = x + scale * (conv5 + b5), unpadded.
 //
 // Backward, bf16 (AMP): the eight launches of csrc/rdb_bwd_sm90.cuh (B2's
 // kernels) with the layout's row stride and offset: image b's row y is
@@ -58,25 +65,19 @@
 //    dF, the others add into it; conv 1 also writes dx = dF[data rows,
 //    :64] + g, unpadded.
 //
-// GEMM formulation.  Each conv is B1's direct conv (nine taps, each an
-// implicit GEMM over C_in), not the TPU kernel's N-packed product (N = 3
-// C_out carrying the horizontal taps, reduced in an epilogue): the same
-// products summed in the same order as B1, so the forward equals B1's
-// bit for bit and only the layout differs between the two.
-//
-// Forward bf16 (AMP): mma.sync m16n8k16 bf16 -> f32 fed by ldmatrix; a
-// CTA is 8 warps over a 16 x 16 pixel tile, each warp two rows of 16
-// pixels.  f32: FFMA on the CUDA cores (tensor cores would round to TF32), 8 x 16
-// tiles, 4 pixels x 8 channels per thread.
+// The f32 forward is B1's f32 direct conv (nine taps, FFMA on the CUDA
+// cores: tensor cores would round to TF32; 8 x 16 tiles, 4 pixels x 8
+// channels per thread): the same products summed in the same order, so
+// it too equals B1's bit for bit.
 //
 // Bound on this card (H100 SXM).  Forward at the serving shape (16, 64,
 // 64, 64): 31.4 GFLOP, 0.0318 ms at 989 TFLOP/s bf16 (0.469 ms at 67
 // TFLOP/s f32); its bytes (x in, out) 16.8 MB bf16, 0.005 ms: compute-
 // bound, as B1.  Backward at the training shape (64, 32, 32, 64): 62.8
-// GFLOP, 0.0635 ms bf16 (0.94 ms f32) against 0.013 ms of bytes.  Like
-// B1 the forward stages synchronously on mma.sync; wgmma is later work.
+// GFLOP, 0.0635 ms bf16 (0.94 ms f32) against 0.013 ms of bytes.
 
 #include "rdb_bwd_sm90.cuh"
+#include "rdb_fwd_sm90.cuh"
 #include "rdb_mma.cuh"
 
 namespace {
@@ -88,7 +89,7 @@ using rdb::store2;
 
 constexpr int FEAT = 192;   // feature buffer width
 constexpr int CH = 64;      // block input/output channels
-constexpr int NT = 256;     // threads of a bf16 conv / wgrad CTA
+constexpr int NT = 256;     // threads of an f32 wgrad or prep CTA
 constexpr int CCHUNK = 32;  // wgrad input channels / dgrad dF channels per CTA
 
 // The tall layout: R = B * (H + 2) rows of W pixels.
@@ -190,123 +191,6 @@ struct DgradEpi {
   }
 };
 
-// ------------------------------------------------------- bf16 direct conv
-
-namespace tensor_core {
-
-using rdb::ldmatrix_x4;
-using rdb::mma_bf16;
-
-constexpr int TH = 16;  // tile rows: two per warp
-constexpr int TW = 16;  // tile columns: one 16-pixel M tile
-constexpr int HALO_W = TW + 2;
-constexpr int HALO_PX = (TH + 2) * HALO_W;
-constexpr int KC = 32;           // input channels per stage
-constexpr int LDS = KC + 8;      // 80-byte rows: ldmatrix conflict-free
-
-template <int NOUT>
-constexpr size_t conv_smem() {
-  return (size_t)(HALO_PX + 9 * NOUT) * LDS * sizeof(__nv_bfloat16);
-}
-
-// A 3x3 SAME conv over the tall layout: src (R, W, LD_SRC), channels
-// [0, CIN); w HWIO (3, 3, CIN, WN), output channels [co0, co0 + NOUT)
-// with co0 = NOUT * blockIdx.z.  Rows are not predicated (see the
-// header); columns outside [0, W) are zero.
-// At most 128 registers a thread (two CTAs an SM): conv 5 takes 134
-// without the cap, which leaves one CTA an SM and runs ~25% slower.
-template <int CIN, int LD_SRC, int WN, int NOUT, class Epi>
-__global__ void __launch_bounds__(NT, 2)
-conv_bf16(const __nv_bfloat16* __restrict__ src,
-          const __nv_bfloat16* __restrict__ w, Epi epi, Tall t) {
-  static_assert(CIN % KC == 0 && NOUT % 16 == 0, "channel tiling");
-  constexpr int NTILES = NOUT / 8;
-  extern __shared__ __align__(16) __nv_bfloat16 smem_c[];
-  __nv_bfloat16* in_s = smem_c;                 // [HALO_PX][LDS]
-  __nv_bfloat16* w_s = smem_c + HALO_PX * LDS;  // [9][NOUT][LDS]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
-  const int co0 = blockIdx.z * NOUT;
-
-  float acc[2][NTILES][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int n = 0; n < NTILES; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
-
-  for (int c0 = 0; c0 < CIN; c0 += KC) {
-    __syncthreads();  // the previous stage is fully consumed
-    for (int i = tid; i < HALO_PX * (KC / 8); i += NT) {
-      const int px = i / (KC / 8), ch = i % (KC / 8);
-      const int r = t.clamp_row(r0 - 1 + px / HALO_W);
-      const int gx = x0 - 1 + px % HALO_W;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (gx >= 0 && gx < t.W)
-        v = *reinterpret_cast<const uint4*>(
-            src + ((size_t)r * t.W + gx) * LD_SRC + c0 + ch * 8);
-      *reinterpret_cast<uint4*>(in_s + px * LDS + ch * 8) = v;
-    }
-    // weights HWIO -> [tap][co][ci]
-    for (int i = tid; i < 9 * (NOUT / 8) * KC; i += NT) {
-      const int ci = i % KC, q = i / KC;
-      const int tap = q / (NOUT / 8), co = (q % (NOUT / 8)) * 8;
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          w + ((size_t)tap * CIN + c0 + ci) * WN + co0 + co);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        w_s[(tap * NOUT + co + k) * LDS + ci] = e[k];
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-      for (int ks = 0; ks < KC / 16; ++ks) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          ldmatrix_x4(a[j], in_s + ((2 * warp + j + ky) * HALO_W + kx +
-                                    (lane % 16)) * LDS +
-                                ks * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int np = 0; np < NTILES / 2; ++np) {
-          uint32_t b[4];
-          ldmatrix_x4(b, w_s + (tap * NOUT + np * 16 + (lane % 8) +
-                                8 * (lane / 16)) * LDS +
-                             ks * 16 + 8 * ((lane / 8) % 2));
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            mma_bf16(acc[j][2 * np], a[j], b[0], b[1]);
-            mma_bf16(acc[j][2 * np + 1], a[j], b[2], b[3]);
-          }
-        }
-      }
-    }
-  }
-
-  // C fragment: pixels g and g + 8 of the row's M tile, channels 2q, 2q+1
-  const int g = lane / 4, q = lane % 4;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int r = r0 + 2 * warp + j;
-    if (r >= t.R) continue;
-    const auto row = epi.row(r);
-#pragma unroll
-    for (int n = 0; n < NTILES; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        row(x0 + g + 8 * h, co0 + n * 8 + 2 * q, acc[j][n][2 * h],
-            acc[j][n][2 * h + 1]);
-  }
-}
-
-}  // namespace tensor_core
-
 // -------------------------------------------------------- f32 direct conv
 
 namespace cuda_core {
@@ -331,8 +215,11 @@ constexpr size_t conv_smem() {
   return (size_t)(KC * IN_LD + 9 * KC * NOUT) * sizeof(float);
 }
 
-// As tensor_core::conv_bf16, in f32 FFMA: the thread layout of
-// rdb_fwd.cu's conv3x3_f32.
+// A 3x3 SAME conv over the tall layout in f32 FFMA, the thread layout
+// of rdb_fwd.cu's conv3x3_f32: src (R, W, LD_SRC), channels [0, CIN); w
+// HWIO (3, 3, CIN, WN), output channels [co0, co0 + NOUT) with co0 =
+// NOUT * blockIdx.z.  Rows are not predicated (see the header); columns
+// outside [0, W) are zero.
 template <int CIN, int LD_SRC, int WN, int NOUT, class Epi>
 __global__ void __launch_bounds__(threads_for<NOUT>())
 conv_f32(const float* __restrict__ src, const float* __restrict__ w,
@@ -542,51 +429,29 @@ prep(const float* __restrict__ src, const float* __restrict__ feat,
 
 Tall tall_of(int B, int H, int W) { return Tall{H, W, B * (H + 2)}; }
 
-// One conv over the tall layout with epilogue `epi`, NOUT output
+// One f32 conv over the tall layout with epilogue `epi`, NOUT output
 // channels per CTA and WN / NOUT CTAs in z.
-template <int CIN, int LD_SRC, int WN, int NOUT, typename T, class Epi>
+template <int CIN, int LD_SRC, int WN, int NOUT, class Epi>
 cudaError_t launch_conv(const void* src, const void* w, Epi epi, Tall t,
                         cudaStream_t s) {
-  if constexpr (sizeof(T) == 2) {
-    namespace tc = tensor_core;
-    auto kernel = tc::conv_bf16<CIN, LD_SRC, WN, NOUT, Epi>;
-    constexpr size_t smem = tc::conv_smem<NOUT>();
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(t.W / tc::TW, (t.R + tc::TH - 1) / tc::TH, WN / NOUT);
-    kernel<<<grid, NT, smem, s>>>(static_cast<const __nv_bfloat16*>(src),
-                                  static_cast<const __nv_bfloat16*>(w), epi,
-                                  t);
-  } else {
-    namespace cc = cuda_core;
-    auto kernel = cc::conv_f32<CIN, LD_SRC, WN, NOUT, Epi>;
-    constexpr size_t smem = cc::conv_smem<NOUT>();
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(t.W / cc::TW, (t.R + cc::TH - 1) / cc::TH, WN / NOUT);
-    kernel<<<grid, cc::threads_for<NOUT>(), smem, s>>>(
-        static_cast<const float*>(src), static_cast<const float*>(w), epi,
-        t);
-  }
+  namespace cc = cuda_core;
+  auto kernel = cc::conv_f32<CIN, LD_SRC, WN, NOUT, Epi>;
+  constexpr size_t smem = cc::conv_smem<NOUT>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(t.W / cc::TW, (t.R + cc::TH - 1) / cc::TH, WN / NOUT);
+  kernel<<<grid, cc::threads_for<NOUT>(), smem, s>>>(
+      static_cast<const float*>(src), static_cast<const float*>(w), epi, t);
   return cudaGetLastError();
 }
 
-template <int CIN, int COUT, bool LAST, typename T>
-cudaError_t launch_fwd(void* buf, const void* w, const void* bias, void* out,
-                       float scale, Tall t, cudaStream_t s) {
-  FwdEpi<T, CIN, LAST> epi{static_cast<T*>(buf),
-                           static_cast<const float*>(bias),
-                           static_cast<T*>(out), scale, t};
-  return launch_conv<CIN, FEAT, COUT, COUT, T>(buf, w, epi, t, s);
-}
-
 template <int CIN, int COUT, bool LAST>
-cudaError_t fwd(bool bf16, void* buf, const void* w, const void* bias,
-                void* out, float scale, Tall t, cudaStream_t s) {
-  return bf16 ? launch_fwd<CIN, COUT, LAST, __nv_bfloat16>(buf, w, bias, out,
-                                                           scale, t, s)
-              : launch_fwd<CIN, COUT, LAST, float>(buf, w, bias, out, scale,
-                                                   t, s);
+cudaError_t fwd(void* buf, const void* w, const void* bias, void* out,
+                float scale, Tall t, cudaStream_t s) {
+  FwdEpi<float, CIN, LAST> epi{static_cast<float*>(buf),
+                               static_cast<const float*>(bias),
+                               static_cast<float*>(out), scale, t};
+  return launch_conv<CIN, FEAT, COUT, COUT>(buf, w, epi, t, s);
 }
 
 // f32 dgrad of conv (CIN_I -> COUT_I): dy_i is DY's channels CIN_I - 64
@@ -598,7 +463,7 @@ cudaError_t dgrad(const void* dy, const void* wt, void* dF, const void* g,
   DgradEpi<float, ACCUM, FINAL> epi{static_cast<float*>(dF),
                                     static_cast<const float*>(g),
                                     static_cast<float*>(dx), t};
-  return launch_conv<COUT_I, FEAT, CIN_I, CCHUNK, float>(
+  return launch_conv<COUT_I, FEAT, CIN_I, CCHUNK>(
       static_cast<const float*>(dy) + (CIN_I - CH), wt, epi, t, s);
 }
 
@@ -632,26 +497,41 @@ cudaError_t launch_wgrad(const void* feat, const void* dy, void* part,
 
 extern "C" {
 
-// Forward conv `stage` of a block on the (B, H + 2, W, 192) buffer `feat`
-// (pad rows zero, x in channels [0, 64)): stages 0..3 append 32 channels
-// to its data rows, stage 4 writes out (B, H, W, 64).  W % 16 == 0.
-// Returns the cudaError_t of the launch (0 on success), as every entry
+// The bf16 block forward into the (B, H + 2, W, 192) buffer `feat`: the
+// six launches of csrc/rdb_fwd_sm90.cuh on the row-extended layout
+// (x into the data rows, pad rows zeroed, out (B, H, W, 64) unpadded);
+// arguments as rdb_fwd.cu's rdb_fwd_bf16_launch.  Returns the
+// cudaError_t of the first failed launch (0 on success), as every entry
 // point below.
-int rdb_ext_fwd_launch(int stage, int is_bf16, void* feat, const void* w,
-                       const void* bias, void* out, int B, int H, int W,
-                       float scale, int device, void* stream) {
+int rdb_ext_fwd_bf16_launch(const void* x, void* feat, void* out,
+                            const void* wptr, const void* wstride, int w_f32,
+                            const void* bptr, void* wpack, int B, int H,
+                            int W, float scale, int device, void* stream) {
+  return rdb_fwd_sm90::launch_fwd_entry(
+      x, feat, out, static_cast<const void* const*>(wptr),
+      static_cast<const long long*>(wstride), w_f32,
+      static_cast<const void* const*>(bptr), wpack, B, H, W, 1, scale,
+      device, stream);
+}
+
+// f32 forward conv `stage` of a block on the (B, H + 2, W, 192) buffer
+// `feat` (pad rows zero, x in channels [0, 64)): stages 0..3 append 32
+// channels to its data rows, stage 4 writes out (B, H, W, 64).  W % 16
+// == 0.
+int rdb_ext_fwd_f32_launch(int stage, void* feat, const void* w,
+                           const void* bias, void* out, int B, int H, int W,
+                           float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (W % 16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf16 = is_bf16 != 0;
   const Tall t = tall_of(B, H, W);
   switch (stage) {
-    case 0: return (int)fwd<64, 32, false>(bf16, feat, w, bias, out, scale, t, s);
-    case 1: return (int)fwd<96, 32, false>(bf16, feat, w, bias, out, scale, t, s);
-    case 2: return (int)fwd<128, 32, false>(bf16, feat, w, bias, out, scale, t, s);
-    case 3: return (int)fwd<160, 32, false>(bf16, feat, w, bias, out, scale, t, s);
-    case 4: return (int)fwd<192, 64, true>(bf16, feat, w, bias, out, scale, t, s);
+    case 0: return (int)fwd<64, 32, false>(feat, w, bias, out, scale, t, s);
+    case 1: return (int)fwd<96, 32, false>(feat, w, bias, out, scale, t, s);
+    case 2: return (int)fwd<128, 32, false>(feat, w, bias, out, scale, t, s);
+    case 3: return (int)fwd<160, 32, false>(feat, w, bias, out, scale, t, s);
+    case 4: return (int)fwd<192, 64, true>(feat, w, bias, out, scale, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,10 @@
 // Helpers shared by the RDB kernels (rdb_fwd.cu, rdb_bwd.cu, rdb_ext.cu,
 // rdb_ilv.cu): shared-memory addresses, ldmatrix, the bf16 m16n8k16
 // tensor-core MMA with f32 accumulators, storage-type conversions,
-// LeakyReLU(0.2), and the backward's fixed-order reduce of its f32
-// partials.
+// LeakyReLU(0.2), the backward's fixed-order reduce of its f32 partials,
+// and, for the Hopper forward and backward (rdb_fwd_sm90.cuh,
+// rdb_bwd_sm90.cuh), the feature buffer's layout and the caller's five
+// kernels as pointers and strides.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,6 +76,38 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
 
 __device__ __forceinline__ float leaky(float v) {
   return v >= 0.f ? v : v * 0.2f;
+}
+
+// Image b's row y is buffer row b * HP + Y0 + y: HP = H, Y0 = 0 for the
+// (B, H, W, 192) feature buffer (B1, B2); HP = H + 2, Y0 = 1 for the
+// row-extended one (B7, B8).  The forward's x and out and the backward's
+// g and dx are unpadded (B, H, W, 64) in both.
+struct Layout {
+  int B, H, W, HP, Y0;
+  __device__ __forceinline__ size_t pix(int b, int y, int x) const {
+    return ((size_t)b * HP + Y0 + y) * W + x;
+  }
+  __device__ __forceinline__ size_t dense(int b, int y, int x) const {
+    return ((size_t)b * H + y) * W + x;
+  }
+};
+
+// The caller's five HWIO kernels: element (ky, kx, ci, co) of kernel i at
+// p[i] + ky s[i][0] + kx s[i][1] + ci s[i][2] + co s[i][3].
+template <typename TW>
+struct Weights {
+  const TW* p[5];
+  long long s[5][4];
+};
+
+template <typename TW>
+Weights<TW> weights_of(const void* const* wptr, const long long* wstride) {
+  Weights<TW> w;
+  for (int i = 0; i < 5; ++i) {
+    w.p[i] = static_cast<const TW*>(wptr[i]);
+    for (int k = 0; k < 4; ++k) w.s[i][k] = wstride[4 * i + k];
+  }
+  return w;
 }
 
 template <typename K>

@@ -12,8 +12,12 @@ It is differentiable through ``_FusedRDB``, a ``torch.autograd.Function``
 whose saved residual is the forward's post-activation (B, H, W, 192)
 feature buffer (x, then the four grown slices), as the JAX custom VJP
 saves it.  A CUDA tensor runs the hand-written kernels: ``csrc/rdb_fwd.cu``
-(one direct-conv kernel launched five times, filling the feature buffer)
-and, in the backward, ``csrc/rdb_bwd.cu``: in bf16 the eight launches of
+(in bf16 the six launches of ``csrc/rdb_fwd_sm90.cuh``, a prep and five
+convs with the TPU kernel's kx-packed product, the three horizontal taps
+along N and reduced on the results: ``rdb_fwd_kxpack_reference`` is that
+data flow in plain PyTorch; in f32 one FFMA direct conv launched five
+times, filling the feature buffer) and, in the backward,
+``csrc/rdb_bwd.cu``: in bf16 the eight launches of
 ``csrc/rdb_bwd_sm90.cuh``, where each slot's dense gradient is one conv
 over the later convs' cotangents, held in one working-dtype buffer DY
 (``rdb_bwd_dy_reference`` is that data flow in plain PyTorch); in f32
@@ -50,6 +54,7 @@ gradients reach the f32 parameters in f32, never rounded through bf16.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -61,8 +66,9 @@ CIN = (64, 96, 128, 160, 192)
 COUT = (32, 32, 32, 32, 64)
 FEAT = CIN[-1]
 
-# Kernel launches by the forward on CUDA: five per block.  A run reads
-# it to show that its path went through the kernel.
+# Kernel launches by the forward on CUDA: five per block (its five
+# convs; the bf16 prep launch is not counted).  A run reads it to show
+# that its path went through the kernel.
 RDB_FWD_LAUNCHES = 0
 # Block backwards run by the backward kernels on CUDA: one per block
 # backward (eight launches of csrc/rdb_bwd.cu in bf16, twenty in f32).
@@ -92,7 +98,8 @@ _EXT_TILE_W = 16
 _EXT_MAX_ROWS = 65535 * 8
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z, which carries the batch
+# CUDA's limit on gridDim.z, which carries the batch of the f32 forward
+_MAX_GRID_Z = 65535
 # The f32 backward's dgrad launches carry batch x (C_in / 32) CTAs in z
 _MAX_BWD_BATCH = _MAX_GRID_Z // (FEAT // 32)
 # Buffer pixels summed into one partial of db by an f32 prep block, and
@@ -132,6 +139,35 @@ SMEM_LIMIT = 232448
 # Each library's one entry of the bf16 backward
 _BWD_BF16_ENTRY = {"rdb_bwd": "rdb_bwd_bf16_launch",
                    "rdb_ext": "rdb_ext_bwd_bf16_launch"}
+# The bf16 forward's schedule, as the launches compute it
+# (csrc/rdb_fwd_sm90.cuh; mirrored here for the plain emulation and the
+# tests, held against the kernel's own on the card): a run has at most
+# _FWD_M y rows (two warpgroups).  Where W <= _FWD_NARROW_W it is _FWD_M
+# // W whole image rows, its y rows its pixels; else up to _FWD_M - 2
+# pixels inside one row (a row's runs of equal length), its y rows its
+# pixels and one beyond each end.  Convs 1-4 take min(runs, _FWD_CTAS)
+# persistent CTAs (one per SM), conv 5's two halves half as many each;
+# CTA c walks runs c, c + grid, ..., each run's K chunks of 64 feat
+# channels from the last to the first.  A run's halo (its rows and the
+# rows above and below) is one TMA box of fixed size, a ring stage holds
+# one, and a conv's ring as many stages as fit beside its packed weights
+# and the output tile, at most _FWD_MAX_STAGES.
+_FWD_M = 128
+_FWD_NARROW_W = 64
+_FWD_CTAS = 132
+_FWD_MAX_STAGES = 4
+# Slot s (convs 1-4, then conv 5's two 32-channel halves): K chunks, and
+# the packed weights (bf16 elements: per chunk, 3 ky x 96 x 64)
+_FWD_SLOT_CHUNKS = tuple(-(-ci // 64) for ci in (*CIN, CIN[4]))
+_FWD_WPACK = sum(_FWD_SLOT_CHUNKS) * 3 * 3 * GROWTH * 64
+# Dynamic shared memory of a conv CTA: the H100's per-block limit less
+# its static (the epilogues' boundary rows, 4 KB; the ring's mbarriers); the
+# output tile of each of its two warpgroups (_FWD_M pixels x 32 bf16)
+_FWD_SMEM_DYN = 232448 - 4352
+_FWD_OUT_TILE = _FWD_M * 64
+# Each library's one entry of the bf16 forward
+_FWD_BF16_ENTRY = {"rdb_fwd": "rdb_fwd_bf16_launch",
+                   "rdb_ext": "rdb_ext_fwd_bf16_launch"}
 
 
 def _check_kernels(kernels) -> None:
@@ -226,13 +262,17 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
 def rdb_ext_reference(x: torch.Tensor, kernels, biases,
                       scale_ratio: float = 0.2):
     """The plain version of the row-extended forward, with the data flow
-    of ``_rdb_fwd_kernel_ext`` (rdb.py:299): the features of each image
-    live once in a (H + 2, W, 192) buffer between two zero pad rows; a
-    conv's three dy operands are the row-offset views 0, 1, 2 of it,
-    multiplied by the packed weight (N = 3 C_out carries the horizontal
-    taps), the taps reduced with the column masks, and the 32 new
-    channels appended with one store.  Operands in ``x.dtype``, sums in
-    f32.  Returns the block output and the (B, H + 2, W, 192) buffer."""
+    of ``_rdb_fwd_kernel_ext`` (rdb.py:299), the TPU kernel's kx-packed
+    product (``_rdb_fwd_kernel``, rdb.py:186-206): the features of each
+    image live once in a (H + 2, W, 192) buffer between two zero pad
+    rows; per conv and vertical tap ky, one product of the row-offset
+    view ky of it with W[ky] as (C_in, 3 C_out), the three horizontal
+    taps packed along N; the taps reduced on the results with the column
+    masks (``_reduce_taps``), then the bias; LeakyReLU and one rounding
+    into the buffer's data rows (convs 1-4, the 32 new channels appended
+    with one store), or x + scale * conv5 rounded once.  Operands in
+    ``x.dtype``, sums in f32 (f64 for f64).  Returns the block output and
+    the (B, H + 2, W, 192) buffer."""
     _check(x, kernels, biases)
     dt, acc = x.dtype, _acc_dtype(x.dtype)
     b, h, w, _ = x.shape
@@ -247,6 +287,16 @@ def rdb_ext_reference(x: torch.Tensor, kernels, biases,
         if i < 4:
             buf[:, 1:h + 1, :, cin:cin + GROWTH] = F.leaky_relu(out, 0.2).to(dt)
     return (out * scale_ratio + x.to(acc)).to(dt), buf
+
+
+def rdb_fwd_kxpack_reference(x: torch.Tensor, kernels, biases,
+                             scale_ratio: float = 0.2):
+    """The plain version of the bf16 forward kernels' data flow
+    (``csrc/rdb_fwd_sm90.cuh``), B1's as B7's: ``rdb_ext_reference``'s
+    kx-packed product, its buffer's data rows as the (B, H, W, 192)
+    feature buffer.  Returns the block output and that buffer."""
+    out, buf = rdb_ext_reference(x, kernels, biases, scale_ratio)
+    return out, buf[:, 1:-1].contiguous()
 
 
 def rdb_bwd_ext_reference(g: torch.Tensor, feat_padded: torch.Tensor,
@@ -599,42 +649,207 @@ def rdb_fwd_cuda(
     x: torch.Tensor, kernels, biases, *, scale_ratio: float = 0.2
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel path of the forward on a CUDA ``x``.  Returns the
-    block output and the (B, H, W, 192) feature buffer the five launches
+    block output and the (B, H, W, 192) feature buffer the launches
     filled (x, then the four grown 32-channel slices), so that each
-    launch can be held against its own convolution, and the backward
-    can start from it."""
+    conv can be held against its own convolution, and the backward can
+    start from it.  In bf16 the kernels go to the kernel as they are (f32
+    or bf16, any strides)."""
     global RDB_FWD_LAUNCHES
     from torchsr_tpu_torch.ops._build import load_library
 
     kernels, biases = tuple(kernels), tuple(biases)
     _check(x, kernels, biases)
     _cuda_operands(x, (*kernels, *biases), "rdb_fwd_cuda")
-    if x.shape[0] > _MAX_GRID_Z:
-        raise ValueError(
-            f"fused_rdb takes at most {_MAX_GRID_Z} images per call, "
-            f"got {x.shape[0]}"
-        )
     x = x.contiguous()
-    kernels = [_aligned(k, x.dtype) for k in kernels]
-    biases = [b.to(torch.float32).contiguous() for b in biases]
     b, h, w, _ = x.shape
     feat = torch.empty((b, h, w, FEAT), dtype=x.dtype, device=x.device)
-    feat[..., :CHANNELS].copy_(x)
     out = torch.empty_like(x)
+    if x.dtype == torch.bfloat16:
+        _fwd_bf16("rdb_fwd", x, kernels, biases, scale_ratio, feat, out)
+        RDB_FWD_LAUNCHES += 5
+        return out, feat
+    if b > _MAX_GRID_Z:
+        raise ValueError(
+            f"the f32 RDB forward takes at most {_MAX_GRID_Z} images per "
+            f"call, got {b}"
+        )
+    kernels = [_aligned(k, x.dtype) for k in kernels]
+    biases = [b_.to(torch.float32).contiguous() for b_ in biases]
+    feat[..., :CHANNELS].copy_(x)
 
     lib = load_library("rdb_fwd")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    is_bf16 = int(x.dtype == torch.bfloat16)
     for i in range(5):
         dst = out if i == 4 else feat
-        err = lib.rdb_conv3x3_launch(
-            i, is_bf16, feat.data_ptr(), kernels[i].data_ptr(),
-            biases[i].data_ptr(), dst.data_ptr(), b, h, w,
-            float(scale_ratio), x.device.index, stream,
+        err = lib.rdb_fwd_f32_launch(
+            i, feat.data_ptr(), kernels[i].data_ptr(), biases[i].data_ptr(),
+            dst.data_ptr(), b, h, w, float(scale_ratio), x.device.index,
+            stream,
         )
         _raise_on(err, lib.rdb_error_string, f"rdb_fwd conv {i + 1}")
         RDB_FWD_LAUNCHES += 1
     return out, feat
+
+
+def _fwd_box(w: int) -> tuple:
+    """The bf16 forward's halo box at width w: (box_w, box_h) pixels."""
+    if w <= _FWD_NARROW_W:
+        return w, _FWD_M // w + 2
+    nx = -(-w // (_FWD_M - 2))
+    return -(-w // nx) + 2, 3
+
+
+def fwd_runs(b: int, h: int, w: int) -> list:
+    """The bf16 forward's runs, as its kernels count them (``run_of`` in
+    ``csrc/rdb_fwd_sm90.cuh``): ``(img, p0, n, e, r0, hx0, hw)`` each.
+    Output pixels p0 .. p0 + n - 1 of image img (y * W + x); y row m (0
+    .. n + 2 e - 1) is pixel p0 - e + m, its A row for tap ky the box
+    pixel m + ky hw; the halo box (hw pixels a row) starts at image pixel
+    (r0 - 1, hx0)."""
+    hw = _fwd_box(w)[0]
+    runs = []
+    for img in range(b):
+        if w <= _FWD_NARROW_W:
+            rows = _FWD_M // w
+            for r0 in range(0, h, rows):
+                runs.append((img, r0 * w, min(rows, h - r0) * w, 0, r0, 0,
+                             hw))
+        else:
+            length = hw - 2
+            for y in range(h):
+                for x0 in range(0, w, length):
+                    runs.append((img, y * w + x0, min(length, w - x0), 1, y,
+                                 x0 - 1, hw))
+    return runs
+
+
+@functools.cache
+def fwd_schedule(b: int, h: int, w: int) -> dict:
+    """The bf16 forward's persistent grids (``conv_ctas`` for each of
+    convs 1-4, ``c5_ctas`` for each of conv 5's two halves), its halo box
+    (pixels) and ring stage (bytes) and, per slot, its stages and dynamic
+    shared memory (bytes): a mirror of what the launches compute
+    (``fwd_schedule_of`` in ``csrc/rdb_fwd_sm90.cuh``; the card's smoke
+    test holds it against :func:`fwd_kernel_schedule`)."""
+    runs = (b * -(-h // (_FWD_M // w)) if w <= _FWD_NARROW_W
+            else b * h * -(-w // (_FWD_M - 2)))
+    bw, bh = _fwd_box(w)
+    stage = -(-bw * bh * 128 // 1024) * 1024
+    weights = [nch * 3 * 3 * GROWTH * 128 for nch in _FWD_SLOT_CHUNKS]
+    stages = [min(_FWD_MAX_STAGES,
+                  (_FWD_SMEM_DYN - 1024 - 2 * _FWD_OUT_TILE - wb) // stage)
+              for wb in weights]
+    return {"runs": runs, "conv_ctas": max(1, min(runs, _FWD_CTAS)),
+            "c5_ctas": max(1, min(runs, _FWD_CTAS // 2)), "box": (bw, bh),
+            "stage_bytes": stage, "stages": tuple(stages),
+            "smem": tuple(1024 + wb + 2 * _FWD_OUT_TILE + n * stage
+                          for wb, n in zip(weights, stages))}
+
+
+def fwd_kernel_schedule(b: int, h: int, w: int) -> dict:
+    """The schedule the bf16 forward's launches run at (b, h, w), as the
+    built library reports it (``rdb_fwd_bf16_schedule``), in the form of
+    :func:`fwd_schedule`, which mirrors it."""
+    import ctypes
+
+    from torchsr_tpu_torch.ops._build import load_library
+
+    v = (ctypes.c_int * 18)()
+    load_library("rdb_fwd").rdb_fwd_bf16_schedule(b, h, w, v)
+    return {"runs": v[0], "conv_ctas": v[1], "c5_ctas": v[2],
+            "box": (v[3], v[4]), "stage_bytes": v[5],
+            "stages": tuple(v[6:12]), "smem": tuple(v[12:18])}
+
+
+def fwd_walk(b: int, h: int, w: int, slot: int) -> list:
+    """The (run, K chunk) items each CTA of slot ``slot``'s conv takes, in
+    order: one list per CTA (conv 5's halves, slots 4 and 5, one grid
+    each)."""
+    sched = fwd_schedule(b, h, w)
+    ctas = sched["conv_ctas" if slot < 4 else "c5_ctas"]
+    nch = _FWD_SLOT_CHUNKS[slot]
+    return [[(t, c) for t in range(cta, sched["runs"], ctas)
+             for c in reversed(range(nch))] for cta in range(ctas)]
+
+
+def _fwd_slot(s: int) -> tuple:
+    """Slot s of the bf16 forward: its conv, input channels and first
+    output channel (convs 1-4, then conv 5's two 32-channel halves)."""
+    i = min(s, 4)
+    return i, CIN[i], GROWTH if s == 5 else 0
+
+
+def fwd_pack_weights(kernels) -> torch.Tensor:
+    """The five HWIO kernels rounded to bf16 and packed as the bf16
+    forward's prep launch writes them (``rdb_fwd_prep``): per slot, per
+    K chunk c of 64 channels, per ky, 96 rows (kx * 32 + co) of 64
+    columns (input channel 64 c + k, zero past C_in), the order in which
+    the conv CTAs stage them."""
+    parts = []
+    for s, nch in enumerate(_FWD_SLOT_CHUNKS):
+        i, cin, co0 = _fwd_slot(s)
+        k = kernels[i].to(torch.bfloat16)[..., co0:co0 + GROWTH]
+        k = F.pad(k, (0, 0, 0, 64 * nch - cin))
+        parts.append(k.reshape(3, 3, nch, 64, GROWTH).permute(2, 0, 1, 4, 3)
+                     .reshape(-1))
+    return torch.cat(parts)
+
+
+def fwd_unpack_weights(packed: torch.Tensor) -> tuple:
+    """Inverse of :func:`fwd_pack_weights`: the five bf16 HWIO kernels."""
+    halves, o = [], 0
+    for s, nch in enumerate(_FWD_SLOT_CHUNKS):
+        _, cin, _ = _fwd_slot(s)
+        n = nch * 3 * 3 * GROWTH * 64
+        halves.append(packed[o:o + n].view(nch, 3, 3, GROWTH, 64)
+                      .permute(1, 2, 0, 4, 3).reshape(3, 3, 64 * nch, GROWTH)
+                      [:, :, :cin])
+        o += n
+    return (*halves[:4], torch.cat(halves[4:], dim=-1))
+
+
+def _weight_args(kernels):
+    """The five kernels as the bf16 entries take them: f32 as they are
+    (any strides), else in bf16.  Returns the tensors (keep them alive
+    over the call), ctypes arrays of their pointers and (ky, kx, ci, co)
+    strides, and whether they are f32."""
+    import ctypes
+
+    w_f32 = all(k.dtype == torch.float32 for k in kernels)
+    if not w_f32:
+        kernels = [k.to(torch.bfloat16) for k in kernels]
+    ptrs = (ctypes.c_void_p * 5)(*(k.data_ptr() for k in kernels))
+    strides = (ctypes.c_longlong * 20)(*(s for k in kernels
+                                         for s in k.stride()))
+    return kernels, ptrs, strides, w_f32
+
+
+def _fwd_bf16(lib_name, x, kernels, biases, scale_ratio, feat, out):
+    """The bf16 forward's one entry in library ``lib_name`` (``rdb_fwd``
+    on the (B, H, W, 192) ``feat``, ``rdb_ext`` on the row-extended one):
+    a prep launch packs the kernels (and zeroes ``feat``'s pad rows), five
+    conv launches fill ``feat`` (the first copies x into it) and
+    ``out``."""
+    import ctypes
+
+    from torchsr_tpu_torch.ops._build import load_library
+
+    dev = x.device
+    b, h, w, _ = x.shape
+    kernels, wptrs, wstrides, w_f32 = _weight_args(kernels)
+    biases = [b_.to(torch.float32).contiguous() for b_ in biases]
+    bptrs = (ctypes.c_void_p * 5)(*(b_.data_ptr() for b_ in biases))
+    wpack = torch.empty(_FWD_WPACK, dtype=torch.bfloat16, device=dev)
+    lib = load_library(lib_name)
+    entry = getattr(lib, _FWD_BF16_ENTRY[lib_name])
+    errstr = getattr(lib, "rdb_error_string" if lib_name == "rdb_fwd"
+                     else f"{lib_name}_error_string")
+    _raise_on(entry(
+        x.data_ptr(), feat.data_ptr(), out.data_ptr(), ctypes.addressof(wptrs),
+        ctypes.addressof(wstrides), int(w_f32), ctypes.addressof(bptrs),
+        wpack.data_ptr(), b, h, w, float(scale_ratio), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream), errstr,
+        f"{lib_name} bf16 forward")
 
 
 def flipped_kernel(k: torch.Tensor) -> torch.Tensor:
@@ -783,12 +998,7 @@ def _bwd_bf16(lib, lib_name, g, feat, kernels, scale_ratio, dx, dy,
     sched = bwd_schedule(b, h, w)
     parts = max(nblocks, sched["conv_ctas"])
     f32 = torch.float32
-    w_f32 = all(k.dtype == f32 for k in kernels)
-    if not w_f32:
-        kernels = [k.to(torch.bfloat16) for k in kernels]
-    ptrs = (ctypes.c_void_p * 5)(*(k.data_ptr() for k in kernels))
-    strides = (ctypes.c_longlong * 20)(*(s for k in kernels
-                                         for s in k.stride()))
+    kernels, ptrs, strides, w_f32 = _weight_args(kernels)
     wpack = torch.empty(_BWD_WPACK, dtype=torch.bfloat16, device=dev)
     dw_part = torch.empty((_BWD_WGRAD_TILES, sched["wgrad_ctas"], 9,
                            CHANNELS, CHANNELS), dtype=f32, device=dev)
@@ -828,7 +1038,7 @@ def rdb_fwd_ext_cuda(
     x: torch.Tensor, kernels, biases, *, scale_ratio: float = 0.2
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The row-extended forward on a CUDA ``x`` (``csrc/rdb_ext.cu``).
-    Returns the block output and the (B, H + 2, W, 192) buffer the five
+    Returns the block output and the (B, H + 2, W, 192) buffer the
     launches filled: x and the four grown slices on each image's data
     rows, the pad row above and below each image zero.  W must be a
     multiple of 16."""
@@ -841,22 +1051,25 @@ def rdb_fwd_ext_cuda(
     b, h, w, _ = x.shape
     _ext_shape(b, h, w)
     x = x.contiguous()
+    feat = torch.empty((b, h + 2, w, FEAT), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    if x.dtype == torch.bfloat16:
+        _fwd_bf16("rdb_ext", x, kernels, biases, scale_ratio, feat, out)
+        RDB_FWD_EXT_LAUNCHES += 5
+        return out, feat
     kernels = [_aligned(k, x.dtype) for k in kernels]
     biases = [b_.to(torch.float32).contiguous() for b_ in biases]
-    feat = torch.empty((b, h + 2, w, FEAT), dtype=x.dtype, device=x.device)
     feat[:, 0].zero_()
     feat[:, h + 1].zero_()
     feat[:, 1:h + 1, :, :CHANNELS].copy_(x)
-    out = torch.empty_like(x)
 
     lib = load_library("rdb_ext")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    is_bf16 = int(x.dtype == torch.bfloat16)
     for i in range(5):
-        err = lib.rdb_ext_fwd_launch(
-            i, is_bf16, feat.data_ptr(), kernels[i].data_ptr(),
-            biases[i].data_ptr(), out.data_ptr(), b, h, w,
-            float(scale_ratio), x.device.index, stream,
+        err = lib.rdb_ext_fwd_f32_launch(
+            i, feat.data_ptr(), kernels[i].data_ptr(), biases[i].data_ptr(),
+            out.data_ptr(), b, h, w, float(scale_ratio), x.device.index,
+            stream,
         )
         _raise_on(err, lib.rdb_ext_error_string, f"rdb_fwd_ext conv {i + 1}")
         RDB_FWD_EXT_LAUNCHES += 1
