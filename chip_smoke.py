@@ -46,9 +46,16 @@ renders, tile batches or tool calls imply, every other counter (the
    B1.
 5. rdb_fwd_ilv (B6): the interleaved forward, checked as rdb_fwd on the
    mid copies of its buffer (the up and dn copies must equal the rows
-   above and below), at the serving and the ragged shape, against B1,
-   with what a kernel that swaps one chunk's up and dn copies reads.
-   Routing: a forward that a backward follows goes to B1.
+   above and below, zeros at the image edges), at the serving shape, the
+   ragged one, the wide (2, 6, 140) and (4, 1, 9), where every row is an
+   image's first and last, in f32 and bf16, against B1, beside three wrong
+   kernels (``WRONG_ILV``: one chunk's up and dn copies swapped, the
+   image-edge zeroing skipped, a run's end halo pixel dropped), each where
+   it can show.  In bf16 a call with f32 views of the weights must equal
+   the bf16 one bit for bit, its profile must hold six kernels, all its
+   own, and the schedule the launches run the one ``ops.rdb.
+   ilv_schedule`` mirrors.  Routing: a forward that a backward follows
+   goes to B1.
 6. rdb_bwd (B2): the RDB backward at the training shape (64, 32, 32, 64)
    and a ragged one; every stage (each cotangent dy_j of the kernel's DY
    buffer, dx, each dW and db) held against a plain computation of the
@@ -60,10 +67,12 @@ renders, tile batches or tool calls imply, every other counter (the
    the data rows, DY's pad rows zero, the whole against B2 on the same
    feature buffer, beside two wrong kernels proper to the padded layout.
 8. pair_synth (B3): the fused pair synthesis at the bench tool's shape
-   (64, 96, 96, 3), the training crops' (64, 128, 128, 3) and an odd
-   size (3, 148, 148, 3) with each flip: HR bit for bit and LR within
-   one uint8 level at <= 0.1% of values against the plain version,
-   beside four wrong kernels; timed beside the plain version.
+   (64, 96, 96, 3), the training crops' (64, 128, 128, 3), an odd size
+   (3, 148, 148, 3) with each flip and (5, 100, 100, 3), whose 25 LR rows
+   the four bands cut unevenly: HR bit for bit and LR within one uint8
+   level at <= 0.1% of values against the plain version, beside five
+   wrong kernels (the last: each band's window one HR row short); timed
+   beside the plain version.
 9. pair_conv (B4, B5): the 3x3 64 -> 64 conv forward and backward at
    the bench tool's shape (128, 24, 24, 64), a ragged multi-image one,
    the gate's largest image, an all-edge (4, 3, 2, 64) and a ragged
@@ -854,34 +863,96 @@ def hold_rdb_ext(x: torch.Tensor, ks, bs, ks32=None) -> dict:
     return row
 
 
-def ilv_emulated_fwd(x, ks, bs, swap_chunk=None):
+# The wrong interleaved bf16 kernels (csrc/rdb_ilv.cu), emulated by
+# ``ilv_emulated_fwd``: chunk 0's up and dn copies swapped; the image-edge
+# zeroing of the up and dn tiles skipped, so that an up slot of an
+# image's first row holds the previous image's last row (and a dn slot of
+# its last row the next image's first row); a run's end halo pixel
+# dropped, so that its last output loses y2 of the pixel after it.
+WRONG_ILV = ("up_dn_swapped", "edge_zero_skipped", "halo_dropped")
+# The interleaved forward at the serving shape, the ragged and wide ones
+# and one where every row is an image's first and last: (4, 1, 9).
+ILV_EDGE = (4, 1, 9)
+# At most (and, in bf16, exactly) this many kernels in one bf16 call of
+# the interleaved forward: prep and five convs.
+ILV_BF16_KERNELS = 6
+
+
+def ilv_emulated_fwd(x, ks, bs, fault=None):
     """The data flow of ``rdb_ilv.cu`` in plain PyTorch (f32 sums, each
     launch rounded once to ``x.dtype``): the (B, H, W, 576) buffer of
     [up | mid | dn] chunks, each conv one product of its 3 C_in prefix
-    with the ``repack_ilv`` weight and the taps reduced.  With
-    ``swap_chunk`` = j, chunk j's up and dn copies trade places: a wrong
-    kernel."""
+    with the ``repack_ilv`` weight and the taps reduced.  ``fault``, one
+    of ``WRONG_ILV``, puts in a wrong kernel's fault."""
     dt, g = x.dtype, rdb_ops.GROWTH
     b, h, w, _ = x.shape
+    m = b * h * w
     buf = x.new_zeros((b, h, w, 3 * rdb_ops.FEAT))
+    end = torch.tensor([m0 + n - 1 for m0, n in rdb_ops.ilv_runs(b, h, w)
+                        if n == rdb_ops._ILV_OUTS and m0 + n < m],
+                       dtype=torch.long, device=x.device)
 
     def grow(v, chunk0):
-        up = F.pad(v[:, :-1], (0, 0, 0, 0, 1, 0))
-        dn = F.pad(v[:, 1:], (0, 0, 0, 0, 0, 1))
+        if fault == "edge_zero_skipped" and chunk0 >= 2:
+            flat = v.reshape(m, -1)
+            up = F.pad(flat[:-w], (0, 0, w, 0)).reshape(v.shape)
+            dn = F.pad(flat[w:], (0, 0, 0, w)).reshape(v.shape)
+        else:
+            up = F.pad(v[:, :-1], (0, 0, 0, 0, 1, 0))
+            dn = F.pad(v[:, 1:], (0, 0, 0, 0, 0, 1))
         for j in range(v.shape[-1] // g):
-            parts = (dn, v, up) if chunk0 + j == swap_chunk else (up, v, dn)
+            swap = fault == "up_dn_swapped" and chunk0 + j == 0
+            parts = (dn, v, up) if swap else (up, v, dn)
             for p, src in enumerate(parts):
                 buf[..., rdb_ops.ilv_columns(chunk0 + j, p)] = \
                     src[..., j * g:(j + 1) * g]
 
     grow(x, 0)
+    col = torch.arange(m, device=x.device) % w
     for i, (cin, cout) in enumerate(zip(rdb_ops.CIN, rdb_ops.COUT)):
         wi = rdb_ops.repack_ilv(rdb_ops.pack_kernel(ks[i].float()), cin)
-        acc = rdb_ops._reduce_taps(buf[..., :3 * cin].float() @ wi, cout) + \
-            bs[i].float()
+        y = buf[..., :3 * cin].float().reshape(m, -1) @ wi
+        left = F.pad(y[:-1, :cout], (0, 0, 1, 0)) * (col > 0)[:, None]
+        right = F.pad(y[1:, 2 * cout:], (0, 0, 0, 1)) * (col < w - 1)[:, None]
+        if fault == "halo_dropped":
+            right[end] = 0
+        acc = (left + y[:, cout:2 * cout] + right + bs[i].float()).reshape(
+            b, h, w, cout)
         if i < 4:
             grow(F.leaky_relu(acc, 0.2).to(dt), cin // g)
     return (x.float() + SCALE * acc).to(dt), buf
+
+
+def ilv_fault_shows(fault: str, shape) -> bool:
+    """Whether ``fault`` can show at ``shape`` (B, H, W): swapped copies
+    where an image has two rows, the skipped edge zeroing where there are
+    two images, the dropped halo pixel where a run's end halo pixel lies
+    in the buffer beside a pixel that is not on the last column."""
+    b, h, w = shape[:3]
+    if fault == "up_dn_swapped":
+        return h > 1
+    if fault == "edge_zero_skipped":
+        return b > 1
+    if fault == "halo_dropped":
+        return any(n == rdb_ops._ILV_OUTS and m0 + n < b * h * w
+                   and (m0 + n - 1) % w < w - 1
+                   for m0, n in rdb_ops.ilv_runs(b, h, w))
+    return True
+
+
+def ilv_wrong_excess(x, ks, bs) -> dict:
+    """The largest launch excess of each ``WRONG_ILV`` kernel that can
+    show at x's shape, on the mid copies, and whether its up and dn
+    copies are exact."""
+    out = {}
+    for fault in WRONG_ILV:
+        if ilv_fault_shows(fault, x.shape):
+            w_out, w_buf = ilv_emulated_fwd(x, ks, bs, fault)
+            row = rdb_scores(x, ks, bs, w_out, ilv_mid(w_buf))
+            out[fault] = {"stage": max(row["stage_excess"]),
+                          "block": row["block_excess"],
+                          "copies_exact": ilv_copies_exact(w_buf)}
+    return out
 
 
 def ilv_mid(buf: torch.Tensor) -> torch.Tensor:
@@ -903,10 +974,13 @@ def ilv_copies_exact(buf: torch.Tensor) -> bool:
     return ok
 
 
-def hold_rdb_ilv(x: torch.Tensor, ks, bs) -> dict:
+def hold_rdb_ilv(x: torch.Tensor, ks, bs, ks32=None) -> dict:
     """One interleaved forward (B6): each launch and the block held as
     ``hold_rdb`` holds B1, on the buffer's mid copies; the up and dn
-    copies exact; the block against B1 on the same inputs."""
+    copies exact; the block against B1 on the same inputs; beside what
+    the ``WRONG_ILV`` kernels read.  In bf16 also the call with f32 views
+    of ``ks32`` bit-equal, and the schedule the launches run the one
+    ``ops.rdb.ilv_schedule`` mirrors."""
     dt = x.dtype
     before = rdb_ops.RDB_FWD_ILV_LAUNCHES
     out, buf = rdb_ops.rdb_fwd_ilv_cuda(x, ks, bs, scale_ratio=SCALE)
@@ -915,10 +989,7 @@ def hold_rdb_ilv(x: torch.Tensor, ks, bs) -> dict:
     check(bool(torch.isfinite(out).all()), "rdb_fwd_ilv output finite")
     row = rdb_scores(x, ks, bs, out, ilv_mid(buf))
     row["copies_exact"] = ilv_copies_exact(buf)
-    w_out, w_buf = ilv_emulated_fwd(x, ks, bs, swap_chunk=0)
-    wrong = rdb_scores(x, ks, bs, w_out, ilv_mid(w_buf))
-    row["up_dn_swapped_excess"] = {
-        "stage": max(wrong["stage_excess"]), "block": wrong["block_excess"]}
+    row["ilv_wrong"] = ilv_wrong_excess(x, ks, bs)
     out1, _ = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
     row["vs_b1_block_excess"] = excess(out, out1, BLOCK_LIMITS[dt], x)
     row["vs_b1_max_abs"] = float((out.float() - out1.float()).abs().max())
@@ -930,8 +1001,22 @@ def hold_rdb_ilv(x: torch.Tensor, ks, bs) -> dict:
     check(row["vs_b1_block_excess"] <= 1, f"{name}: agrees with B1")
     check(min(row["stage_wrong_excess"]) > 1
           and min(row["block_wrong_excess"].values()) > 1
-          and row["up_dn_swapped_excess"]["stage"] > 1,
+          and all(v["stage"] > 1 for v in row["ilv_wrong"].values()),
           f"{name}: the limits see a wrong kernel: {row}")
+    if dt == torch.bfloat16:
+        if ks32 is not None:
+            out32, buf32 = rdb_ops.rdb_fwd_ilv_cuda(x, f32_views(ks32), bs,
+                                                    scale_ratio=SCALE)
+            row["f32_views_bit_equal"] = bool(torch.equal(out32, out)
+                                              and torch.equal(buf32, buf))
+            check(row["f32_views_bit_equal"],
+                  f"{name}: f32 weight views give the bf16 weights' block")
+        b, h, w, _ = x.shape
+        sched = rdb_ops.ilv_kernel_schedule(b, h, w)
+        row["schedule"] = sched
+        check(sched == rdb_ops.ilv_schedule(b, h, w),
+              f"{name}: the kernel runs the schedule ilv_schedule mirrors: "
+              f"{sched} vs {rdb_ops.ilv_schedule(b, h, w)}")
     return row
 
 
@@ -955,16 +1040,18 @@ def routing_check(path: str, x: torch.Tensor, ks, bs, **want) -> None:
 
 
 def phase_rdb_variant(seed: int, variant: str) -> dict:
-    """B7 (``variant="ext"``) or B6 (``"ilv"``) at the serving shape and
-    a ragged one, in f32 and bf16, on the weights of ``phase_rdb``."""
+    """B7 (``variant="ext"``) or B6 (``"ilv"``) at the serving shape, a
+    ragged and a wide one (B7: and the training shape; B6: and
+    ``ILV_EDGE``), in f32 and bf16, on the weights of ``phase_rdb``."""
     dev = torch.device(DEVICE)
     g = torch.Generator().manual_seed(seed)
     ks, bs = _rdb_weights(g, dev)
     x = (torch.randn(SERVE_RDB_SHAPE, generator=g) * 0.5).to(dev)
-    xw = (torch.randn((*EXT_WIDE, 64), generator=g) * 0.5).to(dev)
     ext = variant == "ext"
-    xt = ((torch.randn(TRAIN_RDB_SHAPE, generator=g) * 0.5).to(dev)
-          if ext else None)
+    xw = (torch.randn((*(EXT_WIDE if ext else WIDE), 64), generator=g)
+          * 0.5).to(dev)
+    xt = ((torch.randn(TRAIN_RDB_SHAPE if ext else (*ILV_EDGE, 64),
+                       generator=g) * 0.5).to(dev))
     hold, cuda_fn, plain_fn = (
         (hold_rdb_ext, rdb_ops.rdb_fwd_ext_cuda, rdb_ops.rdb_ext_reference)
         if ext else
@@ -975,21 +1062,29 @@ def phase_rdb_variant(seed: int, variant: str) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
             kd = [k.to(dtype) for k in ks]
-            extra = (ks,) if ext else ()
-            row = hold(xd, kd, bs, *extra)
-            row["ragged"] = hold(xd[:b, :h, :w], kd, bs, *extra)
+            row = hold(xd, kd, bs, ks)
+            row["ragged"] = hold(xd[:b, :h, :w], kd, bs, ks)
+            row["wide"] = hold(xw.to(dtype), kd, bs, ks)
+            row["train" if ext else "edge"] = hold(xt.to(dtype), kd, bs, ks)
             if ext:
-                row["wide"] = hold(xw.to(dtype), kd, bs, ks)
-                row["train"] = hold(xt.to(dtype), kd, bs, ks)
                 check("run_edge_lost" in row["wide"]["kxpack_wrong_excess"],
                       "rdb_fwd_ext: the wide shape holds run_edge_lost")
+            else:
+                check(set(row["ilv_wrong"]) == set(WRONG_ILV)
+                      and "edge_zero_skipped" in row["edge"]["ilv_wrong"],
+                      "rdb_fwd_ilv: every wrong kernel shows at some shape")
             row["ms"] = median_ms(
                 lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
-            if ext:
-                row["profile"] = bwd_profile(
-                    lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
-                if dtype == torch.bfloat16:
-                    check_fwd_profile(row["profile"], "rdb_fwd_ext bfloat16")
+            row["profile"] = bwd_profile(
+                lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
+            if dtype == torch.bfloat16:
+                check_fwd_profile(row["profile"], f"rdb_fwd_{variant} "
+                                  "bfloat16")
+                if not ext:
+                    check(row["profile"]["kernels_per_call"]
+                          == ILV_BF16_KERNELS,
+                          f"rdb_fwd_ilv bfloat16: {ILV_BF16_KERNELS} kernels "
+                          f"a call: {row['profile']}")
             row["b1_ms"] = median_ms(
                 lambda: rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE))
             row["plain_ms"] = median_ms(
@@ -1072,8 +1167,13 @@ def device_spans(fn, calls: int) -> list:
 def bwd_profile(fn, calls: int = 10) -> dict:
     """``fn`` (one backward call) under ``torch.profiler``: device ms per
     call, kernels per call, and each launch of a call by its position
-    (name and device ms, averaged over the calls)."""
-    spans = device_spans(fn, calls)
+    (name and device ms, averaged over the calls).  A window that lost
+    some of its kernels (the profiler drops some now and then) is run
+    again, ``PROFILE_WINDOWS`` windows at most."""
+    for _ in range(PROFILE_WINDOWS):
+        spans = device_spans(fn, calls)
+        if len(spans) % calls == 0:
+            break
     check(len(spans) % calls == 0,
           f"the profiler recorded whole calls ({len(spans)} kernels)")
     per = len(spans) // calls
@@ -1280,7 +1380,9 @@ def phase_rdb_bwd_ext(seed: int) -> dict:
 # The pair synthesis (B3) at the bench tool's shape (64 crops of 96 px),
 # at the training crops' (64 of 128 px) and at an odd size (37 * 4),
 # whose three samples take one flip, the other, and both.
-PAIR_SYNTH_SHAPES = ((64, 96), (64, 128), (3, 148))
+# The bench tool's shape, the training crops', an odd size with each
+# flip, and a size whose LR side (25) the four bands do not divide.
+PAIR_SYNTH_SHAPES = ((64, 96), (64, 128), (3, 148), (5, 100))
 ODD_FLIPS = ((1, 0), (0, 1), (1, 1))
 # HR holds bit for bit: one f32 product per value in both.  LR: the same
 # f32 sums, taken in another order, round a value that sits at a tie of
@@ -1290,12 +1392,30 @@ ODD_FLIPS = ((1, 0), (0, 1), (1, 1))
 # passes, is also within one level: the fraction is what sees it.
 SYNTH_LR_ATOL = 1 / 255 + 1e-6
 SYNTH_LR_FRACTION = 1e-3
-WRONG_SYNTH = ("h_first", "no_mid_quant", "flips_swapped", "true_div")
+# A kernel whose band windows (``ops.preprocess.pair_plan``) end one HR
+# row short reads that row as zero in its W pass: its band's last LR row
+# loses a tap.
+WRONG_SYNTH = ("h_first", "no_mid_quant", "flips_swapped", "true_div",
+               "window_short")
 
 
 def emulated_synth(crops, flips, factor=4, fault=None):
     """The plain pair synthesis, optionally with one of the
     ``WRONG_SYNTH`` faults: ``(lr, hr)``."""
+    if fault == "window_short":
+        lr, hr = synthesize_pair(crops, flips, factor)
+        size = hr.shape[1]
+        m = torch.from_numpy(resample_matrix(size, size // factor)).to(
+            hr.device)
+        s = size // factor
+        bands = ps_ops.pair_plan(size, s, ps_ops.pair_bands(len(crops), s))
+        for o0, o1, _, w1, *_ in bands["bands"]:
+            short = hr.clone()
+            short[:, w1 - 1:] = 0
+            mid = _quantize_pixels(torch.einsum("ow,bhwc->bhoc", m, short))
+            lr[:, o0:o1] = _quantize_pixels(
+                torch.einsum("oh,bhwc->bowc", m[o0:o1], mid))
+        return lr, hr
     if fault == "flips_swapped":
         flips = flips[:, [1, 0]]
     x = crops.float()
@@ -1352,6 +1472,10 @@ def phase_pair_synth(seed: int) -> dict:
             0, 256, (b, size, size, 3), dtype=np.uint8)).to(DEVICE)
         flips = (torch.tensor(ODD_FLIPS, dtype=torch.bool) if b == 3 else
                  torch.from_numpy(rng.random((b, 2)) < 0.5)).to(DEVICE)
+        check(all(w1 - w0 < size for _, _, w0, w1, *_ in
+                  ps_ops.pair_plan(size, size // 4, ps_ops.pair_bands(
+                      b, size // 4))["bands"]),
+              f"pair_synth {size}: each band stages part of the crop")
         before = ps_ops.PAIR_SYNTH_LAUNCHES
         got = ps_ops.synthesize_pair_cuda(crops, flips)
         torch.cuda.synchronize()

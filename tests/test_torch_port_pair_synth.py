@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from torchsr_tpu.ops.pallas.preprocess import synthesize_pair_pallas
+from torchsr_tpu_torch.data.preprocess import synthesize_pair
+from torchsr_tpu_torch.ops import preprocess as ps_ops
 from torchsr_tpu_torch.ops.preprocess import synthesize_pair_cuda
 from torchsr_tpu_torch.tools import bench_preprocess
 
@@ -45,6 +47,59 @@ def test_matches_the_pallas_kernel(b, s, seed, flips):
     diff = np.abs(lr.numpy() - want_lr)
     assert float(diff.max()) <= LR_ATOL
     assert float((diff > 0).mean()) <= LR_FRACTION
+
+
+EVERY_FLIP = np.array([[0, 0], [1, 0], [0, 1], [1, 1]], dtype=bool)
+
+
+@pytest.mark.parametrize("size", [96, 128, 100])
+def test_bands_match_the_plain_version_and_the_pallas_kernel(size):
+    """The kernel's data flow, band by band of ``pair_plan`` (each band
+    reading only its window's HR rows, writing its share of hr and its LR
+    rows), gives HR and LR bit-equal to the plain version, with every
+    flip; and matches the Pallas kernel in interpret mode as
+    ``test_matches_the_pallas_kernel`` does (HR bit for bit, LR within
+    one level at <= 0.1% of values).  Four crops make 32 bands a crop at
+    96 and 128 px and 25 (one an LR row) at 100 px."""
+    crops, _ = _inputs(4, size, size)
+    ct, ft = torch.from_numpy(crops), torch.from_numpy(EVERY_FLIP)
+    lr, hr = ps_ops.synthesize_pair_bands_reference(ct, ft)
+    want_lr, want_hr = synthesize_pair(ct, ft)
+    assert torch.equal(hr, want_hr) and torch.equal(lr, want_lr)
+    p_lr, p_hr = (np.asarray(a) for a in synthesize_pair_pallas(
+        crops, EVERY_FLIP, interpret=True))
+    np.testing.assert_array_equal(hr.numpy(), p_hr)
+    diff = np.abs(lr.numpy() - p_lr)
+    assert float(diff.max()) <= LR_ATOL
+    assert float((diff > 0).mean()) <= LR_FRACTION
+
+
+@pytest.mark.parametrize("batch", [1, 5, 64, 256])
+@pytest.mark.parametrize("size", [4, 8, 16, 32, 37, 96, 100, 128, 148])
+def test_pair_plan_cuts_each_image_into_bands(size, batch):
+    """The bands cut the LR rows, and their shares hr's rows, each row
+    once; each band's window holds its share and the rows its taps read;
+    the largest window sizes the shared memory; a call makes about
+    BAND_CTAS CTAs, at least one an image and at most one an LR row."""
+    s = size // 4
+    nb = ps_ops.pair_bands(batch, s)
+    assert 1 <= nb <= s
+    assert nb == s or batch * nb >= ps_ops.BAND_CTAS
+    assert nb == 1 or batch * (nb - 1) < ps_ops.BAND_CTAS
+    plan = ps_ops.pair_plan(size, s, nb)
+    bands = plan["bands"]
+    assert len(bands) == nb
+    assert [r for o0, o1, *_ in bands for r in range(o0, o1)] == list(range(s))
+    assert [r for *_, h0, h1, _, _ in bands
+            for r in range(h0, h1)] == list(range(size))
+    for o0, o1, w0, w1, h0, h1, t0, t1 in bands:
+        assert 0 <= w0 <= min(h0, t0) and max(h1, t1) <= w1 <= size
+        for lo, hi in plan["band"][o0:o1]:
+            assert t0 <= lo and hi <= t1
+    assert plan["rows"] == max(w1 - w0 for _, _, w0, w1, *_ in bands)
+    n_taps = plan["taps"].shape[0]
+    assert plan["smem"] == (n_taps * s + 3 * plan["rows"] * s + 2 * s) * 4 \
+        + 3 * plan["rows"] * size
 
 
 def test_returns_lr_then_hr_with_each_flip():

@@ -286,10 +286,34 @@ def test_ilv_emulation_is_the_plain_version_and_its_fault_shows(dtype):
     assert smoke.ilv_copies_exact(buf)
     row = smoke.rdb_scores(x, ks, bs, out, smoke.ilv_mid(buf))
     assert max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1, row
-    w_out, w_buf = smoke.ilv_emulated_fwd(x, ks, bs, swap_chunk=0)
+    w_out, w_buf = smoke.ilv_emulated_fwd(x, ks, bs, "up_dn_swapped")
     assert not smoke.ilv_copies_exact(w_buf)
     wrong = smoke.rdb_scores(x, ks, bs, w_out, smoke.ilv_mid(w_buf))
     assert max(wrong["stage_excess"]) > 1, wrong
+
+
+# chip_smoke's B6 shapes where each wrong kernel can show: several
+# images and runs (SHAPE: 192 pixels, a run's end halo inside a row),
+# single-row images (only the edge zeroing shows), the wide rows.
+ILV_FAULT_SHAPES = [SHAPE, (4, 1, 9, 64), (2, 6, 140, 64)]
+
+
+@pytest.mark.parametrize("shape", ILV_FAULT_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ilv_limits_catch_each_wrong_kernel(dtype, shape):
+    """Each ``WRONG_ILV`` fault (copies swapped, the image-edge zeroing
+    skipped, a run's end halo pixel dropped) that can show at the shape
+    reads above the launch limits; at (4, 1, 9) only the skipped edge
+    zeroing can (every row is an image's first and last)."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(0, 0.5, shape).astype(np.float32))
+    x = x.to(dtype)
+    _, ks, bs = _inputs(dtype)
+    wrong = smoke.ilv_wrong_excess(x, ks, bs)
+    edge = shape[1] == 1
+    assert set(wrong) == ({"edge_zero_skipped"} if edge
+                          else set(smoke.WRONG_ILV)), wrong
+    assert min(v["stage"] for v in wrong.values()) > 1, wrong
 
 
 def _bwd_ext_inputs(dtype):

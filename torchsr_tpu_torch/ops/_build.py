@@ -33,7 +33,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # device, stream.
 _BWD_BF16 = (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
              _I, _I, _I, _I, _I, _I, _P)
-# The bf16 block forward's one entry (rdb_fwd.cu, rdb_ext.cu): x, feat,
+# The bf16 block forward's one entry (rdb_fwd.cu, rdb_ext.cu, rdb_ilv.cu):
+# x, feat (rdb_ilv.cu: the interleaved buffer),
 # out, the kernels' pointer and stride arrays, w_f32, the biases' pointer
 # array, the packed-weight scratch, B, H, W, scale, device, stream.
 _FWD_BF16 = (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P)
@@ -81,15 +82,17 @@ SIGNATURES = {
         "rdb_ext_error_string": (ctypes.c_char_p, (_I,)),
     },
     "rdb_ilv": {
-        "rdb_ilv_grow_launch": (_I, (_I, _P, _P, _I, _I, _I, _I, _P)),
-        "rdb_ilv_conv_launch": (
-            _I, (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+        "rdb_ilv_bf16_launch": (_I, _FWD_BF16),
+        "rdb_ilv_bf16_schedule": (_I, (_I, _I, _I, _P)),
+        "rdb_ilv_f32_grow_launch": (_I, (_P, _P, _I, _I, _I, _I, _P)),
+        "rdb_ilv_f32_conv_launch": (
+            _I, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
         ),
         "rdb_ilv_error_string": (ctypes.c_char_p, (_I,)),
     },
     "pair_synth": {
         "pair_synth_launch": (
-            _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+            _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P)
         ),
         "pair_synth_error_string": (ctypes.c_char_p, (_I,)),
     },

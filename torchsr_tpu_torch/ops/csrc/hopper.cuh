@@ -1,9 +1,11 @@
 // Hopper (sm_90a) helpers for the kernels that stage tiles asynchronously
 // and multiply on warpgroups: cp.async with zero-fill and its commit
 // groups, the tensor memory accelerator's (TMA) tiled loads and stores
-// with their mbarriers and bulk groups, the proxy fence, the wgmma
-// shared-memory descriptor, and the bf16 m64n96k16, m64n64k16 and
-// m64n32k16 wgmma with A in registers, with their fence, commit and wait.
+// and bulk loads with their mbarriers and bulk groups, the proxy fence,
+// the wgmma shared-memory descriptors (128- and 64-byte swizzle), the
+// bf16 m64n96k16, m64n64k16 and m64n32k16 wgmma with A in registers
+// (m64n96k16 also with A in shared memory), with their fence, commit and
+// wait, and on the host the tensor maps' encoding.
 // Shared-memory tiles that wgmma or ldmatrix read are rows of 128 bytes
 // (64 bf16) in the 128-byte swizzle: the 16-byte chunk c of row r lies at
 // chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes, aligned to 1024), as
@@ -96,6 +98,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "r"(c2), "r"(c3)
       : "memory");
 }
+// `bytes` (a multiple of 16) contiguous global memory at `src` into
+// shared memory at `dst` (both 16-byte aligned), completing `bar`'s
+// transaction bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 // TMA: shared memory at `src` into the box at (c0, c1, c2, c3) of `map`
 // (what leaves the tensor is not written), in this thread's bulk group.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
@@ -154,6 +167,14 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// As desc_sw128 for a tile of 64-byte rows (32 bf16) in the 64-byte
+// swizzle (chunk c of row r at c ^ ((r >> 1) & 3), atoms of 8 rows, 512
+// bytes, aligned to 512): the stride between 8-row groups is 512 bytes.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
 // d (64 x 64 f32, the warpgroup's accumulator fragment) += A (64 x 16
@@ -226,6 +247,78 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48],
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TRANS_B),
         "r"(1));
+}
+
+// As wgmma_m64n96k16 with A also from shared memory, by descriptor `a`
+// (64 x 16 bf16, K-major: rows of k, as desc_sw128 describes them).
+__device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48], uint64_t a,
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry
+// points (no link against libcuda); null where CUDA lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (C, x, y, b) map of B images of H rows of W pixels of `ch` bf16
+// channels at `base` (image stride `img_px` pixels), boxes of {bc, bw,
+// bh, 1}; outside the tensor a load reads zeros and a store writes
+// nothing.
+inline bool tensor_map(CUtensorMap* map, const void* base, int ch, int W,
+                       int H, int B, long long img_px, int bc, int bw, int bh,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)ch, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ch * 2, (cuuint64_t)W * ch * 2,
+                                 (cuuint64_t)img_px * ch * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh,
+                             1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -72,6 +72,7 @@ namespace rdb_fwd_sm90 {
 
 using hopper::align_1024;
 using hopper::swz;
+using hopper::tensor_map;
 using rdb::Layout;
 using rdb::Weights;
 using rdb::weights_of;
@@ -513,51 +514,6 @@ rdb_fwd_conv(const __grid_constant__ CUtensorMap in_map,
 }
 
 // ------------------------------------------------------------- launches
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry
-// points (no link against libcuda); null where CUDA lacks it.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The (C, x, y, b) map of B images of H rows of W pixels of `ch` bf16
-// channels at `base` (image stride `img_px` pixels), boxes of {bc, bw,
-// bh, 1}; outside the tensor a load reads zeros and a store writes
-// nothing.
-inline bool tensor_map(CUtensorMap* map, const void* base, int ch, int W,
-                       int H, int B, long long img_px, int bc, int bw, int bh,
-                       CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)ch, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ch * 2, (cuuint64_t)W * ch * 2,
-                                 (cuuint64_t)img_px * ch * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh,
-                             1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // The six launches of one bf16 block forward on `stream`; returns the
 // first launch's error (0 on success).  Grids: slot_ctas for convs 1-4,

@@ -1,10 +1,9 @@
 // Helpers shared by the RDB kernels (rdb_fwd.cu, rdb_bwd.cu, rdb_ext.cu,
-// rdb_ilv.cu): shared-memory addresses, ldmatrix, the bf16 m16n8k16
-// tensor-core MMA with f32 accumulators, storage-type conversions,
-// LeakyReLU(0.2), the backward's fixed-order reduce of its f32 partials,
-// and, for the Hopper forward and backward (rdb_fwd_sm90.cuh,
-// rdb_bwd_sm90.cuh), the feature buffer's layout and the caller's five
-// kernels as pointers and strides.
+// rdb_ilv.cu): shared-memory addresses, ldmatrix, storage-type
+// conversions, LeakyReLU(0.2), the backward's fixed-order reduce of its
+// f32 partials, and, for the Hopper kernels (rdb_fwd_sm90.cuh,
+// rdb_bwd_sm90.cuh, rdb_ilv.cu), the feature buffer's layout and the
+// caller's five kernels as pointers and strides.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,18 +32,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "{%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }

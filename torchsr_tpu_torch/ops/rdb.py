@@ -38,7 +38,8 @@ a test may flip the module flags):
 * ``TORCHSR_RDB_ILV=1``: a forward that no backward follows, and that
   the ext variant did not take, runs on a chunk-interleaved buffer
   (B*H*W, 576) (``csrc/rdb_ilv.cu``, for ``_rdb_fwd_kernel_ilv`` :223);
-  plain version ``rdb_ilv_reference``.
+  plain version ``rdb_ilv_reference``, and ``rdb_ilv_runs_reference``
+  with the bf16 kernels' data flow (runs of 128 pixels, three stores).
 
 The backward takes its variant from what the forward saved, never from
 the knobs.  ``TORCHSR_RDB_BWD=xla`` (``BWD_XLA``), the JAX package's
@@ -75,8 +76,8 @@ RDB_FWD_LAUNCHES = 0
 RDB_BWD_LAUNCHES = 0
 # The row-extended forward (five launches per block) and backward (one
 # per block backward, eight or twenty launches), and the interleaved
-# forward (five conv launches per block; its one grow launch is not
-# counted).
+# forward (five conv launches per block; its one prep or grow launch is
+# not counted).
 RDB_FWD_EXT_LAUNCHES = 0
 RDB_BWD_EXT_LAUNCHES = 0
 RDB_FWD_ILV_LAUNCHES = 0
@@ -165,9 +166,31 @@ _FWD_WPACK = sum(_FWD_SLOT_CHUNKS) * 3 * 3 * GROWTH * 64
 # output tile of each of its two warpgroups (_FWD_M pixels x 32 bf16)
 _FWD_SMEM_DYN = 232448 - 4352
 _FWD_OUT_TILE = _FWD_M * 64
-# Each library's one entry of the bf16 forward
+# The interleaved bf16 forward's schedule (csrc/rdb_ilv.cu ilv_sm90;
+# mirrored by ilv_schedule): a run is _ILV_RUN consecutive pixels of the
+# (B*H*W, 576) buffer, m0 - 1 .. m0 + _ILV_OUTS, m0 = _ILV_OUTS t, its
+# outputs m0 .. m0 + _ILV_OUTS - 1.  Convs 1-4 take min(runs, _ILV_CTAS)
+# persistent CTAs, conv 5's two halves half as many each; CTA c walks runs
+# c, c + grid, ..., each run's K stages of 64 prefix columns in order (the
+# last of convs 2 and 4 holds 32).  A ring stage holds one K stage of a run
+# (_ILV_RUN rows of 128 bytes); a conv's ring as many as fit beside its
+# packed weights (a K stage: 96 rows of 128 bytes) and its two
+# warpgroups' output tiles (one each), at most _ILV_MAX_STAGES.
+_ILV_RUN = 128
+_ILV_OUTS = _ILV_RUN - 2
+_ILV_CTAS = 132
+_ILV_MAX_STAGES = 8
+_ILV_SMEM_DYN = 232448 - 4608
+_ILV_OUT_TILE = _ILV_RUN * 64
+_ILV_SLOT_KST = tuple(-(-3 * ci // 64) for ci in (*CIN, CIN[4]))
+# packed weights (bf16 elements): 96 rows of each slot's 3 C_in
+_ILV_WPACK = 3 * GROWTH * 3 * (sum(CIN) + CIN[4])
+# Each library's one entry of the bf16 forward, and its packed weights
 _FWD_BF16_ENTRY = {"rdb_fwd": "rdb_fwd_bf16_launch",
-                   "rdb_ext": "rdb_ext_fwd_bf16_launch"}
+                   "rdb_ext": "rdb_ext_fwd_bf16_launch",
+                   "rdb_ilv": "rdb_ilv_bf16_launch"}
+_FWD_BF16_WPACK = {"rdb_fwd": _FWD_WPACK, "rdb_ext": _FWD_WPACK,
+                   "rdb_ilv": _ILV_WPACK}
 
 
 def _check_kernels(kernels) -> None:
@@ -826,10 +849,11 @@ def _weight_args(kernels):
 
 def _fwd_bf16(lib_name, x, kernels, biases, scale_ratio, feat, out):
     """The bf16 forward's one entry in library ``lib_name`` (``rdb_fwd``
-    on the (B, H, W, 192) ``feat``, ``rdb_ext`` on the row-extended one):
-    a prep launch packs the kernels (and zeroes ``feat``'s pad rows), five
-    conv launches fill ``feat`` (the first copies x into it) and
-    ``out``."""
+    on the (B, H, W, 192) ``feat``, ``rdb_ext`` on the row-extended one,
+    ``rdb_ilv`` on the interleaved (B, H, W, 576) one): a prep launch
+    packs the kernels (and zeroes ``feat``'s pad rows, or writes x's
+    chunks and the edge zeros into the interleaved buffer), five conv
+    launches fill ``feat`` (B1's first copies x into it) and ``out``."""
     import ctypes
 
     from torchsr_tpu_torch.ops._build import load_library
@@ -839,7 +863,8 @@ def _fwd_bf16(lib_name, x, kernels, biases, scale_ratio, feat, out):
     kernels, wptrs, wstrides, w_f32 = _weight_args(kernels)
     biases = [b_.to(torch.float32).contiguous() for b_ in biases]
     bptrs = (ctypes.c_void_p * 5)(*(b_.data_ptr() for b_ in biases))
-    wpack = torch.empty(_FWD_WPACK, dtype=torch.bfloat16, device=dev)
+    wpack = torch.empty(_FWD_BF16_WPACK[lib_name], dtype=torch.bfloat16,
+                        device=dev)
     lib = load_library(lib_name)
     entry = getattr(lib, _FWD_BF16_ENTRY[lib_name])
     errstr = getattr(lib, "rdb_error_string" if lib_name == "rdb_fwd"
@@ -1109,13 +1134,218 @@ def rdb_bwd_ext_cuda(
     return out
 
 
+def ilv_runs(b: int, h: int, w: int) -> list:
+    """The interleaved bf16 forward's runs, as its kernels count them:
+    ``(m0, n)`` each, the outputs m0 .. m0 + n - 1 of the (B*H*W, 576)
+    buffer, computed from its pixels m0 - 1 .. m0 + 126 (zeros past the
+    buffer's ends)."""
+    m = b * h * w
+    return [(m0, min(_ILV_OUTS, m - m0)) for m0 in range(0, m, _ILV_OUTS)]
+
+
+@functools.cache
+def ilv_schedule(b: int, h: int, w: int) -> dict:
+    """The interleaved bf16 forward's persistent grids (``conv_ctas`` for
+    each of convs 1-4, ``c5_ctas`` for each of conv 5's halves) and, per
+    slot, its K stages, ring stages and dynamic shared memory (bytes): a
+    mirror of what the launches compute (``schedule_of`` in
+    ``csrc/rdb_ilv.cu``; the card's smoke test holds it against
+    :func:`ilv_kernel_schedule`)."""
+    runs = -(-(b * h * w) // _ILV_OUTS)
+    fixed = [1024 + 2 * 3 * GROWTH * 3 * ci + 2 * _ILV_OUT_TILE
+             for ci in (*CIN, CIN[4])]
+    ring = tuple(min(_ILV_MAX_STAGES, (_ILV_SMEM_DYN - f) // (_ILV_RUN * 128))
+                 for f in fixed)
+    return {"runs": runs, "conv_ctas": max(1, min(runs, _ILV_CTAS)),
+            "c5_ctas": max(1, min(runs, _ILV_CTAS // 2)),
+            "kstages": _ILV_SLOT_KST, "ring": ring,
+            "smem": tuple(f + n * _ILV_RUN * 128
+                          for f, n in zip(fixed, ring))}
+
+
+def ilv_kernel_schedule(b: int, h: int, w: int) -> dict:
+    """The schedule the interleaved bf16 forward's launches run at (b, h,
+    w), as the built library reports it (``rdb_ilv_bf16_schedule``), in
+    the form of :func:`ilv_schedule`, which mirrors it."""
+    import ctypes
+
+    from torchsr_tpu_torch.ops._build import load_library
+
+    v = (ctypes.c_int * 21)()
+    load_library("rdb_ilv").rdb_ilv_bf16_schedule(b, h, w, v)
+    return {"runs": v[0], "conv_ctas": v[1], "c5_ctas": v[2],
+            "kstages": tuple(v[3:9]), "ring": tuple(v[9:15]),
+            "smem": tuple(v[15:21])}
+
+
+def ilv_walk(b: int, h: int, w: int, slot: int) -> list:
+    """The (run, K stage) items each CTA of slot ``slot``'s conv takes, in
+    order: one list per CTA (conv 5's halves, slots 4 and 5, one grid
+    each, on the same items)."""
+    sched = ilv_schedule(b, h, w)
+    ctas = sched["conv_ctas" if slot < 4 else "c5_ctas"]
+    return [[(t, kk) for t in range(cta, sched["runs"], ctas)
+             for kk in range(_ILV_SLOT_KST[slot])] for cta in range(ctas)]
+
+
+def ilv_stores(b: int, h: int, w: int) -> dict:
+    """What each conv of the interleaved bf16 forward, and its prep, write
+    into the buffer's slots of a grown chunk: ``{"mid", "up", "dn"}`` ->
+    ``(dest, src)`` row tensors, one pair per element row written, where
+    ``src`` is the pixel whose value lands at row ``dest`` (-1: a zero).
+    Per run (:func:`ilv_runs`): its outputs' mid copies; their up copies
+    at rows + W (zero from an image's last row; a run whose rows + W all
+    fall past the buffer stores none); their dn copies at rows - W (zero
+    from an image's first row; inside the buffer's first M - W rows).
+    The prep: zeros over the up slots of the first W rows and the dn slots
+    of the last W rows."""
+    m = b * h * w
+    p = torch.arange(m)
+    y = p // w % h
+    runs = [torch.arange(m0, m0 + n) for m0, n in ilv_runs(b, h, w)]
+    mid = torch.cat(runs)
+    up = torch.cat([r for r in runs if r[0] + w < m] or [p[:0]])
+    up = up[up + w < m]
+    dn = mid[(mid - w >= 0) & (mid - w < m - w)]
+    edge = torch.arange(w)
+    return {
+        "mid": (mid, mid),
+        "up": (torch.cat([edge, up + w]),
+               torch.cat([torch.full((w,), -1),
+                          torch.where(y[up] == h - 1, -1, up)])),
+        "dn": (torch.cat([m - w + edge, dn - w]),
+               torch.cat([torch.full((w,), -1),
+                          torch.where(y[dn] == 0, -1, dn)])),
+    }
+
+
+def _ilv_swizzle(n: int, chunks: int) -> torch.Tensor:
+    """Index of the 16-byte chunk stored at chunk d of row r of a swizzled
+    tile of n rows of ``chunks`` chunks: d ^ (r % 8) in the 128-byte
+    swizzle (8 chunks a row), d ^ ((r // 2) % 4) in the 64-byte one (4);
+    an involution."""
+    rows = torch.arange(n)[:, None]
+    key = rows % 8 if chunks == 8 else rows // 2 % 4
+    return torch.arange(chunks)[None, :] ^ key
+
+
+def _ilv_stages(s: int):
+    """(K stage, its first row, its rows) of slot s's packed weights: 64
+    rows, or 32 for the last of convs 2 and 4."""
+    k = 3 * _fwd_slot(s)[1]
+    return [(kk, 64 * kk, min(64, k - 64 * kk))
+            for kk in range(_ILV_SLOT_KST[s])]
+
+
+def ilv_pack_weights(kernels) -> torch.Tensor:
+    """The five HWIO kernels rounded to bf16 and packed as the interleaved
+    bf16 forward's prep launch writes them: per slot (convs 1-4, then conv
+    5's two 32-channel halves) the ``repack_ilv`` weight (rows (chunk, dy,
+    ci), columns (dx, co) of the slot's channels), cut into K stages of 64
+    rows (the last of convs 2 and 4: 32); each stage stored as 96 rows
+    (one per column) of its K values, the 16-byte chunks of each row in
+    the 128-byte swizzle (64-byte for a 32-row stage)."""
+    parts = []
+    for s in range(len(_ILV_SLOT_KST)):
+        i, cin, co0 = _fwd_slot(s)
+        k = kernels[i].to(torch.bfloat16)[..., co0:co0 + GROWTH]
+        wi = repack_ilv(pack_kernel(k), cin)
+        for _, r0, rows in _ilv_stages(s):
+            t = wi[r0:r0 + rows].T.reshape(3 * GROWTH, rows // 8, 8)
+            sw = _ilv_swizzle(3 * GROWTH, rows // 8)
+            parts.append(t.gather(1, sw[:, :, None].expand_as(t))
+                         .reshape(-1))
+    return torch.cat(parts)
+
+
+def ilv_unpack_weights(packed: torch.Tensor) -> tuple:
+    """Inverse of :func:`ilv_pack_weights`: each conv's ``repack_ilv``
+    weight (3 C_in, 3 C_out) in bf16."""
+    halves, o = [], 0
+    for s in range(len(_ILV_SLOT_KST)):
+        stages = []
+        for _, _, rows in _ilv_stages(s):
+            n = 3 * GROWTH * rows
+            t = packed[o:o + n].view(3 * GROWTH, rows // 8, 8)
+            sw = _ilv_swizzle(3 * GROWTH, rows // 8)
+            stages.append(t.gather(1, sw[:, :, None].expand_as(t))
+                          .reshape(3 * GROWTH, rows).T)
+            o += n
+        halves.append(torch.cat(stages))
+    k = 3 * CIN[4]
+    c5 = torch.cat([h.reshape(k, 3, GROWTH) for h in halves[4:]], dim=-1)
+    return (*halves[:4], c5.reshape(k, 3 * COUT[4]))
+
+
+def rdb_ilv_runs_reference(x: torch.Tensor, kernels, biases,
+                           scale_ratio: float = 0.2):
+    """The plain version of the interleaved bf16 forward's data flow
+    (``csrc/rdb_ilv.cu``, ``ilv_sm90``), in ``x.dtype``: the buffer starts
+    as NaN, the prep writes x's chunks (zeros past each image's top and
+    bottom); then per conv and run (:func:`ilv_runs`) one product of the
+    run's 128 prefix rows (zeros past the buffer's ends) with the
+    ``repack_ilv`` weight, the taps reduced with the column masks (m mod
+    W), the bias, LeakyReLU and one rounding, and the stores of
+    :func:`ilv_stores` (with the prep's zeros) into the new chunk; conv 5
+    stores x + scale * out.  Returns the block output and the (B, H, W,
+    576) buffer: an element no store reached stays NaN."""
+    _check(x, kernels, biases)
+    dt, acc = x.dtype, _acc_dtype(x.dtype)
+    b, h, w, _ = x.shape
+    m = b * h * w
+    xf = x.reshape(m, CHANNELS)
+    buf = x.new_full((m, 3 * FEAT), float("nan"))
+    pix = torch.arange(m)
+    row = pix // w % h
+    first, last = row == 0, row == h - 1
+    for j in range(CHANNELS // GROWTH):
+        xs = xf[:, j * GROWTH:(j + 1) * GROWTH]
+        buf[:, ilv_columns(j, 1)] = xs
+        buf[:, ilv_columns(j, 0)] = torch.where(
+            first[:, None], 0, xs[(pix - w).clamp(min=0)])
+        buf[:, ilv_columns(j, 2)] = torch.where(
+            last[:, None], 0, xs[(pix + w).clamp(max=m - 1)])
+    stores = ilv_stores(b, h, w)
+    m0 = torch.tensor([r[0] for r in ilv_runs(b, h, w)])
+    rows = m0[:, None] - 1 + torch.arange(_ILV_RUN)
+    inside = ((rows >= 0) & (rows < m))[..., None]
+    outs = rows[:, 1:-1]
+    keep = outs < m
+    col = outs % w
+    out = torch.empty_like(xf)
+    for i, (cin, cout) in enumerate(zip(CIN, COUT)):
+        wi = repack_ilv(pack_kernel(kernels[i].to(dt)), cin).to(acc)
+        a = torch.where(inside, buf[rows.clamp(0, m - 1), :3 * cin], 0)
+        y = a.to(acc) @ wi
+        v = y[:, 1:-1, cout:2 * cout]
+        v = torch.where((col > 0)[..., None], y[:, :-2, :cout] + v, v)
+        v = torch.where((col < w - 1)[..., None], v + y[:, 2:, 2 * cout:], v)
+        v = v + biases[i].to(acc)
+        if i == 4:
+            res = xf[outs.clamp(max=m - 1)].to(acc)
+            out[outs[keep]] = (v * scale_ratio + res)[keep].to(dt)
+            break
+        val = x.new_empty((m, cout))
+        val[outs[keep]] = F.leaky_relu(v, 0.2).to(dt)[keep]
+        chunk = cin // GROWTH
+        for part, name in enumerate(("up", "mid", "dn")):
+            dest, src = stores[name]
+            buf[dest, ilv_columns(chunk, part)] = torch.where(
+                (src < 0)[:, None], 0, val[src.clamp(min=0)])
+    return out.reshape(b, h, w, CHANNELS), buf.reshape(b, h, w, 3 * FEAT)
+
+
 def rdb_fwd_ilv_cuda(
     x: torch.Tensor, kernels, biases, *, scale_ratio: float = 0.2
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The interleaved forward on a CUDA ``x`` (``csrc/rdb_ilv.cu``).
     Returns the block output and the (B, H, W, 576) buffer the launches
     filled (chunk j's [up | mid | dn] in columns ``ilv_columns``), so that
-    each launch can be held against its own convolution."""
+    each launch can be held against its own convolution.  In bf16 the
+    kernels go to the kernel as they are (f32 or bf16, any strides): a
+    prep launch and five convs, the data flow of
+    :func:`rdb_ilv_runs_reference`; in f32 a grow launch and five FFMA
+    convs on the ``repack_ilv`` weights."""
     global RDB_FWD_ILV_LAUNCHES
     from torchsr_tpu_torch.ops._build import load_library
 
@@ -1123,27 +1353,32 @@ def rdb_fwd_ilv_cuda(
     _check(x, kernels, biases)
     _cuda_operands(x, (*kernels, *biases), "rdb_fwd_ilv_cuda")
     b, h, w, _ = x.shape
+    if b * h * w >= 2**31 - _ILV_RUN:
+        raise ValueError(
+            f"the interleaved RDB forward takes fewer than 2**31 pixels a "
+            f"call, got {b * h * w}")
     dt = x.dtype
     x = x.contiguous()
+    buf = torch.empty((b, h, w, 3 * FEAT), dtype=dt, device=x.device)
+    out = torch.empty_like(x)
+    if dt == torch.bfloat16:
+        _fwd_bf16("rdb_ilv", x, kernels, biases, scale_ratio, buf, out)
+        RDB_FWD_ILV_LAUNCHES += 5
+        return out, buf
     weights = [_aligned(repack_ilv(pack_kernel(k.to(dt)), ci), dt)
                for k, ci in zip(kernels, CIN)]
     biases = [b_.to(torch.float32).contiguous() for b_ in biases]
-    buf = torch.empty((b, h, w, 3 * FEAT), dtype=dt, device=x.device)
-    out = torch.empty_like(x)
-
     lib = load_library("rdb_ilv")
     errstr = lib.rdb_ilv_error_string
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    is_bf16 = int(dt == torch.bfloat16)
     idx = x.device.index
-    _raise_on(lib.rdb_ilv_grow_launch(is_bf16, x.data_ptr(), buf.data_ptr(),
-                                      b, h, w, idx, stream),
+    _raise_on(lib.rdb_ilv_f32_grow_launch(x.data_ptr(), buf.data_ptr(), b, h,
+                                          w, idx, stream),
               errstr, "rdb_fwd_ilv grow")
     for i in range(5):
-        _raise_on(lib.rdb_ilv_conv_launch(
-            i, is_bf16, buf.data_ptr(), weights[i].data_ptr(),
-            biases[i].data_ptr(), x.data_ptr(), out.data_ptr(), b, h, w,
-            float(scale_ratio), idx, stream), errstr,
-            f"rdb_fwd_ilv conv {i + 1}")
+        _raise_on(lib.rdb_ilv_f32_conv_launch(
+            i, buf.data_ptr(), weights[i].data_ptr(), biases[i].data_ptr(),
+            x.data_ptr(), out.data_ptr(), b, h, w, float(scale_ratio), idx,
+            stream), errstr, f"rdb_fwd_ilv conv {i + 1}")
         RDB_FWD_ILV_LAUNCHES += 1
     return out, buf

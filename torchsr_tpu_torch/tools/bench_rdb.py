@@ -1,8 +1,8 @@
-"""Time the RDB kernels (B1, B7; with --bwd B2, B8) on one CUDA card.
+"""Time the RDB kernels (B1, B7, B6; with --bwd B2, B8) on one CUDA card.
 
     python torchsr_tpu_torch/tools/bench_rdb.py [--root TREE] [--bwd]
         [--gan-profile] [--serve-profile] [--serve-ilv-profile]
-        [--seed N]
+        [--pair-synth] [--seed N]
 
 The counterpart of the JAX package's ``tools/bench_rdb.py``.  ``--root``
 names the checkout whose ``torchsr_tpu_torch`` is imported (by default
@@ -13,7 +13,9 @@ card.  The script builds that tree's kernels into its own
 
 It prints, for the block forward ``rdb_fwd_cuda`` (B1) and
 ``rdb_fwd_ext_cuda`` (B7) at the serving shape (16, 64, 64, 64) and the
-training shape (64, 32, 32, 64), bf16 and f32: the median time of a call
+training shape (64, 32, 32, 64), and ``rdb_fwd_ilv_cuda`` (B6) at the
+serving shape and the ragged (3, 37, 45, 64), bf16 and f32: the median
+time of a call
 over 30 calls (CUDA events, 3 warm-ups), and the device time of each
 kernel a call launches, by its position in the call, over 10 calls under
 ``torch.profiler``, with the kernels a call launches.  The weights are
@@ -26,8 +28,12 @@ batch 64 and ``--serve-profile`` three (16, 64, 64, 3) tile batches of
 the 23-RRDB generator in bf16: the RDB forward's (and backward's)
 device time, the kernels per step or batch, the device's busy share of
 the span; ``--serve-ilv-profile`` the same tile batches with
-``TORCHSR_RDB_ILV``'s variant (B6) selected.  One JSON line on stdout, the card's name and power limit in
-it.  It needs a CUDA card and the CUDA toolkit.
+``TORCHSR_RDB_ILV``'s variant (B6) selected.  ``--pair-synth`` times
+the pair synthesis kernel (B3, ``synthesize_pair_cuda``) at the bench
+tool's shape (64, 96, 96, 3), a call (CUDA events) and its device time,
+and runs ``tools/bench_preprocess.py``'s measurement (median and p90 µs
+a synthesized batch) on that tree.  One JSON line on stdout, the card's
+name and power limit in it.  It needs a CUDA card and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ import sys
 
 SERVE_SHAPE = (16, 64, 64, 64)  # a serving tile batch of 64 x 64 LR tiles
 TRAIN_SHAPE = (64, 32, 32, 64)  # batch 64 of 32 x 32 LR crops
+RAGGED_SHAPE = (3, 37, 45, 64)  # a whole image's blocks, as `test` gives
+SYNTH_SHAPE = (64, 96, 96, 3)  # tools/bench_preprocess.py's defaults
 SCALE = 0.2
 GAN_BATCH = 64
 TILE_BATCH = (16, 64, 64, 3)
@@ -157,7 +165,33 @@ def bench_forward(torch, rdb_ops, seed: int) -> dict:
             out[f"{where}_b1_bf16_f32views"] = _timed(
                 torch, lambda: rdb_ops.rdb_fwd_cuda(xb, views, bs,
                                                     scale_ratio=SCALE))
+        for where, shape in (("serve", SERVE_SHAPE),
+                             ("ragged", RAGGED_SHAPE)):
+            x = (torch.randn(shape, generator=gen) * 0.5).cuda()
+            for dtype in (torch.bfloat16, torch.float32):
+                xd = x.to(dtype)
+                kd = [k.to(dtype) for k in ks]
+                name = str(dtype).removeprefix("torch.")
+                out[f"{where}_b6_{name}"] = _timed(
+                    torch, lambda: rdb_ops.rdb_fwd_ilv_cuda(
+                        xd, kd, bs, scale_ratio=SCALE))
     return out
+
+
+def bench_pair_synth(torch, seed: int) -> dict:
+    """B3 at ``SYNTH_SHAPE``: a call's median time (CUDA events) and its
+    device time under the profiler, then ``bench_preprocess``'s own
+    measurement (its JSON lines go to stdout as well)."""
+    from torchsr_tpu_torch.ops.preprocess import synthesize_pair_cuda
+    from torchsr_tpu_torch.tools import bench_preprocess
+
+    gen = torch.Generator().manual_seed(seed)
+    crops = torch.randint(0, 256, SYNTH_SHAPE, generator=gen,
+                          dtype=torch.uint8).cuda()
+    flips = (torch.rand((SYNTH_SHAPE[0], 2), generator=gen) < 0.5).cuda()
+    row = _timed(torch, lambda: synthesize_pair_cuda(crops, flips))
+    row["bench_preprocess"] = bench_preprocess.main([])
+    return row
 
 
 def bench_backward(torch, rdb_ops, seed: int) -> dict:
@@ -273,6 +307,7 @@ def main(argv=None) -> None:
     parser.add_argument("--gan-profile", action="store_true")
     parser.add_argument("--serve-profile", action="store_true")
     parser.add_argument("--serve-ilv-profile", action="store_true")
+    parser.add_argument("--pair-synth", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -302,6 +337,8 @@ def main(argv=None) -> None:
         rdb_ops.ILV_KERNEL = False
     if args.gan_profile:
         row["gan_step_batch64"] = gan_profile(torch, root, args.seed)
+    if args.pair_synth:
+        row["pair_synth"] = bench_pair_synth(torch, args.seed)
     print(json.dumps(row), flush=True)
 
 
