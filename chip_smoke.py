@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's ESRGAN serving and training paths and its
-two bench tools' paths on one CUDA card, every kernel included.
+"""Drive the PyTorch/CUDA port's ESRGAN and SRGAN serving, training and
+evaluation paths and its two bench tools' paths on one CUDA card, every
+kernel included.
 
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
@@ -109,7 +110,25 @@ renders, tile batches or tool calls imply, every other counter (the
     32x32 crops and the 48x64 sample are eligible), then ``test`` on
     its gan-best whole-image (W = 140 is not: B1) and tiled (64x64
     tiles: B7).
-18. train_speed: pretrain and GAN step times at batch 16 and 64, and a
+18. eval: ``python -m torchsr_tpu_torch eval`` (in this process) on
+    the train phase's gan-best over seeded PNGs of mixed sizes (one
+    width not a multiple of 4, one image below the SSIM window, which
+    must be skipped), whole-image and tiled, f32 and bf16: B1 5 x 69
+    launches a generator forward; every value finite; each report's
+    per-image PSNR/SSIM recomputed in float64 numpy from the float SR it
+    scored, equal to the report's rounding; one f32 SR against
+    ``plain_generator`` on the card; the f32 report again with TF32
+    allowed, and the difference printed.
+19. interp: ``interp`` of the train phase's psnr-best and gan-best at
+    alpha 0.2 (alpha 0 and 1 must return the inputs bit for bit), then
+    ``eval`` of the blend (B1).
+20. srgan_train: ``train --model srgan`` at full width (16 blocks, crop
+    96, the full VGG19), one epoch per phase at batch 16, then ``test``
+    (whole-image and tiled), ``serve`` (two requests at the SRGAN
+    serving tile 256, held against the generator's own tiling) and
+    ``eval`` on its gan-best, every counter 0 on each (SRGAN reaches no
+    kernel); the two steps' times at batch 16.
+21. train_speed: pretrain and GAN step times at batch 16 and 64, and a
     ``train_profile`` line for one GAN step at 64.
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
@@ -119,7 +138,8 @@ raises, so the script exits non-zero and prints no last line.
 ``--only`` runs the named phases after probe and build (for kernel
 work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
 pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
-train_grad_ext, train_grad_xla, train, train_ext, train_speed.
+train_grad_ext, train_grad_xla, train, train_ext, train_speed, eval and
+interp (each after train), srgan_train.
 """
 
 from __future__ import annotations
@@ -2289,6 +2309,28 @@ def _train(seed: int, phase: str, ext: bool) -> dict:
     return row
 
 
+def step_times(trainer, crops: torch.Tensor, flips: torch.Tensor) -> dict:
+    """The pretrain and GAN steps' median host-clock time over
+    ``SPEED_STEPS`` synchronized steps after one, and their crops/s."""
+    row = {}
+    for name, step in (
+        ("pretrain", lambda: trainer.pretrain_step(crops, flips)),
+        ("gan", lambda: trainer.gan_step(crops, flips, 1e-4, 1e-4)),
+    ):
+        step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(SPEED_STEPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        row[name] = {"step_ms": ms, "crops_per_s": len(crops) / ms * 1e3,
+                     "step_ms_all": times}
+    return row
+
+
 def phase_train_speed(seed: int) -> dict:
     """Pretrain and GAN step times (host clock around synchronized
     steps) at batch 16 and 64, and a profile of one GAN step at 64."""
@@ -2312,22 +2354,7 @@ def phase_train_speed(seed: int) -> dict:
         crops = torch.randint(0, 256, (batch, 128, 128, 3), generator=g,
                               dtype=torch.uint8).to(DEVICE)
         flips = torch.randint(0, 2, (batch, 2), generator=g).bool().to(DEVICE)
-        row = {}
-        for name, step in (
-            ("pretrain", lambda: trainer.pretrain_step(crops, flips)),
-            ("gan", lambda: trainer.gan_step(crops, flips, 1e-4, 1e-4)),
-        ):
-            step()
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(SPEED_STEPS):
-                t0 = time.perf_counter()
-                step()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            ms = statistics.median(times)
-            row[name] = {"step_ms": ms, "crops_per_s": batch / ms * 1e3,
-                         "step_ms_all": times}
+        row = step_times(trainer, crops, flips)
         torch.cuda.reset_peak_memory_stats()
         trainer.gan_step(crops, flips, 1e-4, 1e-4)
         row["gan_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2340,6 +2367,452 @@ def phase_train_speed(seed: int) -> dict:
         **{f"batch{b}": r for b, r in rows.items()})
     say("train_profile", batch=SPEED_BATCHES[-1], step="gan", **prof)
     return rows
+
+
+# eval, the main path of the ``eval`` subcommand: the train phase's
+# ESRGAN gan-best on seeded PNGs of mixed sizes, one whose width is not
+# a multiple of 4 (cropped to 200) and one below the 11 x 11 SSIM
+# window (skipped), whole-image and tiled, f32 and bf16.
+EVAL_SIZES = ((176, 176), (150, 203), (96, 132), (9, 30))
+EVAL_SKIPPED = "img3.png"
+EVAL_TILE = ("--tile", "32", "--tile-overlap", "8", "--tile-batch", "4")
+EVAL_RUNS = (("f32", ()), ("f32_tiled", EVAL_TILE), ("bf16", ("--bf16",)),
+             ("bf16_tiled", (*EVAL_TILE, "--bf16")))
+# A report's per-image PSNR (dB) and SSIM recomputed in float64 numpy
+# from the float SR the report scored: half the report's last digit
+# (4 and 5 decimals) plus what the report's f32 reductions may carry
+# (on the CPU, f32 against float64 at 176 x 176 and 148 x 200, noisy
+# and smooth images: <= 3.4e-7 dB and 6.5e-7; the slack is 30x and 3x).
+REPORT_SLACK = {"psnr": 5e-5 + 1e-5, "ssim": 5e-6 + 2e-6}
+# srgan_train: SRGAN at full width (16 blocks, crop 96, the full VGG19)
+# on seeded PNGs, batch 16, one epoch per phase; then test, serve (two
+# requests, one tiled at the SRGAN serving tile 256) and eval.
+SRGAN_BLOCKS = 16
+SRGAN_CROP = 96
+SRGAN_REQUESTS = ((64, 64), (120, 300))
+INTERP_ALPHA = 0.2
+
+
+def eval_forwards(sizes, tile_args=()) -> int:
+    """Generator forwards of one ``eval`` over images of ``sizes`` (HR):
+    one per scored image whole-image; with ``--tile T --tile-overlap O
+    --tile-batch N``, ceil(tiles / N) per image that exceeds T in LR."""
+    opts = dict(zip(tile_args[::2], tile_args[1::2]))
+    tile = int(opts.get("--tile", 0))
+    overlap = int(opts.get("--tile-overlap", 16))
+    batch = int(opts.get("--tile-batch", 8))
+    total = 0
+    for h, w in sizes:
+        lh, lw = h // 4, w // 4
+        if lh * 4 < 11 or lw * 4 < 11:
+            continue
+        if tile and (lh > tile or lw > tile):
+            tiles = (len(_positions(max(lh, tile), tile, tile - overlap))
+                     * len(_positions(max(lw, tile), tile, tile - overlap)))
+            total += -(-tiles // batch)
+        else:
+            total += 1
+    return total
+
+
+def _blur64(n: int) -> np.ndarray:
+    """Float64 banded matrix of the VALID 11-tap Gaussian (sigma 1.5)."""
+    g = np.exp(-((np.arange(11) - 5.0) ** 2) / (2 * 1.5 ** 2))
+    g /= g.sum()
+    mat = np.zeros((n - 10, n))
+    for i in range(n - 10):
+        mat[i, i:i + 11] = g
+    return mat
+
+
+def numpy_scores(sr: np.ndarray, hr: np.ndarray, window=None) -> tuple:
+    """(PSNR dB, SSIM) of one HWC image pair in float64 numpy: the
+    reference's formulas, independent of the port's torch metrics.
+    ``window`` replaces the Gaussian blur (a fault for the tests)."""
+    sr, hr = sr.astype(np.float64), hr.astype(np.float64)
+    mse = float(np.mean((sr - hr) ** 2))
+    gh, gw = (window or _blur64)(sr.shape[0]), (window or _blur64)(
+        sr.shape[1])
+
+    def blur(x):
+        return np.einsum("oh,hwc->owc", gh, np.einsum("ow,hwc->hoc", gw, x))
+
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    mu_p, mu_t = blur(sr), blur(hr)
+    var_p = blur(sr * sr) - mu_p ** 2
+    var_t = blur(hr * hr) - mu_t ** 2
+    cov = blur(sr * hr) - mu_p * mu_t
+    ssim = ((2 * mu_p * mu_t + c1) * (2 * cov + c2)) / (
+        (mu_p ** 2 + mu_t ** 2 + c1) * (var_p + var_t + c2))
+    return 10.0 * np.log10(1.0 / max(mse, 1e-12)), float(ssim.mean())
+
+
+def report_excess(row: dict, sr: np.ndarray, hr_u8: np.ndarray,
+                  window=None) -> dict:
+    """A report row's PSNR and SSIM against ``numpy_scores`` of the
+    float SR it scored and its HR (cropped as eval crops), each as
+    |report - float64| over ``REPORT_SLACK``: at most 1 passes."""
+    h, w = row["hw"]
+    p, s = numpy_scores(sr, hr_u8[:h, :w] / 255.0, window)
+    return {"psnr": abs(row["psnr"] - p) / REPORT_SLACK["psnr"],
+            "ssim": abs(row["ssim"] - s) / REPORT_SLACK["ssim"],
+            "psnr64": p, "ssim64": s}
+
+
+@contextlib.contextmanager
+def saved_sr(into: dict):
+    """Record every float image ``eval --save-sr`` saves (by file name)
+    and save it as usual."""
+    from torchsr_tpu_torch.utils import image_io
+
+    save = image_io.save_image
+
+    def record(image, path):
+        into[os.path.basename(path)] = np.array(image, dtype=np.float32)
+        save(image, path)
+
+    image_io.save_image = record
+    try:
+        yield into
+    finally:
+        image_io.save_image = save
+
+
+def _headline(report: dict) -> dict:
+    return {k: report[k] for k in ("images", "mean_psnr", "mean_ssim",
+                                   "batch_psnr", "mean_bicubic_psnr",
+                                   "mean_bicubic_ssim", "psnr_margin_db",
+                                   "ssim_margin")}
+
+
+def _eval_images(seed: int) -> str:
+    """The eval phase's seeded PNGs (made once); returns their folder."""
+    folder = os.path.join(ROOT, "build", "chip_smoke", "eval", "val")
+    if not os.path.isdir(folder):
+        os.makedirs(folder)
+        rng = np.random.default_rng(seed + 5)
+        for i, hw in enumerate(EVAL_SIZES):
+            _write_png(os.path.join(folder, f"img{i}.png"),
+                       rng.integers(0, 256, (*hw, 3), np.uint8))
+    return folder
+
+
+def _check_report(report: dict, what: str, model: str = "esrgan") -> None:
+    names = [r["image"] for r in report["per_image"]]
+    check(report["model"] == model and report["images"] == len(EVAL_SIZES)
+          - 1 and EVAL_SKIPPED not in names,
+          f"{what}: {len(EVAL_SIZES) - 1} images scored, {EVAL_SKIPPED} "
+          f"(below the SSIM window) skipped: {names}")
+    check(all(np.isfinite(v) for r in report["per_image"]
+              for v in r.values() if isinstance(v, float))
+          and all(np.isfinite(v) for v in _headline(report).values()),
+          f"{what}: every value is finite")
+    check([r["hw"] for r in report["per_image"]]
+          == [[h // 4 * 4, w // 4 * 4] for h, w in EVAL_SIZES[:-1]],
+          f"{what}: sides cropped to multiples of 4")
+
+
+def phase_eval(seed: int) -> dict:
+    """``eval`` (the CLI's ``main``, in this process) on the train
+    phase's gan-best: whole-image and tiled, f32 and bf16; B1 5 x 69
+    launches a generator forward, every other counter 0; each report
+    recomputed in float64; one f32 SR against ``plain_generator``; the
+    f32 report again with TF32 allowed."""
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.infer.evaluate import run_eval, tf32_allowed
+    from torchsr_tpu_torch.infer.runner import load_trained_generator
+    from torchsr_tpu_torch.ops.resize import bicubic_resize
+    from torchsr_tpu_torch.utils import image_io
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "train",
+                        "esrgan-gan-best.pth")
+    folder = _eval_images(seed)
+    workdir = os.path.dirname(folder)
+    hr = {f"img{i}.png": image_io.load_image(os.path.join(folder,
+                                                          f"img{i}.png"))
+          for i in range(len(EVAL_SIZES))}
+    rows, paths, reports, srs = {}, {}, {}, {}
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for name, extra in EVAL_RUNS:
+            reset_counters()
+            t0 = time.perf_counter()
+            with saved_sr({}) as got, contextlib.redirect_stdout(
+                    io.StringIO()):
+                cli.main(["eval", "val", "--checkpoint", ckpt, "--save-sr",
+                          "--report", f"{name}.json", *extra])
+            wall_s = time.perf_counter() - t0
+            paths[f"eval {name}"] = counts = read_counters()
+            with open(f"{name}.json") as fh:
+                reports[name] = report = json.load(fh)
+            srs[name] = got
+            excess = [report_excess(r, got[f"upres-{r['image']}"],
+                                    hr[r["image"]])
+                      for r in report["per_image"]]
+            rows[name] = {"wall_s": wall_s, "launches": counts,
+                          **_headline(report),
+                          "recompute_excess": max(
+                              max(e["psnr"], e["ssim"]) for e in excess)}
+            _check_report(report, f"eval {name}")
+            check_counts(f"eval {name}", counts, rdb_fwd=5 * 3 * NUM_RRDB
+                         * eval_forwards(EVAL_SIZES, extra))
+            check(rows[name]["recompute_excess"] <= 1,
+                  f"eval {name}: the report's PSNR/SSIM equal float64 "
+                  f"numpy's of the saved SR to the report's rounding: "
+                  f"{excess}")
+        args = Namespace(image_dir="val", model="esrgan", checkpoint=ckpt,
+                         crop=None, tile=0, tile_overlap=16, tile_batch=8,
+                         bf16=False, save_sr=False, report=None,
+                         device=DEVICE)
+        with contextlib.redirect_stdout(io.StringIO()):
+            tf32 = run_eval(args, ESRGANGenerator, allow_tf32=True)
+        with tf32_allowed(False):
+            gen = load_trained_generator(args, ESRGANGenerator,
+                                         device=torch.device(DEVICE),
+                                         compute_dtype=torch.float32)
+    finally:
+        os.chdir(cwd)
+    # one f32 SR against the plain generator on the card (TF32 off)
+    first = reports["f32"]["per_image"][0]
+    h, w = first["hw"]
+    hr_t = torch.from_numpy(
+        hr[first["image"]][:h, :w].astype(np.float32) / 255.0).to(DEVICE)
+    with torch.inference_mode(), tf32_allowed(False):
+        lr = bicubic_resize(hr_t[None], (h // 4, w // 4), quantize=True)
+        ref = plain_generator(gen, lr)[0].clamp(0, 1)
+        wrong = plain_generator(gen, lr, conv5_skipped)[0].clamp(0, 1)
+    sr = torch.from_numpy(srs["f32"][f"upres-{first['image']}"]).to(DEVICE)
+    limit = TOL_GEN_F32 * float(ref.abs().max())
+    vs_plain = _dist(sr, ref)
+    base = reports["f32"]["per_image"]
+    tf32_diff = {
+        "mean_psnr": tf32["mean_psnr"] - reports["f32"]["mean_psnr"],
+        "mean_ssim": tf32["mean_ssim"] - reports["f32"]["mean_ssim"],
+        "max_abs_per_image_psnr": max(abs(a["psnr"] - b["psnr"])
+                                      for a, b in zip(tf32["per_image"],
+                                                      base)),
+        "max_abs_per_image_ssim": max(abs(a["ssim"] - b["ssim"])
+                                      for a, b in zip(tf32["per_image"],
+                                                      base))}
+    say("eval", checkpoint="train phase gan-best", sizes=EVAL_SIZES,
+        tile=EVAL_TILE, runs=rows, f32_vs_plain=vs_plain, f32_limit=limit,
+        conv5_skipped_vs_plain=_dist(wrong, ref),
+        tf32_on_minus_off=tf32_diff, tf32_on=_headline(tf32))
+    check(vs_plain["max"] <= limit,
+          f"eval f32 SR within {TOL_GEN_F32} of the plain generator's "
+          f"largest output: {vs_plain} > {limit}")
+    check(_dist(wrong, ref)["max"] > limit,
+          "the eval limit sees a generator whose blocks lost conv5")
+    _check_report(tf32, "eval f32 with TF32 allowed")
+    return paths
+
+
+def phase_interp(seed: int) -> dict:
+    """``interp`` of the train phase's psnr-best and gan-best at alpha
+    0.2 (alpha 0 and 1 must give the inputs bit for bit), then ``eval``
+    of the blend on B1."""
+    workdir = os.path.join(ROOT, "build", "chip_smoke", "train")
+    folder = _eval_images(seed)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            for alpha in (0.0, 1.0, INTERP_ALPHA):
+                cli.main(["interp", "esrgan-psnr-best.pth",
+                          "esrgan-gan-best.pth", "--alpha", str(alpha),
+                          "-o", f"interp-{alpha:g}.pth"])
+        states = {name: load_checkpoint(path)["state"] for name, path in (
+            ("psnr", "esrgan-psnr-best.pth"), ("gan", "esrgan-gan-best.pth"),
+            ("a0", "interp-0.pth"), ("a1", "interp-1.pth"),
+            ("blend", f"interp-{INTERP_ALPHA:g}.pth"))}
+        ends = {name: all(torch.equal(states[name][k], v)
+                          for k, v in states[end].items())
+                and list(states[name]) == list(states[end])
+                for name, end in (("a0", "psnr"), ("a1", "gan"))}
+        moved = sum(not torch.equal(states["blend"][k], v)
+                    for k, v in states["psnr"].items())
+        reset_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["eval", folder, "--checkpoint",
+                      f"interp-{INTERP_ALPHA:g}.pth", "--report",
+                      "interp.json"])
+        counts = read_counters()
+        with open("interp.json") as fh:
+            report = json.load(fh)
+    finally:
+        os.chdir(cwd)
+    say("interp", alpha=INTERP_ALPHA, ends_bit_equal=ends,
+        tensors_moved=moved, tensors=len(states["psnr"]), launches=counts,
+        eval=_headline(report))
+    check(all(ends.values()), f"interp at alpha 0 and 1 returns the "
+          f"inputs bit for bit: {ends}")
+    check(moved > 0, "the alpha 0.2 blend differs from psnr-best")
+    _check_report(report, "eval of the interp checkpoint")
+    check_counts("interp: eval", counts,
+                 rdb_fwd=5 * 3 * NUM_RRDB * eval_forwards(EVAL_SIZES))
+    return {"interp: eval": counts}
+
+
+def _srgan_serve(ckpt: str, seed: int) -> tuple[dict, dict]:
+    """Two PNG requests to the SRGAN daemon (default tile 256); the
+    answers against the same tiling of the served generator."""
+    service = CheckpointUpscaleService(model="srgan", checkpoint=ckpt,
+                                       device=DEVICE)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(seed + 4)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in SRGAN_REQUESTS]
+    latencies, answers = [], []
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            check(resp.status == 200, "srgan /healthz 200 after warmup")
+        reset_counters()
+        for frame in frames:
+            req = urllib.request.Request(base + "/upscale",
+                                         data=_png(frame), method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                check(resp.status == 200, "srgan /upscale 200")
+                answers.append(_unpng(resp.read()))
+            latencies.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counters()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    gen, overlap = service._generator, service._resolve_overlap(None)
+    levels = []
+    with torch.inference_mode():
+        for frame, sr in zip(frames, answers):
+            h, w = frame.shape[:2]
+            check(sr.shape == (4 * h, 4 * w, 3) and sr.max() > sr.min(),
+                  f"srgan answer for {h}x{w} is a 4x non-constant image")
+            x = torch.from_numpy(frame).to(DEVICE).float() / 255.0
+            out = tiled_upscale(gen, x, scale=4, tile=service.tile,
+                                overlap=overlap,
+                                tile_batch=service.tile_batch)
+            direct = (out.clamp(0, 1) * 255 + 0.5).to(torch.uint8)
+            levels.append(_levels(sr, direct.cpu().numpy()))
+    check(max(d["max"] for d in levels) <= TOL_SERVE_LEVELS,
+          f"srgan served frames within {TOL_SERVE_LEVELS} level of the "
+          f"generator's own tiling: {levels}")
+    return counts, {"request_ms": latencies, "vs_same_tiling_levels": levels,
+                    "meta": service.meta}
+
+
+def phase_srgan_train(seed: int) -> dict:
+    """``train --model srgan`` at full width on seeded PNGs (one epoch
+    per phase, batch 16), then ``test`` whole-image and tiled, ``serve``
+    and ``eval`` on its gan-best, and the two steps' times at batch 16.
+    SRGAN reaches no kernel of the port: every counter reads 0."""
+    import shutil
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.train.trainer import SRGANTrainer
+    from torchsr_tpu_torch.utils.logging import Logger
+
+    workdir = os.path.join(ROOT, "build", "chip_smoke", "srgan_train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(os.path.join(workdir, "ds"))
+    os.makedirs(os.path.join(workdir, "media"))
+    rng = np.random.default_rng(seed + 3)
+    for i in range(TRAIN_IMAGES):
+        _write_png(os.path.join(workdir, "ds", f"img{i:03d}.png"),
+                   rng.integers(0, 256, (*TRAIN_IMAGE_HW, 3), np.uint8))
+    _write_png(os.path.join(workdir, "media", "waterfalls-low-res.png"),
+               rng.integers(0, 256, (*SAMPLE_HW, 3), np.uint8))
+    _write_png(os.path.join(workdir, "photo.png"),
+               rng.integers(0, 256, (*TEST_IMAGE, 3), np.uint8))
+    folder = _eval_images(seed)
+    n_eval = -(-TRAIN_IMAGES // 10)
+    steps = (TRAIN_IMAGES - n_eval) // TRAIN_BATCH
+    paths = {}
+    log = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            cli.main(["train", "--model", "srgan", "--train-dir", "ds",
+                      "--pretrain-epochs", "1", "--epochs", "1",
+                      "--batch-size", str(TRAIN_BATCH), "--seed", str(seed),
+                      "--metrics-file", "metrics.jsonl"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        paths["srgan_train"] = read_counters()
+        ckpts = {f"{p}-{k}": os.path.exists(f"srgan-{p}-{k}.pth")
+                 for p in ("psnr", "gan") for k in ("best", "latest")}
+        best = load_checkpoint("srgan-gan-best.pth")
+        metrics = _finite_metrics("metrics.jsonl")
+        tests = {}
+        for name, extra in (("whole", []),
+                            ("tiled", ["--tile", "64", "--tile-batch",
+                                       "16"])):
+            reset_counters()
+            with contextlib.redirect_stdout(log):
+                cli.main(["test", "photo.png", "--model", "srgan",
+                          "--checkpoint", "srgan-gan-best.pth", *extra])
+            paths[f"srgan_train: test {name}"] = read_counters()
+            with open("upres-photo.png", "rb") as fh:
+                tests[name] = _unpng(fh.read()).shape
+        paths["srgan_train: serve"], served = _srgan_serve(
+            os.path.abspath("srgan-gan-best.pth"), seed)
+        reset_counters()
+        with contextlib.redirect_stdout(log):
+            cli.main(["eval", folder, "--model", "srgan", "--checkpoint",
+                      "srgan-gan-best.pth", "--report", "eval.json"])
+        paths["srgan_train: eval"] = read_counters()
+        with open("eval.json") as fh:
+            report = json.load(fh)
+    finally:
+        os.chdir(cwd)
+    # the two steps at batch 16, as train_speed times ESRGAN's
+    args = Namespace(batch_size=TRAIN_BATCH, epochs=1, pretrain_epochs=1,
+                     seed=seed, skip_image_save=True, disable_amp=False,
+                     metrics_file=None)
+    trainer = SRGANTrainer(args, Namespace(crop_size=SRGAN_CROP), None, 1,
+                           1, device=torch.device(DEVICE), logger=Logger())
+    g = torch.Generator().manual_seed(seed + TRAIN_BATCH)
+    crops = torch.randint(0, 256, (TRAIN_BATCH, SRGAN_CROP, SRGAN_CROP, 3),
+                          generator=g, dtype=torch.uint8).to(DEVICE)
+    flips = torch.randint(0, 2, (TRAIN_BATCH, 2), generator=g).bool().to(
+        DEVICE)
+    speed = step_times(trainer, crops, flips)
+    del trainer
+    params = sum(v.numel() for k, v in best["state"].items()
+                 if not k.endswith(("running_mean", "running_var",
+                                    "num_batches_tracked")))
+    say("srgan_train", blocks=SRGAN_BLOCKS, params=params, crop=SRGAN_CROP,
+        batch=TRAIN_BATCH, steps_per_epoch=steps, wall_s=wall_s,
+        checkpoints=ckpts, metrics=metrics, test_shapes=tests,
+        serve=served, eval=_headline(report), launches=paths,
+        step_times_batch16=speed)
+    lines = log.getvalue().splitlines()
+    check(any("RANDOM VGG features" in ln for ln in lines),
+          "srgan: the random-VGG warning was printed")
+    check("Initialized GAN phase from PSNR weights" in lines,
+          "srgan: the GAN phase started from psnr-latest")
+    check(all(ckpts.values()), f"srgan: the four checkpoints exist: {ckpts}")
+    check(params == 1_547_350 and best["phase"] == "srgan-gan"
+          and best["extra"]["step"] == 2 * steps,
+          "srgan gan-best: the full-width generator and the GAN phase's "
+          "training state")
+    check(int(best["state"]["blocks.0.bn1.num_batches_tracked"])
+          == 2 * steps, "srgan: the BatchNorms counted every train step "
+          "(eval and the sample render use the running statistics)")
+    for shape in tests.values():
+        check(shape == (4 * TEST_IMAGE[0], 4 * TEST_IMAGE[1], 3),
+              "srgan test wrote a 4x image")
+    _check_report(report, "srgan eval", model="srgan")
+    for path, counts in paths.items():
+        check_counts(path, counts)
+    return paths
 
 
 # The kernels of the kernels line: (name, source, the TPU kernel it
@@ -2416,7 +2889,7 @@ def main() -> None:
              "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, pair_synth, "
              "pair_conv, bench_preprocess, bench_pair_conv, train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, "
-             "train_speed.")
+             "train_speed, eval, interp (both after train), srgan_train.")
     args = parser.parse_args()
     smi = phase_probe()
     # f32 references in full f32: cuDNN convolutions default to TF32
@@ -2449,7 +2922,8 @@ def main() -> None:
             "train_grad_xla": lambda s: phase_train_grad(s, "xla"),
             "train": phase_train,
             "train_ext": lambda s: phase_train(s, ext=True),
-            "train_speed": phase_train_speed}
+            "train_speed": phase_train_speed, "eval": phase_eval,
+            "interp": phase_interp, "srgan_train": phase_srgan_train}
         for name in args.only.split(","):
             run(name, phases[name], seed)
         say("seconds", **seconds)
@@ -2485,6 +2959,9 @@ def main() -> None:
         paths[phase] = row["launches"]
         for t in row["test"]:
             paths[" ".join([f"{phase}: test", *t["args"]])] = t["launches"]
+    paths.update(run("eval", phase_eval, seed))
+    paths.update(run("interp", phase_interp, seed))
+    paths.update(run("srgan_train", phase_srgan_train, seed))
     run("train_speed", phase_train_speed, seed)
     say("seconds", **seconds)
     # the card again, beside the results: the phase lines above can

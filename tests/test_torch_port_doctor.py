@@ -64,3 +64,19 @@ def test_doctor_probes_a_dataset_and_a_checkpoint(tmp_path, monkeypatch):
                                     checkpoint=str(tmp_path / "nope.pth"))
     assert "error" in missing["dataset"]
     assert missing["checkpoint"]["error"] == "file not found"
+
+
+def test_doctor_reads_an_srgan_checkpoint(tmp_path):
+    """An SRGAN checkpoint: its model, residual-block count and scale
+    (from ``conv_layers.{i}``), with a 2x one to tell the scale from the
+    default."""
+    from torchsr_tpu_torch.models.srgan import SRGANGenerator
+
+    gen = SRGANGenerator(scale_factor=2, num_residual=3, device="meta")
+    sd = {k: torch.zeros(v.shape, dtype=v.dtype)
+          for k, v in gen.state_dict().items()}
+    ckpt = tmp_path / "srgan-gan-best.pth"
+    save_checkpoint(str(ckpt), 2, "srgan-gan", sd)
+    info = doctor.collect_report(checkpoint=str(ckpt))["checkpoint"]
+    assert (info["detected_model"], info["detected_blocks"],
+            info["detected_scale"]) == ("srgan", 3, 2)

@@ -148,13 +148,18 @@ def test_from_jax_variables_rejects_stacked_scan_params():
 
 @pytest.mark.parametrize(
     "model, error",
-    [("ESRGAN", None), ("esrgan", None), ("srgan", "A9"),
+    [("ESRGAN", None), ("esrgan", None), ("srgan", None),
      ("edsr", "not supported")],
+    # the ids are the ones this test has had since SRGAN (A9) was refused
+    ids=["ESRGAN-None", "esrgan-None", "srgan-A9", "edsr-not supported"],
 )
 def test_registry(model, error):
+    from torchsr_tpu_torch.models.srgan import SRGANGenerator
+
     args = argparse.Namespace(model=model)
     if error is None:
-        assert select_test_model(args) is ESRGANGenerator
+        want = SRGANGenerator if model == "srgan" else ESRGANGenerator
+        assert select_test_model(args) is want
     else:
         with pytest.raises(RuntimeError, match=error):
             select_test_model(args)

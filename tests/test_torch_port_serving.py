@@ -140,9 +140,21 @@ def test_jax_ckpt_loads_in_the_port(weights):
         assert torch.equal(loaded["state"][key], value)
 
 
-def test_checkpoint_of_unported_model_is_refused(weights):
-    with pytest.raises(RuntimeError, match="A9"):
-        load_checkpoint(weights[2], "srgan")
+def test_checkpoint_of_unported_model_is_refused(weights, tmp_path):
+    """An SRGAN checkpoint loads (SRGAN is ported); a model the port
+    does not have is refused."""
+    from torchsr_tpu_torch.models.srgan import SRGANGenerator
+
+    want = SRGANGenerator(num_residual=1,
+                          generator=torch.Generator().manual_seed(2))
+    path = str(tmp_path / "srgan-gan-best.pth")
+    save_checkpoint(path, 2, "srgan-gan", want.state_dict())
+    loaded = load_checkpoint(path, "srgan")
+    assert loaded["phase"] == "srgan-gan"
+    for key, value in want.state_dict().items():
+        assert torch.equal(loaded["state"][key], value), key
+    with pytest.raises(RuntimeError, match="not supported"):
+        load_checkpoint(weights[2], "edsr")
 
 
 def _png(arr):
@@ -262,11 +274,24 @@ def test_cli_registers_only_ported_flags():
     assert (args.device, args.batch_size, args.epochs, args.pretrain_epochs,
             args.train_dir, args.model, args.seed) == (
         "cuda", 64, 1000, 1000, "dataset", "ESRGAN", 0)
+    args = cli.parse_args(["train", "--eval-dir", "v",
+                           "--dataset-multiplier", "16"])
+    assert (args.eval_dir, args.dataset_multiplier) == ("v", 16)
+    args = cli.parse_args(["eval", "val"])
+    assert (args.device, args.tile, args.tile_overlap, args.tile_batch,
+            args.crop, args.bf16, args.model) == (
+        "cuda", 0, 16, 8, None, False, "ESRGAN")
+    args = cli.parse_args(["interp", "p.pth", "g.pth"])
+    assert (args.alpha, args.output, args.model) == (0.8, None, "ESRGAN")
     for argv in (["train", "--steps-per-call", "2"],
                  ["train", "--fast-compile"], ["train", "--scale", "2"],
                  ["export", "x"], ["test", "a.png", "--spatial-shard"],
                  ["serve", "--shard-tiles"], ["serve", "art.shlo"],
-                 ["test", "a.png", "--tile", "8", "--tile-overlap", "8"]):
+                 ["test", "a.png", "--tile", "8", "--tile-overlap", "8"],
+                 ["eval", "val", "--artifact", "art.shlo"],
+                 ["pack", "ds", "ds.tsrpack"], ["train", "--shuffle-window",
+                                                "64"],
+                 ["eval", "val", "--tile", "8", "--tile-overlap", "8"]):
         with pytest.raises(SystemExit):
             cli.parse_args(argv)
 

@@ -12,10 +12,14 @@ slot convs stopping short of it.  The
 same for the pair synthesis (B3: H pass first, no quantization between
 the passes, flip columns swapped, a true division by 255) and the 3x3
 64 -> 64 conv (B4, B5: K transposed, no column mask, bias dropped, dx
-with the unflipped kernel, one CTA's dW partial dropped).
+with the unflipped kernel, one CTA's dW partial dropped).  The eval
+phase's checks run on the port's CPU ``eval``: the float64 recompute of
+a report (an SR one level off on a patch, a box window in the SSIM),
+the skip rule, and the forward count B1's launches are held to.
 """
 
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -492,3 +496,118 @@ def test_kernels_line_reads_both_profile_shapes():
         assert k["device_ms"] == want[k["name"]]
         assert k["library_device_ms"] is None
         assert k["launches"] == 3
+
+
+# ------------------------------------------------ eval, interp, SRGAN
+
+
+@pytest.fixture(scope="module")
+def eval_run(tmp_path_factory):
+    """The eval phase's images and a 1-RRDB checkpoint, scored by the
+    port's ``eval`` on the CPU with the float SR of every image kept."""
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.infer.evaluate import run_eval
+    from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
+    from torchsr_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = tmp_path_factory.mktemp("smoke_eval")
+    rng = np.random.default_rng(5)
+    (root / "val").mkdir()
+    hr = {}
+    for i, hw in enumerate(smoke.EVAL_SIZES):
+        hr[f"img{i}.png"] = rng.integers(0, 256, (*hw, 3), np.uint8)
+        smoke._write_png(str(root / "val" / f"img{i}.png"),
+                         hr[f"img{i}.png"])
+    gen = ESRGANGenerator(num_rrdb_blocks=1,
+                          generator=torch.Generator().manual_seed(1))
+    ckpt = str(root / "g.pth")
+    save_checkpoint(ckpt, 1, "gan", gen.state_dict())
+    args = Namespace(image_dir=str(root / "val"), model="esrgan",
+                     checkpoint=ckpt, crop=None, tile=0, tile_overlap=16,
+                     tile_batch=8, bf16=False, save_sr=True, report=None,
+                     device="cpu")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        with smoke.saved_sr({}) as srs:
+            report = run_eval(args, ESRGANGenerator)
+    finally:
+        os.chdir(cwd)
+    return report, srs, hr, args
+
+
+def test_eval_report_recomputes_in_float64_and_faults_show(eval_run):
+    """The report's PSNR/SSIM equal float64 numpy's of the saved SR to
+    the report's rounding; an SR one level off on a patch, or SSIM with
+    a box window in place of the Gaussian, does not."""
+    report, srs, hr, _ = eval_run
+    smoke._check_report(report, "cpu eval")
+
+    def box(n):
+        mat = np.zeros((n - 10, n))
+        for i in range(n - 10):
+            mat[i, i:i + 11] = 1 / 11
+        return mat
+
+    for row in report["per_image"]:
+        sr = srs[f"upres-{row['image']}"]
+        got = smoke.report_excess(row, sr, hr[row["image"]])
+        assert max(got["psnr"], got["ssim"]) <= 1, got
+        off = sr.copy()
+        off[:8, :8] += 1 / 255
+        bad = smoke.report_excess(row, off, hr[row["image"]])
+        assert max(bad["psnr"], bad["ssim"]) > 1, bad
+        assert smoke.report_excess(row, sr, hr[row["image"]],
+                                   window=box)["ssim"] > 1
+
+
+def test_eval_check_sees_a_broken_skip_rule(eval_run):
+    report = eval_run[0]
+    broken = dict(report, images=report["images"] + 1, per_image=[
+        *report["per_image"], dict(report["per_image"][0],
+                                   image=smoke.EVAL_SKIPPED)])
+    with pytest.raises(RuntimeError, match="skipped"):
+        smoke._check_report(broken, "skip")
+    nan = dict(report, per_image=[dict(report["per_image"][0],
+                                       psnr=float("nan")),
+                                  *report["per_image"][1:]])
+    with pytest.raises(RuntimeError, match="finite"):
+        smoke._check_report(nan, "nan")
+
+
+@pytest.mark.parametrize("tile_args", [(), smoke.EVAL_TILE,
+                                       ("--tile", "16", "--tile-batch", "3",
+                                        "--tile-overlap", "4")])
+def test_eval_forwards_counts_the_generator_calls(eval_run, tile_args,
+                                                  monkeypatch):
+    """``eval_forwards`` (B1's launches on the eval path are 5 x 69 per
+    forward) counts the forwards ``eval`` runs."""
+    from torchsr_tpu_torch.infer import evaluate
+    from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
+
+    args = eval_run[3]
+    opts = dict(zip(tile_args[::2], tile_args[1::2]))
+    args = type(args)(**{**vars(args), "save_sr": False,
+                         "tile": int(opts.get("--tile", 0)),
+                         "tile_overlap": int(opts.get("--tile-overlap", 16)),
+                         "tile_batch": int(opts.get("--tile-batch", 8))})
+    calls = []
+    forward = ESRGANGenerator.forward
+    monkeypatch.setattr(ESRGANGenerator, "forward",
+                        lambda self, x: calls.append(x.shape) or
+                        forward(self, x))
+    evaluate.run_eval(args, ESRGANGenerator)
+    assert len(calls) == smoke.eval_forwards(smoke.EVAL_SIZES, tile_args)
+
+
+def test_srgan_paths_expect_no_kernel():
+    """The SRGAN paths' launch check names no counter: any launch fails."""
+    smoke.reset_counters()
+    smoke.check_counts("srgan", smoke.read_counters())
+    try:
+        rdb_ops.RDB_FWD_LAUNCHES = 5
+        with pytest.raises(RuntimeError, match="kernel launches"):
+            smoke.check_counts("srgan", smoke.read_counters())
+    finally:
+        smoke.reset_counters()

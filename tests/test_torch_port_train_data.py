@@ -6,6 +6,8 @@ epoch order, same splitmix64 crops and flips); the on-device pair
 synthesis, the losses and the metrics agree on the same numpy inputs.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +74,32 @@ def test_loaders_are_byte_identical_to_jax(image_dir, seed):
     want = list(theirs[1])
     assert len(got) == len(want) > 0
     for (c, v), (wc, wv) in zip(got, want):
+        assert v == wv
+        np.testing.assert_array_equal(c, wc)
+
+
+def test_multiplier_and_eval_dir_are_byte_identical_to_jax(image_dir,
+                                                           tmp_path):
+    """``--dataset-multiplier 3`` and ``--eval-dir``: the same paths, the
+    same crops and flips of every repeat, in both loaders."""
+    import shutil
+
+    for name in sorted(os.listdir(image_dir))[:5]:
+        shutil.copy(os.path.join(image_dir, name), tmp_path / name)
+    ours = loader.initialize_datasets(image_dir, 4, 32, dataset_multiplier=3,
+                                      seed=2, eval_directory=str(tmp_path))
+    theirs = jax_loader.initialize_datasets(
+        image_dir, batch_size=4, crop_size=32, dataset_multiplier=3, seed=2,
+        eval_directory=str(tmp_path))
+    assert ours[2:] == theirs[2:] == (36, 15)
+    assert ours[0].paths == theirs[0].paths
+    assert ours[1].paths == theirs[1].paths
+    for (c, f), (wc, wf) in zip(ours[0].epoch(1), theirs[0].epoch(1)):
+        np.testing.assert_array_equal(c, wc)
+        np.testing.assert_array_equal(f, wf)
+    batches = list(ours[1])
+    assert len(batches) == len(theirs[1]) == 4
+    for (c, v), (wc, wv) in zip(batches, theirs[1]):
         assert v == wv
         np.testing.assert_array_equal(c, wc)
 

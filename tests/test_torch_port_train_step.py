@@ -271,8 +271,20 @@ def test_train_then_test_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_train_refuses_a_missing_card_and_srgan(monkeypatch):
+    """Without a card ``train`` refuses, for either model; SRGAN is no
+    longer refused on the CPU: the registry gives its trainer at crop 96,
+    which builds the full-width networks."""
+    from torchsr_tpu_torch.registry import select_trainer_model
+    from torchsr_tpu_torch.train.trainer import SRGANTrainer
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="cuda"):
-        cli.main(["train", "--train-dir", "missing"])
-    with pytest.raises(RuntimeError, match="SRGAN"):
-        cli.main(["train", "--model", "srgan", "--device", "cpu"])
+    for model in ("esrgan", "srgan"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(["train", "--train-dir", "missing", "--model", model])
+    trainer_cls, crop = select_trainer_model(Namespace(model="SRGAN"))
+    assert (trainer_cls, crop) == (SRGANTrainer, 96)
+    trainer = trainer_cls(_args(model="srgan", num_residual=None),
+                          types.SimpleNamespace(crop_size=crop), None, 1, 1,
+                          device=torch.device("cpu"), logger=Logger())
+    assert sum(p.numel() for p in trainer.gen.parameters()) == 1_547_350
+    assert trainer.disc.classifier[0].weight.shape == (1024, 512 * 6 * 6)

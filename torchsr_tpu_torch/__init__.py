@@ -1,10 +1,12 @@
-"""torchsr-tpu on PyTorch and CUDA: the ESRGAN serving path for Hopper.
+"""torchsr-tpu on PyTorch and CUDA: ESRGAN and SRGAN for Hopper.
 
 A second package beside the JAX one (``torchsr_tpu``), which stays the
-reference.  It imports ``torch``, numpy and the standard library only.
-The residual dense block, the one TPU kernel on the serving path, runs
-as a hand-written CUDA kernel (``ops/csrc/rdb_fwd.cu``); everything
-else is plain PyTorch.
+reference.  It imports ``torch``, numpy and the standard library only
+(Pillow and msgpack where an image or a JAX checkpoint is read).
+Every TPU kernel of the JAX package runs as a hand-written CUDA kernel
+(``ops/csrc/``): the residual dense block's forward and backward on
+ESRGAN's paths, the rest on the bench tools'; everything else, the
+SRGAN networks included, is plain PyTorch.
 
 Layouts follow the JAX package at every public function: images and
 activations are NHWC, conv kernels handed to ``fused_rdb`` are HWIO,

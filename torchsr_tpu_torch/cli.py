@@ -1,4 +1,4 @@
-"""CLI: ``python -m torchsr_tpu_torch train|test|serve|doctor``.
+"""CLI: ``python -m torchsr_tpu_torch train|test|serve|eval|interp|doctor``.
 
 The ported subcommands keep the JAX CLI's flag names and defaults, plus
 ``--device`` (default ``cuda``: the port runs on the card unless asked
@@ -69,6 +69,17 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
              f"train/eval split by --seed). Default: {TRAIN_DIR}.",
     )
     train.add_argument(
+        "--eval-dir", type=str,
+        help="Validate on ALL images in this directory instead of "
+             "holding out 10%% of --train-dir; training then uses the "
+             "full train directory.",
+    )
+    train.add_argument(
+        "--dataset-multiplier", type=positive_integer, default=1,
+        help="Artificially increase the dataset size by sampling N "
+             "random crops per image per epoch (the eval set too).",
+    )
+    train.add_argument(
         "--batch-size", type=positive_integer, default=BATCH_SIZE,
         help=f"The number of images to include in every batch. "
              f"Default: {BATCH_SIZE}.",
@@ -90,12 +101,13 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     train.add_argument(
         "--crop-size", type=positive_integer,
         help="Override the HR training crop size (default: 128 for "
-             "ESRGAN, the reference registry's).",
+             "ESRGAN, 96 for SRGAN, the reference registry's).",
     )
     train.add_argument(
         "--gen-blocks", type=positive_integer, dest="num_residual",
-        help="Override the generator's RRDB count (default 23); smaller "
-             "= faster/smaller models.",
+        help="Override the generator's block count (default 23 RRDBs "
+             "for ESRGAN, 16 residual blocks for SRGAN); smaller = "
+             "faster/smaller models.",
     )
     train.add_argument(
         "--vgg-convs", type=positive_integer,
@@ -217,7 +229,7 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     serve.add_argument(
         "--tile", type=nonnegative_integer, default=0,
         help="Serving tile size (0 = the per-model default: 64 for "
-             "ESRGAN).",
+             "ESRGAN, 256 for SRGAN).",
     )
     serve.add_argument(
         "--tile-batch", type=positive_integer, default=16,
@@ -244,6 +256,96 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
              "(HTTP 413). 0 disables the limit.",
     )
     _add_device(serve)
+
+    ev = commands.add_parser(
+        "eval",
+        help="Score a trained generator on a directory of HR images: "
+             "the training pipeline's LR synthesis, per-image PSNR/SSIM "
+             "against the ground truth, the naive-bicubic baseline "
+             "beside it.",
+    )
+    ev.add_argument(
+        "image_dir", type=str,
+        help="Directory of HR ground-truth images to evaluate against.",
+    )
+    ev.add_argument(
+        "--model", type=str, default=MODEL, choices=MODEL_NAMES,
+        help="Model architecture of the checkpoint.",
+    )
+    ev.add_argument(
+        "--checkpoint", type=str,
+        help="Checkpoint path (.ckpt or reference .pth); defaults to "
+             "{model}-gan-best in the working directory.",
+    )
+    ev.add_argument(
+        "--crop", type=positive_integer, default=None,
+        help="Center-crop HR images to NxN before scoring (smaller "
+             "images are skipped). Default: full images, cropped to a "
+             "multiple of the 4x scale.",
+    )
+    ev.add_argument(
+        "--tile", type=nonnegative_integer, default=0,
+        help="Tile size for tiled overlap-blend inference (0 = "
+             "whole-image forward).",
+    )
+    ev.add_argument(
+        "--tile-overlap", type=nonnegative_integer, default=16,
+        help="Halo overlap between inference tiles, in LR pixels.",
+    )
+    ev.add_argument(
+        "--tile-batch", type=positive_integer, default=8,
+        help="Tiles per generator forward during tiled inference.",
+    )
+    ev.add_argument(
+        "--bf16", action="store_true",
+        help="Score with the bfloat16 serving forward instead of "
+             "float32, to measure the serving precision's quality cost.",
+    )
+    ev.add_argument(
+        "--save-sr", action="store_true",
+        help="Also write each super-resolved image as upres-{name}.",
+    )
+    ev.add_argument(
+        "--report", type=str,
+        help="Write the full per-image report as JSON to this path.",
+    )
+    ev.add_argument(
+        "--seed", type=int, default=0,
+        help="Unused at evaluation; accepted for CLI compatibility.",
+    )
+    _add_device(ev)
+
+    interp = commands.add_parser(
+        "interp",
+        help="Network interpolation (ESRGAN paper sec. 3.4): blend the "
+             "PSNR-pretrained and GAN-finetuned generators into one "
+             "checkpoint for a perception/distortion tradeoff.",
+    )
+    interp.add_argument(
+        "psnr_checkpoint", type=str,
+        help="PSNR-oriented checkpoint (.pth or .ckpt), e.g. "
+             "{model}-psnr-best.pth.",
+    )
+    interp.add_argument(
+        "gan_checkpoint", type=str,
+        help="GAN-oriented checkpoint (.pth or .ckpt), e.g. "
+             "{model}-gan-best.pth.",
+    )
+    interp.add_argument(
+        "--alpha", type=float, default=0.8,
+        help="Interpolation weight of the GAN model: (1-alpha)*psnr + "
+             "alpha*gan. 0 = pure PSNR model, 1 = pure GAN model "
+             "(default 0.8, the ESRGAN paper's recommendation).",
+    )
+    interp.add_argument(
+        "--output", "-o", type=str, default=None,
+        help="Output checkpoint path (default "
+             "{model}-interp-{alpha}.pth).",
+    )
+    interp.add_argument(
+        "--model", type=str, default=MODEL, choices=MODEL_NAMES,
+        help="Model architecture of the checkpoints.",
+    )
 
     doctor = commands.add_parser(
         "doctor",
@@ -297,6 +399,19 @@ def main(argv: list[str] | None = None) -> None:
         from torchsr_tpu_torch.infer.server import run_server
 
         run_server(args)
+    elif args.function == "eval":
+        from torchsr_tpu_torch.infer.evaluate import run_eval
+
+        run_eval(args, select_test_model(args))
+    elif args.function == "interp":
+        from torchsr_tpu_torch.utils.interp import interpolate_checkpoints
+
+        output = args.output or (
+            f"{args.model.lower()}-interp-{args.alpha:g}.pth")
+        out = interpolate_checkpoints(args.psnr_checkpoint,
+                                      args.gan_checkpoint, args.alpha,
+                                      output, args.model)
+        print(f"Saved interpolated checkpoint to {out}")
     elif args.function == "doctor":
         from torchsr_tpu_torch.utils.doctor import run_doctor
 

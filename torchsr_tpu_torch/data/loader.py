@@ -7,7 +7,10 @@ RAM; each sample's crop position and flips are a splitmix64 hash of
 from ``numpy.random.default_rng((seed, epoch))``, so for one seed and
 one directory the uint8 crops and flip bits are byte-identical to the
 JAX package's.  Train batches drop the final partial batch; eval
-batches are padded and carry their count of valid samples.
+batches are padded and carry their count of valid samples.  A
+``dataset_multiplier`` of N repeats the path list N times in both
+loaders, the JAX loaders' semantics: each repeat is a sample index of
+its own, so it draws its own crop and flips.
 """
 
 from __future__ import annotations
@@ -97,12 +100,13 @@ class TrainLoader:
         paths: list[str],
         batch_size: int,
         crop_size: int,
+        dataset_multiplier: int = 1,
         workers: int = 8,
         seed: int = 0,
     ) -> None:
         if not paths:
             raise ValueError("TrainLoader needs at least one image")
-        self.paths = list(paths)
+        self.paths = list(paths) * dataset_multiplier
         self.batch_size = batch_size
         self.crop_size = crop_size
         self.seed = seed
@@ -155,12 +159,13 @@ class EvalLoader:
         paths: list[str],
         batch_size: int,
         crop_size: int,
+        dataset_multiplier: int = 1,
         workers: int = 8,
         seed: int = 0,
     ) -> None:
         if not paths:
             raise ValueError("EvalLoader needs at least one image")
-        self.paths = list(paths)
+        self.paths = list(paths) * dataset_multiplier
         self.batch_size = batch_size
         self.crop_size = crop_size
         self.seed = seed
@@ -192,21 +197,31 @@ class EvalLoader:
 
 def initialize_datasets(
     train_directory: str, batch_size: int, crop_size: int = 128,
-    workers: int = 8, seed: int = 0,
+    dataset_multiplier: int = 1, workers: int = 8, seed: int = 0,
+    eval_directory: str | None = None,
 ) -> tuple[TrainLoader, EvalLoader, int, int]:
     """Discover, split 90/10 by ``seed``, and build the loaders:
     (train_loader, test_loader, train_len, test_len), the reference's
-    ``initialize_datasets`` contract."""
+    ``initialize_datasets`` contract.  With ``eval_directory`` the eval
+    loader takes all of it and training all of ``train_directory``."""
     from torchsr_tpu_torch.data.discovery import (
         discover_images,
         split_dataset,
     )
 
-    train_paths, test_paths = split_dataset(
-        discover_images(train_directory), 0.1, seed)
+    images = discover_images(train_directory)
+    if eval_directory:
+        train_paths, test_paths = images, discover_images(eval_directory)
+        if not test_paths:
+            raise ValueError(
+                f"no supported images found in eval dir {eval_directory}")
+    else:
+        train_paths, test_paths = split_dataset(images, 0.1, seed)
     train_loader = TrainLoader(train_paths, batch_size, crop_size,
+                               dataset_multiplier=dataset_multiplier,
                                workers=workers, seed=seed)
     eval_loader = EvalLoader(test_paths, batch_size, crop_size,
+                             dataset_multiplier=dataset_multiplier,
                              workers=workers, seed=seed)
     return (train_loader, eval_loader, train_loader.dataset_len,
             eval_loader.dataset_len)

@@ -47,9 +47,10 @@ def load_trained_generator(
     args: Namespace, generator_cls, *, device: torch.device,
     compute_dtype: torch.dtype,
 ):
-    """Resolve the checkpoint, size the generator to it (RRDB count from
-    the ``blocks.{i}`` keys, scale from the ``upsample{k}`` stages),
-    and return it on ``device`` in eval mode, without gradients."""
+    """Resolve the checkpoint, size the generator to it (block count and
+    scale from its keys, ``generator_cls.sized_to``), and return it on
+    ``device`` in eval mode (BatchNorm on its running statistics),
+    without gradients."""
     model = args.model.lower()
     ckpt_path = getattr(args, "checkpoint", None) or find_checkpoint(
         f"{model}-gan-best.ckpt"
@@ -63,17 +64,10 @@ def load_trained_generator(
     checkpoint = load_checkpoint(ckpt_path, model)
     if checkpoint is None:
         raise FileNotFoundError(f"checkpoint not found: {ckpt_path}")
-    state = {k: v.float() for k, v in checkpoint["state"].items()}
-    num_blocks = len({k.split(".")[1] for k in state
-                      if k.startswith("blocks.")})
-    n_up = len({k.split(".")[0] for k in state
-                if k.startswith("upsample")})
-    generator = generator_cls(
-        num_rrdb_blocks=num_blocks or 23,
-        scale_factor=2 ** n_up if n_up else 4,
-        compute_dtype=compute_dtype,
-        device="meta",
-    )
+    state = {k: v if k.endswith("num_batches_tracked") else v.float()
+             for k, v in checkpoint["state"].items()}
+    generator = generator_cls.sized_to(state, compute_dtype=compute_dtype,
+                                       device="meta")
     generator.load_state_dict(state, assign=True)
     return generator.to(device).eval().requires_grad_(False)
 

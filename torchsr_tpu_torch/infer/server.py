@@ -1,9 +1,10 @@
-"""``serve``: an HTTP daemon around a trained ESRGAN checkpoint.
+"""``serve``: an HTTP daemon around a trained ESRGAN or SRGAN checkpoint.
 
 The PyTorch counterpart of the JAX package's checkpoint-backed serving
 daemon, on the standard library's ``http.server``.  The checkpoint is
 loaded into the live generator on the CUDA device (bf16 compute unless
-``--disable-amp``), and every frame is tiled through it on the device.
+``--disable-amp``; SRGAN's BatchNorms on their running statistics),
+and every frame is tiled through it on the device.
 
 Endpoints:
 

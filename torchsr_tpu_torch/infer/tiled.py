@@ -18,8 +18,8 @@ import functools
 import numpy as np
 import torch
 
-# LR tile size per model for serving (the JAX package's default).
-DEFAULT_SERVING_TILE = {"esrgan": 64}
+# LR tile size per model for serving (the JAX package's defaults).
+DEFAULT_SERVING_TILE = {"esrgan": 64, "srgan": 256}
 
 
 def _positions(size: int, tile: int, stride: int) -> list[int]:

@@ -4,6 +4,11 @@ from torchsr_tpu_torch.models.esrgan import (
     ESRGANDiscriminator,
     ESRGANGenerator,
 )
+from torchsr_tpu_torch.models.srgan import (
+    SRGANDiscriminator,
+    SRGANGenerator,
+)
 from torchsr_tpu_torch.models.vgg import VGG19Features
 
-__all__ = ["ESRGANDiscriminator", "ESRGANGenerator", "VGG19Features"]
+__all__ = ["ESRGANDiscriminator", "ESRGANGenerator", "SRGANDiscriminator",
+           "SRGANGenerator", "VGG19Features"]

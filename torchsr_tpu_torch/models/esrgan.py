@@ -154,6 +154,17 @@ class ESRGANGenerator(nn.Module):
             if isinstance(module, Conv):
                 module.reset_parameters(generator)
 
+    @classmethod
+    def sized_to(cls, state: dict, **kw) -> "ESRGANGenerator":
+        """A generator with the RRDB count and scale of a ``state_dict``
+        (``blocks.{i}``, ``upsample{k}``)."""
+        blocks = len({k.split(".")[1] for k in state
+                      if k.startswith("blocks.")})
+        n_up = len({k.split(".")[0] for k in state
+                    if k.startswith("upsample")})
+        return cls(scale_factor=2 ** n_up if n_up else 4,
+                   num_rrdb_blocks=blocks or NUM_RESIDUAL, **kw)
+
     def upsamplers(self) -> list:
         return [getattr(self, f"upsample{i + 1}")
                 for i in range(int(math.log2(self.scale_factor)))]

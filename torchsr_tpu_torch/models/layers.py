@@ -6,9 +6,10 @@ activations: the conv sees an NCHW *view* of a contiguous NHWC tensor,
 which is PyTorch's ``channels_last`` memory format, so no layout copy
 is made.  Padding is ``k // 2`` on every side, as in torch.
 
-``Dense`` is ``nn.Linear``'s layout computed in the input's dtype, and
-``BatchNorm`` is ``nn.BatchNorm2d`` on NHWC tensors with its statistics
-in f32 whatever the compute dtype (the JAX package's ``BatchNorm``).
+``Dense`` is ``nn.Linear``'s layout computed in the input's dtype,
+``PReLU`` one shared slope (``nn.PReLU()``'s key), and ``BatchNorm``
+is ``nn.BatchNorm2d`` on NHWC tensors with its statistics in f32
+whatever the compute dtype (the JAX package's ``BatchNorm``).
 
 Initialization draws from a caller's ``torch.Generator`` on the CPU
 and copies to the parameter's device, so a seed gives the same weights
@@ -130,6 +131,20 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class PReLU(nn.Module):
+    """Parametric ReLU with one shared learnable slope (init 0.25), the
+    JAX package's ``layers.PReLU`` under ``nn.PReLU()``'s key
+    (``weight``, shape (1,)); the slope is cast to the input's dtype."""
+
+    def __init__(self, init: float = 0.25, *, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full(
+            (1,), init, device=device, dtype=dtype or torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 class BatchNorm(nn.BatchNorm2d):

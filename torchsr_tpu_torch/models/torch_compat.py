@@ -3,8 +3,8 @@
 The port's networks use the reference's module names, so a reference
 ``state_dict`` needs only its wrappers taken off (``strip_ddp_prefix``,
 ``unwrap_state_dict``).  ``from_jax_variables`` carries the JAX
-package's flax variables across, for the ESRGAN generator, the ESRGAN
-discriminator (parameters and BatchNorm statistics) and the VGG19
+package's flax variables across, for the ESRGAN and SRGAN generators
+and discriminators (parameters and BatchNorm statistics) and the VGG19
 trunk: conv kernels go from HWIO to OIHW, dense kernels from (in, out)
 to (out, in), and the flax tree names map to the reference's (or
 torchvision's) keys, the mapping of the JAX package's
@@ -66,74 +66,121 @@ def _index(name: str, stem: str) -> int:
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> dict:
-    """JAX variables of an ESRGAN generator, an ESRGAN discriminator or
-    the VGG19 trunk -> the port's ``state_dict`` (f32 CPU tensors),
-    told apart by their tree: a discriminator has ``fc1``, a generator
-    ``block{i}``/``upsample{k}``, the VGG19 trunk only ``conv{i}``.
+    """JAX variables of an ESRGAN or SRGAN generator or discriminator,
+    or of the VGG19 trunk -> the port's ``state_dict`` (f32 CPU tensors;
+    BatchNorms' ``num_batches_tracked`` 0, a leaf the JAX tree lacks),
+    told apart by their tree: a discriminator has ``fc1`` (eight conv
+    stages for SRGAN, ten for ESRGAN), the SRGAN generator ``prelu1``,
+    the ESRGAN generator ``block{i}``/``upsample{k}``, the VGG19 trunk
+    only ``conv{i}``.
 
     ``variables``: ``{"params": {...}, "batch_stats": {...}}`` (or the
     params tree itself) as numpy arrays."""
     params = variables.get("params", variables)
+    stats = variables.get("batch_stats", {})
     if "fc1" in params:
-        return _discriminator_from_jax(
-            params, variables.get("batch_stats", {}))
+        return _discriminator_from_jax(params, stats)
+    if "prelu1" in params:
+        return _srgan_generator_from_jax(params, stats)
     if not any(k.startswith(("block", "upsample")) for k in params):
         return _vgg19_from_jax(params)
     return _generator_from_jax(params)
 
 
-def _generator_from_jax(params: Mapping[str, Any]) -> dict:
-    """The ESRGAN generator: ``conv1/conv/{kernel,bias}``,
-    ``block{i}/rdb{j}/conv{c}/conv/...``, ``conv2``, ``upsample{k}``,
-    ``conv3``, ``conv4``, under the reference's keys."""
+def _bn(params: Mapping[str, Any], stats: Mapping[str, Any], prefix: str,
+        sd: dict) -> None:
+    """One JAX ``BatchNorm`` (``bn/{scale,bias}``, statistics
+    ``bn/{mean,var}``) under ``nn.BatchNorm2d``'s keys."""
+    bn, st = params["bn"], stats["bn"]
+    sd[f"{prefix}.weight"] = _t(bn["scale"])
+    sd[f"{prefix}.bias"] = _t(bn["bias"])
+    sd[f"{prefix}.running_mean"] = _t(st["mean"])
+    sd[f"{prefix}.running_var"] = _t(st["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _sorted_keys(params: Mapping[str, Any], stem: str) -> list:
+    return sorted((k for k in params
+                   if k.startswith(stem) and k[len(stem):].isdigit()),
+                  key=lambda k: _index(k, stem))
+
+
+def _refuse_scan(params: Mapping[str, Any]) -> None:
     if "blocks_scan" in params:
         raise ValueError(
             "stacked nn.scan parameters (blocks_scan) are not supported; "
             "unstack them to block{i} with the JAX package's "
             "models.scan_compat first"
         )
+
+
+def _srgan_generator_from_jax(params: Mapping[str, Any],
+                              stats: Mapping[str, Any]) -> dict:
+    """The SRGAN generator: ``conv1``, ``prelu1``, ``block{i}/{conv1,
+    bn1, prelu, conv2, bn2}``, ``conv2``, ``bn2``,
+    ``upsample{i}/{conv, prelu}`` and the head ``conv3`` (the fused
+    ``SubpixelSpaceConv``'s ``conv3/conv/{kernel,bias}``, a plain conv's
+    tree), under the reference's keys."""
+    _refuse_scan(params)
+    sd: dict = {}
+    _conv(params["conv1"], "conv1.0", sd)
+    sd["conv1.1.weight"] = _t(params["prelu1"]["alpha"])
+    for i, key in enumerate(_sorted_keys(params, "block")):
+        bp, bs, p = params[key], stats[key], f"blocks.{i}"
+        _conv(bp["conv1"], f"{p}.conv1", sd)
+        _bn(bp["bn1"], bs["bn1"], f"{p}.bn1", sd)
+        sd[f"{p}.prelu.weight"] = _t(bp["prelu"]["alpha"])
+        _conv(bp["conv2"], f"{p}.conv2", sd)
+        _bn(bp["bn2"], bs["bn2"], f"{p}.bn2", sd)
+    _conv(params["conv2"], "conv2.0", sd)
+    _bn(params["bn2"], stats["bn2"], "conv2.1", sd)
+    for i, key in enumerate(_sorted_keys(params, "upsample")):
+        _conv(params[key]["conv"], f"conv_layers.{i}.conv", sd)
+        sd[f"conv_layers.{i}.prelu.weight"] = _t(
+            params[key]["prelu"]["alpha"])
+    _conv(params["conv3"], "conv3", sd)
+    return sd
+
+
+def _generator_from_jax(params: Mapping[str, Any]) -> dict:
+    """The ESRGAN generator: ``conv1/conv/{kernel,bias}``,
+    ``block{i}/rdb{j}/conv{c}/conv/...``, ``conv2``, ``upsample{k}``,
+    ``conv3``, ``conv4``, under the reference's keys."""
+    _refuse_scan(params)
     sd: dict = {}
     _conv(params["conv1"], "conv1", sd)
-    blocks = sorted((k for k in params if k.startswith("block")),
-                    key=lambda k: _index(k, "block"))
-    for i, key in enumerate(blocks):
+    for i, key in enumerate(_sorted_keys(params, "block")):
         for j in range(1, 4):
             rdb = params[key][f"rdb{j}"]
             for c in range(1, 5):
                 _conv(rdb[f"conv{c}"], f"blocks.{i}.RDB{j}.conv{c}.0", sd)
             _conv(rdb["conv5"], f"blocks.{i}.RDB{j}.conv5", sd)
     _conv(params["conv2"], "conv2", sd)
-    ups = sorted((k for k in params if k.startswith("upsample")),
-                 key=lambda k: _index(k, "upsample"))
-    for key in ups:
+    for key in _sorted_keys(params, "upsample"):
         _conv(params[key], key, sd)
     _conv(params["conv3"], "conv3.0", sd)
     _conv(params["conv4"], "conv4", sd)
     return sd
 
 
-# torch nn.Sequential indices of the discriminator's convs and
-# BatchNorms (models/esrgan.py DISC_STAGES; the reference's layout)
-_DISC_CONVS = (0, 2, 5, 8, 11, 14, 17, 20, 23, 26)
-_DISC_BNS = (None, 3, 6, 9, 12, 15, 18, 21, 24, 27)
 # torchvision's indices of the 16 convs of VGG19 features[:36]
 _VGG19_CONVS = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34)
 
 
 def _discriminator_from_jax(params: Mapping[str, Any],
                             stats: Mapping[str, Any]) -> dict:
+    """Either discriminator: ``conv{i}`` stages with ``bn{i}`` on all
+    but the first, then ``fc1``/``fc2``.  In the reference's
+    ``features`` Sequential stage 0 is conv, LeakyReLU and stage i > 0
+    conv, BatchNorm, LeakyReLU, so conv i sits at 3i - 1 (0 for the
+    first) and BatchNorm i at 3i."""
     sd: dict = {}
-    for i, (ci, bi) in enumerate(zip(_DISC_CONVS, _DISC_BNS)):
-        _conv(params[f"conv{i}"], f"features.{ci}", sd)
-        if bi is not None:
-            bn, st = params[f"bn{i}"]["bn"], stats[f"bn{i}"]["bn"]
-            sd[f"features.{bi}.weight"] = _t(bn["scale"])
-            sd[f"features.{bi}.bias"] = _t(bn["bias"])
-            sd[f"features.{bi}.running_mean"] = _t(st["mean"])
-            sd[f"features.{bi}.running_var"] = _t(st["var"])
-            sd[f"features.{bi}.num_batches_tracked"] = torch.tensor(0)
-    # fc1: (h * w * 512, 100) over the HWC flattening -> (100, 512 * h *
-    # w) over the CHW flattening
+    for i in range(len(_sorted_keys(params, "conv"))):
+        _conv(params[f"conv{i}"], f"features.{max(3 * i - 1, 0)}", sd)
+        if i:
+            _bn(params[f"bn{i}"], stats[f"bn{i}"], f"features.{3 * i}", sd)
+    # fc1: (h * w * 512, n) over the HWC flattening -> (n, 512 * h * w)
+    # over the CHW flattening
     kernel = np.asarray(params["fc1"]["dense"]["kernel"])
     fm = int(round((kernel.shape[0] // 512) ** 0.5))
     sd["classifier.0.weight"] = _t(

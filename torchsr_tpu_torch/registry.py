@@ -1,7 +1,7 @@
 """Model registry: name -> generator class / trainer class / crop size.
 
 Case-insensitive lookup with a ``RuntimeError`` on a miss, as in the
-JAX package.  Only ESRGAN is ported so far.
+JAX package.
 """
 
 from __future__ import annotations
@@ -11,8 +11,15 @@ from argparse import Namespace
 
 def _generators() -> dict:
     from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
+    from torchsr_tpu_torch.models.srgan import SRGANGenerator
 
-    return {"esrgan": ESRGANGenerator}
+    return {"esrgan": ESRGANGenerator, "srgan": SRGANGenerator}
+
+
+def _trainers() -> dict:
+    from torchsr_tpu_torch.train.trainer import ESRGANTrainer, SRGANTrainer
+
+    return {"esrgan": ESRGANTrainer, "srgan": SRGANTrainer}
 
 
 MODEL_NAMES = ("esrgan", "srgan")
@@ -21,36 +28,22 @@ MODEL_NAMES = ("esrgan", "srgan")
 CROP_SIZE = {"esrgan": 128, "srgan": 96}
 
 
-def _srgan_not_ported() -> RuntimeError:
-    return RuntimeError(
-        "SRGAN is not ported to the PyTorch package yet (ROADMAP A9); "
-        "use --model esrgan, or the JAX package for SRGAN"
-    )
+def _lookup(args: Namespace, table: dict):
+    name = args.model.lower()
+    if name not in table:
+        raise RuntimeError(
+            f"{args.model} not supported. Please choose from: "
+            f"{list(table)}"
+        )
+    return name, table[name]
 
 
 def select_trainer_model(args: Namespace) -> tuple[type, int]:
     """Return (trainer class, crop size) for the requested model."""
-    from torchsr_tpu_torch.train.trainer import ESRGANTrainer
-
-    name = args.model.lower()
-    if name == "esrgan":
-        return ESRGANTrainer, CROP_SIZE[name]
-    if name == "srgan":
-        raise _srgan_not_ported()
-    raise RuntimeError(
-        f"{args.model} not supported. Please choose from: ['esrgan']"
-    )
+    name, trainer = _lookup(args, _trainers())
+    return trainer, CROP_SIZE[name]
 
 
 def select_test_model(args: Namespace) -> type:
     """Return the generator class for the requested model."""
-    name = args.model.lower()
-    generators = _generators()
-    if name in generators:
-        return generators[name]
-    if name == "srgan":
-        raise _srgan_not_ported()
-    raise RuntimeError(
-        f"{args.model} not supported. Please choose from: "
-        f"{list(generators.keys())}"
-    )
+    return _lookup(args, _generators())[1]

@@ -1,25 +1,34 @@
-"""Two-phase ESRGAN training: L1 PSNR pretrain, then relativistic GAN.
+"""Two-phase GAN training: a PSNR pretrain, then the GAN phase.
 
 The port of ``torchsr_tpu/train/trainer.py`` (``GANTrainer`` with
-``ESRGANTrainer``), in PyTorch's idiom: ``nn.Module``s with f32
-parameters, an explicit compute dtype (bf16 on CUDA unless
-``--disable-amp``; BatchNorm statistics and every loss in f32; no
-GradScaler, as bf16 keeps f32's exponent range), three
+``ESRGANTrainer`` and ``SRGANTrainer``), in PyTorch's idiom:
+``nn.Module``s with f32 parameters, an explicit compute dtype (bf16 on
+CUDA unless ``--disable-amp``; BatchNorm statistics and every loss in
+f32; no GradScaler, as bf16 keeps f32's exponent range), three
 ``torch.optim.Adam`` optimizers, and the learning rate set by the host
-once per epoch.  The evaluation generator runs in f32.
+once per epoch.  The evaluation generator runs in f32.  The generator
+is in ``train()`` mode in the steps (SRGAN's BatchNorms normalize with
+batch statistics and update their running ones, JAX's ``train=True``)
+and in ``eval()`` mode for the evaluation and the sample render (the
+running statistics, JAX's ``train=False``); the discriminator is only
+ever run in training mode, as in JAX.
 
 One GAN step follows the JAX ``gan_core`` "vjp" strategy:
 
 1. one generator forward, its graph kept;
-2. the discriminator loss on ``sr.detach()``;
+2. the discriminator loss on D(hr), then D(``sr.detach()``);
 3. the discriminator's Adam step, before the generator loss;
-4. the generator loss ``0.01 L1 + VGG-L1 + 0.005 BCEwL(D(sr) - mean
-   D(hr), 1)`` against the updated discriminator, its BatchNorm running
-   statistics threaded through all four discriminator calls;
+4. the generator loss against the updated discriminator (ESRGAN:
+   ``0.01 L1 + VGG-L1 + 0.005 BCEwL(D(sr) - mean D(hr), 1)``, D on hr
+   then sr; SRGAN: ``VGG-L1 + 0.001 BCE(D(sr), 1)``, D on sr once),
+   the discriminator's BatchNorm running statistics threaded through
+   its calls in JAX's order;
 5. the backward into the generator through the kept graph.
 
-Every residual dense block of the generator runs the RDB kernels on
-CUDA (``ops.rdb``), forward and backward.  Checkpoints are
+The pretrain loss is L1 for ESRGAN and MSE for SRGAN.  Every residual
+dense block of the ESRGAN generator runs the RDB kernels on CUDA
+(``ops.rdb``), forward and backward; SRGAN runs no kernel of the port
+(the JAX SRGAN reaches no Pallas kernel).  Checkpoints are
 ``{model}-{phase}-{best,latest}.pth`` in the working directory, written
 synchronously with the whole training state, and the resume priority
 is the reference's: an explicit checkpoint, else gan-latest, else
@@ -44,6 +53,10 @@ from torchsr_tpu_torch.infer.runner import resolve_compute_dtype
 from torchsr_tpu_torch.models.esrgan import (
     ESRGANDiscriminator,
     ESRGANGenerator,
+)
+from torchsr_tpu_torch.models.srgan import (
+    SRGANDiscriminator,
+    SRGANGenerator,
 )
 from torchsr_tpu_torch.models.vgg import VGG19Features, load_vgg19_state_dict
 from torchsr_tpu_torch.train import losses as L
@@ -116,21 +129,20 @@ class GANTrainer:
     # ---------------------------------------------------------- models
 
     def _build_models(self) -> None:
-        dev, seed = self.device, self.seed
-        blocks = getattr(self.args, "num_residual", None) or 23
-        self.gen = ESRGANGenerator(
-            num_rrdb_blocks=blocks, scale_factor=self.upscale,
-            compute_dtype=self.compute_dtype, device=dev,
-            generator=torch.Generator().manual_seed(seed),
-        )
-        self.disc = ESRGANDiscriminator(
-            image_size=self.crop_size, compute_dtype=self.compute_dtype,
-            device=dev, generator=torch.Generator().manual_seed(seed + 1),
-        )
+        """``self.gen`` and ``self.disc`` (seeded by ``seed`` and
+        ``seed + 1``), then ``self._build_vgg()``."""
+        raise NotImplementedError
+
+    def _seeded(self, offset: int) -> dict:
+        return {"device": self.device, "compute_dtype": self.compute_dtype,
+                "generator": torch.Generator().manual_seed(
+                    self.seed + offset)}
+
+    def _build_vgg(self) -> None:
+        """The perceptual-loss VGG19 trunk (seed + 7): pretrained
+        weights where given or found, else seeded random features."""
         self.vgg = VGG19Features(
-            getattr(self.args, "vgg_convs", None),
-            compute_dtype=self.compute_dtype, device=dev,
-            generator=torch.Generator().manual_seed(seed + 7),
+            getattr(self.args, "vgg_convs", None), **self._seeded(7),
         ).requires_grad_(False)
         vgg_path = getattr(self.args, "vgg_weights", None)
         explicit = bool(vgg_path)
@@ -159,8 +171,10 @@ class GANTrainer:
         raise NotImplementedError
 
     def _generate(self, lr_img: torch.Tensor, train: bool) -> torch.Tensor:
-        """The generator in the training compute dtype, or in f32 for
-        evaluation (the JAX ``gen_eval`` has no dtype)."""
+        """The generator in training mode and the training compute
+        dtype, or in eval mode and f32 for evaluation (the JAX
+        ``gen_eval`` has no dtype and runs ``train=False``)."""
+        self.gen.train(train)
         self.gen.compute_dtype = self.compute_dtype if train else None
         return self.gen(lr_img)
 
@@ -463,10 +477,45 @@ def _load_vgg_weights(path: str) -> dict:
         return from_jax_variables(_msgpack_restore(fh.read()))
 
 
+class SRGANTrainer(GANTrainer):
+    """SRGAN recipe: MSE pretrain; BCE GAN; VGG + 0.001 adv generator."""
+
+    model_name = "srgan"
+
+    def _build_models(self) -> None:
+        self.gen = SRGANGenerator(
+            num_residual=getattr(self.args, "num_residual", None) or 16,
+            scale_factor=self.upscale, **self._seeded(0))
+        self.disc = SRGANDiscriminator(image_size=self.crop_size,
+                                       **self._seeded(1))
+        self._build_vgg()
+
+    def _pixel_loss(self, sr, hr):
+        return L.mse_loss(sr, hr)
+
+    def _disc_loss(self, real, fake):
+        # BCE(D(hr), 1) + BCE(D(sr), 0) on probabilities
+        return (L.bce_loss(real, torch.ones_like(real))
+                + L.bce_loss(fake, torch.zeros_like(fake)))
+
+    def _gen_loss(self, sr, hr, content):
+        # content + 0.001 BCE(D(sr), 1): one discriminator call, on sr
+        fake = self.disc(sr)
+        return content + 0.001 * L.bce_loss(fake, torch.ones_like(fake))
+
+
 class ESRGANTrainer(GANTrainer):
     """ESRGAN recipe: L1 pretrain; relativistic-average GAN."""
 
     model_name = "esrgan"
+
+    def _build_models(self) -> None:
+        self.gen = ESRGANGenerator(
+            num_rrdb_blocks=getattr(self.args, "num_residual", None) or 23,
+            scale_factor=self.upscale, **self._seeded(0))
+        self.disc = ESRGANDiscriminator(image_size=self.crop_size,
+                                        **self._seeded(1))
+        self._build_vgg()
 
     def _pixel_loss(self, sr, hr):
         return L.l1_loss(sr, hr)
@@ -491,8 +540,9 @@ class ESRGANTrainer(GANTrainer):
 
 
 def run_train(args: Namespace) -> GANTrainer:
-    """The ``train`` subcommand: datasets from ``--train-dir``, the
-    model's trainer on ``--device``, both phases."""
+    """The ``train`` subcommand: datasets from ``--train-dir`` (and
+    ``--eval-dir``), the model's trainer on ``--device``, both
+    phases."""
     import random
 
     from torchsr_tpu_torch.data.loader import initialize_datasets
@@ -507,7 +557,8 @@ def run_train(args: Namespace) -> GANTrainer:
     loaders = initialize_datasets(
         args.train_dir, batch_size=args.batch_size,
         crop_size=getattr(args, "crop_size", None) or crop_size,
-        seed=args.seed,
+        dataset_multiplier=getattr(args, "dataset_multiplier", 1),
+        seed=args.seed, eval_directory=getattr(args, "eval_dir", None),
     )
     trainer = trainer_cls(args, *loaders, device=device)
     trainer.train()

@@ -102,12 +102,13 @@ def _load_torch(path: str) -> dict:
 def load_checkpoint(path: str, model: str | None = None) -> dict | None:
     """Load a checkpoint as ``{"epoch", "phase", "state": state_dict}``
     (with ``extra`` where a ``.pth`` training checkpoint has it); None
-    when the file does not exist.  ``model`` names the
-    architecture; only ``esrgan`` is ported."""
-    if model is not None and model.lower() != "esrgan":
+    when the file does not exist.  ``model`` names the architecture
+    (``esrgan`` or ``srgan``); a ``.ckpt``'s tree tells its own, so the
+    name is only checked."""
+    if model is not None and model.lower() not in ("esrgan", "srgan"):
         raise RuntimeError(
-            f"{model} checkpoints are not supported by the PyTorch "
-            f"package yet (ROADMAP A9); only esrgan is ported"
+            f"{model} checkpoints are not supported: choose esrgan or "
+            f"srgan"
         )
     if not path or not os.path.exists(path):
         return None

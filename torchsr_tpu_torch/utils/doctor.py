@@ -184,14 +184,19 @@ def _checkpoint_info(path: str | None) -> dict:
     if not path:
         return {"skipped": "pass --checkpoint to inspect a file"}
     try:
+        from argparse import Namespace
+
+        from torchsr_tpu_torch.registry import select_test_model
         from torchsr_tpu_torch.utils.checkpoint import load_checkpoint
 
         ckpt = load_checkpoint(path)
         if ckpt is None:
             return {"path": path, "error": "file not found"}
         state = ckpt["state"]
-        n_up = len({k.split(".")[0] for k in state
-                    if k.startswith("upsample")})
+        model = ("srgan" if any(k.startswith("conv_layers.") for k in state)
+                 else "esrgan")
+        gen = select_test_model(Namespace(model=model)).sized_to(
+            state, device="meta")
         extras = ckpt.get("extra") or {}
         return {
             "path": path,
@@ -199,10 +204,10 @@ def _checkpoint_info(path: str | None) -> dict:
             else "msgpack .ckpt",
             "epoch": ckpt.get("epoch"),
             "phase": ckpt.get("phase") or "(none)",
+            "detected_model": model,
             "generator_params": int(sum(v.numel() for v in state.values())),
-            "detected_blocks": len({k.split(".")[1] for k in state
-                                    if k.startswith("blocks.")}),
-            "detected_scale": 2 ** n_up if n_up else 4,
+            "detected_blocks": len(gen.blocks),
+            "detected_scale": gen.scale_factor,
             "training_state": sorted(extras) or
             "none (weights only: cross-phase or external checkpoint)",
         }
