@@ -104,8 +104,9 @@ renders, tile batches or tool calls imply, every other counter (the
 15. test: ``python -m torchsr_tpu_torch test`` (called in this process)
     on one image, whole-image and tiled.
 16. train: ``python -m torchsr_tpu_torch train`` (in this process) on
-    seeded PNGs at full width, one pretrain and one GAN epoch, then
-    ``test`` on its gan-best; B1 and B2.
+    seeded PNGs at full width, one pretrain and one GAN epoch (their
+    steps replays of captured CUDA graphs after each phase's first),
+    then ``test`` on its gan-best; B1 and B2.
 17. train_ext: the same drive with ``EXT_KERNEL`` set (B7 and B8: the
     32x32 crops and the 48x64 sample are eligible), then ``test`` on
     its gan-best whole-image (W = 140 is not: B1) and tiled (64x64
@@ -128,8 +129,25 @@ renders, tile batches or tool calls imply, every other counter (the
     serving tile 256, held against the generator's own tiling) and
     ``eval`` on its gan-best, every counter 0 on each (SRGAN reaches no
     kernel); the two steps' times at batch 16.
-21. train_speed: pretrain and GAN step times at batch 16 and 64, and a
-    ``train_profile`` line for one GAN step at 64.
+21. multistep: the trainer's K-step programs, whose calls replay one
+    captured CUDA graph a step: K = 2 ESRGAN GAN steps and K = 8 SRGAN
+    pretrain steps (full width, batch 16) from one saved state against
+    the same eager steps, held on each category of the state
+    (parameters, BatchNorm buffers, Adam moments and steps) within the
+    noise floor of two eager runs; two faulted runs that must fail that
+    limit (replays without the new batch; a graph that baked its
+    learning rate at capture, after the call set a new one); the real
+    graph at the new rate; a resume from a checkpoint (the trainer drops
+    its graphs) and replays against eager steps again; a captured step's
+    launch counts (B1 345, B2 69) and the counters at replays x that;
+    eager and replayed step times, kernels and busy shares.
+22. bench: ``torchsr_tpu_torch/tools/bench.py``'s five metrics in its
+    order at its configurations (ESRGAN GAN batch 64, SRGAN GAN and
+    pretrain batch 128, tiled 1080p -> 4K for both) with fewer measured
+    steps and frames: names, finite values, the card, and the launch
+    counters at what the calls imply.
+23. train_speed: pretrain and GAN step times at batch 16 and 64 (eager
+    steps), and a ``train_profile`` line for one GAN step at 64.
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
 power limit again, a ``kernels`` JSON line (all eight kernels), and as
@@ -139,13 +157,14 @@ raises, so the script exits non-zero and prints no last line.
 work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
 pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
 train_grad_ext, train_grad_xla, train, train_ext, train_speed, eval and
-interp (each after train), srgan_train.
+interp (each after train), srgan_train, multistep, bench.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import math
@@ -2815,6 +2834,336 @@ def phase_srgan_train(seed: int) -> dict:
     return paths
 
 
+# multistep: the trainer's K-step programs, replays of one captured
+# CUDA graph a step, held against the same eager steps from one state.
+MULTI_BATCH = 16
+MULTI_LR = 1e-4
+MULTI_LR_NEW = 4e-5  # the rate a later epoch sets between calls
+# A category of the state passes when its mean |graph - eager| is at
+# most MULTI_FLOOR_FACTOR times the mean |eager - eager| of the same
+# steps run twice from the same state (the noise floor: atomics in
+# cuDNN's backward kernels sum in another order each run; Adam moves an
+# element whose gradient is near zero by a full step either way, so
+# the largest difference says little and the mean is held), and, where
+# the two eager runs agree exactly, when the graph agrees exactly too.
+MULTI_FLOOR_FACTOR = 2.0
+
+
+def _state_tensors(trainer) -> dict:
+    """Every tensor a training step updates, live, by category: the
+    parameters, the BatchNorm buffers, the Adam moments and steps."""
+    cats: dict = {"gen": [], "disc": [], "bn": [], "adam": [],
+                  "adam_steps": []}
+    for net, module in (("gen", trainer.gen), ("disc", trainer.disc)):
+        cats[net] += [p for p in module.parameters()]
+        cats["bn"] += [b for b in module.buffers()]
+    for opt in trainer.opt.all():
+        for group in opt.param_groups:
+            for p in group["params"]:
+                st = opt.state.get(p, {})
+                cats["adam"] += [st[k] for k in ("exp_avg", "exp_avg_sq")
+                                 if k in st]
+                if "step" in st:
+                    cats["adam_steps"].append(st["step"])
+    return cats
+
+
+def _snapshot(trainer) -> dict:
+    return {c: [t.detach().clone() for t in ts]
+            for c, ts in _state_tensors(trainer).items()}
+
+
+@torch.no_grad()
+def _restore_in_place(trainer, snap: dict) -> None:
+    """Copy ``snap`` into the live tensors (a graph keeps reading them)."""
+    for c, ts in _state_tensors(trainer).items():
+        check(len(ts) == len(snap[c]), f"the {c} state kept its tensors")
+        for t, s in zip(ts, snap[c]):
+            t.copy_(s)
+
+
+def _state_diff(a: dict, b: dict) -> dict:
+    """Per category, the mean and largest |a - b| over its elements."""
+    out = {}
+    for c in a:
+        total = count = 0.0
+        largest = 0.0
+        for x, y in zip(a[c], b[c]):
+            d = (x.double() - y.double()).abs()
+            total += float(d.sum())
+            count += d.numel()
+            largest = max(largest, float(d.max()) if d.numel() else 0.0)
+        out[c] = {"mean": total / max(count, 1), "max": largest}
+    return out
+
+
+def _within_floor(diff: dict, floor: dict) -> bool:
+    return all(
+        diff[c]["mean"] <= MULTI_FLOOR_FACTOR * floor[c]["mean"]
+        if floor[c]["mean"] > 0 else diff[c]["max"] == 0
+        for c in floor)
+
+
+def _stacks(batch: int, crop: int, k: int, seed: int):
+    """k distinct seeded uint8 batches on the card, stacked."""
+    g = torch.Generator().manual_seed(seed)
+    crops = torch.randint(0, 256, (k, batch, crop, crop, 3), generator=g,
+                          dtype=torch.uint8).to(DEVICE)
+    flips = torch.randint(0, 2, (k, batch, 2), generator=g).bool().to(
+        DEVICE)
+    return crops, flips
+
+
+def _eager_vs_graph(trainer, snap, crops_k, flips_k, eager, multi) -> dict:
+    """From ``snap``: the eager steps twice (the floor), then the
+    replayed call.  Returns the floor, the graph's difference from the
+    first eager run, its losses' largest difference, the graph run's
+    launch counts and the first eager run's state."""
+    runs = {}
+    for name, fn in (("eager_a", eager), ("eager_b", eager),
+                     ("graph", multi)):
+        _restore_in_place(trainer, snap)
+        reset_counters()
+        losses = fn(crops_k, flips_k)
+        torch.cuda.synchronize()
+        runs[name] = (_snapshot(trainer), losses, read_counters())
+    (a, a_loss, _), (b, _, _), (g, g_loss, launches) = runs.values()
+    return {"floor": _state_diff(a, b), "graph": _state_diff(g, a),
+            "loss_max_diff": float((g_loss.double()
+                                    - a_loss.double()).abs().max()),
+            "launches": launches, "eager_state": a}
+
+
+def _step_timing(eager, replayed) -> dict:
+    """One eager step and one replayed step (a K = 1 call): CUDA-event
+    ms a step over chained steps, the device's busy share and kernels a
+    step under the profiler."""
+    from torchsr_tpu_torch.tools.profile_gan_step import chained_ms
+
+    out = {}
+    for name, fn in (("eager", eager), ("replayed", replayed)):
+        prof = profile_device_time(fn, 2)
+        out[name] = {"ms": chained_ms(fn, 5),
+                     "device_ms": sum(prof["device_ms_per_batch"].values()),
+                     "kernels": prof["kernels_per_batch"],
+                     "busy_share": prof["busy_share_of_span"]}
+    return out
+
+
+def phase_multistep(seed: int) -> dict:
+    """The trainer's multi-step programs on the card: K = 2 replayed
+    ESRGAN GAN steps and K = 8 SRGAN pretrain steps (full width, batch
+    16) against the same eager steps from one state, within the noise
+    floor of two eager runs; a replay without the new batch and a graph
+    that baked its learning rate at capture, both of which must fail
+    that limit; a resume from a checkpoint, then replays against eager
+    steps again; the launch counters at replays x a step's launches;
+    eager and replayed step times and busy shares."""
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.train.graphs import StepGraph
+    from torchsr_tpu_torch.train.trainer import ESRGANTrainer, SRGANTrainer
+    from torchsr_tpu_torch.utils.logging import Logger
+
+    args = Namespace(batch_size=MULTI_BATCH, epochs=1, pretrain_epochs=1,
+                     seed=seed, skip_image_save=True, disable_amp=False,
+                     metrics_file=None)
+    per_step = {"RDB_FWD_LAUNCHES": 5 * 3 * NUM_RRDB,
+                "RDB_BWD_LAUNCHES": 3 * NUM_RRDB}
+    per_step = {k: per_step.get(k, 0) for k in rdb_ops.LAUNCH_COUNTERS}
+    row: dict = {"batch": MULTI_BATCH}
+
+    # ESRGAN GAN, K = 2
+    tr = ESRGANTrainer(args, Namespace(crop_size=128), None, 1, 1,
+                       device=torch.device(DEVICE), logger=Logger())
+    k = tr.gan_steps_per_call
+    check(k == 2, f"ESRGAN's GAN phase runs 2 steps a call, not {k}")
+    crops_k, flips_k = _stacks(MULTI_BATCH, 128, k, seed)
+    reset_counters()
+    tr.gan_step_multi(crops_k, flips_k, MULTI_LR, MULTI_LR)  # captures
+    torch.cuda.synchronize()
+    capture_call = read_counters()
+    graph = tr._graphs[("gan", tuple(crops_k.shape[1:]), torch.bfloat16)]
+    snap = _snapshot(tr)
+
+    def eager(ck, fk, lr=MULTI_LR):
+        return torch.stack([tr.gan_step(c, f, lr, lr)["gen_loss"]
+                            for c, f in zip(ck, fk)])
+
+    def multi(ck, fk, lr=MULTI_LR):
+        return tr.gan_step_multi(ck, fk, lr, lr)["gen_loss"]
+
+    gan = _eager_vs_graph(tr, snap, crops_k, flips_k, eager, multi)
+    a_state = gan.pop("eager_state")
+
+    # fault 1: the replays see the graph's last batch, not the new ones
+    _restore_in_place(tr, snap)
+    tr._set_gan_lrs(MULTI_LR, MULTI_LR)
+    for _ in range(k):
+        graph.graph.replay()
+    torch.cuda.synchronize()
+    stale_input = _state_diff(_snapshot(tr), a_state)
+
+    # fault 2: a graph whose learning rate was a value at capture; the
+    # call sets a new rate, the replays train at the old one
+    def baked_lr_body(c, f):
+        tr._set_gan_lrs(MULTI_LR, MULTI_LR)
+        return tr._gan_body(c, f)
+
+    for opt in tr.opt.all():
+        opt.zero_grad(set_to_none=True)
+    baked = StepGraph("esrgan gan (lr baked)", baked_lr_body, crops_k[0],
+                      flips_k[0])
+    _restore_in_place(tr, snap)
+    eager(crops_k, flips_k, MULTI_LR_NEW)
+    torch.cuda.synchronize()
+    new_lr_eager = _snapshot(tr)
+    _restore_in_place(tr, snap)
+    tr._set_gan_lrs(MULTI_LR_NEW, MULTI_LR_NEW)
+    for c, f in zip(crops_k, flips_k):
+        baked.replay(c, f)
+    torch.cuda.synchronize()
+    stale_lr = _state_diff(_snapshot(tr), new_lr_eager)
+    del baked
+    # the real graph at the new rate: it reads the rate at each replay
+    _restore_in_place(tr, snap)
+    multi(crops_k, flips_k, MULTI_LR_NEW)
+    torch.cuda.synchronize()
+    new_lr_graph = _state_diff(_snapshot(tr), new_lr_eager)
+
+    # resume: a checkpoint of this state, restored (new optimizer
+    # tensors: the trainer drops its graphs), then replays against eager
+    workdir = os.path.join(ROOT, "build", "chip_smoke", "multistep")
+    os.makedirs(workdir, exist_ok=True)
+    ckpt = os.path.join(workdir, "esrgan-gan-latest.pth")
+    save_checkpoint(ckpt, 1, "esrgan-gan", tr.gen.state_dict(),
+                    extra=tr._full_state())
+    tr._restore(load_checkpoint(ckpt), "gan")
+    resumed_graphs = len(tr._graphs)
+    multi(crops_k, flips_k)  # captures anew
+    resumed = _eager_vs_graph(tr, _snapshot(tr), crops_k, flips_k, eager,
+                              multi)
+    gan_timing = _step_timing(
+        lambda: tr.gan_step(crops_k[0], flips_k[0], MULTI_LR, MULTI_LR),
+        lambda: multi(crops_k[:1], flips_k[:1]))
+    launches = graph.launches
+    del tr, graph, snap, a_state, new_lr_eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # SRGAN pretrain, K = 8
+    tr = SRGANTrainer(args, Namespace(crop_size=SRGAN_CROP), None, 1, 1,
+                      device=torch.device(DEVICE), logger=Logger())
+    k8 = tr.steps_per_call
+    check(k8 == 8, f"the pretrain runs 8 steps a call, not {k8}")
+    crops8, flips8 = _stacks(MULTI_BATCH, SRGAN_CROP, k8, seed + 1)
+    tr.pretrain_step_multi(crops8, flips8)  # captures
+    srgan = _eager_vs_graph(
+        tr, _snapshot(tr), crops8, flips8,
+        lambda ck, fk: torch.stack([tr.pretrain_step(c, f)
+                                    for c, f in zip(ck, fk)]),
+        tr.pretrain_step_multi)
+    pre_timing = _step_timing(
+        lambda: tr.pretrain_step(crops8[0], flips8[0]),
+        lambda: tr.pretrain_step_multi(crops8[:1], flips8[:1]))
+    del tr
+
+    for res in (resumed, srgan):
+        del res["eager_state"]
+    row.update(
+        esrgan_gan=gan, srgan_pretrain=srgan, esrgan_gan_resumed=resumed,
+        graph_launches=launches,
+        capture_call_launches=capture_call,
+        faults={"stale_input": stale_input, "stale_lr": stale_lr},
+        new_lr_graph=new_lr_graph, graphs_after_resume=resumed_graphs,
+        esrgan_gan_step=gan_timing, srgan_pretrain_step=pre_timing)
+    say("multistep", **row)
+    for name, res in (("ESRGAN GAN", gan), ("SRGAN pretrain", srgan),
+                      ("ESRGAN GAN after resume", resumed)):
+        check(_within_floor(res["graph"], res["floor"]),
+              f"{name}: replayed steps equal eager ones within the noise "
+              f"floor: {res['graph']} against {res['floor']}")
+    check(_within_floor(new_lr_graph, gan["floor"]),
+          "replays read the learning rate set between calls")
+    for name, diff in (("stale input", stale_input),
+                       ("stale lr", stale_lr)):
+        check(not _within_floor(diff, gan["floor"]),
+              f"the limit sees a {name}: {diff} against {gan['floor']}")
+    check(resumed_graphs == 0, "restoring a checkpoint dropped the graphs")
+    check(launches == per_step,
+          f"a captured ESRGAN GAN step stands for {per_step}: {launches}")
+    want = {"rdb_fwd": k * per_step["RDB_FWD_LAUNCHES"],
+            "rdb_bwd": k * per_step["RDB_BWD_LAUNCHES"]}
+    check_counts("multistep: the capturing call", capture_call, **want)
+    for name, res in (("multistep: esrgan gan", gan),
+                      ("multistep: esrgan gan resumed", resumed)):
+        check_counts(name, res["launches"], **want)
+    check_counts("multistep: srgan pretrain", srgan["launches"])
+    return {"multistep: esrgan gan": gan["launches"],
+            "multistep: esrgan gan resumed": resumed["launches"],
+            "multistep: srgan pretrain": srgan["launches"]}
+
+
+# bench: tools/bench.py's five metrics at their full configurations,
+# with fewer measured steps and frames than the tool's defaults.
+BENCH_SMOKE = (
+    ("esrgan_gan_step_crops_per_sec_per_chip", "bench_esrgan_gan",
+     {"steps": 4}),
+    ("srgan_gan_step_crops_per_sec_per_chip", "bench_srgan_gan",
+     {"steps": 8}),
+    ("esrgan_tiled_infer_output_mp_per_sec",
+     "bench_esrgan_tiled_inference", {"frames": 1}),
+    ("srgan_tiled_infer_output_mp_per_sec", "bench_tiled_inference",
+     {"frames": 1}),
+    ("srgan_train_crops_per_sec_per_chip", "bench_srgan_train",
+     {"warmup_steps": 8, "measure_steps": 8}),
+)
+
+
+def bench_tile_batches(hw, tile: int, overlap: int, batch: int) -> int:
+    """Generator forwards ``tiled_upscale`` makes for one frame."""
+    n = (len(_positions(hw[0], tile, tile - overlap))
+         * len(_positions(hw[1], tile, tile - overlap)))
+    return -(-n // batch)
+
+
+def phase_bench(seed: int) -> dict:
+    """``torchsr_tpu_torch/tools/bench.py``'s five metrics, in its order,
+    at its configurations with fewer measured steps: each line's metric
+    name, a finite positive value and the card; the launch counters at
+    what the calls imply (ESRGAN GAN: one warm-up call and two phases of
+    calls, K = 2 steps each; ESRGAN tiled: one warm-up frame and two of
+    one frame)."""
+    from torchsr_tpu_torch.tools import bench
+
+    del seed  # the bench's own seeds
+    card = bench.card(DEVICE)
+    frame_batches = bench_tile_batches(bench.FRAME_HW, 64, 8, 16)
+    gan_steps = 2 * (1 + 2 * max(4 // 2, 1))
+    want = {
+        "bench_esrgan_gan": {"rdb_fwd": gan_steps * 5 * 3 * NUM_RRDB,
+                             "rdb_bwd": gan_steps * 3 * NUM_RRDB},
+        "bench_esrgan_tiled_inference": {
+            "rdb_fwd": 3 * frame_batches * 5 * 3 * NUM_RRDB},
+    }
+    rows, paths = [], {}
+    for metric, fn_name, kw in BENCH_SMOKE:
+        reset_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = getattr(bench, fn_name)(device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        counts = paths[f"bench: {metric}"] = read_counters()
+        rows.append(out)
+        check(out["metric"] == metric and math.isfinite(out["value"])
+              and out["value"] > 0 and out["device"] == card["device"],
+              f"bench line {out}")
+        check_counts(f"bench: {metric}", counts, **want.get(fn_name, {}))
+        gc.collect()
+        torch.cuda.empty_cache()
+    say("bench", frame_tile_batches=frame_batches, lines=rows)
+    return paths
+
+
 # The kernels of the kernels line: (name, source, the TPU kernel it
 # replaces under torchsr_tpu/ops/pallas/, the timed rows and their key,
 # the timed shape).
@@ -2889,7 +3238,8 @@ def main() -> None:
              "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, pair_synth, "
              "pair_conv, bench_preprocess, bench_pair_conv, train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, "
-             "train_speed, eval, interp (both after train), srgan_train.")
+             "train_speed, eval, interp (both after train), srgan_train, "
+             "multistep, bench.")
     args = parser.parse_args()
     smi = phase_probe()
     # f32 references in full f32: cuDNN convolutions default to TF32
@@ -2923,7 +3273,8 @@ def main() -> None:
             "train": phase_train,
             "train_ext": lambda s: phase_train(s, ext=True),
             "train_speed": phase_train_speed, "eval": phase_eval,
-            "interp": phase_interp, "srgan_train": phase_srgan_train}
+            "interp": phase_interp, "srgan_train": phase_srgan_train,
+            "multistep": phase_multistep, "bench": phase_bench}
         for name in args.only.split(","):
             run(name, phases[name], seed)
         say("seconds", **seconds)
@@ -2962,6 +3313,8 @@ def main() -> None:
     paths.update(run("eval", phase_eval, seed))
     paths.update(run("interp", phase_interp, seed))
     paths.update(run("srgan_train", phase_srgan_train, seed))
+    paths.update(run("multistep", phase_multistep, seed))
+    paths.update(run("bench", phase_bench, seed))
     run("train_speed", phase_train_speed, seed)
     say("seconds", **seconds)
     # the card again, beside the results: the phase lines above can

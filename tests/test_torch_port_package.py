@@ -54,6 +54,13 @@ def test_import_pulls_in_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "torchsr_tpu_torch.infer.server" in modules
+    assert {"torchsr_tpu_torch.data.synthetic",
+            "torchsr_tpu_torch.train.graphs",
+            "torchsr_tpu_torch.utils.profiling",
+            "torchsr_tpu_torch.tools.bench",
+            "torchsr_tpu_torch.tools.profile_gan_step",
+            "torchsr_tpu_torch.tools.profile_pretrain",
+            "torchsr_tpu_torch.tools.sweep_esrgan_batch"} <= set(modules)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

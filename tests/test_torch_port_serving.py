@@ -283,8 +283,7 @@ def test_cli_registers_only_ported_flags():
         "cuda", 0, 16, 8, None, False, "ESRGAN")
     args = cli.parse_args(["interp", "p.pth", "g.pth"])
     assert (args.alpha, args.output, args.model) == (0.8, None, "ESRGAN")
-    for argv in (["train", "--steps-per-call", "2"],
-                 ["train", "--fast-compile"], ["train", "--scale", "2"],
+    for argv in (["train", "--fast-compile"], ["train", "--scale", "2"],
                  ["export", "x"], ["test", "a.png", "--spatial-shard"],
                  ["serve", "--shard-tiles"], ["serve", "art.shlo"],
                  ["test", "a.png", "--tile", "8", "--tile-overlap", "8"],

@@ -15,7 +15,9 @@ the passes, flip columns swapped, a true division by 255) and the 3x3
 with the unflipped kernel, one CTA's dW partial dropped).  The eval
 phase's checks run on the port's CPU ``eval``: the float64 recompute of
 a report (an SR one level off on a patch, a box window in the SSIM),
-the skip rule, and the forward count B1's launches are held to.
+the skip rule, and the forward count B1's launches are held to.  The
+multistep phase's noise floor and limit run on a CPU trainer: equal
+steps pass, a stale batch and another learning rate fail.
 """
 
 import importlib.util
@@ -611,3 +613,84 @@ def test_srgan_paths_expect_no_kernel():
             smoke.check_counts("srgan", smoke.read_counters())
     finally:
         smoke.reset_counters()
+
+
+# ------------------------------------------------------------ multistep
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Tiny steps run as fast on one intra-op thread, and the test
+    workers that share the machine do not wait on each other's."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_multistep_limits_pass_equal_steps_and_fail_the_faults(
+        monkeypatch, one_torch_thread):
+    """The multistep phase's noise floor and limit on the CPU, the K-step
+    call standing in for the replays (on the CPU it runs the same eager
+    steps): it passes; a run whose second step saw the first batch again
+    (a replay without the new batch) fails, and so does a run at another
+    learning rate (a rate baked in at capture)."""
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.train.state import set_lr
+    from torchsr_tpu_torch.train.trainer import SRGANTrainer
+    from torchsr_tpu_torch.utils.logging import Logger
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    args = Namespace(batch_size=2, seed=0, skip_image_save=True, epochs=1,
+                     pretrain_epochs=1, num_residual=1, vgg_convs=2,
+                     disable_amp=True, metrics_file=None)
+    tr = SRGANTrainer(args, Namespace(crop_size=32), None, 1, 1,
+                      device=torch.device("cpu"), logger=Logger())
+    g = torch.Generator().manual_seed(3)
+    crops = torch.randint(0, 256, (2, 2, 32, 32, 3), generator=g,
+                          dtype=torch.uint8)
+    flips = torch.randint(0, 2, (2, 2, 2), generator=g).bool()
+    tr.pretrain_step_multi(crops, flips)  # the Adam state exists
+
+    def eager(ck, fk):
+        return torch.stack([tr.pretrain_step(c, f) for c, f in zip(ck, fk)])
+
+    snap = smoke._snapshot(tr)
+    res = smoke._eager_vs_graph(tr, snap, crops, flips, eager,
+                                tr.pretrain_step_multi)
+    assert all(v["max"] == 0 for v in res["floor"].values())
+    assert smoke._within_floor(res["graph"], res["floor"])
+    assert res["loss_max_diff"] == 0
+    assert res["graph"]["adam"]["max"] == 0 and len(snap["adam"]) > 0
+    smoke._restore_in_place(tr, snap)
+    eager(crops[[0, 0]], flips[[0, 0]])
+    stale = smoke._state_diff(smoke._snapshot(tr), res["eager_state"])
+    assert not smoke._within_floor(stale, res["floor"])
+    smoke._restore_in_place(tr, snap)
+    set_lr(tr.opt.psnr, 4e-5)
+    eager(crops, flips)
+    other_lr = smoke._state_diff(smoke._snapshot(tr), res["eager_state"])
+    assert not smoke._within_floor(other_lr, res["floor"])
+
+
+@pytest.mark.parametrize("graph_mean, ok", [(0.0, True), (2e-6, True),
+                                            (2.5e-6, False)])
+def test_multistep_floor_is_a_mean(graph_mean, ok):
+    """Where two eager runs differ, the graph may differ by up to twice
+    their mean difference; where they agree, not at all."""
+    floor = {"gen": {"mean": 1e-6, "max": 3e-4},
+             "adam_steps": {"mean": 0.0, "max": 0.0}}
+    diff = {"gen": {"mean": graph_mean, "max": 1e-3},
+            "adam_steps": {"mean": 0.0, "max": 0.0}}
+    assert smoke._within_floor(diff, floor) is ok
+    diff["adam_steps"] = {"mean": 1e-9, "max": 1.0}
+    assert not smoke._within_floor(diff, floor)
+
+
+def test_bench_phase_counts_the_frames_tile_batches():
+    """1080p -> 4K at tile 64, overlap 8: 20 x 35 tiles, 44 batches of
+    16 (B1: 44 x 345 launches a frame); SRGAN's tile 256: 5 x 8 tiles,
+    5 batches of 8."""
+    assert smoke.bench_tile_batches((1080, 1920), 64, 8, 16) == 44
+    assert smoke.bench_tile_batches((1080, 1920), 256, 16, 8) == 5

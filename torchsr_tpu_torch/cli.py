@@ -151,6 +151,26 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
              "per-epoch PSNR/SSIM/val-loss/throughput/LRs) as one JSON "
              "line to this file.",
     )
+    train.add_argument(
+        "--steps-per-call", type=positive_integer, default=None,
+        help="Training steps per host call: a call copies each batch of "
+             "a stacked group of N into the step's captured CUDA graph "
+             "and replays it (on the CPU it runs N eager steps); the "
+             "epoch's ragged tail replays the same graph.  1 makes "
+             "every batch its own call.  Default: 8 for the pretrain; "
+             "for the GAN phase 8 for SRGAN, 2 for ESRGAN (the JAX "
+             "package's measured optima).",
+    )
+    train.add_argument(
+        "--profile-steps", type=int, default=0,
+        help="Write a torch.profiler trace (CPU and CUDA activity, "
+             "Chrome format) of N training steps, after the first two, "
+             "to <profile-dir>/trace.json. 0 disables profiling.",
+    )
+    train.add_argument(
+        "--profile-dir", type=str, default="traces",
+        help="Output directory for profiler traces. Default: traces/.",
+    )
     _add_device(train)
 
     test = commands.add_parser(

@@ -84,6 +84,11 @@ RDB_FWD_ILV_LAUNCHES = 0
 # Block backwards run on CUDA by the TORCHSR_RDB_BWD=xla backend
 # (rdb_bwd_reference, no kernel); 0 on every default path.
 RDB_BWD_XLA_LAUNCHES = 0
+# Every counter above, by name (train/graphs.py adds a captured step's
+# share of each once per replay).
+LAUNCH_COUNTERS = ("RDB_FWD_LAUNCHES", "RDB_BWD_LAUNCHES",
+                   "RDB_FWD_EXT_LAUNCHES", "RDB_BWD_EXT_LAUNCHES",
+                   "RDB_FWD_ILV_LAUNCHES", "RDB_BWD_XLA_LAUNCHES")
 
 # The JAX package's knobs, names and defaults (torchsr_tpu/ops/pallas/
 # rdb.py:386, :403, :753), read once at import.

@@ -63,6 +63,17 @@ def resample_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _matrix_on(in_size: int, out_size: int,
+               device: torch.device) -> torch.Tensor:
+    """``resample_matrix`` as a tensor on ``device``, copied there once:
+    a training step captured into a CUDA graph may not copy from the
+    host.  Made outside inference mode, so every caller may use it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(resample_matrix(in_size, out_size)).to(
+            device)
+
+
 # 1/255 as an f32 constant.  The JAX package writes ``/ 255.0``, and XLA
 # compiles that as a multiply by the f32 reciprocal; a true division
 # differs from that product by one ulp for 126 of the 256 uint8 values,
@@ -89,13 +100,13 @@ def bicubic_resize(
     h_in, w_in = x.shape[-3], x.shape[-2]
     h_out, w_out = out_hw
     if w_in != w_out:
-        mw = torch.from_numpy(resample_matrix(w_in, w_out)).to(x.device)
-        x = torch.einsum("ow,...hwc->...hoc", mw, x)
+        x = torch.einsum("ow,...hwc->...hoc",
+                         _matrix_on(w_in, w_out, x.device), x)
         if quantize:
             x = _quantize_pixels(x)
     if h_in != h_out:
-        mh = torch.from_numpy(resample_matrix(h_in, h_out)).to(x.device)
-        x = torch.einsum("oh,...hwc->...owc", mh, x)
+        x = torch.einsum("oh,...hwc->...owc",
+                         _matrix_on(h_in, h_out, x.device), x)
         if quantize:
             x = _quantize_pixels(x)
     return x

@@ -76,21 +76,32 @@ def _short(name: str) -> str:
     return name.split("(")[0][:60]
 
 
+PROFILE_WINDOWS = 3  # a window with no device event is taken again
+
+
 def _spans(torch, fn, calls: int) -> list:
     """(start, end, name) of every device kernel of ``calls`` calls of
-    ``fn`` under the profiler, in order."""
+    ``fn`` under the profiler, in order.  The profiler now and then
+    returns a window with no device event: such a window is run again,
+    ``PROFILE_WINDOWS`` windows at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # the first call's allocations and caches outside the window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans: list = []
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+    return spans
 
 
 def _by_launch(torch, fn, calls: int = 10) -> dict:

@@ -25,6 +25,17 @@ One GAN step follows the JAX ``gan_core`` "vjp" strategy:
    its calls in JAX's order;
 5. the backward into the generator through the kept graph.
 
+The production epoch loops run K steps per host call, the port of the
+JAX multi-step programs (``pretrain_step_multi``, ``gan_step_multi``;
+``--steps-per-call``, default 8 for the pretrain, the model's
+``GAN_STEPS_PER_CALL`` for the GAN phase).  On CUDA a call replays one
+captured CUDA graph of the step K times (``train/graphs.py``): the
+first call of a phase runs its first step eagerly on a side stream and
+captures the step after it.  The epoch's ragged tail replays the same
+graph once a batch.  On the CPU a K-step call runs K eager steps.
+Losses reach the host only when the logger consumes them, in one
+transfer a call.
+
 The pretrain loss is L1 for ESRGAN and MSE for SRGAN.  Every residual
 dense block of the ESRGAN generator runs the RDB kernels on CUDA
 (``ops.rdb``), forward and backward; SRGAN runs no kernel of the port
@@ -44,7 +55,10 @@ from argparse import Namespace
 import numpy as np
 import torch
 
-from torchsr_tpu_torch.data.prefetch import prefetch_to_device
+from torchsr_tpu_torch.data.prefetch import (
+    prefetch_to_device,
+    prefetch_to_device_stacked,
+)
 from torchsr_tpu_torch.data.preprocess import (
     synthesize_eval_triple,
     synthesize_pair,
@@ -60,6 +74,7 @@ from torchsr_tpu_torch.models.srgan import (
 )
 from torchsr_tpu_torch.models.vgg import VGG19Features, load_vgg19_state_dict
 from torchsr_tpu_torch.train import losses as L
+from torchsr_tpu_torch.train.graphs import StepGraph, warm_up
 from torchsr_tpu_torch.train.metrics import mse_per_sample, ssim_per_sample
 from torchsr_tpu_torch.train.state import (
     BASE_LR,
@@ -74,6 +89,7 @@ from torchsr_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from torchsr_tpu_torch.utils.logging import Logger
+from torchsr_tpu_torch.utils.profiling import StepProfiler
 
 SAMPLE_IMAGE_PATH = os.path.join("media", "waterfalls-low-res.png")
 RANDOM_VGG_WARNING = (
@@ -88,6 +104,12 @@ class GANTrainer:
     """Shared two-phase trainer machinery; subclasses wire the losses."""
 
     model_name: str = ""
+    # GAN-phase steps per call without --steps-per-call (the JAX
+    # package's measured optima: 8, and 2 for ESRGAN).  The JAX ESRGAN
+    # runs its K = 2 as an unrolled chain (GAN_MULTI_UNROLL) to dodge
+    # XLA's scheduling penalty on a while-loop body; replays of one
+    # captured step have no loop body, so the port has no such variant.
+    GAN_STEPS_PER_CALL: int = 8
 
     def __init__(
         self,
@@ -122,8 +144,17 @@ class GANTrainer:
             config=vars(args),
             metrics_path=getattr(args, "metrics_file", None),
         )
+        explicit_k = int(getattr(args, "steps_per_call", 0) or 0)
+        self.steps_per_call = explicit_k or 8
+        self.gan_steps_per_call = explicit_k or self.GAN_STEPS_PER_CALL
+        self.profiler = StepProfiler(
+            getattr(args, "profile_steps", 0) or 0,
+            getattr(args, "profile_dir", None) or "traces", self.logger,
+            device=self.device)
+        # captured steps by (phase, batch shape, dtype); CUDA only
+        self._graphs: dict = {}
         self._build_models()
-        self.opt = Optimizers(self.gen, self.disc)
+        self.opt = Optimizers(self.gen, self.disc, device=self.device)
         self._load_sample_image()
 
     # ---------------------------------------------------------- models
@@ -180,21 +211,22 @@ class GANTrainer:
 
     # ----------------------------------------------------------- steps
 
-    def pretrain_step(self, crops_u8: torch.Tensor,
-                      flips: torch.Tensor) -> torch.Tensor:
-        """One PSNR-phase step on a device batch; returns the loss."""
+    def _pretrain_body(self, crops_u8: torch.Tensor,
+                       flips: torch.Tensor) -> torch.Tensor:
+        """One PSNR-phase step on a device batch; returns the loss as a
+        (1,) tensor.  What a graph captures: no host value, no sync."""
         lr_img, hr_img = synthesize_pair(crops_u8, flips, self.upscale)
         self.opt.psnr.zero_grad(set_to_none=True)
         loss = self._pixel_loss(self._generate(lr_img, True), hr_img)
         loss.backward()
         self.opt.psnr.step()
-        self.step += 1
-        return loss.detach()
+        return loss.detach().reshape(1)
 
-    def gan_step(self, crops_u8: torch.Tensor, flips: torch.Tensor,
-                 gen_lr: float, disc_lr: float) -> dict:
-        """One adversarial step (module docstring); returns the
-        discriminator and generator losses."""
+    def _gan_body(self, crops_u8: torch.Tensor,
+                  flips: torch.Tensor) -> torch.Tensor:
+        """One adversarial step (module docstring) at the learning rates
+        the optimizers hold; returns (disc_loss, gen_loss) as a (2,)
+        tensor.  What a graph captures."""
         lr_img, hr_img = synthesize_pair(crops_u8, flips, self.upscale)
         sr = self._generate(lr_img, True)
 
@@ -202,7 +234,6 @@ class GANTrainer:
         self.opt.disc.zero_grad(set_to_none=True)
         disc_loss = self._disc_loss(self.disc(hr_img), self.disc(sr.detach()))
         disc_loss.backward()
-        set_lr(self.opt.disc, disc_lr)
         self.opt.disc.step()
 
         self.disc.requires_grad_(False)
@@ -215,10 +246,77 @@ class GANTrainer:
             gen_loss.backward()
         finally:
             self.disc.requires_grad_(True)
-        set_lr(self.opt.gen, gen_lr)
         self.opt.gen.step()
+        return torch.stack([disc_loss.detach(), gen_loss.detach()])
+
+    def _set_gan_lrs(self, gen_lr: float, disc_lr: float) -> None:
+        set_lr(self.opt.disc, disc_lr)
+        set_lr(self.opt.gen, gen_lr)
+
+    def pretrain_step(self, crops_u8: torch.Tensor,
+                      flips: torch.Tensor) -> torch.Tensor:
+        """One eager PSNR-phase step on a device batch; returns the
+        loss."""
+        loss = self._pretrain_body(crops_u8, flips)[0]
         self.step += 1
-        return {"disc_loss": disc_loss.detach(), "gen_loss": gen_loss.detach()}
+        return loss
+
+    def gan_step(self, crops_u8: torch.Tensor, flips: torch.Tensor,
+                 gen_lr: float, disc_lr: float) -> dict:
+        """One eager adversarial step; returns the discriminator and
+        generator losses."""
+        self._set_gan_lrs(gen_lr, disc_lr)
+        out = self._gan_body(crops_u8, flips)
+        self.step += 1
+        return {"disc_loss": out[0], "gen_loss": out[1]}
+
+    def pretrain_step_multi(self, crops_k: torch.Tensor,
+                            flips_k: torch.Tensor) -> torch.Tensor:
+        """K PSNR-phase steps on a stacked (K, B, ...) device batch;
+        returns the (K,) losses."""
+        return self._multi("psnr", self._pretrain_body, crops_k,
+                           flips_k)[:, 0]
+
+    def gan_step_multi(self, crops_k: torch.Tensor, flips_k: torch.Tensor,
+                       gen_lr: float, disc_lr: float) -> dict:
+        """K adversarial steps on a stacked device batch, at one pair of
+        learning rates; returns the (K,) discriminator and generator
+        losses."""
+        self._set_gan_lrs(gen_lr, disc_lr)
+        out = self._multi("gan", self._gan_body, crops_k, flips_k)
+        return {"disc_loss": out[:, 0], "gen_loss": out[:, 1]}
+
+    def _multi(self, phase: str, body, crops_k: torch.Tensor,
+               flips_k: torch.Tensor) -> torch.Tensor:
+        """K steps of ``body``, one stacked batch each; returns their
+        (K, n) outputs and moves the step counter by K.  On the CPU, K
+        eager steps.  On CUDA, replays of the phase's captured step: the
+        first call for a (phase, batch shape, dtype) runs its first step
+        eagerly on a side stream (the capture's warm-up) and captures
+        the step after it."""
+        k = crops_k.shape[0]
+        if self.device.type != "cuda":
+            out = torch.stack([body(c, f) for c, f in zip(crops_k, flips_k)])
+            self.step += k
+            return out
+        key = (phase, tuple(crops_k.shape[1:]), self.compute_dtype)
+        graph = self._graphs.get(key)
+        outs = []
+        if graph is None:
+            outs.append(warm_up(body, crops_k[0], flips_k[0]))
+            for opt in self.opt.all():
+                opt.zero_grad(set_to_none=True)
+            graph = self._graphs[key] = StepGraph(
+                f"{self.model_name} {phase}", body, crops_k[0], flips_k[0])
+        for i in range(len(outs), k):
+            outs.append(graph.replay(crops_k[i], flips_k[i]).clone())
+        self.step += k
+        return torch.stack(outs)
+
+    def drop_graphs(self) -> None:
+        """Forget the captured steps (after the state they read was
+        replaced); the next multi-step call captures anew."""
+        self._graphs.clear()
 
     @torch.no_grad()
     def eval_step(self, crops_u8: torch.Tensor, mask: torch.Tensor):
@@ -271,7 +369,9 @@ class GANTrainer:
         if extra and same_phase:
             if "disc_state" in extra:
                 self.disc.load_state_dict(extra["disc_state"])
+            # new moment tensors: a graph that read the old ones is stale
             self.opt.load_state_dict(extra)
+            self.drop_graphs()
             self.step = int(extra.get("step", self.step))
             if "best_psnr" in extra:
                 self.best_psnr = float(extra["best_psnr"])
@@ -339,22 +439,34 @@ class GANTrainer:
 
     # --------------------------------------------------------- phases
 
-    def _epoch(self, shuffle_epoch: int, epoch_offset: int, run_step,
-               metrics) -> tuple[int, float]:
-        """One epoch's steps (``run_step(crops, flips) -> loss``);
-        returns the reference's global sample-step of its last batch and
-        the epoch's crops/s."""
+    def _stacked_epoch(self, shuffle_epoch: int, epoch_offset: int,
+                       steps_per_call: int, run_call,
+                       metrics) -> tuple[int, float]:
+        """One epoch's steps, K a call (the JAX ``_stacked_epoch_loop``):
+        ``run_call(crops_k, flips_k) -> (K,) losses`` gets full groups
+        of ``steps_per_call`` batches and the ragged tail one batch a
+        call.  Returns the reference's global sample-step of the last
+        batch and the epoch's crops/s.  Per-step losses reach the host
+        only when the logger consumes them, one transfer a call."""
         step = epoch_offset
         done = 0
         start_time = time.time()
-        for crops, flips in prefetch_to_device(
-            self.train_loader.epoch(shuffle_epoch), self.device
+        for kind, (crops, flips) in prefetch_to_device_stacked(
+            self.train_loader.epoch(shuffle_epoch), self.device,
+            steps_per_call,
         ):
-            loss = run_step(crops, flips)
-            done += 1
+            if kind == "single":
+                crops, flips = crops[None], flips[None]
+            losses = run_call(crops, flips)
+            k = len(crops)
+            self.profiler.step(k)
+            done += k
             step = (done - 1) * self.batch_size + epoch_offset
             if self.logger.active:
-                self.logger.log_metrics(metrics(float(loss)), step=step)
+                for j, lv in enumerate(losses.tolist()):
+                    self.logger.log_metrics(
+                        metrics(lv),
+                        step=(done - k + j) * self.batch_size + epoch_offset)
         self._sync()
         throughput = done * self.batch_size / max(time.time() - start_time,
                                                   1e-9)
@@ -375,9 +487,9 @@ class GANTrainer:
         for epoch in range(epoch, self.pre_epochs + 1):
             self.logger.log("-" * 80)
             self.logger.log(f"Starting epoch {epoch} out of {self.pre_epochs}")
-            step, throughput = self._epoch(
+            step, throughput = self._stacked_epoch(
                 epoch - 1, (epoch - 1) * self.train_len,
-                self.pretrain_step,
+                self.steps_per_call, self.pretrain_step_multi,
                 lambda lv: {"psnr/train-loss": lv, "psnr/epoch": epoch},
             )
             self.logger.log_metrics(
@@ -393,6 +505,7 @@ class GANTrainer:
         self.logger.log("=" * 80)
         self.logger.log("Starting training loop")
         self._warn_if_random_vgg()
+        self.drop_graphs()  # the pretrain step's graph is done with
         epoch = 1
         self.best_psnr = -1.0
         # explicit GAN checkpoint (exclusive) > gan-latest > psnr-latest
@@ -416,12 +529,14 @@ class GANTrainer:
             gen_lr = step_lr_schedule(BASE_LR, epoch, self.epochs)
             disc_lr = step_lr_schedule(BASE_LR, epoch, self.epochs)
 
-            def run_step(crops, flips):
-                return self.gan_step(crops, flips, gen_lr, disc_lr)["gen_loss"]
+            def run_call(crops_k, flips_k):
+                return self.gan_step_multi(crops_k, flips_k, gen_lr,
+                                           disc_lr)["gen_loss"]
 
-            step, throughput = self._epoch(
+            step, throughput = self._stacked_epoch(
                 self.pre_epochs + epoch - 1,
-                (self.pre_epochs + epoch - 1) * self.train_len, run_step,
+                (self.pre_epochs + epoch - 1) * self.train_len,
+                self.gan_steps_per_call, run_call,
                 lambda lv: {"gan/disc-lr": disc_lr, "gan/gen-lr": gen_lr,
                             "gan/train-loss": lv},
             )
@@ -436,6 +551,7 @@ class GANTrainer:
             self._pretrain()
             self._gan_train()
         finally:
+            self.profiler.stop()
             self.logger.finish()
 
 
@@ -508,6 +624,7 @@ class ESRGANTrainer(GANTrainer):
     """ESRGAN recipe: L1 pretrain; relativistic-average GAN."""
 
     model_name = "esrgan"
+    GAN_STEPS_PER_CALL = 2
 
     def _build_models(self) -> None:
         self.gen = ESRGANGenerator(
