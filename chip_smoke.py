@@ -101,17 +101,36 @@ renders, tile batches or tool calls imply, every other counter (the
     three PNG requests over HTTP, on B1; the answers held against the
     same tiling of the generator.
 14. serve_ilv: the same three requests with ``ILV_KERNEL`` set, on B6.
-15. test: ``python -m torchsr_tpu_torch test`` (called in this process)
+15. serve_graph, serve_graph_ilv: a 200x300 frame tiled (64 px, overlap
+    8, batch 16) through the graphed tile forward (``infer/tiled.py``
+    ``tile_forward``: each tile batch one replay of a captured CUDA
+    graph) against the eager one, bf16 on B1 and with ``ILV_KERNEL`` on
+    B6: equal bytes, two graphed frames the same bytes, equal launch
+    counts (the capture's warm-up forward and first replay counted
+    apart); a tile batch's wall and device ms and busy share, graphed
+    and eager.
+16. export: ``export`` (the CLI) of the 23-RRDB checkpoint at (16, 64,
+    64, 3), native (bf16, the RDB operator) and portable (f32, aten):
+    the native artifact launches B1 (345 a batch) and equals the live
+    graphed generator within ``TOL_SERVE_LEVELS``; the portable one
+    launches nothing and is held against the f32 plain generator;
+    ``serve ARTIFACT`` answers a request; ``eval --artifact`` scores the
+    eval images.
+17. batching: eight concurrent tile-sized requests through
+    ``CheckpointUpscaleService(batch_requests=True)`` against the same
+    frames unbatched: within ``TOL_SERVE_LEVELS``, more than one tile a
+    forward, B1 at 345 launches a batcher forward.
+18. test: ``python -m torchsr_tpu_torch test`` (called in this process)
     on one image, whole-image and tiled.
-16. train: ``python -m torchsr_tpu_torch train`` (in this process) on
+19. train: ``python -m torchsr_tpu_torch train`` (in this process) on
     seeded PNGs at full width, one pretrain and one GAN epoch (their
     steps replays of captured CUDA graphs after each phase's first),
     then ``test`` on its gan-best; B1 and B2.
-17. train_ext: the same drive with ``EXT_KERNEL`` set (B7 and B8: the
+20. train_ext: the same drive with ``EXT_KERNEL`` set (B7 and B8: the
     32x32 crops and the 48x64 sample are eligible), then ``test`` on
     its gan-best whole-image (W = 140 is not: B1) and tiled (64x64
     tiles: B7).
-18. eval: ``python -m torchsr_tpu_torch eval`` (in this process) on
+21. eval: ``python -m torchsr_tpu_torch eval`` (in this process) on
     the train phase's gan-best over seeded PNGs of mixed sizes (one
     width not a multiple of 4, one image below the SSIM window, which
     must be skipped), whole-image and tiled, f32 and bf16: B1 5 x 69
@@ -120,16 +139,16 @@ renders, tile batches or tool calls imply, every other counter (the
     scored, equal to the report's rounding; one f32 SR against
     ``plain_generator`` on the card; the f32 report again with TF32
     allowed, and the difference printed.
-19. interp: ``interp`` of the train phase's psnr-best and gan-best at
+22. interp: ``interp`` of the train phase's psnr-best and gan-best at
     alpha 0.2 (alpha 0 and 1 must return the inputs bit for bit), then
     ``eval`` of the blend (B1).
-20. srgan_train: ``train --model srgan`` at full width (16 blocks, crop
+23. srgan_train: ``train --model srgan`` at full width (16 blocks, crop
     96, the full VGG19), one epoch per phase at batch 16, then ``test``
     (whole-image and tiled), ``serve`` (two requests at the SRGAN
     serving tile 256, held against the generator's own tiling) and
     ``eval`` on its gan-best, every counter 0 on each (SRGAN reaches no
     kernel); the two steps' times at batch 16.
-21. multistep: the trainer's K-step programs, whose calls replay one
+24. multistep: the trainer's K-step programs, whose calls replay one
     captured CUDA graph a step: K = 2 ESRGAN GAN steps and K = 8 SRGAN
     pretrain steps (full width, batch 16) from one saved state against
     the same eager steps, held on each category of the state
@@ -141,12 +160,12 @@ renders, tile batches or tool calls imply, every other counter (the
     its graphs) and replays against eager steps again; a captured step's
     launch counts (B1 345, B2 69) and the counters at replays x that;
     eager and replayed step times, kernels and busy shares.
-22. bench: ``torchsr_tpu_torch/tools/bench.py``'s five metrics in its
+25. bench: ``torchsr_tpu_torch/tools/bench.py``'s five metrics in its
     order at its configurations (ESRGAN GAN batch 64, SRGAN GAN and
-    pretrain batch 128, tiled 1080p -> 4K for both) with fewer measured
-    steps and frames: names, finite values, the card, and the launch
+    pretrain batch 128, tiled 1080p -> 4K for both, through the graphed
+    tile forward) with fewer measured steps and frames: names, finite values, the card, and the launch
     counters at what the calls imply.
-23. train_speed: pretrain and GAN step times at batch 16 and 64 (eager
+26. train_speed: pretrain and GAN step times at batch 16 and 64 (eager
     steps), and a ``train_profile`` line for one GAN step at 64.
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
@@ -157,7 +176,8 @@ raises, so the script exits non-zero and prints no last line.
 work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
 pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
 train_grad_ext, train_grad_xla, train, train_ext, train_speed, eval and
-interp (each after train), srgan_train, multistep, bench.
+interp (each after train), srgan_train, multistep, bench, serve_graph,
+export, batching (the last three on a seeded 23-RRDB generator).
 """
 
 from __future__ import annotations
@@ -2077,6 +2097,24 @@ def _levels(a: np.ndarray, b: np.ndarray) -> dict:
     return {"mean": float(diff.mean()), "max": int(diff.max())}
 
 
+def save_serving_checkpoint(gen: ESRGANGenerator) -> str:
+    """``gen``'s weights as the serving phases' .pth; returns its path."""
+    workdir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    ckpt = os.path.join(workdir, "esrgan-gan-best.pth")
+    save_checkpoint(ckpt, 1, "gan", gen.state_dict())
+    return ckpt
+
+
+def serving_generator(seed: int) -> tuple:
+    """The generator phase's seeded 23-RRDB ESRGAN on the card, without
+    its checks, and its checkpoint (for ``--only`` serving phases)."""
+    gen = ESRGANGenerator(
+        num_rrdb_blocks=NUM_RRDB, generator=torch.Generator().manual_seed(seed)
+    ).to(DEVICE).requires_grad_(False)
+    return gen, save_serving_checkpoint(gen)
+
+
 def phase_serve(gen: ESRGANGenerator, ckpt: str, seed: int,
                 ilv: bool = False, prior=None) -> tuple[dict, list]:
     """Three PNG requests to the checkpoint-backed daemon; on B1, or with
@@ -2172,6 +2210,286 @@ def _serve(gen, ckpt, seed, phase, prior):
     return counts, answers
 
 
+# serve_graph: a frame whose 24 tiles (64 px, overlap 8) fill one batch
+# of 16 and pad the second; export: the serving shape; batching: eight
+# one-tile requests of a 64 px tile, batch 16, against the same frames
+# unbatched.  A tile forward's first call runs one eager forward on a
+# side stream before it captures the graph (infer/tiled.py TileForward),
+# which adds CAPTURE_FORWARDS forwards to the path that makes it.
+SERVE_GRAPH_FRAME = (200, 300)
+CAPTURE_FORWARDS = 1
+BATCHING_REQUESTS = ((64, 64), (40, 56), (64, 48), (33, 64), (60, 60),
+                     (17, 23), (64, 64), (50, 37))
+BATCHING_WAIT_MS = 100.0
+
+
+def busy_row(fn, calls: int = 3) -> dict:
+    """``fn`` (one call) by the host clock (median of 10 synchronized
+    calls) and under the profiler: device ms and kernels a call, and the
+    device's busy share of the span from the window's first kernel to
+    its last (host gaps between the calls show there)."""
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    spans = device_spans(fn, calls)
+    busy, cur = 0.0, None
+    for start, end, _name in spans:
+        if cur is None or start > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy += cur[1] - cur[0]
+    return {"wall_ms": statistics.median(walls),
+            "device_ms": sum(e - s for s, e, _ in spans) / 1e3 / calls,
+            "kernels": len(spans) / calls,
+            "busy_share": busy / (spans[-1][1] - spans[0][0])}
+
+
+def phase_serve_graph(gen: ESRGANGenerator, seed: int,
+                      ilv: bool = False) -> dict:
+    """The tiled frame through the graphed tile forward against the
+    eager one, bf16 on B1 (or with ``ilv`` on B6): equal bytes, two
+    graphed calls equal, launch counts equal; a tile batch's wall and
+    device ms and busy share, graphed and eager."""
+    from torchsr_tpu_torch.infer.tiled import tile_forward
+
+    phase = "serve_graph_ilv" if ilv else "serve_graph"
+    kernel = "rdb_fwd_ilv" if ilv else "rdb_fwd"
+    h, w = SERVE_GRAPH_FRAME
+    tile, overlap, batch = 64, 8, 16
+    batches = bench_tile_batches(SERVE_GRAPH_FRAME, tile, overlap, batch)
+    x = torch.from_numpy(np.random.default_rng(seed + 5).random(
+        (h, w, 3)).astype(np.float32)).to(DEVICE)
+    tiles = torch.from_numpy(np.random.default_rng(seed + 6).random(
+        (batch, tile, tile, 3)).astype(np.float32)).to(DEVICE)
+    gen.compute_dtype = torch.bfloat16
+    with knob("ILV_KERNEL", ilv):
+        forward = tile_forward(gen, DEVICE)
+        reset_counters()
+        forward(tiles)  # captures the graph
+        capture = read_counters()
+
+        def frame(fn):
+            reset_counters()
+            out = tiled_upscale(fn, x, scale=4, tile=tile, overlap=overlap,
+                                tile_batch=batch)
+            torch.cuda.synchronize()
+            return out, read_counters()
+
+        graphed, graphed_counts = frame(forward)
+        again, _ = frame(forward)
+        eager, eager_counts = frame(gen)
+
+        def eager_batch():
+            with torch.inference_mode():
+                gen(tiles)
+
+        rows = {"graphed": busy_row(lambda: forward(tiles)),
+                "eager": busy_row(eager_batch)}
+    gen.compute_dtype = None
+    diff = float((graphed - eager).abs().max())
+    say(phase, frame=[h, w], tile=tile, overlap=overlap, tile_batch=batch,
+        tile_batches=batches, capture_launches=capture,
+        launches=graphed_counts, eager_launches=eager_counts,
+        graphed_equals_eager=torch.equal(graphed, eager),
+        graphed_max_abs_diff=diff, two_calls_equal=torch.equal(graphed,
+                                                               again),
+        tile_batch_rows=rows)
+    check(tuple(graphed.shape) == (4 * h, 4 * w, 3)
+          and bool(torch.isfinite(graphed).all()),
+          f"{phase}: a finite 4x frame")
+    check(torch.equal(graphed, eager),
+          f"{phase}: the graphed frame equals the eager one ({diff})")
+    check(torch.equal(graphed, again),
+          f"{phase}: two graphed frames are the same bytes")
+    check_counts(f"{phase}: capture and first replay", capture,
+                 **{kernel: 5 * 3 * NUM_RRDB * (CAPTURE_FORWARDS + 1)})
+    check_counts(f"{phase}: graphed frame", graphed_counts,
+                 **{kernel: 5 * 3 * NUM_RRDB * batches})
+    check(graphed_counts == eager_counts,
+          f"{phase}: graphed launches {graphed_counts} equal eager "
+          f"{eager_counts}")
+    return {phase: graphed_counts}
+
+
+def phase_export(gen: ESRGANGenerator, ckpt: str, seed: int) -> dict:
+    """A native (bf16, RDB operator) and a portable (f32, aten) artifact
+    of the full-width ESRGAN at (16, 64, 64, 3), exported by the CLI:
+    the native one launches B1 and equals the live graphed generator
+    within ``TOL_SERVE_LEVELS``; the portable one launches nothing and
+    is held against the f32 plain generator; ``serve ARTIFACT`` answers
+    a request; ``eval --artifact`` scores the eval images."""
+    from torchsr_tpu_torch.infer.server import UpscaleService
+    from torchsr_tpu_torch.infer.serving import ServedGenerator, rdb_op_calls
+    from torchsr_tpu_torch.infer.tiled import tile_forward
+
+    workdir = os.path.join(ROOT, "build", "chip_smoke", "export")
+    os.makedirs(workdir, exist_ok=True)
+    native = os.path.join(workdir, "esrgan-native.pt2")
+    portable = os.path.join(workdir, "esrgan-portable.pt2")
+    common = ["--checkpoint", ckpt, "--tile", "64", "--tile-batch", "16"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["export", native, *common, "--bf16", "--native-kernels"])
+        cli.main(["export", portable, *common])
+    export_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.random.default_rng(seed + 7).random(
+        (16, 64, 64, 3)).astype(np.float32)).to(DEVICE)
+    paths, row = {}, {"export_s": export_s}
+    served = ServedGenerator(native, device=DEVICE)
+    row["native_meta"] = served.meta
+    row["native_op_calls"] = rdb_op_calls(torch.export.load(native))
+    served(x)  # captures the graph
+    reset_counters()
+    got = served(x)
+    torch.cuda.synchronize()
+    paths["export: native artifact"] = counts = read_counters()
+    gen.compute_dtype = torch.bfloat16
+    live = tile_forward(gen, DEVICE)(x).clone()
+    gen.compute_dtype = None
+
+    def u8(t):
+        return (t.clamp(0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+
+    row["native_vs_live_graph"] = {**_dist(got, live),
+                                   "levels": _levels(u8(got), u8(live))}
+    row["native_ms"] = median_ms(lambda: served._forward(x), reps=10)
+    check_counts("export: native artifact", counts,
+                 rdb_fwd=5 * 3 * NUM_RRDB)
+    check(row["native_op_calls"] == 3 * NUM_RRDB,
+          f"the native program calls the RDB operator per block: "
+          f"{row['native_op_calls']}")
+    check(row["native_vs_live_graph"]["levels"]["max"] <= TOL_SERVE_LEVELS,
+          f"native artifact within {TOL_SERVE_LEVELS} level of the live "
+          f"graphed generator: {row['native_vs_live_graph']}")
+    del served
+    served = ServedGenerator(portable, device=DEVICE)
+    reset_counters()
+    got = served(x)
+    torch.cuda.synchronize()
+    paths["export: portable artifact"] = counts = read_counters()
+    with torch.inference_mode():
+        ref = plain_generator(gen, x)
+    limit = TOL_GEN_F32 * float(ref.abs().max())
+    row["portable_vs_f32_plain"] = _dist(got, ref)
+    row["portable_limit"] = limit
+    row["portable_ms"] = median_ms(lambda: served._forward(x), reps=10)
+    check_counts("export: portable artifact", counts)
+    check(row["portable_vs_f32_plain"]["max"] <= limit,
+          f"portable artifact within {TOL_GEN_F32} of the f32 plain "
+          f"generator's largest output: {row['portable_vs_f32_plain']}")
+    del served
+    # serve ARTIFACT: one request to the daemon around the native artifact
+    service = UpscaleService(native, device=DEVICE)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    frame = np.random.default_rng(seed + 8).integers(
+        0, 256, (*REQUEST_SIZES[1], 3), dtype=np.uint8)
+    tiles = (len(_positions(frame.shape[0], 64, 48))
+             * len(_positions(frame.shape[1], 64, 48)))
+    try:
+        reset_counters()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/upscale",
+            data=_png(frame), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, sr = resp.status, _unpng(resp.read())
+        paths["export: serve ARTIFACT"] = counts = read_counters()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    row["serve_artifact"] = {"status": status, "shape": list(sr.shape),
+                             "launches": counts, "meta": service.meta}
+    check(status == 200 and sr.shape == (4 * frame.shape[0],
+                                         4 * frame.shape[1], 3)
+          and sr.max() > sr.min(), "serve ARTIFACT answers a 4x image")
+    check_counts("export: serve ARTIFACT", counts,
+                 rdb_fwd=5 * 3 * NUM_RRDB * -(-tiles // 16))
+    del service
+    # eval --artifact on the eval images (each below the tile: one
+    # forward of the artifact's batch each), after its capture
+    folder = _eval_images(seed)
+    reset_counters()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["eval", folder, "--artifact", native, "--report",
+                  os.path.join(workdir, "eval_artifact.json")])
+    paths["export: eval --artifact"] = counts = read_counters()
+    with open(os.path.join(workdir, "eval_artifact.json")) as fh:
+        report = json.load(fh)
+    row["eval_artifact"] = {**_headline(report), "launches": counts}
+    _check_report(report, "eval --artifact")
+    check_counts("export: eval --artifact", counts, rdb_fwd=5 * 3 * NUM_RRDB
+                 * (report["images"] + CAPTURE_FORWARDS))
+    say("export", shape=list(x.shape), **row)
+    return paths
+
+
+def phase_batching(ckpt: str, seed: int) -> dict:
+    """Eight concurrent tile-sized requests through the batcher (bf16,
+    B1, batch 16) against the same frames unbatched: equal within
+    ``TOL_SERVE_LEVELS``, more than one tile a forward, and B1's
+    launches at the batcher's forwards."""
+    rng = np.random.default_rng(seed + 9)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in BATCHING_REQUESTS]
+    off = CheckpointUpscaleService(model="esrgan", checkpoint=ckpt,
+                                   device=DEVICE)
+    off.warmup()
+    want = [off._guarded_upscale(f, None) for f in frames]
+    off_ms = busy_row(lambda: off._guarded_upscale(frames[0], None),
+                      calls=1)["wall_ms"]
+    del off
+    on = CheckpointUpscaleService(model="esrgan", checkpoint=ckpt,
+                                  device=DEVICE, batch_requests=True,
+                                  batch_wait_ms=BATCHING_WAIT_MS)
+    on.warmup()
+    before = on.metrics()
+    got = [None] * len(frames)
+    barrier = threading.Barrier(len(frames))
+
+    def client(i):
+        barrier.wait()
+        got[i] = on._guarded_upscale(frames[i], None)
+
+    reset_counters()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(frames))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counters()
+    after = on.metrics()
+    on.close()
+    calls = after["batched_calls"] - before["batched_calls"]
+    tiles = after["batched_tiles"] - before["batched_tiles"]
+    levels = [_levels(a, b) for a, b in zip(got, want)]
+    say("batching", requests=[list(s) for s in BATCHING_REQUESTS],
+        wait_ms=BATCHING_WAIT_MS, forwards=calls, tiles=tiles,
+        tiles_per_forward=tiles / max(calls, 1), launches=counts,
+        batched_wall_ms=wall_ms, one_unbatched_request_ms=off_ms,
+        vs_unbatched_levels=levels, meta=on.meta, metrics=after)
+    check(all(g is not None and g.shape == (4 * f.shape[0], 4 * f.shape[1],
+                                            3) for g, f in zip(got, frames)),
+          "batching: every request answered with a 4x frame")
+    check(max(d["max"] for d in levels) <= TOL_SERVE_LEVELS,
+          f"batched frames within {TOL_SERVE_LEVELS} level of the "
+          f"unbatched ones: {levels}")
+    check(tiles == len(frames) and calls >= 1 and tiles / calls > 1,
+          f"batching: {tiles} tiles in {calls} forwards (> 1 a forward)")
+    check_counts("batching", counts, rdb_fwd=5 * 3 * NUM_RRDB * calls)
+    return {"batching": counts}
+
+
 def phase_test(ckpt: str, seed: int) -> None:
     """The ``test`` subcommand through the CLI's own ``main``."""
     from PIL import Image
@@ -2190,7 +2508,7 @@ def phase_test(ckpt: str, seed: int) -> None:
     try:
         for extra, batches in (([], 1),
                                (["--tile", "64", "--tile-batch", "16"],
-                                -(-tiles // 16))):
+                                -(-tiles // 16) + CAPTURE_FORWARDS)):
             reset_counters()
             t0 = time.perf_counter()
             cli.main(["test", "photo.png", "--checkpoint", ckpt, *extra])
@@ -2267,7 +2585,8 @@ def _train(seed: int, phase: str, ext: bool) -> dict:
     tests = [([], {"rdb_fwd": 5 * 3 * NUM_RRDB})]
     if ext:
         tests.append((["--tile", "64", "--tile-batch", "16"],
-                      {"rdb_fwd_ext": 5 * 3 * NUM_RRDB * -(-tiles // 16)}))
+                      {"rdb_fwd_ext": 5 * 3 * NUM_RRDB
+                       * (-(-tiles // 16) + CAPTURE_FORWARDS)}))
     os.environ["WANDB_MODE"] = "disabled"  # never a network sink
     cwd = os.getcwd()
     os.chdir(workdir)
@@ -2412,15 +2731,18 @@ SRGAN_REQUESTS = ((64, 64), (120, 300))
 INTERP_ALPHA = 0.2
 
 
-def eval_forwards(sizes, tile_args=()) -> int:
+def eval_forwards(sizes, tile_args=(), capture: int = CAPTURE_FORWARDS
+                  ) -> int:
     """Generator forwards of one ``eval`` over images of ``sizes`` (HR):
     one per scored image whole-image; with ``--tile T --tile-overlap O
-    --tile-batch N``, ceil(tiles / N) per image that exceeds T in LR."""
+    --tile-batch N``, ceil(tiles / N) per image that exceeds T in LR,
+    and ``capture`` for the tile forward's capture (on CUDA; on the CPU
+    the tile forward is the module itself: 0)."""
     opts = dict(zip(tile_args[::2], tile_args[1::2]))
     tile = int(opts.get("--tile", 0))
     overlap = int(opts.get("--tile-overlap", 16))
     batch = int(opts.get("--tile-batch", 8))
-    total = 0
+    total = captured = 0
     for h, w in sizes:
         lh, lw = h // 4, w // 4
         if lh * 4 < 11 or lw * 4 < 11:
@@ -2429,9 +2751,10 @@ def eval_forwards(sizes, tile_args=()) -> int:
             tiles = (len(_positions(max(lh, tile), tile, tile - overlap))
                      * len(_positions(max(lw, tile), tile, tile - overlap)))
             total += -(-tiles // batch)
+            captured = capture
         else:
             total += 1
-    return total
+    return total + captured
 
 
 def _blur64(n: int) -> np.ndarray:
@@ -3132,8 +3455,8 @@ def phase_bench(seed: int) -> dict:
     at its configurations with fewer measured steps: each line's metric
     name, a finite positive value and the card; the launch counters at
     what the calls imply (ESRGAN GAN: one warm-up call and two phases of
-    calls, K = 2 steps each; ESRGAN tiled: one warm-up frame and two of
-    one frame)."""
+    calls, K = 2 steps each; ESRGAN tiled: one warm-up frame, which
+    captures the tile forward's graph, and two of one frame)."""
     from torchsr_tpu_torch.tools import bench
 
     del seed  # the bench's own seeds
@@ -3144,7 +3467,8 @@ def phase_bench(seed: int) -> dict:
         "bench_esrgan_gan": {"rdb_fwd": gan_steps * 5 * 3 * NUM_RRDB,
                              "rdb_bwd": gan_steps * 3 * NUM_RRDB},
         "bench_esrgan_tiled_inference": {
-            "rdb_fwd": 3 * frame_batches * 5 * 3 * NUM_RRDB},
+            "rdb_fwd": (3 * frame_batches + CAPTURE_FORWARDS)
+            * 5 * 3 * NUM_RRDB},
     }
     rows, paths = [], {}
     for metric, fn_name, kw in BENCH_SMOKE:
@@ -3239,7 +3563,7 @@ def main() -> None:
              "pair_conv, bench_preprocess, bench_pair_conv, train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, "
              "train_speed, eval, interp (both after train), srgan_train, "
-             "multistep, bench.")
+             "multistep, bench, serve_graph, export, batching.")
     args = parser.parse_args()
     smi = phase_probe()
     # f32 references in full f32: cuDNN convolutions default to TF32
@@ -3259,6 +3583,18 @@ def main() -> None:
     run("build", phase_build)
     seed = args.seed
     if args.only:
+        served = {}
+
+        def serving(fn, *rest):
+            """A serving phase on the seeded 23-RRDB generator and its
+            checkpoint (made once, as the full run's generator phase
+            makes them)."""
+            def phase(s):
+                if not served:
+                    served["gen"], served["ckpt"] = serving_generator(s)
+                return fn(*[served[k] for k in rest], s)
+            return phase
+
         phases = {
             "rdb_fwd": phase_rdb,
             "rdb_fwd_ext": lambda s: phase_rdb_variant(s, "ext"),
@@ -3274,7 +3610,13 @@ def main() -> None:
             "train_ext": lambda s: phase_train(s, ext=True),
             "train_speed": phase_train_speed, "eval": phase_eval,
             "interp": phase_interp, "srgan_train": phase_srgan_train,
-            "multistep": phase_multistep, "bench": phase_bench}
+            "multistep": phase_multistep, "bench": phase_bench,
+            "serve_graph": serving(
+                lambda gen, s: {**phase_serve_graph(gen, s),
+                                **phase_serve_graph(gen, s, ilv=True)},
+                "gen"),
+            "export": serving(phase_export, "gen", "ckpt"),
+            "batching": serving(phase_batching, "ckpt")}
         for name in args.only.split(","):
             run(name, phases[name], seed)
         say("seconds", **seconds)
@@ -3296,13 +3638,14 @@ def main() -> None:
         run("train_grad", phase_train_grad, seed, variant)
     gen = run("generator", phase_generator, seed,
               timed["rdb_fwd"]["bfloat16"]["ms"])
-    workdir = os.path.join(ROOT, "build", "chip_smoke")
-    os.makedirs(workdir, exist_ok=True)
-    ckpt = os.path.join(workdir, "esrgan-gan-best.pth")
-    save_checkpoint(ckpt, 1, "gan", gen.state_dict())
+    ckpt = save_serving_checkpoint(gen)
     paths["serve"], answers = run("serve", phase_serve, gen, ckpt, seed)
     paths["serve_ilv"], _ = run("serve", phase_serve, gen, ckpt, seed,
                                 ilv=True, prior=answers)
+    paths.update(run("serve_graph", phase_serve_graph, gen, seed))
+    paths.update(run("serve_graph", phase_serve_graph, gen, seed, ilv=True))
+    paths.update(run("export", phase_export, gen, ckpt, seed))
+    paths.update(run("batching", phase_batching, ckpt, seed))
     run("test", phase_test, ckpt, seed)
     del gen
     for phase, ext in (("train", False), ("train_ext", True)):

@@ -177,8 +177,9 @@ def test_eval_is_metric_grade_f32_and_restores_tf32(setup, monkeypatch):
 
 def test_eval_refusals(setup, tmp_path, monkeypatch):
     image_dir, ckpts = setup
-    with pytest.raises(SystemExit):  # serving artifacts wait for A11
-        cli.parse_args(["eval", image_dir, "--artifact", "art.pt2"])
+    with pytest.raises(SystemExit):  # an artifact's dtype is baked in
+        cli.parse_args(["eval", image_dir, "--artifact", "art.pt2",
+                        "--bf16"])
     pack = tmp_path / "val.tsrpack"
     pack.write_bytes(b"TSRPACK1" + bytes(16))
     with pytest.raises(ValueError, match="A10b"):

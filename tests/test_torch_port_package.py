@@ -60,7 +60,14 @@ def test_import_pulls_in_no_jax():
             "torchsr_tpu_torch.tools.bench",
             "torchsr_tpu_torch.tools.profile_gan_step",
             "torchsr_tpu_torch.tools.profile_pretrain",
-            "torchsr_tpu_torch.tools.sweep_esrgan_batch"} <= set(modules)
+            "torchsr_tpu_torch.tools.sweep_esrgan_batch",
+            "torchsr_tpu_torch.infer.serving",
+            "torchsr_tpu_torch.infer.batching",
+            "torchsr_tpu_torch.tools.profile_infer",
+            "torchsr_tpu_torch.tools.bench_inference",
+            "torchsr_tpu_torch.tools.bench_batching",
+            "torchsr_tpu_torch.tools.bench_serve_http",
+            "torchsr_tpu_torch.tools.bench_regression"} <= set(modules)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -283,11 +283,15 @@ def test_cli_registers_only_ported_flags():
         "cuda", 0, 16, 8, None, False, "ESRGAN")
     args = cli.parse_args(["interp", "p.pth", "g.pth"])
     assert (args.alpha, args.output, args.model) == (0.8, None, "ESRGAN")
+    args = cli.parse_args(["serve"])
+    assert (args.artifact, args.batch_requests, args.batch_wait_ms) == (
+        None, False, 2.0)
+    args = cli.parse_args(["export", "x"])
+    assert (args.tile, args.tile_batch, args.device) == (64, 8, "cuda")
     for argv in (["train", "--fast-compile"], ["train", "--scale", "2"],
-                 ["export", "x"], ["test", "a.png", "--spatial-shard"],
-                 ["serve", "--shard-tiles"], ["serve", "art.shlo"],
+                 ["test", "a.png", "--spatial-shard"],
+                 ["serve", "--shard-tiles"],
                  ["test", "a.png", "--tile", "8", "--tile-overlap", "8"],
-                 ["eval", "val", "--artifact", "art.shlo"],
                  ["pack", "ds", "ds.tsrpack"], ["train", "--shuffle-window",
                                                 "64"],
                  ["eval", "val", "--tile", "8", "--tile-overlap", "8"]):

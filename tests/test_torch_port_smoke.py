@@ -584,7 +584,9 @@ def test_eval_check_sees_a_broken_skip_rule(eval_run):
 def test_eval_forwards_counts_the_generator_calls(eval_run, tile_args,
                                                   monkeypatch):
     """``eval_forwards`` (B1's launches on the eval path are 5 x 69 per
-    forward) counts the forwards ``eval`` runs."""
+    forward) counts the forwards ``eval`` runs: on the CPU, where the
+    tile forward is the module itself, without the capture's warm-up
+    forward that a tiled run adds on CUDA."""
     from torchsr_tpu_torch.infer import evaluate
     from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
 
@@ -600,7 +602,10 @@ def test_eval_forwards_counts_the_generator_calls(eval_run, tile_args,
                         lambda self, x: calls.append(x.shape) or
                         forward(self, x))
     evaluate.run_eval(args, ESRGANGenerator)
-    assert len(calls) == smoke.eval_forwards(smoke.EVAL_SIZES, tile_args)
+    assert len(calls) == smoke.eval_forwards(smoke.EVAL_SIZES, tile_args,
+                                             capture=0)
+    assert smoke.eval_forwards(smoke.EVAL_SIZES, tile_args) - len(calls) \
+        == (smoke.CAPTURE_FORWARDS if tile_args else 0)
 
 
 def test_srgan_paths_expect_no_kernel():

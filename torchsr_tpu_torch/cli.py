@@ -1,4 +1,5 @@
-"""CLI: ``python -m torchsr_tpu_torch train|test|serve|eval|interp|doctor``.
+"""CLI: ``python -m torchsr_tpu_torch
+train|test|export|serve|eval|interp|doctor``.
 
 The ported subcommands keep the JAX CLI's flag names and defaults, plus
 ``--device`` (default ``cuda``: the port runs on the card unless asked
@@ -217,12 +218,73 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     )
     _add_device(test)
 
+    export = commands.add_parser(
+        "export",
+        help="Export a trained generator as a self-contained serving "
+             "artifact: a torch.export program (.pt2) with the weights "
+             "baked in, loadable without the model code, and a JSON "
+             "sidecar (see infer/serving.py).",
+    )
+    export.add_argument(
+        "output", type=str,
+        help="Output artifact path (a JSON sidecar is written next to "
+             "it).",
+    )
+    export.add_argument(
+        "--model", type=str, default=MODEL, choices=MODEL_NAMES,
+        help="Model architecture of the checkpoint.",
+    )
+    export.add_argument(
+        "--checkpoint", type=str,
+        help="Checkpoint path (.ckpt or reference .pth); defaults to "
+             "{model}-gan-best in the working directory.",
+    )
+    export.add_argument(
+        "--tile", type=positive_integer, default=64,
+        help="Input tile size baked into the artifact (serving runs "
+             "fixed shapes; larger frames tile through it).",
+    )
+    export.add_argument(
+        "--tile-batch", type=positive_integer, default=8,
+        help="Tiles per forward baked into the artifact.",
+    )
+    export.add_argument(
+        "--platforms", type=str, default="cuda,cpu",
+        help="Comma-separated devices the artifact may be loaded on: "
+             "cuda and/or cpu.",
+    )
+    export.add_argument(
+        "--bf16", action="store_true",
+        help="Bake bfloat16 compute into the artifact (the serving "
+             "precision on the card); inputs and outputs stay float32 "
+             "and the sidecar records compute_dtype. Quantify the "
+             "quality cost beforehand with `eval --bf16`.",
+    )
+    export.add_argument(
+        "--native-kernels", action="store_true",
+        help="Bake the RDB operator (torchsr_tpu_torch::rdb_fwd) into an "
+             "ESRGAN artifact: on CUDA it launches the Hopper RDB kernel, "
+             "on the CPU its plain version. The artifact then loads with "
+             "the port's ops package imported (the portable default "
+             "loads with torch alone).",
+    )
+    export.add_argument(
+        "--seed", type=int, default=0,
+        help="Unused at export; accepted for CLI compatibility.",
+    )
+    _add_device(export)
+
     serve = commands.add_parser(
         "serve",
-        help="Run an HTTP serving daemon around a trained checkpoint: "
-             "POST /upscale (image in, 4x PNG out, any frame size via "
-             "tiling), GET /healthz (readiness-gated), GET /metadata, "
-             "GET /metrics.",
+        help="Run an HTTP serving daemon around a serving artifact or a "
+             "trained checkpoint: POST /upscale (image in, 4x PNG out, "
+             "any frame size via tiling), GET /healthz (readiness-gated), "
+             "GET /metadata, GET /metrics.",
+    )
+    serve.add_argument(
+        "artifact", type=str, nargs="?", default=None,
+        help="Serving artifact produced by `export`. Omit to serve a "
+             "checkpoint through the live generator instead.",
     )
     serve.add_argument(
         "--host", type=str, default="127.0.0.1",
@@ -261,6 +323,20 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
              "the CPU).",
     )
     serve.add_argument(
+        "--batch-requests", action="store_true",
+        help="Checkpoint backend: coalesce tiles from concurrent "
+             "requests into shared device batches (infer/batching.py). "
+             "Frames that cannot fill --tile-batch alone ride one "
+             "forward together; big frames keep the on-device tiled "
+             "path.",
+    )
+    serve.add_argument(
+        "--batch-wait-ms", type=float, default=2.0,
+        help="Dynamic batching: how long the device worker waits after "
+             "the first queued tile for the batch to fill before "
+             "launching short.",
+    )
+    serve.add_argument(
         "--max-request-mb", type=float, default=64,
         help="Reject request bodies larger than this before reading "
              "them (HTTP 413). 0 disables the limit.",
@@ -296,6 +372,12 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
         "--checkpoint", type=str,
         help="Checkpoint path (.ckpt or reference .pth); defaults to "
              "{model}-gan-best in the working directory.",
+    )
+    ev.add_argument(
+        "--artifact", type=str,
+        help="Score a serving artifact (`export`) instead of a "
+             "checkpoint: the exact program a serving fleet runs. "
+             "Overrides --checkpoint/--tile.",
     )
     ev.add_argument(
         "--crop", type=positive_integer, default=None,
@@ -398,6 +480,19 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
             f"than --tile ({tile}): the tiling stride is their "
             f"difference and must stay positive"
         )
+    if getattr(args, "artifact", None) and getattr(args, "bf16", False):
+        parser.error(
+            "--bf16 cannot be combined with --artifact: a serving "
+            "artifact's compute precision is baked in at export time "
+            "(score the checkpoint with --bf16, or export and score the "
+            "artifact as-is)"
+        )
+    if (args.function == "serve" and args.artifact
+            and (args.checkpoint or args.batch_requests)):
+        parser.error(
+            "pass either a serving-artifact path or --checkpoint (with "
+            "--batch-requests), not both"
+        )
     return args
 
 
@@ -415,6 +510,11 @@ def main(argv: list[str] | None = None) -> None:
             print(f"Saved super-resolution images: {out}")
         else:
             print(f"Saved super-resolution image to {out}")
+    elif args.function == "export":
+        from torchsr_tpu_torch.infer.runner import run_export
+
+        out = run_export(args, select_test_model(args))
+        print(f"Saved serving artifact to {out}")
     elif args.function == "serve":
         from torchsr_tpu_torch.infer.server import run_server
 

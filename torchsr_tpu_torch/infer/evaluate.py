@@ -19,8 +19,11 @@ Scoring is metric-grade f32 by default, as in JAX: for its duration
 ``run_eval`` turns off TF32 in cuDNN's convolutions and in CUDA
 matmuls (PyTorch's default lets cuDNN use TF32) and restores the
 caller's settings after.  ``--bf16`` scores the serving compute dtype
-instead.  Serving artifacts (``--artifact``) and ``.tsrpack`` datasets
-are not ported yet (ROADMAP A11, A10b).
+instead.  ``--artifact`` scores a serving artifact (``infer/serving.py``)
+instead of a checkpoint: the exact program a serving fleet runs, its
+frames through ``ServedGenerator.upscale_image``.  ``.tsrpack``
+datasets are not ported yet (ROADMAP A10b).  With ``--tile`` on CUDA
+each tile batch replays the generator's captured graph.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from torchsr_tpu_torch.infer.runner import (
     load_trained_generator,
     resolve_device,
 )
-from torchsr_tpu_torch.infer.tiled import upscale_image
+from torchsr_tpu_torch.infer.tiled import tile_forward, upscale_image
 from torchsr_tpu_torch.ops.resize import bicubic_resize
 from torchsr_tpu_torch.train.metrics import mse_per_sample, ssim_per_sample
 from torchsr_tpu_torch.utils import image_io
@@ -88,12 +91,17 @@ def _refuse_pack(path: str) -> None:
 
 
 def run_eval(args: Namespace, generator_cls, *,
-             allow_tf32: bool = False) -> dict:
+             allow_tf32: bool = False,
+             lr_operands: torch.dtype | None = None) -> dict:
     """Evaluate ``args.image_dir`` and return the report dict.
 
     ``allow_tf32`` lets cuDNN and CUDA matmuls use TF32 during the run
     (PyTorch's cuDNN default); it exists to measure what TF32 moves in
-    a report, and the ``eval`` subcommand leaves it off."""
+    a report, and the ``eval`` subcommand leaves it off.
+    ``lr_operands=torch.bfloat16`` synthesizes the LR images and the
+    bicubic baseline with each resampling product's operands rounded to
+    bf16 (``bicubic_resize(operands=)``), as the JAX package's round-5
+    reports were: a yardstick for comparing with them, library-only."""
     device = resolve_device(getattr(args, "device", "cuda"))
     _refuse_pack(args.image_dir)
     paths = image_io.discover_images(args.image_dir)
@@ -102,17 +110,44 @@ def run_eval(args: Namespace, generator_cls, *,
             f"no supported images found in directory {args.image_dir}"
         )
     with tf32_allowed(allow_tf32):
-        return _run_eval(args, generator_cls, device, paths)
+        return _run_eval(args, generator_cls, device, paths, lr_operands)
 
 
-def _run_eval(args, generator_cls, device, paths) -> dict:
+def _upscaler(args, generator_cls, device):
+    """(scale, upscale(lr float HWC on the host) -> SR float HWC on the
+    host) of the artifact or the checkpoint ``args`` names."""
+    artifact = getattr(args, "artifact", None)
+    if artifact:
+        from torchsr_tpu_torch.infer.serving import ServedGenerator
+
+        served = ServedGenerator(artifact, device=device)
+
+        def upscale(lr: np.ndarray) -> np.ndarray:
+            return served.upscale_image(
+                lr, overlap=getattr(args, "tile_overlap", 16))
+
+        return served.scale or 4, upscale
     # f32 by default (metric-grade); --bf16 scores the serving dtype
     generator = load_trained_generator(
         args, generator_cls, device=device,
         compute_dtype=(torch.bfloat16 if getattr(args, "bf16", False)
                        else torch.float32),
     )
-    scale = generator.scale_factor
+    forward = tile_forward(generator, device)
+
+    def upscale(lr: np.ndarray) -> np.ndarray:
+        return upscale_image(
+            forward, lr, scale=generator.scale_factor,
+            tile=getattr(args, "tile", 0) or 0,
+            overlap=getattr(args, "tile_overlap", 16),
+            tile_batch=getattr(args, "tile_batch", 8), device=device,
+        )
+
+    return generator.scale_factor, upscale
+
+
+def _run_eval(args, generator_cls, device, paths, lr_operands) -> dict:
+    scale, upscale = _upscaler(args, generator_cls, device)
     crop = getattr(args, "crop", 0) or 0
     per_image = []
     mse_px_sum = 0.0  # sum of per-image MSE * pixel count
@@ -136,14 +171,10 @@ def _run_eval(args, generator_cls, device, paths) -> dict:
         # the training pipeline's LR synthesis: quantized PIL-parity
         # bicubic, so eval measures the distribution trained on
         lr = bicubic_resize(hr[None], (h // scale, w // scale),
-                            quantize=True)[0]
-        sr = upscale_image(
-            generator, lr.cpu().numpy(), scale=scale,
-            tile=getattr(args, "tile", 0) or 0,
-            overlap=getattr(args, "tile_overlap", 16),
-            tile_batch=getattr(args, "tile_batch", 8), device=device,
-        )
-        bic = bicubic_resize(lr[None], (h, w), quantize=True)[0]
+                            quantize=True, operands=lr_operands)[0]
+        sr = upscale(lr.cpu().numpy())
+        bic = bicubic_resize(lr[None], (h, w), quantize=True,
+                             operands=lr_operands)[0]
 
         p, s, mse = _score_pair(torch.from_numpy(sr).to(device), hr)
         bp, bs, _ = _score_pair(bic, hr)

@@ -1,9 +1,11 @@
-"""The ``test`` subcommand: load a trained generator, upscale images.
+"""The ``test`` and ``export`` subcommands: load a trained generator,
+upscale images, or write it as a serving artifact.
 
 Accepts the reference's ``.pth`` and the JAX package's ``.ckpt``,
 strips a DDP ``module.`` prefix, names outputs ``upres-{basename}``,
-and offers tiled overlap-blend inference (``--tile``).  Runs on the
-CUDA device unless the caller asks for the CPU.
+and offers tiled overlap-blend inference (``--tile``; on CUDA each tile
+batch replays the generator's captured graph).  Runs on the CUDA device
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from argparse import Namespace
 import numpy as np
 import torch
 
-from torchsr_tpu_torch.infer.tiled import upscale_image
+from torchsr_tpu_torch.infer.tiled import tile_forward, upscale_image
 from torchsr_tpu_torch.utils import image_io
 from torchsr_tpu_torch.utils.checkpoint import (
     find_checkpoint,
@@ -82,9 +84,11 @@ def run_test(args: Namespace, generator_cls) -> str:
         compute_dtype=resolve_compute_dtype(args, device),
     )
 
+    forward = tile_forward(generator, device)
+
     def upscale_one(path: str) -> np.ndarray:
         return upscale_image(
-            generator,
+            forward,
             image_io.load_image(path),
             scale=generator.scale_factor,
             tile=getattr(args, "tile", 0) or 0,
@@ -107,3 +111,36 @@ def run_test(args: Namespace, generator_cls) -> str:
     out_path = f"upres-{os.path.basename(args.image)}"
     image_io.save_image(upscale_one(args.image), out_path)
     return out_path
+
+
+def run_export(args: Namespace, generator_cls) -> str:
+    """The ``export`` subcommand: write a serving artifact
+    (``infer/serving.py``) of the checkpoint at ``--tile`` and
+    ``--tile-batch``, f32 compute unless ``--bf16``; the trace runs on
+    ``--device`` (fake tensors: nothing is launched)."""
+    from torchsr_tpu_torch.infer.serving import (
+        check_platforms,
+        export_generator_artifact,
+    )
+
+    model = args.model.lower()
+    native = getattr(args, "native_kernels", False)
+    if native and model != "esrgan":
+        raise ValueError(
+            "--native-kernels bakes the RDB operator, which only the "
+            f"ESRGAN generator uses; export {model} without it")
+    platforms = check_platforms(getattr(args, "platforms",
+                                        "cuda,cpu").split(","))
+    device = resolve_device(getattr(args, "device", "cuda"))
+    generator = load_trained_generator(
+        args, generator_cls, device=device,
+        compute_dtype=(torch.bfloat16 if getattr(args, "bf16", False)
+                       else torch.float32),
+    )
+    tile = getattr(args, "tile", 64)
+    return export_generator_artifact(
+        args.output, generator, input_hw=(tile, tile),
+        batch=getattr(args, "tile_batch", 8),
+        scale=generator.scale_factor, model=model, platforms=platforms,
+        native_kernels=native,
+    )

@@ -1,10 +1,19 @@
-"""``serve``: an HTTP daemon around a trained ESRGAN or SRGAN checkpoint.
+"""``serve``: an HTTP daemon around a trained ESRGAN or SRGAN generator.
 
-The PyTorch counterpart of the JAX package's checkpoint-backed serving
-daemon, on the standard library's ``http.server``.  The checkpoint is
-loaded into the live generator on the CUDA device (bf16 compute unless
-``--disable-amp``; SRGAN's BatchNorms on their running statistics),
-and every frame is tiled through it on the device.
+The PyTorch counterpart of the JAX package's serving daemon, on the
+standard library's ``http.server``, with its two backends:
+
+- **checkpoint** (``serve --checkpoint x --model esrgan``): the
+  checkpoint loaded into the live generator on the CUDA device (bf16
+  compute unless ``--disable-amp``; SRGAN's BatchNorms on their running
+  statistics); every frame is tiled through it on the device, each tile
+  batch one replay of the generator's captured CUDA graph
+  (``infer/tiled.py``).  ``batch_requests`` routes frames that tile to
+  fewer than ``tile_batch`` tiles through a shared ``TileBatcher``
+  (``infer/batching.py``), whose forward replays the same graph.
+- **artifact** (``serve model.pt2``): a serving artifact of
+  ``infer/serving.py``, loaded with ``torch.export.load``; its tile
+  batches replay a graph of the loaded program.
 
 Endpoints:
 
@@ -21,8 +30,7 @@ Admission: request bodies above ``max_request_mb`` and decoded inputs
 above ``max_input_mp`` get 413; beyond ``max_pending`` upscales in
 flight new ones get 503 with Retry-After.  A ``ThreadingHTTPServer``
 keeps decode and encode off the device path, and one lock serializes
-the device calls.  The serving-artifact backend is not ported yet
-(ROADMAP A11).
+the device calls.
 """
 
 from __future__ import annotations
@@ -118,8 +126,18 @@ class _Service:
     def _upscale(self, arr: np.ndarray, overlap: int | None) -> np.ndarray:
         raise NotImplementedError
 
+    def _guarded_upscale(self, arr: np.ndarray,
+                         overlap: int | None) -> np.ndarray:
+        """Device-access policy around ``_upscale``: one forward at a
+        time.  The batching backend routes small frames elsewhere."""
+        with self._lock:
+            return self._upscale(arr, overlap)
+
     def warmup(self) -> None:
         raise NotImplementedError
+
+    def close(self) -> None:
+        """Release backend resources (worker threads); idempotent."""
 
     def upscale_bytes(
         self,
@@ -156,10 +174,9 @@ class _Service:
                 )
             arr = np.asarray(img.convert("RGB"), np.uint8)
             t_dev = time.perf_counter()
-            with self._lock:  # one device call at a time
-                sr = self._upscale(
-                    arr, overlap if overlap is not None else self.overlap
-                )
+            sr = self._guarded_upscale(
+                arr, overlap if overlap is not None else self.overlap
+            )
             dev_ms = (time.perf_counter() - t_dev) * 1e3
             out = Image.fromarray(np.asarray(sr, np.uint8))
             buf = io.BytesIO()
@@ -181,10 +198,49 @@ class _Service:
         return buf.getvalue(), ctype
 
 
+class UpscaleService(_Service):
+    """Artifact-backed service around a serving artifact
+    (``infer/serving.py``) on ``device``."""
+
+    def __init__(self, artifact_path: str, overlap: int | None = None,
+                 device: str | torch.device = "cuda", **limits):
+        from torchsr_tpu_torch.infer.serving import ServedGenerator
+
+        super().__init__(overlap, **limits)
+        self.generator = ServedGenerator(artifact_path, device=device)
+        self.device = self.generator.device
+        self.meta = {"backend": "artifact", **self.generator.meta,
+                     "device": _device_name(self.device)}
+
+    def warmup(self) -> None:
+        """One forward at the export shape, so the graph is captured
+        (and the kernels loaded) before the first request."""
+        x = torch.zeros(self.generator.input_shape, device=self.device)
+        with self._lock:
+            self.generator(x).cpu()
+        self.ready = True
+
+    def _upscale(self, arr: np.ndarray, overlap: int | None) -> np.ndarray:
+        return self.generator.upscale_image(arr, overlap=overlap,
+                                            quantize_u8=True)
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
 class CheckpointUpscaleService(_Service):
     """Checkpoint-backed service: the live generator on ``device``
     (``"cuda"`` by default; ``"cpu"`` only when asked for), frames
-    tiled through it on the device and rounded to uint8 there."""
+    tiled through it on the device (each tile batch a replay of its
+    captured graph on CUDA) and rounded to uint8 there.
+
+    ``batch_requests=True`` turns on cross-request dynamic batching
+    (``infer/batching.py``): a frame that tiles to fewer than
+    ``tile_batch`` tiles goes through a shared ``TileBatcher``, so
+    concurrent small frames fill one device batch together; frames that
+    fill a batch alone keep the on-device tiled path."""
 
     def __init__(
         self,
@@ -195,6 +251,8 @@ class CheckpointUpscaleService(_Service):
         overlap: int | None = None,
         disable_amp: bool = False,
         device: str | torch.device = "cuda",
+        batch_requests: bool = False,
+        batch_wait_ms: float = 2.0,
         **limits,
     ):
         from argparse import Namespace
@@ -204,7 +262,10 @@ class CheckpointUpscaleService(_Service):
             resolve_compute_dtype,
             resolve_device,
         )
-        from torchsr_tpu_torch.infer.tiled import DEFAULT_SERVING_TILE
+        from torchsr_tpu_torch.infer.tiled import (
+            DEFAULT_SERVING_TILE,
+            tile_forward,
+        )
         from torchsr_tpu_torch.registry import select_test_model
 
         super().__init__(overlap, **limits)
@@ -217,9 +278,18 @@ class CheckpointUpscaleService(_Service):
             args, select_test_model(args), device=self.device,
             compute_dtype=dtype,
         )
+        self._forward = tile_forward(self._generator, self.device)
         self.tile = int(tile) or DEFAULT_SERVING_TILE.get(model, 64)
         self.tile_batch = int(tile_batch)
         self.scale = int(self._generator.scale_factor)
+        self._batcher = None
+        if batch_requests:
+            from torchsr_tpu_torch.infer.batching import TileBatcher
+
+            self._batcher = TileBatcher(
+                self._batch_forward, tile=self.tile, scale=self.scale,
+                batch=self.tile_batch, max_wait_ms=batch_wait_ms,
+            )
         self.meta = {
             "backend": "checkpoint",
             "model": model,
@@ -228,16 +298,21 @@ class CheckpointUpscaleService(_Service):
             "tile": self.tile,
             "tile_batch": self.tile_batch,
             "compute_dtype": str(dtype).removeprefix("torch."),
-            "device": (torch.cuda.get_device_name(self.device)
-                       if self.device.type == "cuda" else "cpu"),
+            "device": _device_name(self.device),
+            "batch_requests": self._batcher is not None,
         }
 
     def warmup(self) -> None:
         """One tiled forward on a dummy frame slightly above the tile
-        size, so the first request finds the kernels built and loaded."""
+        size, so the first request finds the kernels built and loaded
+        and the tile batch's graph captured (with batching on, the
+        batcher's forward replays that graph once too)."""
         dummy = np.zeros((self.tile + 8, self.tile + 8, 3), np.uint8)
         with self._lock:
             self._upscale(dummy, self.overlap)
+        if self._batcher is not None:
+            tiny = np.zeros((self.tile, self.tile, 3), np.uint8)
+            self._upscale_batched(tiny, self._resolve_overlap(None))
         self.ready = True
 
     def _resolve_overlap(self, overlap: int | None) -> int:
@@ -245,12 +320,59 @@ class CheckpointUpscaleService(_Service):
             overlap = 8
         return max(0, min(int(overlap), self.tile - 1))
 
+    def _batch_forward(self, batch: np.ndarray) -> np.ndarray:
+        """The batcher's device call: the graphed tile forward, under
+        the service lock (taken here, by the batcher's worker, so that
+        request threads never hold it while they wait on their tiles)."""
+        with self._lock, torch.inference_mode():
+            x = torch.from_numpy(batch).to(self.device)
+            return self._forward(x).float().cpu().numpy()
+
+    def _guarded_upscale(self, arr: np.ndarray,
+                         overlap: int | None) -> np.ndarray:
+        """Small frames through the shared tile batcher; frames that
+        fill a device batch alone keep the on-device tiled path."""
+        if self._batcher is not None:
+            from torchsr_tpu_torch.infer.batching import count_tiles
+
+            ov = self._resolve_overlap(overlap)
+            h, w = arr.shape[:2]
+            if count_tiles(h, w, self.tile, ov) < self.tile_batch:
+                return self._upscale_batched(arr, ov)
+        with self._lock:
+            return self._upscale(arr, overlap)
+
+    def _upscale_batched(self, arr: np.ndarray, overlap: int) -> np.ndarray:
+        """Host extract -> shared batched device forward -> host
+        composite (the numpy mirror of the device blend)."""
+        from torchsr_tpu_torch.infer.batching import (
+            composite_tiles,
+            extract_tiles,
+        )
+
+        x = np.asarray(arr, np.float32) / np.float32(255.0)
+        tiles, grid, padded = extract_tiles(x, self.tile, overlap)
+        sr = self._batcher.upscale_tiles(tiles)
+        out = composite_tiles(sr, grid, padded, x.shape[:2], self.tile,
+                              overlap, self.scale)
+        return (np.clip(out, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+    def metrics(self) -> dict:
+        m = super().metrics()
+        if self._batcher is not None:
+            m.update(self._batcher.stats())
+        return m
+
+    def close(self) -> None:
+        if self._batcher is not None:
+            self._batcher.close()
+
     def _upscale(self, arr: np.ndarray, overlap: int | None) -> np.ndarray:
         from torchsr_tpu_torch.infer.tiled import tiled_upscale
 
         x = torch.tensor(arr, device=self.device)
         out = tiled_upscale(
-            self._generator, x.float() / 255.0, scale=self.scale,
+            self._forward, x.float() / 255.0, scale=self.scale,
             tile=self.tile, overlap=self._resolve_overlap(overlap),
             tile_batch=self.tile_batch,
         )
@@ -270,9 +392,13 @@ _PROM_HELP = {
     "latency_ms_mean": "mean request wall latency",
     "latency_ms_last": "last request wall latency",
     "device_ms_mean": "mean device-locked share of latency",
+    "batched_calls": "dynamic batching: device forwards launched",
+    "batched_tiles": "dynamic batching: tiles upscaled",
+    "batch_fill_mean": "dynamic batching: mean batch fill fraction",
 }
 
-_PROM_COUNTERS = {"requests", "errors", "shed"}
+_PROM_COUNTERS = {"requests", "errors", "shed", "batched_calls",
+                  "batched_tiles"}
 
 
 def _prometheus(metrics: dict) -> str:
@@ -324,6 +450,7 @@ def _make_handler(service: _Service):
                     "status": "ok" if service.ready else "warming up",
                     "backend": meta.get("backend"),
                     "model": meta.get("model", ""),
+                    "input_shape": meta.get("input_shape"),
                     "scale": meta.get("scale"),
                     "compute_dtype": meta.get("compute_dtype"),
                 })
@@ -421,22 +548,33 @@ def make_server(
 
 
 def run_server(args) -> None:
-    """The ``serve`` subcommand: serve ``args.checkpoint`` (or the
-    default ``{model}-gan-best`` checkpoint) until SIGTERM or Ctrl-C."""
+    """The ``serve`` subcommand: serve ``args.artifact``, or
+    ``args.checkpoint`` (or the default ``{model}-gan-best``
+    checkpoint), until SIGTERM or Ctrl-C."""
     import signal
 
-    service = CheckpointUpscaleService(
-        model=args.model,
-        checkpoint=args.checkpoint,
-        tile=args.tile,
-        tile_batch=args.tile_batch,
-        overlap=args.tile_overlap or None,
-        disable_amp=args.disable_amp,
-        device=args.device,
-        max_request_mb=args.max_request_mb,
-        max_input_mp=args.max_input_mp,
-        max_pending=args.max_pending,
-    )
+    limits = {"max_request_mb": args.max_request_mb,
+              "max_input_mp": args.max_input_mp,
+              "max_pending": args.max_pending}
+    if getattr(args, "artifact", None):
+        service: _Service = UpscaleService(
+            args.artifact, overlap=args.tile_overlap or None,
+            device=args.device, **limits)
+        what = f"artifact {args.artifact}"
+    else:
+        service = CheckpointUpscaleService(
+            model=args.model,
+            checkpoint=args.checkpoint,
+            tile=args.tile,
+            tile_batch=args.tile_batch,
+            overlap=args.tile_overlap or None,
+            disable_amp=args.disable_amp,
+            device=args.device,
+            batch_requests=args.batch_requests,
+            batch_wait_ms=args.batch_wait_ms,
+            **limits,
+        )
+        what = f"checkpoint {service.meta['checkpoint']}"
     server = make_server(service, host=args.host, port=args.port)
 
     # Graceful drain on SIGTERM: finish in-flight requests, stop
@@ -453,8 +591,8 @@ def run_server(args) -> None:
 
     host, port = server.server_address[:2]
     print(
-        f"Serving {service.meta['model']} checkpoint "
-        f"{service.meta['checkpoint']} on {service.meta['device']} at "
+        f"Serving {service.meta.get('model') or 'model'} {what} on "
+        f"{service.meta['device']} at "
         f"http://{host}:{port} (POST /upscale, GET /healthz, "
         f"GET /metrics)", flush=True,
     )
@@ -469,6 +607,7 @@ def run_server(args) -> None:
         deadline = time.time() + 30
         while service.metrics()["in_flight"] > 0 and time.time() < deadline:
             time.sleep(0.05)
+        service.close()
         if prev is not None:
             signal.signal(signal.SIGTERM, prev)
         stats = service.metrics()

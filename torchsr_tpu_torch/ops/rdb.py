@@ -24,7 +24,12 @@ over the later convs' cotangents, held in one working-dtype buffer DY
 twenty FFMA launches through an f32 dense gradient (design and bound in
 the headers).  A CPU tensor runs the plain versions, ``rdb_reference``
 and ``rdb_bwd_reference``, through the same Function.  There is no
-fallback: on CUDA the kernel runs or the call raises.
+fallback: on CUDA the kernel runs or the call raises.  A forward that no
+backward follows (grad mode off, or nothing requires grad) runs the same
+kernels as the operator ``torchsr_tpu_torch::rdb_fwd`` (``rdb_fwd_op``),
+which has a fake implementation, so that ``torch.export`` traces it into
+a serving artifact (``infer/serving.py``); ``plain_forward`` makes every
+block its plain version instead, for an artifact that is pure aten.
 
 Two layout variants of the JAX package are selected by the same
 environment knobs, read once at import (``EXT_KERNEL``, ``ILV_KERNEL``;
@@ -55,6 +60,8 @@ gradients reach the f32 parameters in f32, never rounded through bf16.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import os
 
@@ -631,8 +638,9 @@ def fused_rdb(
     ``x``: (B, H, W, 64) NHWC, f32 or bf16.  ``kernels``: five HWIO
     (3, 3, C_in, C_out) kernels; ``biases``: five (C_out,) vectors.  On
     CUDA the kernels are used in ``x.dtype`` and the biases in f32.
-    Differentiable in x, the kernels and the biases.  The layout variant
-    follows the knobs (module docstring, ``_variant``)."""
+    Differentiable in x, the kernels and the biases (``_FusedRDB``);
+    where no backward follows it calls ``rdb_fwd_op``.  The layout
+    variant follows the knobs (module docstring, ``_variant``)."""
     kernels, biases = tuple(kernels), tuple(biases)
     _check(x, kernels, biases)
     if x.device.type not in ("cpu", "cuda"):
@@ -640,9 +648,61 @@ def fused_rdb(
             f"fused_rdb runs on CUDA (kernel) or CPU (plain version), "
             f"not on {x.device}"
         )
+    if _PLAIN.get():
+        return rdb_reference(x, kernels, biases, scale_ratio=scale_ratio)
     variant = _variant(x, (*kernels, *biases))
+    grad_follows = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in (*kernels, *biases)))
+    if not grad_follows:
+        return torch.ops.torchsr_tpu_torch.rdb_fwd(
+            x, list(kernels), list(biases), float(scale_ratio), variant)
     return _FusedRDB.apply(x, float(scale_ratio), variant, *kernels,
                            *biases)
+
+
+# ``plain_forward`` sets it (in its own thread and context only): every
+# ``fused_rdb`` runs ``rdb_reference``.
+_PLAIN = contextvars.ContextVar("torchsr_rdb_plain", default=False)
+
+
+@contextlib.contextmanager
+def plain_forward():
+    """Within the block every ``fused_rdb`` is its plain version, five
+    ``F.conv2d`` calls: what a portable (pure aten) export traces."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
+@torch.library.custom_op("torchsr_tpu_torch::rdb_fwd", mutates_args=())
+def rdb_fwd_op(x: torch.Tensor, kernels: list[torch.Tensor],
+               biases: list[torch.Tensor], scale_ratio: float,
+               variant: str) -> torch.Tensor:
+    """The inference forward as an operator (``torchsr_tpu_torch::
+    rdb_fwd``), the path of every ``fused_rdb`` no backward follows, so
+    that ``torch.export`` can trace it (``register_fake``) and an
+    exported program calls it.  On CUDA it launches the kernel of
+    ``variant`` (``"slot"`` B1, ``"ext"`` B7, ``"ilv"`` B6) or raises;
+    on the CPU it runs that variant's plain version."""
+    if x.device.type == "cuda":
+        fwd = {"ext": rdb_fwd_ext_cuda, "ilv": rdb_fwd_ilv_cuda}.get(
+            variant, rdb_fwd_cuda)
+        return fwd(x, kernels, biases, scale_ratio=scale_ratio)[0]
+    if variant == "ext":
+        return rdb_ext_reference(x, kernels, biases,
+                                 scale_ratio=scale_ratio)[0]
+    if variant == "ilv":
+        return rdb_ilv_reference(x, kernels, biases,
+                                 scale_ratio=scale_ratio)[0]
+    return _rdb_plain(x, kernels, biases, scale_ratio)[0]
+
+
+@rdb_fwd_op.register_fake
+def _rdb_fwd_fake(x, kernels, biases, scale_ratio, variant):
+    _check(x, kernels, biases)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def _cuda_operands(x: torch.Tensor, tensors, what: str) -> None:

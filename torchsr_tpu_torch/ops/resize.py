@@ -88,25 +88,35 @@ def _quantize_pixels(x: torch.Tensor) -> torch.Tensor:
 
 def bicubic_resize(
     x: torch.Tensor, out_hw: tuple[int, int], *, quantize: bool = False,
+    operands: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Resize (..., H, W, C) images with PIL-compatible bicubic
     resampling, in f32 (uint8 inputs are read as k/255).  ``quantize``
     emulates PIL's uint8 pipeline: clamp and round after the width pass
-    and again after the height pass."""
+    and again after the height pass.  ``operands`` (bf16) rounds both
+    operands of each matrix product to that dtype, sums staying f32: a
+    TPU's default precision for an f32 product, which the JAX package's
+    round-5 quality reports were synthesized at."""
     if not x.is_floating_point():
         x = x.float() * INV_255
     else:
         x = x.float()
+
+    def rounded(t: torch.Tensor) -> torch.Tensor:
+        return t if operands is None else t.to(operands).float()
+
     h_in, w_in = x.shape[-3], x.shape[-2]
     h_out, w_out = out_hw
     if w_in != w_out:
         x = torch.einsum("ow,...hwc->...hoc",
-                         _matrix_on(w_in, w_out, x.device), x)
+                         rounded(_matrix_on(w_in, w_out, x.device)),
+                         rounded(x))
         if quantize:
             x = _quantize_pixels(x)
     if h_in != h_out:
         x = torch.einsum("oh,...hwc->...owc",
-                         _matrix_on(h_in, h_out, x.device), x)
+                         rounded(_matrix_on(h_in, h_out, x.device)),
+                         rounded(x))
         if quantize:
             x = _quantize_pixels(x)
     return x

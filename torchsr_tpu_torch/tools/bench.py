@@ -26,7 +26,9 @@ groups in turn, chains of calls that end in a scalar read back to the
 host, and two measured phases of which the second is kept.  Training
 runs in bf16 with f32 parameters and random seeded weights (random VGG
 features); tiled inference runs the bf16 generator through
-``infer/tiled.py`` ``tiled_upscale``, eagerly.
+``infer/tiled.py`` ``tiled_upscale`` as the server does: each tile batch
+one replay of the generator's captured CUDA graph (``tile_forward``),
+the blend a gather.
 
 ``vs_baseline`` divides by bench.py's estimated V100 throughputs for the
 same work (its constants, kept as they are): published V100 estimates,
@@ -199,18 +201,21 @@ def bench_srgan_gan(batch: int = BATCH, crop: int = CROP,
 
 def _tiled_mp_per_sec(gen, frame_hw, tile, overlap, tile_batch, frames,
                       device) -> float:
-    """4K output MP/s of ``tiled_upscale`` on a seeded random frame:
-    one warm-up frame read back, then two measured phases of
-    ``frames`` frames each ending in a readback, the second kept."""
-    from torchsr_tpu_torch.infer.tiled import tiled_upscale
+    """4K output MP/s of ``tiled_upscale`` through the server's tile
+    forward (``tile_forward``: the captured graph on CUDA) on a seeded
+    random frame: one warm-up frame read back (it captures the graph),
+    then two measured phases of ``frames`` frames each ending in a
+    readback, the second kept."""
+    from torchsr_tpu_torch.infer.tiled import tile_forward, tiled_upscale
 
     h, w = frame_hw
     rng = np.random.default_rng(0)
     frame = torch.from_numpy(
         rng.random((h, w, 3)).astype(np.float32)).to(device)
+    forward = tile_forward(gen, device)
 
     def run():
-        return tiled_upscale(gen, frame, scale=4, tile=tile,
+        return tiled_upscale(forward, frame, scale=4, tile=tile,
                              overlap=overlap, tile_batch=tile_batch)
 
     out = run()

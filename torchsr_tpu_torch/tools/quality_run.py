@@ -12,11 +12,19 @@ points, in this process:
 2. ``train`` with the run's config (line 1 of
    ``metrics_{model}_smooth.jsonl.gz``): ESRGAN batch 32, 60 pretrain
    and 20 GAN epochs; SRGAN batch 128, 40 and 40; both
-   ``--dataset-multiplier 16 --seed 1 --skip-image-save``;
+   ``--dataset-multiplier 16 --seed 1 --skip-image-save`` (``--seed``
+   sets another seed, for a spread over seeds);
 3. ``eval`` on the eval images for psnr-best, gan-best and gan-latest,
    then ``interp`` of psnr-best and gan-best at alpha 0.2 and ``eval``
    of it; psnr-best is also scored with TF32 allowed and with
-   ``--bf16``, to measure what each moves.
+   ``--bf16``, to measure what each moves;
+4. with ``--bf16-operands``, psnr-best once more on the JAX reports'
+   yardstick: LR images and bicubic baseline synthesized with each
+   resampling product's operands rounded to bf16 (``run_eval(...,
+   lr_operands=torch.bfloat16)``), the precision the round-5 reports
+   were made at, so that the port's SR and the campaign's see the same
+   inputs; its per-image report is written beside the others and the
+   summary sets its margin over bicubic beside JAX's.
 
 It writes each report, the training metrics, and ``summary.json`` (the
 reports' headline numbers beside the JAX reports', the per-epoch eval
@@ -25,7 +33,8 @@ phase, each phase's crops/s and step time as the run logged them, the
 card's name and power limit) under ``--out``.
 
 Usage: python -m torchsr_tpu_torch.tools.quality_run --model esrgan
-       [--out build/quality/reports] [--device cuda|cpu]
+       [--out build/quality/reports] [--device cuda|cpu] [--seed N]
+       [--bf16-operands]
        [--pretrain-epochs N --epochs N --batch-size N
         --dataset-multiplier N --gen-blocks N --vgg-convs N]
 (the last flags shrink the recipe for a rehearsal on the CPU).
@@ -120,7 +129,15 @@ def main(argv=None) -> dict:
     parser.add_argument("--dataset-multiplier", type=int, default=16)
     parser.add_argument("--gen-blocks", type=int)
     parser.add_argument("--vgg-convs", type=int)
+    parser.add_argument("--seed", type=int, default=1,
+                        help="train's --seed (the round-5 runs' is 1)")
+    parser.add_argument("--bf16-operands", action="store_true",
+                        help="also score psnr-best with the LR and the "
+                             "bicubic baseline synthesized at the JAX "
+                             "reports' precision (bf16 operands)")
     args = parser.parse_args(argv)
+
+    import torch
 
     from torchsr_tpu_torch import cli
     from torchsr_tpu_torch.infer.evaluate import run_eval
@@ -152,7 +169,7 @@ def main(argv=None) -> dict:
             "--batch-size", str(recipe["batch_size"]),
             "--dataset-multiplier", str(args.dataset_multiplier),
             "--pretrain-epochs", str(recipe["pretrain_epochs"]),
-            "--epochs", str(recipe["epochs"]), "--seed", "1",
+            "--epochs", str(recipe["epochs"]), "--seed", str(args.seed),
             "--skip-image-save", "--metrics-file", "metrics.jsonl"]
         for flag, value in (("--gen-blocks", args.gen_blocks),
                             ("--vgg-convs", args.vgg_convs)):
@@ -181,6 +198,13 @@ def main(argv=None) -> dict:
                             allow_tf32=True)
             eval_args.bf16 = True
             bf16 = run_eval(eval_args, select_test_model(eval_args))
+            if args.bf16_operands:
+                eval_args.bf16 = False
+                eval_args.report = os.path.join(
+                    out, f"eval_{m}_smooth_psnr-best_bf16_operands.json")
+                reports["psnr-best_bf16_operands"] = run_eval(
+                    eval_args, select_test_model(eval_args),
+                    lr_operands=torch.bfloat16)
         shutil.copy("metrics.jsonl", os.path.join(out, "metrics.jsonl"))
         with open("metrics.jsonl") as fh:
             rows = [json.loads(line) for line in fh]
@@ -198,6 +222,7 @@ def main(argv=None) -> dict:
     base = reports["psnr-best"]["per_image"]
     summary = {
         "model": args.model, "card": card(), "recipe": recipe,
+        "seed": args.seed,
         "dataset_multiplier": args.dataset_multiplier,
         "train_wall_s": train_s, "wall_s": time.time() - t0,
         "reports": {k: _headline(v) for k, v in reports.items()},
@@ -221,6 +246,13 @@ def main(argv=None) -> dict:
                 for a, b in zip(tf32["per_image"], base))},
         "psnr_best_bf16": _headline(bf16),
     }
+    if args.bf16_operands and "psnr-best" in jax_reports:
+        ours_margin = reports["psnr-best_bf16_operands"]["psnr_margin_db"]
+        theirs_margin = jax_reports["psnr-best"]["psnr_margin_db"]
+        summary["psnr_best_margin_vs_jax"] = {
+            "f32_lr": reports["psnr-best"]["psnr_margin_db"],
+            "bf16_operands_lr": ours_margin, "jax": theirs_margin,
+            "bf16_operands_gap_db": ours_margin - theirs_margin}
     with open(os.path.join(out, "summary.json"), "w") as fh:
         json.dump(summary, fh, indent=1)
     print(json.dumps(summary), flush=True)
