@@ -35,9 +35,11 @@ renders, tile batches or tool calls imply, every other counter (the
    trainer's) must equal the call with bf16 contiguous ones bit for bit,
    and a call's profile must hold only its own kernels (at most six);
    at each shape the schedule the launches run (runs, grids, halo box,
-   ring) must be the one ``ops.rdb.fwd_schedule`` mirrors.  Median
-   times over 30 calls (CUDA events) and the device time beside the
-   bound.
+   ring) must be the one ``ops.rdb.fwd_schedule`` mirrors.  In bf16
+   also the LR batch ``train --scale 8`` gives the blocks at crop 128
+   (16, 16, 16, 64) (``--scale 2``'s (16, 64, 64, 64) is the serving
+   shape).  Median times over 30 calls (CUDA events) and the device
+   time beside the bound.
 4. rdb_fwd_ext (B7): the row-extended forward, checked as rdb_fwd on the
    data rows of its padded buffer, at the serving shape, a row-ragged
    eligible one, a wide eligible one (W = 144) and the training shape;
@@ -57,8 +59,9 @@ renders, tile batches or tool calls imply, every other counter (the
    own, and the schedule the launches run the one ``ops.rdb.
    ilv_schedule`` mirrors.  Routing: a forward that a backward follows
    goes to B1.
-6. rdb_bwd (B2): the RDB backward at the training shape (64, 32, 32, 64)
-   and a ragged one; every stage (each cotangent dy_j of the kernel's DY
+6. rdb_bwd (B2): the RDB backward at the training shape (64, 32, 32, 64),
+   a ragged one and, in bf16, the ``--scale 2`` and ``--scale 8`` LR
+   batches (16, 64, 64, 64) and (16, 16, 16, 64); every stage (each cotangent dy_j of the kernel's DY
    buffer, dx, each dW and db) held against a plain computation of the
    kernel's own inputs to it, the whole against ``rdb_bwd_reference``,
    beside five wrong kernels; dW and db bit-equal over two backwards; a
@@ -167,6 +170,32 @@ renders, tile batches or tool calls imply, every other counter (the
     counters at what the calls imply.
 26. train_speed: pretrain and GAN step times at batch 16 and 64 (eager
     steps), and a ``train_profile`` line for one GAN step at 64.
+27. external (after test, on its checkpoint): the 23-RRDB weights under
+    xinntao's old-arch names, and exported by
+    ``tools/export_torch_checkpoint.py`` under xinntao's new-arch and
+    BasicSR's: ``test`` and one ``serve`` request on each give the
+    reference-named checkpoint's bytes, B1 at 345 launches a forward;
+    the BasicSR file loads back to the same weights.
+28. pack_train (after interp; 28-31 on seeded PNGs, 40 training images
+    and 4 eval images of 160 x 160, full width, crop 128, batch 16):
+    ``pack`` of both, the first epoch's crops from the pack under
+    ``--shuffle-window 4`` byte-equal to the directory's, ``train``
+    from the packs with ``--shuffle-window 4 --data-workers 2
+    --sample-image``, one epoch each phase, async saves, B1 and B2 at
+    what the steps, evals and renders imply; ``eval`` on the eval pack
+    equal to ``eval`` on its directory.
+29. scale: ``train --scale 2`` and ``--scale 8`` (B1/B2 at LR 64 x 64
+    and 16 x 16), ``test`` on each gan-best (2x / 8x the input) and one
+    ``serve`` request on the 8x one, the launches exact.
+30. preempt: ``train`` in a subprocess receives SIGTERM after a capture
+    and two replays of the pretrain: it exits 0 with
+    ``esrgan-psnr-latest.pth`` at that step; the resume re-runs the
+    epoch; an async and a sync save of one state are byte-equal (each
+    one's stall of the loop printed).
+31. fast_compile: ``train`` and ``train --fast-compile`` twice from one
+    seed: no graph captured under the flag, the graphed run's gan-latest
+    within the noise floor of the two eager runs, equal launches; the
+    time to the first step both ways.
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
 power limit again, a ``kernels`` JSON line (all eight kernels), and as
@@ -177,7 +206,8 @@ work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
 pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
 train_grad_ext, train_grad_xla, train, train_ext, train_speed, eval and
 interp (each after train), srgan_train, multistep, bench, serve_graph,
-export, batching (the last three on a seeded 23-RRDB generator).
+export, batching, external (these four on a seeded 23-RRDB generator),
+pack_train, scale, preempt, fast_compile.
 """
 
 from __future__ import annotations
@@ -262,6 +292,9 @@ EXT_RAGGED = (3, 37, 48)
 EXT_INELIGIBLE = (2, 16, 45)
 SCALE = 0.2  # the blocks' residual scale
 NUM_RRDB = 23
+# The LR batches ``train --scale 2`` and ``--scale 8`` give the blocks at
+# crop 128 and batch 16 (scale 2's forward shape is the serving one).
+SCALE_RDB_SHAPES = {"scale2": (16, 64, 64, 64), "scale8": (16, 16, 16, 64)}
 # The launch counters, by kernel: (module, attribute).  "rdb_bwd_xla"
 # counts the TORCHSR_RDB_BWD=xla backward (no kernel), 0 on every path
 # here; the pair kernels run on the two bench tools' paths only.
@@ -828,6 +861,7 @@ def phase_rdb(seed: int) -> dict:
     x = (torch.randn(SERVE_RDB_SHAPE, generator=g) * 0.5).to(dev)
     xw = (torch.randn((*WIDE, 64), generator=g) * 0.5).to(dev)
     xt = (torch.randn(TRAIN_RDB_SHAPE, generator=g) * 0.5).to(dev)
+    xs8 = (torch.randn(SCALE_RDB_SHAPES["scale8"], generator=g) * 0.5).to(dev)
     b, h, w = RAGGED
     rows = {}
     with torch.inference_mode():
@@ -840,6 +874,13 @@ def phase_rdb(seed: int) -> dict:
             row["train"] = hold_rdb(xt.to(dtype), kd, bs, ks)
             check("run_edge_lost" in row["wide"]["kxpack_wrong_excess"],
                   "rdb_fwd: the wide shape holds run_edge_lost")
+            if dtype == torch.bfloat16:
+                xs8d = xs8.to(dtype)
+                row["scale8"] = hold_rdb(xs8d, kd, bs, ks)
+                row["scale8"]["ms"] = median_ms(
+                    lambda: rdb_ops.fused_rdb(xs8d, kd, bs))
+                row["scale8"]["bound_ms"] = rdb_bound_ms(
+                    SCALE_RDB_SHAPES["scale8"], dtype)[0]
             row["ms"] = median_ms(lambda: rdb_ops.fused_rdb(xd, kd, bs))
             row["profile"] = bwd_profile(
                 lambda: rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE))
@@ -1296,6 +1337,9 @@ def phase_rdb_bwd(seed: int) -> dict:
     ks, bs = _rdb_weights(gen, dev)
     x = (torch.randn(TRAIN_RDB_SHAPE, generator=gen) * 0.5).to(dev)
     g = (torch.randn(TRAIN_RDB_SHAPE, generator=gen) * 0.1).to(dev)
+    scaled = {name: ((torch.randn(shape, generator=gen) * 0.5).to(dev),
+                     (torch.randn(shape, generator=gen) * 0.1).to(dev))
+              for name, shape in SCALE_RDB_SHAPES.items()}
     b, h, w = RAGGED
     rows = {}
     with torch.no_grad():
@@ -1305,6 +1349,17 @@ def phase_rdb_bwd(seed: int) -> dict:
             row = hold_rdb_bwd(xd, kd, bs, gd)
             row["ragged"] = hold_rdb_bwd(xd[:b, :h, :w], kd, bs,
                                          gd[:b, :h, :w])
+            if dtype == torch.bfloat16:
+                for name, (xs, gs) in scaled.items():
+                    xs, gs = xs.to(dtype), gs.to(dtype)
+                    row[name] = hold_rdb_bwd(xs, kd, bs, gs)
+                    _, fs = rdb_ops.rdb_fwd_cuda(xs, kd, bs,
+                                                 scale_ratio=SCALE)
+                    row[name]["ms"] = median_ms(
+                        lambda: rdb_ops.rdb_bwd_cuda(gs, fs, kd,
+                                                     scale_ratio=SCALE))
+                    row[name]["bound_ms"] = rdb_bwd_bound_ms(
+                        SCALE_RDB_SHAPES[name], dtype)[0]
             _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
 
             def call():
@@ -1325,8 +1380,10 @@ def phase_rdb_bwd(seed: int) -> dict:
                 stage_limits=BWD_STAGE_LIMITS[dtype],
                 dy_limits=DY_LIMITS[dtype],
                 block_limits=BWD_BLOCK_LIMITS[dtype], **row)
-            for r, where in ((row, "training"), (row["ragged"], "ragged")):
-                check_bwd_row(r, f"rdb_bwd {name} {where}")
+            for where in ("ragged", *SCALE_RDB_SHAPES):
+                if where in row:
+                    check_bwd_row(row[where], f"rdb_bwd {name} {where}")
+            check_bwd_row(row, f"rdb_bwd {name} training")
             check_bwd_profile(row["profile"], dtype, f"rdb_bwd {name}")
     return rows
 
@@ -1885,13 +1942,17 @@ def phase_train_grad(seed: int, variant: str = "") -> dict:
         return _train_grad(seed, phase, kernels)
 
 
-def _train_grad(seed: int, phase: str, kernels: tuple) -> dict:
+def _train_grad(seed: int, phase: str, kernels: tuple,
+                scale: int = 4) -> dict:
+    """``phase_train_grad`` with the generator at ``scale``, on the LR
+    crop a 128 HR crop gives it."""
     dev = torch.device(DEVICE)
     gen = ESRGANGenerator(
-        num_rrdb_blocks=NUM_RRDB,
+        num_rrdb_blocks=NUM_RRDB, scale_factor=scale,
         generator=torch.Generator().manual_seed(seed + 5)).to(dev)
     g = torch.Generator().manual_seed(seed + 6)
-    x = torch.rand((TRAIN_GRAD_BATCH, 32, 32, 3), generator=g).to(dev)
+    lr = 128 // scale
+    x = torch.rand((TRAIN_GRAD_BATCH, lr, lr, 3), generator=g).to(dev)
     hr = torch.rand((TRAIN_GRAD_BATCH, 128, 128, 3), generator=g).to(dev)
     names, params = zip(*gen.named_parameters())
 
@@ -1926,7 +1987,7 @@ def _train_grad(seed: int, phase: str, kernels: tuple) -> dict:
                                         if ".RDB" not in n),
         }
         say(f"{phase}[{name}]", batch=TRAIN_GRAD_BATCH, rrdb=NUM_RRDB,
-            kernels=list(kernels), **row)
+            lr_hw=lr, kernels=list(kernels), **row)
         check_counts(f"{phase} {name}: one kernel forward and backward "
                      f"per block", counts, **{kernels[0]: 5 * 3 * NUM_RRDB,
                                               kernels[1]: 3 * NUM_RRDB})
@@ -3488,6 +3549,521 @@ def phase_bench(seed: int) -> dict:
     return paths
 
 
+# The run phases (pack_train, scale, preempt, fast_compile): full width,
+# crop 128, batch 16, on seeded PNGs made once a process: 40 training
+# images of 160 x 160 (two steps an epoch) and an eval set of 4
+# (``--eval-dir``: one eval batch), beside a 48 x 64 sample image given
+# by ``--sample-image``.  The images are smooth (an 8 x 8 random grid
+# resized bicubically), so that a run learns something: on pure noise
+# one GAN epoch at 2x drove the eval PSNR to -1.65 dB, below the best-
+# PSNR sentinel (-1), and wrote no gan-best.
+RUN_IMAGES = 40
+RUN_EVAL_IMAGES = 4
+RUN_STEPS = RUN_IMAGES // TRAIN_BATCH
+RUN_EVALS = -(-RUN_EVAL_IMAGES // TRAIN_BATCH)
+RUN_WINDOW = 4  # pack_train's --shuffle-window
+PREEMPT_MULTIPLIER = 3  # preempt: 120 samples, 7 steps of 16
+PREEMPT_AFTER_CALLS = 3  # the signal comes after a capture and 2 replays
+SCALE_REQUEST = (64, 64)  # one serving tile
+SCALE_MULTIPLIER = 3  # scale: 120 samples, 7 steps of 16 an epoch
+SCALE_STEPS = SCALE_MULTIPLIER * RUN_IMAGES // TRAIN_BATCH
+_RUN_DATA: dict = {}
+
+
+def _smooth_image(rng, hw) -> np.ndarray:
+    from PIL import Image
+
+    grid = rng.integers(0, 256, (8, 8, 3), np.uint8)
+    return np.asarray(Image.fromarray(grid).resize(hw[::-1],
+                                                   Image.BICUBIC))
+
+
+def _run_data(seed: int) -> dict:
+    """The run phases' seeded images: {"ds", "val", "sample"} paths."""
+    if _RUN_DATA.get("seed") != seed:
+        import shutil
+
+        root = os.path.join(ROOT, "build", "chip_smoke", "run_data")
+        shutil.rmtree(root, ignore_errors=True)
+        rng = np.random.default_rng(seed + 20)
+        for sub, n in (("ds", RUN_IMAGES), ("val", RUN_EVAL_IMAGES)):
+            os.makedirs(os.path.join(root, sub))
+            for i in range(n):
+                _write_png(os.path.join(root, sub, f"img{i:03d}.png"),
+                           _smooth_image(rng, TRAIN_IMAGE_HW))
+        _write_png(os.path.join(root, "sample.png"),
+                   _smooth_image(rng, SAMPLE_HW))
+        _RUN_DATA.clear()
+        _RUN_DATA.update(seed=seed, ds=os.path.join(root, "ds"),
+                         val=os.path.join(root, "val"),
+                         sample=os.path.join(root, "sample.png"))
+    return _RUN_DATA
+
+
+@contextlib.contextmanager
+def _workdir(name: str):
+    """A fresh ``build/chip_smoke/<name>`` as the working directory for
+    the block, removed after it (a full-width training checkpoint holds
+    ~400 MB)."""
+    import shutil
+
+    path = os.path.join(ROOT, "build", "chip_smoke", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _quiet(argv: list) -> str:
+    """``cli.main(argv)`` in this process; returns what it printed."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        cli.main([str(a) for a in argv])
+    return log.getvalue()
+
+
+def _train_argv(data: dict, seed: int, *extra) -> list:
+    os.environ["WANDB_MODE"] = "disabled"  # never a network sink
+    return ["train", "--train-dir", data["ds"], "--eval-dir", data["val"],
+            "--pretrain-epochs", 1, "--epochs", 1, "--batch-size",
+            TRAIN_BATCH, "--seed", seed, "--sample-image", data["sample"],
+            *extra]
+
+
+def _run_launches(phases: int = 2, steps: int = RUN_STEPS,
+                  renders: int = 1) -> dict:
+    """B1 and B2 launches of a run: each phase's steps forward and
+    backward; its eval batches and its sample render forward only."""
+    return {"rdb_fwd": 5 * 3 * NUM_RRDB * phases * (steps + RUN_EVALS
+                                                     + renders),
+            "rdb_bwd": 3 * NUM_RRDB * phases * steps}
+
+
+def _same_batches(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+        for x, y in zip(a, b))
+
+
+def phase_pack_train(seed: int) -> dict:
+    """``pack`` of the run's images, the first epoch's crops from the
+    pack (``--shuffle-window``) byte-equal to the directory's, then
+    ``train`` from the packs (train and eval) with ``--shuffle-window
+    --data-workers 2 --sample-image``, async saves: one epoch each phase
+    on B1/B2, the launches exact; ``eval`` on the eval pack equal to
+    ``eval`` on its directory."""
+    from PIL import Image
+
+    from torchsr_tpu_torch.data.loader import initialize_datasets
+
+    data = _run_data(seed)
+    paths: dict = {}
+    with _workdir("pack_train"):
+        t0 = time.perf_counter()
+        for src, out in ((data["ds"], "ds.tsrpack"),
+                         (data["val"], "val.tsrpack")):
+            _quiet(["pack", src, out])
+        pack_s = time.perf_counter() - t0
+        epoch0, host_s = {}, {}
+        for src, ev in ((data["ds"], data["val"]),
+                        ("ds.tsrpack", "val.tsrpack")):
+            loaders = initialize_datasets(
+                src, TRAIN_BATCH, 128, seed=seed, eval_directory=ev,
+                shuffle_window=RUN_WINDOW, workers=2)
+            # nothing decoded yet, but the files were written moments
+            # ago: the page cache is warm (a cold epoch of a DIV2K-sized
+            # set: tools/bench_loader.py)
+            t0 = time.perf_counter()
+            epoch0[src] = list(loaders[0].epoch(0))
+            host_s[src] = time.perf_counter() - t0
+        check(_same_batches(*epoch0.values()),
+              "pack_train: the first epoch's crops from the pack equal the "
+              "directory's")
+        data_packs = {**data, "ds": "ds.tsrpack", "val": "val.tsrpack"}
+        reset_counters()
+        t0 = time.perf_counter()
+        log = _quiet(_train_argv(data_packs, seed, "--shuffle-window",
+                                 RUN_WINDOW, "--data-workers", 2))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        paths["pack_train"] = read_counters()
+        with Image.open(os.path.join("output", "SR_epoch1.png")) as img:
+            sample = img.size
+        best = load_checkpoint("esrgan-gan-best.pth")
+        reports = {}
+        for src in (data["val"], "val.tsrpack"):
+            reset_counters()
+            _quiet(["eval", src, "--checkpoint", "esrgan-gan-best.pth",
+                    "--report", "report.json"])
+            paths[f"pack_train: eval {os.path.basename(src)}"] = \
+                read_counters()
+            with open("report.json") as fh:
+                reports[src] = json.load(fh)
+    say("pack_train", images=RUN_IMAGES, eval_images=RUN_EVAL_IMAGES,
+        shuffle_window=RUN_WINDOW, pack_s=pack_s,
+        first_epoch_host_s=host_s, train_wall_s=wall_s, launches=paths,
+        sample_png=list(sample),
+        eval_mean_psnr=[r["mean_psnr"] for r in reports.values()])
+    check("Preemption" not in log and best["extra"]["step"]
+          == 2 * RUN_STEPS, "pack_train: gan-best holds both phases' steps")
+    check(sample == (4 * SAMPLE_HW[1], 4 * SAMPLE_HW[0]),
+          f"pack_train: --sample-image rendered at 4x: {sample}")
+    check_counts("pack_train", paths["pack_train"], **_run_launches())
+    want_eval = 5 * 3 * NUM_RRDB * eval_forwards(
+        [TRAIN_IMAGE_HW] * RUN_EVAL_IMAGES)
+    for name, counts in paths.items():
+        if "eval" in name:
+            check_counts(name, counts, rdb_fwd=want_eval)
+    a, b = reports.values()
+    check(a == b, "pack_train: eval on the pack equals eval on the "
+                  "directory")
+    return paths
+
+
+def _serve_one(ckpt: str, frame: np.ndarray) -> tuple[np.ndarray, dict]:
+    """One PNG request to the checkpoint daemon; (answer, launches of
+    the request)."""
+    service = CheckpointUpscaleService(model="esrgan", checkpoint=ckpt,
+                                       device=DEVICE)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_counters()
+        req = urllib.request.Request(base + "/upscale", data=_png(frame),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            check(resp.status == 200, "/upscale 200")
+            body = resp.read()
+        counts = read_counters()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    return _unpng(body), counts
+
+
+def phase_scale(seed: int) -> dict:
+    """The 2x and 8x generators' parameter gradients, kernel path
+    against plain path at LR 64 x 64 and 16 x 16 (``_train_grad``);
+    ``train --scale 2`` and ``--scale 8`` (one epoch each phase, three
+    times the run's images: B1 and B2 at LR batches (16, 64, 64) and
+    (16, 16, 16)), ``test`` on each gan-latest (2x / 8x the input, B1
+    345 launches), and one ``serve`` request on the 8x checkpoint."""
+    data = _run_data(seed)
+    paths: dict = {}
+    rows = {}
+    for scale in (2, 8):
+        _train_grad(seed, f"train_grad_scale{scale}", ("rdb_fwd", "rdb_bwd"),
+                    scale)
+    frame = np.random.default_rng(seed + 21).integers(
+        0, 256, (*SCALE_REQUEST, 3), dtype=np.uint8)
+    for scale in (2, 8):
+        with _workdir(f"scale{scale}"):
+            reset_counters()
+            t0 = time.perf_counter()
+            log = _quiet(_train_argv(data, seed, "--scale", scale,
+                                     "--metrics-file", "metrics.jsonl",
+                                     "--dataset-multiplier", SCALE_MULTIPLIER))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            paths[f"scale{scale}"] = read_counters()
+            metrics = _finite_metrics("metrics.jsonl")
+            # gan-latest is written whatever the GAN epoch's eval PSNR
+            # (gan-best only above the -1 sentinel), so what follows
+            # does not hang on how well one epoch trained
+            latest = "esrgan-gan-latest.pth"
+            check(os.path.exists(latest) and load_checkpoint(latest)[
+                "extra"]["step"] == 2 * SCALE_STEPS,
+                  f"scale {scale}: gan-latest holds both phases' steps: "
+                  f"{log[-1500:]}")
+            _write_png("photo.png", np.random.default_rng(seed).integers(
+                0, 256, (*TEST_IMAGE, 3), np.uint8))
+            reset_counters()
+            _quiet(["test", "photo.png", "--checkpoint", latest])
+            paths[f"scale{scale}: test"] = read_counters()
+            with open("upres-photo.png", "rb") as fh:
+                sr = _unpng(fh.read())
+            rows[scale] = {"train_wall_s": wall_s, "test_shape":
+                           list(sr.shape), "metrics": metrics}
+            if scale == 8:
+                answer, paths["scale8: serve"] = _serve_one(latest, frame)
+                rows[scale]["serve_shape"] = list(answer.shape)
+        h, w = TEST_IMAGE
+        check(sr.shape == (scale * h, scale * w, 3) and sr.max() > sr.min(),
+              f"scale {scale}: test wrote a {scale}x non-constant image")
+        check_counts(f"scale{scale}", paths[f"scale{scale}"],
+                     **_run_launches(steps=SCALE_STEPS))
+        check_counts(f"scale{scale}: test", paths[f"scale{scale}: test"],
+                     rdb_fwd=5 * 3 * NUM_RRDB)
+    fh_, fw_ = SCALE_REQUEST
+    check(tuple(rows[8]["serve_shape"]) == (8 * fh_, 8 * fw_, 3),
+          "scale 8: serve answered 8x the request")
+    check_counts("scale8: serve", paths["scale8: serve"],
+                 rdb_fwd=5 * 3 * NUM_RRDB)
+    say("scale", rdb_shapes={k: list(v) for k, v in SCALE_RDB_SHAPES.items()},
+        runs=rows, launches=paths)
+    return paths
+
+
+# ``train`` in a process of its own whose third host call waits, after
+# it returns, for the SIGTERM the parent sends once it sees the marker
+# file: the signal arrives between replays (a capture and two replays
+# before it), whatever the timing of the machine.
+_PREEMPT_DRIVER = """
+import os, sys, time
+sys.path.insert(0, sys.argv[1])
+from torchsr_tpu_torch import cli
+from torchsr_tpu_torch.train.trainer import GANTrainer
+real, calls = GANTrainer._multi, []
+def multi(self, *a, **kw):
+    out = real(self, *a, **kw)
+    calls.append(1)
+    if len(calls) == int(sys.argv[2]):
+        open("replayed", "w").close()
+        deadline = time.time() + 120
+        while not self._preemption.requested and time.time() < deadline:
+            time.sleep(0.01)
+    return out
+GANTrainer._multi = multi
+cli.main(sys.argv[3:])
+"""
+
+
+def phase_preempt(seed: int) -> dict:
+    """``train`` in a subprocess gets SIGTERM between replays of the
+    pretrain: it exits 0, leaving ``esrgan-psnr-latest.pth`` at that
+    step boundary; the resume (in this process) re-runs the epoch; one
+    async save and one ``--sync-saves`` save of the trained state give
+    byte-equal files, and the loop's stall of each is printed."""
+    import signal
+
+    from torchsr_tpu_torch.train.trainer import run_train
+    from torchsr_tpu_torch.utils.checkpoint import save_checkpoint as save
+
+    data = _run_data(seed)
+    argv = _train_argv(data, seed, "--epochs", 0, "--steps-per-call", 1,
+                       "--dataset-multiplier", PREEMPT_MULTIPLIER,
+                       "--skip-image-save")
+    steps = PREEMPT_MULTIPLIER * RUN_IMAGES // TRAIN_BATCH
+    paths: dict = {}
+    with _workdir("preempt"):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _PREEMPT_DRIVER, ROOT,
+             str(PREEMPT_AFTER_CALLS), *map(str, argv)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "PYTHONPATH": ROOT})
+        try:
+            deadline = time.time() + 600
+            while not os.path.exists("replayed"):
+                check(proc.poll() is None and time.time() < deadline,
+                      "preempt: the run reached its third call")
+                time.sleep(0.05)
+            signalled_s = time.perf_counter() - t0
+            proc.send_signal(signal.SIGTERM)
+            out = proc.communicate(timeout=600)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        exit_s = time.perf_counter() - t0 - signalled_s
+        saved = load_checkpoint("esrgan-psnr-latest.pth")
+        reset_counters()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            trainer = run_train(cli.parse_args([str(a) for a in argv]))
+        torch.cuda.synchronize()
+        paths["preempt: resume"] = read_counters()
+        resumed = load_checkpoint("esrgan-psnr-latest.pth")
+        t0 = time.perf_counter()
+        trainer._save(1, "esrgan-psnr", "async")
+        async_stall_ms = (time.perf_counter() - t0) * 1e3
+        trainer.ckpt_writer.close()
+        t0 = time.perf_counter()
+        save("esrgan-psnr-sync.pth", 1, "esrgan-psnr",
+             trainer.gen.state_dict(), extra=trainer._full_state())
+        sync_stall_ms = (time.perf_counter() - t0) * 1e3
+        with open("esrgan-psnr-async.pth", "rb") as fa, \
+                open("esrgan-psnr-sync.pth", "rb") as fs:
+            byte_equal = fa.read() == fs.read()
+        size_mb = os.path.getsize("esrgan-psnr-sync.pth") / 1e6
+        gan_written = os.path.exists("esrgan-gan-latest.pth")
+    say("preempt", steps_per_epoch=steps, signal_after_calls=
+        PREEMPT_AFTER_CALLS, signalled_after_s=signalled_s,
+        exit_after_signal_s=exit_s, rc=proc.returncode,
+        saved={"epoch": saved["epoch"], "step": saved["extra"]["step"]},
+        resumed_step=resumed["extra"]["step"], launches=paths,
+        checkpoint_mb=size_mb, async_save_stall_ms=async_stall_ms,
+        sync_save_stall_ms=sync_stall_ms, async_sync_byte_equal=byte_equal)
+    check(proc.returncode == 0 and "Preemption signal received: saved "
+          "esrgan-psnr-latest.pth at epoch 1" in out,
+          f"preempt: SIGTERM'd run exits 0 after its save: {out[-2000:]}")
+    check(saved["epoch"] == 1 and saved["extra"]["step"]
+          == PREEMPT_AFTER_CALLS and not gan_written,
+          "preempt: psnr-latest holds the state at the step boundary")
+    check("Resuming pre-training from epoch 1" in log.getvalue()
+          and resumed["extra"]["step"] == PREEMPT_AFTER_CALLS + steps,
+          "preempt: the resume re-ran the interrupted epoch")
+    check_counts("preempt: resume", paths["preempt: resume"],
+                 **_run_launches(phases=1, steps=steps, renders=0))
+    check(byte_equal, "preempt: an async and a sync save of one state are "
+                      "byte-equal")
+    return paths
+
+
+def _checkpoint_categories(path: str) -> dict:
+    """A training checkpoint's tensors by ``_state_diff`` category."""
+    ck = load_checkpoint(path)
+    extra = ck["extra"]
+    cats = {"gen": list(ck["state"].values()),
+            "disc": list(extra["disc_state"].values()), "adam": [],
+            "adam_steps": []}
+    for key in ("psnr_opt_state", "gen_opt_state", "disc_opt_state"):
+        for st in extra[key]["state"].values():
+            cats["adam"] += [st["exp_avg"], st["exp_avg_sq"]]
+            cats["adam_steps"].append(st["step"])
+    return {c: [t.float() for t in ts] for c, ts in cats.items()}
+
+
+def phase_fast_compile(seed: int) -> dict:
+    """``train`` (graphed steps) and ``train --fast-compile`` (eager
+    steps, no capture) twice, from one seed: the graphed run's gan-latest
+    within the noise floor of the two eager runs (``_within_floor``),
+    the launches equal, no graph captured under the flag; the time from
+    the call to the first step's end both ways."""
+    from torchsr_tpu_torch.train import trainer as trainer_mod
+
+    data = _run_data(seed)
+    runs, paths = {}, {}
+    for name, extra in (("graphed", ()), ("fast_a", ("--fast-compile",)),
+                        ("fast_b", ("--fast-compile",))):
+        captures, first = [], []
+        real_multi, real_graph = (trainer_mod.GANTrainer._multi,
+                                  trainer_mod.StepGraph)
+
+        def multi(self, *a, **kw):
+            out = real_multi(self, *a, **kw)
+            if not first:
+                torch.cuda.synchronize()
+                first.append(time.perf_counter())
+            return out
+
+        def graph(*a, **kw):
+            captures.append(a[0])
+            return real_graph(*a, **kw)
+
+        with _workdir(f"fast_compile_{name}"):
+            trainer_mod.GANTrainer._multi = multi
+            trainer_mod.StepGraph = graph
+            try:
+                reset_counters()
+                t0 = time.perf_counter()
+                _quiet(_train_argv(data, seed, "--skip-image-save", *extra))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+            finally:
+                trainer_mod.GANTrainer._multi = real_multi
+                trainer_mod.StepGraph = real_graph
+            paths[f"fast_compile: {name}"] = read_counters()
+            runs[name] = {"first_step_s": first[0] - t0, "wall_s": wall_s,
+                          "captures": captures,
+                          "state": _checkpoint_categories(
+                              "esrgan-gan-latest.pth")}
+    floor = _state_diff(runs["fast_a"]["state"], runs["fast_b"]["state"])
+    diff = _state_diff(runs["graphed"]["state"], runs["fast_a"]["state"])
+    say("fast_compile", first_step_s={k: r["first_step_s"]
+                                      for k, r in runs.items()},
+        wall_s={k: r["wall_s"] for k, r in runs.items()},
+        captures={k: r["captures"] for k, r in runs.items()},
+        floor=floor, graphed_vs_fast=diff, launches=paths)
+    check(runs["graphed"]["captures"] == ["esrgan psnr", "esrgan gan"]
+          and not runs["fast_a"]["captures"]
+          and not runs["fast_b"]["captures"],
+          "fast_compile: graphs captured only without the flag")
+    check(_within_floor(diff, floor),
+          f"fast_compile: the graphed run's checkpoint within the eager "
+          f"runs' noise floor: {diff} vs {floor}")
+    for name, counts in paths.items():
+        check_counts(name, counts, **_run_launches(renders=0))
+    return paths
+
+
+def _old_arch(sd: dict) -> dict:
+    """The reference's keys -> xinntao's old-arch (``RRDB_ESRGAN_x4.pth``,
+    4x) ones, the inverse of the loader's rules, written out here."""
+    n = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    heads = (("conv1.", "model.0."), ("conv2.", f"model.1.sub.{n}."),
+             ("upsample1.", "model.3."), ("upsample2.", "model.6."),
+             ("conv3.0.", "model.8."), ("conv4.", "model.10."))
+    out = {}
+    for key, value in sd.items():
+        new = re.sub(r"^blocks\.(\d+)\.(RDB\d)\.(conv[1-4])\.0\.",
+                     r"model.1.sub.\1.\2.\3.0.", key)
+        new = re.sub(r"^blocks\.(\d+)\.(RDB\d)\.conv5\.",
+                     r"model.1.sub.\1.\2.conv5.0.", new)
+        for ref, ext in heads:
+            if new.startswith(ref):
+                new = ext + new[len(ref):]
+                break
+        out[new] = value
+    return out
+
+
+def phase_external(gen: ESRGANGenerator, ckpt: str, seed: int) -> dict:
+    """The 23-RRDB weights under the reference's names, xinntao's
+    old-arch (written here) and new-arch and BasicSR's (both by
+    ``tools/export_torch_checkpoint.py``): ``test`` and one ``serve``
+    request on each give the reference-named checkpoint's bytes, B1 at
+    345 launches a forward; the BasicSR file loads back to the same
+    weights."""
+    from torchsr_tpu_torch.tools import export_torch_checkpoint
+
+    paths: dict = {}
+    answers: dict = {}
+    rng = np.random.default_rng(seed + 22)
+    frame = rng.integers(0, 256, (*SCALE_REQUEST, 3), dtype=np.uint8)
+    sd = {k: v.detach().cpu() for k, v in gen.state_dict().items()}
+    with _workdir("external"):
+        files = {"reference": ckpt}
+        torch.save(_old_arch(sd), "old_arch.pth")
+        files["old_arch"] = "old_arch.pth"
+        for scheme in ("rrdbnet", "basicsr"):
+            files[scheme] = export_torch_checkpoint.export(
+                ckpt, scheme, out=f"{scheme}.pth")
+        _write_png("photo.png", rng.integers(0, 256, (*TEST_IMAGE, 3),
+                                             np.uint8))
+        for scheme, path in files.items():
+            reset_counters()
+            _quiet(["test", "photo.png", "--checkpoint", path])
+            paths[f"external: test {scheme}"] = read_counters()
+            with open("upres-photo.png", "rb") as fh:
+                test_bytes = fh.read()
+            served, paths[f"external: serve {scheme}"] = _serve_one(
+                path, frame)
+            answers[scheme] = (test_bytes, served.tobytes())
+        back = load_checkpoint(files["basicsr"])["state"]
+        raw_keys = sorted(torch.load(files["basicsr"],
+                                     weights_only=True)["params"])[:2]
+    say("external", schemes=list(files), basicsr_keys=raw_keys,
+        launches=paths)
+    for scheme, got in answers.items():
+        check(got == answers["reference"], f"external: {scheme} answers "
+              f"test and serve with the reference checkpoint's bytes")
+    for name, counts in paths.items():
+        check_counts(name, counts, rdb_fwd=5 * 3 * NUM_RRDB)
+    check(back.keys() == sd.keys()
+          and all(torch.equal(back[k], v) for k, v in sd.items()),
+          "external: the BasicSR export loads back to the same weights")
+    return paths
+
+
 # The kernels of the kernels line: (name, source, the TPU kernel it
 # replaces under torchsr_tpu/ops/pallas/, the timed rows and their key,
 # the timed shape).
@@ -3563,7 +4139,8 @@ def main() -> None:
              "pair_conv, bench_preprocess, bench_pair_conv, train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, "
              "train_speed, eval, interp (both after train), srgan_train, "
-             "multistep, bench, serve_graph, export, batching.")
+             "multistep, bench, serve_graph, export, batching, external, "
+             "pack_train, scale, preempt, fast_compile.")
     args = parser.parse_args()
     smi = phase_probe()
     # f32 references in full f32: cuDNN convolutions default to TF32
@@ -3616,7 +4193,10 @@ def main() -> None:
                                 **phase_serve_graph(gen, s, ilv=True)},
                 "gen"),
             "export": serving(phase_export, "gen", "ckpt"),
-            "batching": serving(phase_batching, "ckpt")}
+            "batching": serving(phase_batching, "ckpt"),
+            "external": serving(phase_external, "gen", "ckpt"),
+            "pack_train": phase_pack_train, "scale": phase_scale,
+            "preempt": phase_preempt, "fast_compile": phase_fast_compile}
         for name in args.only.split(","):
             run(name, phases[name], seed)
         say("seconds", **seconds)
@@ -3647,6 +4227,7 @@ def main() -> None:
     paths.update(run("export", phase_export, gen, ckpt, seed))
     paths.update(run("batching", phase_batching, ckpt, seed))
     run("test", phase_test, ckpt, seed)
+    paths.update(run("external", phase_external, gen, ckpt, seed))
     del gen
     for phase, ext in (("train", False), ("train_ext", True)):
         row = run(phase, phase_train, seed, ext=ext)
@@ -3655,6 +4236,10 @@ def main() -> None:
             paths[" ".join([f"{phase}: test", *t["args"]])] = t["launches"]
     paths.update(run("eval", phase_eval, seed))
     paths.update(run("interp", phase_interp, seed))
+    for name, fn in (("pack_train", phase_pack_train), ("scale", phase_scale),
+                     ("preempt", phase_preempt),
+                     ("fast_compile", phase_fast_compile)):
+        paths.update(run(name, fn, seed))
     paths.update(run("srgan_train", phase_srgan_train, seed))
     paths.update(run("multistep", phase_multistep, seed))
     paths.update(run("bench", phase_bench, seed))

@@ -80,3 +80,38 @@ def test_doctor_reads_an_srgan_checkpoint(tmp_path):
     info = doctor.collect_report(checkpoint=str(ckpt))["checkpoint"]
     assert (info["detected_model"], info["detected_blocks"],
             info["detected_scale"]) == ("srgan", 3, 2)
+
+
+def test_doctor_device_check_and_no_device_check(tmp_path, monkeypatch):
+    """The card probe (the JAX doctor's ``device_sanity``) runs by
+    default and reports the missing card here; ``--no-device-check``
+    leaves it out (the JAX flag); the build cache and a packed dataset
+    are reported."""
+    from torchsr_tpu_torch.data.packed import pack_dataset
+
+    for i in range(10):
+        Image.fromarray(np.full((8, 8, 3), i, np.uint8)).save(
+            tmp_path / f"img{i}.png")
+    pack_dataset(str(tmp_path), str(tmp_path / "ds.tsrpack"))
+    monkeypatch.setenv("TORCHSR_COMPILE_CACHE", str(tmp_path / "kc"))
+    report = doctor.collect_report(train_dir=str(tmp_path / "ds.tsrpack"))
+    assert report["device_sanity"]["ok"] is False
+    assert "no CUDA device" in report["device_sanity"]["error"]
+    assert report["kernel_build_cache"] == {
+        "dir": str(tmp_path / "kc"),
+        "from": f"TORCHSR_COMPILE_CACHE={tmp_path / 'kc'}"}
+    assert (report["dataset"]["train_images"],
+            report["dataset"]["val_images"]) == (9, 1)
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchsr_tpu_torch", "doctor", "--json",
+         "--no-device-check"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "device_sanity" not in json.loads(proc.stdout)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchsr_tpu_torch", "doctor"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "device_sanity:" in proc.stdout
+    assert proc.stdout.rstrip().endswith("verdict: PROBLEMS")

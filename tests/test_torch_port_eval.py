@@ -180,9 +180,10 @@ def test_eval_refusals(setup, tmp_path, monkeypatch):
     with pytest.raises(SystemExit):  # an artifact's dtype is baked in
         cli.parse_args(["eval", image_dir, "--artifact", "art.pt2",
                         "--bf16"])
+    # a pack cut short (the magic and 16 bytes): the reader's error
     pack = tmp_path / "val.tsrpack"
     pack.write_bytes(b"TSRPACK1" + bytes(16))
-    with pytest.raises(ValueError, match="A10b"):
+    with pytest.raises(ValueError, match="truncated"):
         evaluate.run_eval(_args(str(pack), "esrgan", ckpts["esrgan"],
                                 device="cpu"), ESRGANGenerator)
     (tmp_path / "empty").mkdir()
@@ -195,6 +196,22 @@ def test_eval_refusals(setup, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="cuda"):
             cli.main(["eval", image_dir, "--model", model,
                       "--checkpoint", ckpts[model]])
+
+
+def test_eval_on_a_pack_equals_the_directory(setup, tmp_path):
+    """``eval`` on the ``.tsrpack`` of the directory (written by the JAX
+    package's ``pack_dataset``) reports what it reports on the
+    directory."""
+    from torchsr_tpu.data.packed import pack_dataset
+
+    image_dir, ckpts = setup
+    pack = str(tmp_path / "val.tsrpack")
+    pack_dataset(image_dir, pack)
+    reports = [evaluate.run_eval(_args(path, "esrgan", ckpts["esrgan"],
+                                       device="cpu", crop=40),
+                                 ESRGANGenerator)
+               for path in (image_dir, pack)]
+    assert reports[0] == reports[1]
 
 
 def test_cli_eval_writes_the_report(setup, tmp_path, monkeypatch):

@@ -141,9 +141,21 @@ def test_state_dict_wrappers_are_taken_off():
     ).keys() == {"a"}
 
 
-def test_from_jax_variables_rejects_stacked_scan_params():
-    with pytest.raises(ValueError, match="scan"):
-        from_jax_variables({"params": {"blocks_scan": {}}})
+def test_from_jax_variables_rejects_stacked_scan_params(jax_model):
+    """A stacked ``blocks_scan`` tree (the JAX ``--fast-compile``
+    layout, made by the JAX package's ``stack_blocks``) now loads, equal
+    to the unrolled one."""
+    from torchsr_tpu.models.scan_compat import stack_blocks
+
+    variables = jax_model[0]
+    stacked = {"params": jax.tree.map(
+        np.asarray, stack_blocks(variables["params"]))}
+    assert "blocks_scan" in stacked["params"]
+    want = from_jax_variables(variables)
+    got = from_jax_variables(stacked)
+    assert list(got) == list(want)
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize(

@@ -20,6 +20,7 @@ from torchsr_tpu.ops.pallas.rdb import fused_rdb as jax_fused_rdb
 from torchsr_tpu_torch.models.esrgan import ResidualDenseBlock
 from torchsr_tpu_torch.ops import _build
 from torchsr_tpu_torch.ops import rdb as rdb_ops
+from torchsr_tpu_torch.utils.compile_cache import kernel_build_dir
 
 # f32 on both sides, summed in other orders: measured ~2e-7.
 ATOL = 1e-5
@@ -138,5 +139,5 @@ def test_kernel_sources_export_the_bound_symbols():
             assert m, f"{fn} not defined in {name}.cu"
             assert len(m.group(1).split(",")) == len(argtypes)
         path = _build.library_path(name)
-        assert path.parent == _build.BUILD_DIR
+        assert path.parent == kernel_build_dir()
         assert path == _build.library_path(name)  # content-addressed

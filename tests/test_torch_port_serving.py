@@ -288,12 +288,18 @@ def test_cli_registers_only_ported_flags():
         None, False, 2.0)
     args = cli.parse_args(["export", "x"])
     assert (args.tile, args.tile_batch, args.device) == (64, 8, "cuda")
-    for argv in (["train", "--fast-compile"], ["train", "--scale", "2"],
-                 ["test", "a.png", "--spatial-shard"],
+    args = cli.parse_args(["train", "--fast-compile", "--scale", "2",
+                           "--shuffle-window", "64"])
+    assert (args.fast_compile, args.upscale_factor,
+            args.shuffle_window) == (True, 2, 64)
+    args = cli.parse_args(["train"])
+    assert (args.fast_compile, args.upscale_factor,
+            args.shuffle_window) == (False, 4, 0)
+    args = cli.parse_args(["pack", "ds", "ds.tsrpack"])
+    assert (args.source, args.output) == ("ds", "ds.tsrpack")
+    for argv in (["test", "a.png", "--spatial-shard"],
                  ["serve", "--shard-tiles"],
                  ["test", "a.png", "--tile", "8", "--tile-overlap", "8"],
-                 ["pack", "ds", "ds.tsrpack"], ["train", "--shuffle-window",
-                                                "64"],
                  ["eval", "val", "--tile", "8", "--tile-overlap", "8"]):
         with pytest.raises(SystemExit):
             cli.parse_args(argv)

@@ -5,7 +5,8 @@ crop 32, batch 2, ``--vgg-convs 2``, f32); its initial generator,
 discriminator (with BatchNorm statistics) and VGG weights cross to the
 port's trainer through ``from_jax_variables``; both take one
 ``pretrain_step`` and one ``gan_step`` on the same uint8 batch, the
-method of tests/test_step_parity.py.  Then the port's ``train`` runs on
+method of tests/test_step_parity.py, and one ``gan_step`` at ``--scale
+2`` and ``--scale 8``.  Then the port's ``train`` runs on
 the CPU end to end and ``test`` loads what it wrote.
 
 Adam's first step moves each parameter by about lr * sign(g), so an
@@ -64,6 +65,12 @@ ATOL_PARAM, RTOL_PARAM = 2e-5, 1e-3
 # values at batch 2, crop 32; tests/test_step_parity.py, at batch 4,
 # uses 1%)
 NOISE_GEN, NOISE_DISC = 0.05, 0.05
+# the --scale 2/8 steps run at batch 4, as tests/test_step_parity.py
+# does: at batch 2 the discriminator's update is at the mercy of
+# rounding (one f32 ulp on the port's own LR input flips elements with
+# |g| up to 66% of a tensor's max at 4x); at batch 4 the flipped
+# elements measured <= 0.05% (2x) and 0.13% (8x) of the max
+SCALE_BATCH = 4
 # the discriminator's running statistics after four train-mode calls
 # through a discriminator whose near-zero-gradient weights moved +-lr
 # apart (measured 6.3e-4; tests/test_step_parity.py allows 5e-3)
@@ -92,9 +99,10 @@ def _np(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 
 
-def _port_trainer(host, vgg_params):
+def _port_trainer(host, vgg_params, **kw):
     """A port trainer holding the JAX state ``host``."""
-    trainer = ESRGANTrainer(_args(), types.SimpleNamespace(crop_size=CROP),
+    trainer = ESRGANTrainer(_args(**kw),
+                            types.SimpleNamespace(crop_size=CROP),
                             None, 1, 1, device=torch.device("cpu"),
                             logger=Logger())
     trainer.gen.load_state_dict(from_jax_variables(
@@ -107,10 +115,11 @@ def _port_trainer(host, vgg_params):
     return trainer
 
 
-def _batch():
+def _batch(n=BATCH):
     rng = np.random.default_rng(42)
-    crops = rng.integers(0, 256, (BATCH, CROP, CROP, 3), dtype=np.uint8)
-    flips = np.array([[True, False], [False, True]])
+    crops = rng.integers(0, 256, (n, CROP, CROP, 3), dtype=np.uint8)
+    flips = np.array([[True, False], [False, True], [True, True],
+                      [False, False]][:n])
     # the same LR/HR pair on both sides (no quantization tie in it)
     lr_j, hr_j = jax_pair(crops, flips, 4)
     lr, hr = synthesize_pair(torch.from_numpy(crops),
@@ -136,13 +145,35 @@ def _assert_params_close(ours_jax, port_tree, grads, noise_frac, what):
     most 10% (or 4 elements) of a tensor."""
     theirs = _match_tree(ours_jax, port_tree)
     grads = _match_tree(ours_jax, grads)
-    for (path, a), b, g in zip(
-        jax.tree_util.tree_flatten_with_path(ours_jax)[0],
-        jax.tree.leaves(theirs), jax.tree.leaves(grads),
-    ):
+    _assert_leaves_close(
+        ((f"{what} {jax.tree_util.keystr(path)}", a, b, g)
+         for (path, a), b, g in zip(
+             jax.tree_util.tree_flatten_with_path(ours_jax)[0],
+             jax.tree.leaves(theirs), jax.tree.leaves(grads))),
+        noise_frac)
+
+
+def _assert_state_close(jax_tree, module, noise_frac, what):
+    """The same rule in the port's layout: JAX's updated parameters
+    through ``from_jax_variables`` against ``module``'s, with its
+    gradients (the JAX package's converters to its layout know only
+    the 4x generator)."""
+    want = from_jax_variables({"params": _np(jax_tree)})
+    _assert_leaves_close(
+        ((f"{what} {name}", want[name], p.detach(),
+          p.grad if p.grad is not None else torch.zeros_like(p))
+         for name, p in module.named_parameters()),
+        noise_frac)
+
+
+def _assert_leaves_close(leaves, noise_frac):
+    """(where, JAX's, the port's, the port's gradient) a leaf: decisive
+    elements to (ATOL_PARAM, RTOL_PARAM), the others within two Adam
+    steps and at most 10% (or 4 elements) of a tensor."""
+    for where, a, b, g in leaves:
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
         g = np.abs(np.asarray(g, np.float64))
-        where = f"{what} {jax.tree_util.keystr(path)}"
+        assert a.shape == b.shape, where
         bad = np.abs(a - b) > ATOL_PARAM + RTOL_PARAM * np.abs(b)
         decisive = g >= max(1e-7, noise_frac * float(g.max()))
         assert not (bad & decisive).any(), (
@@ -205,6 +236,59 @@ def test_gan_step_matches_jax(jax_trainer, disc_lr):
                     jax.tree.leaves(stats)):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a),
                                    atol=ATOL_STATS, rtol=RTOL_STATS)
+
+
+@pytest.fixture(scope="module", params=[2, 8], ids=["x2", "x8"])
+def jax_trainer_at_scale(request):
+    scale = request.param
+    trainer = JaxTrainer(
+        _args(upscale_factor=scale, batch_size=SCALE_BATCH),
+        SyntheticTrainLoader(SCALE_BATCH, CROP, n_batches=1),
+        SyntheticEvalLoader(SCALE_BATCH, CROP, n_batches=1), 1, 1,
+        make_mesh(num_devices=1), DistributedContext(1, -1, -1, 1, False))
+    return scale, trainer, jax.device_get(trainer.state)
+
+
+@pytest.mark.parametrize("disc_lr", [0.0, LR], ids=["disc_lr0", "disc_lr"])
+def test_gan_step_at_scale_matches_jax(jax_trainer_at_scale, disc_lr,
+                                       monkeypatch):
+    """``--scale 2`` and ``--scale 8``: one GAN step on the LR/HR pair
+    JAX synthesizes (at 2x the two syntheses differ by one uint8 level
+    at ties, held with their own tolerance in
+    tests/test_torch_port_scale.py, so here the port's step is handed
+    JAX's pair), at batch 4, to the 4x test's tolerances."""
+    from torchsr_tpu_torch.train import trainer as trainer_mod
+
+    scale, jt, host = jax_trainer_at_scale
+    crops, flips = _batch(SCALE_BATCH)
+    lr_j, hr_j = jax_pair(crops, flips, scale)
+    monkeypatch.setattr(
+        trainer_mod, "synthesize_pair",
+        lambda c, f, s: (torch.from_numpy(np.array(lr_j)),
+                         torch.from_numpy(np.array(hr_j))))
+    pt = _port_trainer(host, jt.vgg_params, upscale_factor=scale,
+                       batch_size=SCALE_BATCH)
+    assert pt.upscale == scale and pt.gen.scale_factor == scale
+    state, met = jt.gan_step(replicate(host, jt.mesh),
+                             *jt._put(crops, flips), LR, disc_lr,
+                             jt.vgg_params)
+    got = pt.gan_step(torch.from_numpy(crops), torch.from_numpy(flips),
+                      LR, disc_lr)
+    for key, rtol in (("disc_loss", RTOL_DISC_LOSS), ("gen_loss", RTOL_LOSS)):
+        assert torch.isfinite(got[key])
+        np.testing.assert_allclose(float(got[key]), float(met[key]),
+                                   rtol=rtol, err_msg=key)
+    state = jax.device_get(state)
+    if disc_lr == 0.0:
+        _assert_state_close(state.gen_params, pt.gen, NOISE_GEN,
+                            "generator")
+    else:
+        _assert_params_close(
+            state.disc_params,
+            convert_esrgan_discriminator(pt.disc.state_dict(),
+                                         image_size=CROP)["params"],
+            _grads(pt.disc, lambda sd: convert_esrgan_discriminator(
+                sd, image_size=CROP)), NOISE_DISC, "discriminator")
 
 
 def test_gan_step_keeps_the_discriminator_trainable(jax_trainer):

@@ -1,10 +1,11 @@
 """CLI: ``python -m torchsr_tpu_torch
-train|test|export|serve|eval|interp|doctor``.
+train|test|export|serve|eval|interp|pack|doctor``.
 
 The ported subcommands keep the JAX CLI's flag names and defaults, plus
 ``--device`` (default ``cuda``: the port runs on the card unless asked
-for the CPU, and raises when CUDA is absent).  Subcommands and flags
-that are not ported yet are not registered (ROADMAP.md, queue A).
+for the CPU, and raises when CUDA is absent; ``pack`` and ``doctor``
+are host-only).  Subcommands and flags that are not ported yet (the
+multi-process and mesh ones) are not registered (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -67,13 +68,25 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     train.add_argument(
         "--train-dir", type=str, default=TRAIN_DIR,
         help=f"Directory where training images are stored (90/10 "
-             f"train/eval split by --seed). Default: {TRAIN_DIR}.",
+             f"train/eval split by --seed), or a .tsrpack archive of it "
+             f"(`pack`). Default: {TRAIN_DIR}.",
     )
     train.add_argument(
         "--eval-dir", type=str,
-        help="Validate on ALL images in this directory instead of "
-             "holding out 10%% of --train-dir; training then uses the "
-             "full train directory.",
+        help="Validate on ALL images in this directory (or .tsrpack) "
+             "instead of holding out 10%% of --train-dir; training then "
+             "uses the full train directory.",
+    )
+    train.add_argument(
+        "--data-workers", type=positive_integer, default=16,
+        help="Threads that decode and crop for each data loader.",
+    )
+    train.add_argument(
+        "--shuffle-window", type=nonnegative_integer, default=0,
+        help="Out-of-core shuffle: visit windows of N samples in random "
+             "order (shuffled within each) instead of one global "
+             "permutation, so a dataset larger than the decode cache is "
+             "decoded once an epoch. 0 (default) = global shuffle.",
     )
     train.add_argument(
         "--dataset-multiplier", type=positive_integer, default=1,
@@ -137,6 +150,38 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     train.add_argument(
         "--skip-image-save", action="store_true",
         help="Skip generating and saving the per-epoch sample image.",
+    )
+    train.add_argument(
+        "--sample-image", type=str,
+        help="Override the per-epoch progress sample image path "
+             "(default: media/waterfalls-low-res.png).",
+    )
+    train.add_argument(
+        "--scale", type=int, default=4, choices=(2, 4, 8),
+        dest="upscale_factor",
+        help="Upscale factor: the generator's upsample stage count "
+             "(log2(scale)) and the LR synthesis ratio; test, eval, "
+             "export and serve read the scale from the checkpoint.",
+    )
+    train.add_argument(
+        "--fast-compile", action="store_true",
+        help="Shorten the cold start: run every training step eagerly "
+             "instead of capturing it into a CUDA graph (the first step "
+             "starts sooner; later steps pay their host launch time). "
+             "Parameters and checkpoints are the same as a default "
+             "run's.",
+    )
+    train.add_argument(
+        "--sync-saves", action="store_true",
+        help="Write checkpoints in the epoch loop instead of the default "
+             "writer thread (which snapshots the state on the device and "
+             "streams it to disk while training continues).",
+    )
+    train.add_argument(
+        "--no-preempt-save", action="store_true",
+        help="Install no SIGTERM handler (by default a termination "
+             "signal saves the full training state as {phase}-latest at "
+             "the next step boundary and exits cleanly).",
     )
     train.add_argument(
         "--psnr-checkpoint", type=str,
@@ -449,6 +494,23 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
         help="Model architecture of the checkpoints.",
     )
 
+    pack = commands.add_parser(
+        "pack",
+        help="Decode a dataset directory once into a .tsrpack archive of "
+             "raw uint8 images (the JAX package's format); train and "
+             "eval then read it through mmap (--train-dir, --eval-dir "
+             "and eval's image_dir take the archive wherever they take "
+             "a directory).",
+    )
+    pack.add_argument(
+        "source", type=str,
+        help="Dataset directory of .png/.jpg/.jpeg images.",
+    )
+    pack.add_argument(
+        "output", type=str,
+        help="Output archive path (conventionally .tsrpack).",
+    )
+
     doctor = commands.add_parser(
         "doctor",
         help="Diagnose the environment: torch/CUDA versions, the card, "
@@ -471,8 +533,20 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
         "--json", action="store_true",
         help="Emit the report as JSON instead of text.",
     )
+    doctor.add_argument(
+        "--no-device-check", action="store_true",
+        help="Skip the tiny matmul on the card (leaves the card alone, "
+             "e.g. while a benchmark owns it).",
+    )
 
     args = parser.parse_args(argv)
+    crop = getattr(args, "crop_size", None)
+    upscale = getattr(args, "upscale_factor", 4)
+    if crop and crop % upscale:
+        parser.error(
+            f"--crop-size ({crop}) must be divisible by --scale "
+            f"({upscale}): the LR crop is their quotient"
+        )
     tile = getattr(args, "tile", 0)
     if tile and getattr(args, "tile_overlap", 0) >= tile:
         parser.error(
@@ -532,6 +606,10 @@ def main(argv: list[str] | None = None) -> None:
                                       args.gan_checkpoint, args.alpha,
                                       output, args.model)
         print(f"Saved interpolated checkpoint to {out}")
+    elif args.function == "pack":
+        from torchsr_tpu_torch.data.packed import pack_dataset
+
+        pack_dataset(args.source, args.output, log=print)
     elif args.function == "doctor":
         from torchsr_tpu_torch.utils.doctor import run_doctor
 

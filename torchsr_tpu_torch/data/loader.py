@@ -1,14 +1,18 @@
 """Host-side loaders: threaded decode, uint8 crops, flip bits.
 
-The port of ``torchsr_tpu/data/loader.py`` (without packed datasets or
-windowed shuffles).  Decoded images sit in a bounded LRU cache in host
-RAM; each sample's crop position and flips are a splitmix64 hash of
-(seed, epoch, sample index), and the epoch order a permutation drawn
-from ``numpy.random.default_rng((seed, epoch))``, so for one seed and
-one directory the uint8 crops and flip bits are byte-identical to the
-JAX package's.  Train batches drop the final partial batch; eval
-batches are padded and carry their count of valid samples.  A
-``dataset_multiplier`` of N repeats the path list N times in both
+The port of ``torchsr_tpu/data/loader.py`` (one process: no host
+sharding).  Decoded images sit in a bounded LRU cache in host RAM; each
+sample's crop position and flips are a splitmix64 hash of (seed, epoch,
+sample index), and the epoch order a permutation drawn from
+``numpy.random.default_rng((seed, epoch))``, regrouped into windows by
+the same generator under ``shuffle_window``, so for one seed and one
+dataset the uint8 crops and flip bits are byte-identical to the JAX
+package's.  A dataset is a directory or a pack (``data/packed.py``): a
+pack's reader is its own cache (the OS page cache), so the RAM cache
+then holds nothing, and the crops sliced from its read-only views are
+copied into the batch.  Train batches drop the final partial batch;
+eval batches are padded and carry their count of valid samples.  A
+``dataset_multiplier`` of N repeats the name list N times in both
 loaders, the JAX loaders' semantics: each repeat is a sample index of
 its own, so it draws its own crop and flips.
 """
@@ -92,8 +96,24 @@ def _crop_at(img: np.ndarray, size: int, r0: int, r1: int) -> np.ndarray:
     return img[top:top + size, left:left + size]
 
 
+def _cache_for(reader, max_bytes: int) -> _ImageCache:
+    """The decode cache: up to ``max_bytes`` of decoded files, or
+    nothing in front of a custom ``reader`` (a pack's views), which is
+    its own cache."""
+    if reader is None:
+        return _ImageCache(max_bytes)
+    return _ImageCache(0, reader)
+
+
 class TrainLoader:
-    """Epoch loader of (uint8 HR crops (B, S, S, 3), flip bits (B, 2))."""
+    """Epoch loader of (uint8 HR crops (B, S, S, 3), flip bits (B, 2)).
+
+    ``shuffle_window`` > 0 visits windows of that many samples in a
+    random order, the samples shuffled within each, instead of one
+    global permutation: a decode cache that holds a window then decodes
+    each image once an epoch however large the dataset.  ``reader``
+    maps a name to its image (a pack's ``get``); by default names are
+    files, decoded and cached."""
 
     def __init__(
         self,
@@ -101,8 +121,10 @@ class TrainLoader:
         batch_size: int,
         crop_size: int,
         dataset_multiplier: int = 1,
-        workers: int = 8,
+        workers: int = 16,
         seed: int = 0,
+        shuffle_window: int = 0,
+        reader=None,
     ) -> None:
         if not paths:
             raise ValueError("TrainLoader needs at least one image")
@@ -110,7 +132,8 @@ class TrainLoader:
         self.batch_size = batch_size
         self.crop_size = crop_size
         self.seed = seed
-        self._cache = _ImageCache(_TRAIN_CACHE_BYTES)
+        self.shuffle_window = int(shuffle_window)
+        self._cache = _cache_for(reader, _TRAIN_CACHE_BYTES)
         self._pool = ThreadPoolExecutor(max_workers=max(1, workers))
         # full batches only (a tiny dataset wraps to fill one)
         n = len(self.paths)
@@ -130,13 +153,28 @@ class TrainLoader:
         flips = np.array([r2 & 1, (r2 >> 1) & 1], dtype=bool)
         return crop, flips
 
+    def _window_reorder(self, order: np.ndarray, rng) -> np.ndarray:
+        """``order`` cut into windows of ``shuffle_window`` samples,
+        visited in a random order and shuffled within each (the JAX
+        loader's draws from ``rng``, in its order); unchanged without a
+        window or when one window holds it all."""
+        w = self.shuffle_window
+        if w <= 0 or w >= len(order):
+            return order
+        windows = [order[i:i + w] for i in range(0, len(order), w)]
+        out = []
+        for wi in rng.permutation(len(windows)):
+            win = windows[int(wi)]
+            out.append(win[rng.permutation(len(win))])
+        return np.concatenate(out)
+
     def epoch(self, epoch_idx: int) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         """Iterate one epoch's batches (0-based ``epoch_idx``)."""
         rng = np.random.default_rng((self.seed, epoch_idx))
         order = rng.permutation(len(self.paths))
         if len(order) < self.samples_per_epoch:
             order = np.tile(order, -(-self.samples_per_epoch // len(order)))
-        order = order[: self.samples_per_epoch]
+        order = self._window_reorder(order[: self.samples_per_epoch], rng)
         bs = self.batch_size
         for b in range(self.batches_per_epoch):
             idx = order[b * bs:(b + 1) * bs]
@@ -160,8 +198,9 @@ class EvalLoader:
         batch_size: int,
         crop_size: int,
         dataset_multiplier: int = 1,
-        workers: int = 8,
+        workers: int = 16,
         seed: int = 0,
+        reader=None,
     ) -> None:
         if not paths:
             raise ValueError("EvalLoader needs at least one image")
@@ -169,7 +208,7 @@ class EvalLoader:
         self.batch_size = batch_size
         self.crop_size = crop_size
         self.seed = seed
-        self._cache = _ImageCache(_EVAL_CACHE_BYTES)
+        self._cache = _cache_for(reader, _EVAL_CACHE_BYTES)
         self._pool = ThreadPoolExecutor(max_workers=max(1, workers))
         self.batches_per_epoch = -(-len(self.paths) // batch_size)
 
@@ -195,33 +234,49 @@ class EvalLoader:
             yield np.stack(crops), valid
 
 
+def dataset_source(path: str) -> tuple[list[str], object]:
+    """(names, reader or None) of a dataset directory or a pack; a pack
+    lists its entries in ``discover_images`` order, so both forms of one
+    dataset split and batch alike."""
+    from torchsr_tpu_torch.data.discovery import discover_images
+    from torchsr_tpu_torch.data.packed import PackedDataset, is_pack
+
+    if is_pack(path):
+        pack = PackedDataset(path)
+        return pack.names, pack.get
+    return discover_images(path), None
+
+
 def initialize_datasets(
     train_directory: str, batch_size: int, crop_size: int = 128,
-    dataset_multiplier: int = 1, workers: int = 8, seed: int = 0,
-    eval_directory: str | None = None,
+    dataset_multiplier: int = 1, workers: int = 16, seed: int = 0,
+    eval_directory: str | None = None, shuffle_window: int = 0,
 ) -> tuple[TrainLoader, EvalLoader, int, int]:
-    """Discover, split 90/10 by ``seed``, and build the loaders:
-    (train_loader, test_loader, train_len, test_len), the reference's
-    ``initialize_datasets`` contract.  With ``eval_directory`` the eval
-    loader takes all of it and training all of ``train_directory``."""
-    from torchsr_tpu_torch.data.discovery import (
-        discover_images,
-        split_dataset,
-    )
+    """Discover (a directory or a pack), split 90/10 by ``seed``, and
+    build the loaders: (train_loader, test_loader, train_len, test_len),
+    the reference's ``initialize_datasets`` contract.  With
+    ``eval_directory`` the eval loader takes all of it and training all
+    of ``train_directory``.  Each loader decodes and crops on
+    ``workers`` threads."""
+    from torchsr_tpu_torch.data.discovery import split_dataset
 
-    images = discover_images(train_directory)
+    images, train_reader = dataset_source(train_directory)
     if eval_directory:
-        train_paths, test_paths = images, discover_images(eval_directory)
+        train_paths = images
+        test_paths, eval_reader = dataset_source(eval_directory)
         if not test_paths:
             raise ValueError(
                 f"no supported images found in eval dir {eval_directory}")
     else:
         train_paths, test_paths = split_dataset(images, 0.1, seed)
+        eval_reader = train_reader
     train_loader = TrainLoader(train_paths, batch_size, crop_size,
                                dataset_multiplier=dataset_multiplier,
-                               workers=workers, seed=seed)
+                               workers=workers, seed=seed,
+                               shuffle_window=shuffle_window,
+                               reader=train_reader)
     eval_loader = EvalLoader(test_paths, batch_size, crop_size,
                              dataset_multiplier=dataset_multiplier,
-                             workers=workers, seed=seed)
+                             workers=workers, seed=seed, reader=eval_reader)
     return (train_loader, eval_loader, train_loader.dataset_len,
             eval_loader.dataset_len)

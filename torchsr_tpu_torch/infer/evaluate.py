@@ -21,9 +21,11 @@ matmuls (PyTorch's default lets cuDNN use TF32) and restores the
 caller's settings after.  ``--bf16`` scores the serving compute dtype
 instead.  ``--artifact`` scores a serving artifact (``infer/serving.py``)
 instead of a checkpoint: the exact program a serving fleet runs, its
-frames through ``ServedGenerator.upscale_image``.  ``.tsrpack``
-datasets are not ported yet (ROADMAP A10b).  With ``--tile`` on CUDA
-each tile batch replays the generator's captured graph.
+frames through ``ServedGenerator.upscale_image``.  ``image_dir`` may
+be a ``.tsrpack`` archive (``data/packed.py``): its entries are the
+directory's images in the directory's order, under the same names, so
+the report is the directory's.  With ``--tile`` on CUDA each tile batch
+replays the generator's captured graph.
 """
 
 from __future__ import annotations
@@ -44,8 +46,6 @@ from torchsr_tpu_torch.infer.tiled import tile_forward, upscale_image
 from torchsr_tpu_torch.ops.resize import bicubic_resize
 from torchsr_tpu_torch.train.metrics import mse_per_sample, ssim_per_sample
 from torchsr_tpu_torch.utils import image_io
-
-_PACK_MAGIC = b"TSRPACK1"  # the JAX package's data/packed.py MAGIC
 
 
 @contextlib.contextmanager
@@ -80,16 +80,6 @@ def _score_pair(sr: torch.Tensor, hr: torch.Tensor
     return p, s, mse
 
 
-def _refuse_pack(path: str) -> None:
-    if os.path.isfile(path):
-        with open(path, "rb") as fh:
-            if fh.read(len(_PACK_MAGIC)) == _PACK_MAGIC:
-                raise ValueError(
-                    f"{path} is a .tsrpack archive; packed datasets are "
-                    f"not ported yet (ROADMAP A10b): evaluate the "
-                    f"directory of images instead")
-
-
 def run_eval(args: Namespace, generator_cls, *,
              allow_tf32: bool = False,
              lr_operands: torch.dtype | None = None) -> dict:
@@ -102,15 +92,17 @@ def run_eval(args: Namespace, generator_cls, *,
     bicubic baseline with each resampling product's operands rounded to
     bf16 (``bicubic_resize(operands=)``), as the JAX package's round-5
     reports were: a yardstick for comparing with them, library-only."""
+    from torchsr_tpu_torch.data.loader import dataset_source
+
     device = resolve_device(getattr(args, "device", "cuda"))
-    _refuse_pack(args.image_dir)
-    paths = image_io.discover_images(args.image_dir)
+    paths, reader = dataset_source(args.image_dir)
     if not paths:
         raise ValueError(
             f"no supported images found in directory {args.image_dir}"
         )
     with tf32_allowed(allow_tf32):
-        return _run_eval(args, generator_cls, device, paths, lr_operands)
+        return _run_eval(args, generator_cls, device, paths,
+                         reader or image_io.load_image, lr_operands)
 
 
 def _upscaler(args, generator_cls, device):
@@ -146,14 +138,15 @@ def _upscaler(args, generator_cls, device):
     return generator.scale_factor, upscale
 
 
-def _run_eval(args, generator_cls, device, paths, lr_operands) -> dict:
+def _run_eval(args, generator_cls, device, paths, read_image,
+              lr_operands) -> dict:
     scale, upscale = _upscaler(args, generator_cls, device)
     crop = getattr(args, "crop", 0) or 0
     per_image = []
     mse_px_sum = 0.0  # sum of per-image MSE * pixel count
     px_sum = 0
     for path in paths:
-        hr_u8 = image_io.load_image(path)
+        hr_u8 = read_image(path)
         if crop:
             if min(hr_u8.shape[:2]) < crop:
                 print(f"skipping {path}: smaller than --crop {crop}")

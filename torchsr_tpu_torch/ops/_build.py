@@ -1,9 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled at first
-use with ``nvcc`` for ``sm_90a`` into a shared library in the checkout's
-``build/kernels/`` (ignored by git), named by a hash of the source and
-flags so an edited source rebuilds, and loaded with ``ctypes``.  Tensors
+use with ``nvcc`` for ``sm_90a`` into a shared library in the build
+cache (``kernel_build_dir()`` of ``utils/compile_cache.py``: the
+checkout's ``build/kernels/``, ignored by git, or where
+``TORCHSR_COMPILE_CACHE`` points),
+named by a hash of the source and flags so an edited source rebuilds,
+and loaded with ``ctypes``.  Tensors
 cross as ``data_ptr()`` integers and the stream as
 ``torch.cuda.current_stream().cuda_stream``.
 """
@@ -19,8 +22,9 @@ import subprocess
 import time
 from pathlib import Path
 
+from torchsr_tpu_torch.utils.compile_cache import kernel_build_dir
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -136,7 +140,7 @@ def library_path(name: str) -> Path:
         b"".join(p.read_bytes() for p in sources)
         + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return kernel_build_dir() / f"lib{name}-{digest}.so"
 
 
 def build_all(names=None) -> dict:
@@ -146,7 +150,7 @@ def build_all(names=None) -> dict:
     the sources built now (``ptxas`` is the compiler's register/spill
     report).  Raises with the compiler's output when a build fails."""
     names = list(SIGNATURES if names is None else names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    kernel_build_dir().mkdir(parents=True, exist_ok=True)
     started = {}
     for name in names:
         out = library_path(name)

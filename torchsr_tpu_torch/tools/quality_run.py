@@ -34,10 +34,13 @@ card's name and power limit) under ``--out``.
 
 Usage: python -m torchsr_tpu_torch.tools.quality_run --model esrgan
        [--out build/quality/reports] [--device cuda|cpu] [--seed N]
-       [--bf16-operands]
+       [--bf16-operands] [--vgg-weights PATH]
        [--pretrain-epochs N --epochs N --batch-size N
         --dataset-multiplier N --gen-blocks N --vgg-convs N]
 (the last flags shrink the recipe for a rehearsal on the CPU).
+``--vgg-weights`` passes train's flag: the campaign's perceptual loss ran
+on the JAX trainer's seeded random VGG19 features, which a JAX host can
+write as a ``.ckpt`` for the port to train on the same features.
 """
 
 from __future__ import annotations
@@ -131,6 +134,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--vgg-convs", type=int)
     parser.add_argument("--seed", type=int, default=1,
                         help="train's --seed (the round-5 runs' is 1)")
+    parser.add_argument("--vgg-weights",
+                        help="train's --vgg-weights (default: the port's "
+                             "seeded random features)")
     parser.add_argument("--bf16-operands", action="store_true",
                         help="also score psnr-best with the LR and the "
                              "bicubic baseline synthesized at the JAX "
@@ -149,6 +155,7 @@ def main(argv=None) -> dict:
             recipe[key] = getattr(args, key)
     out = os.path.abspath(os.path.join(args.out, args.model))
     work = os.path.abspath(os.path.join(args.workdir, args.model))
+    vgg_weights = args.vgg_weights and os.path.abspath(args.vgg_weights)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     os.makedirs(out, exist_ok=True)
@@ -172,7 +179,8 @@ def main(argv=None) -> dict:
             "--epochs", str(recipe["epochs"]), "--seed", str(args.seed),
             "--skip-image-save", "--metrics-file", "metrics.jsonl"]
         for flag, value in (("--gen-blocks", args.gen_blocks),
-                            ("--vgg-convs", args.vgg_convs)):
+                            ("--vgg-convs", args.vgg_convs),
+                            ("--vgg-weights", vgg_weights)):
             if value:
                 train_argv += [flag, str(value)]
         cli.main(train_argv)
@@ -222,7 +230,7 @@ def main(argv=None) -> dict:
     base = reports["psnr-best"]["per_image"]
     summary = {
         "model": args.model, "card": card(), "recipe": recipe,
-        "seed": args.seed,
+        "seed": args.seed, "vgg_weights": args.vgg_weights,
         "dataset_multiplier": args.dataset_multiplier,
         "train_wall_s": train_s, "wall_s": time.time() - t0,
         "reports": {k: _headline(v) for k, v in reports.items()},

@@ -74,6 +74,26 @@ def _load_keeping_form(opt: torch.optim.Optimizer, state: dict) -> None:
                           else step.cpu())
 
 
+def _from_named(opt: torch.optim.Optimizer, named: dict,
+                names: list[str]) -> dict:
+    """An Adam state by parameter name (``{"count", "exp_avg",
+    "exp_avg_sq"}``, what ``models/torch_compat.py``
+    ``from_jax_training_state`` makes of an optax one) -> ``opt``'s
+    ``state_dict`` form, over ``names`` (its parameters' names, in its
+    order), with ``opt``'s own hyperparameters."""
+    for key in ("exp_avg", "exp_avg_sq"):
+        if set(named[key]) != set(names):
+            raise ValueError(
+                f"the checkpoint's Adam {key} names other parameters than "
+                f"the model's: {sorted(set(named[key]) ^ set(names))[:8]}")
+    step = torch.tensor(float(named["count"]))
+    return {"state": {i: {"step": step.clone(),
+                          "exp_avg": named["exp_avg"][n],
+                          "exp_avg_sq": named["exp_avg_sq"][n]}
+                      for i, n in enumerate(names)},
+            "param_groups": opt.state_dict()["param_groups"]}
+
+
 class Optimizers:
     """The psnr / gen / disc Adam trio, on ``device``'s kind."""
 
@@ -83,6 +103,11 @@ class Optimizers:
         self.psnr = make_adam(generator.parameters(), device=device)
         self.gen = make_adam(generator.parameters(), device=device)
         self.disc = make_adam(discriminator.parameters(), device=device)
+        gen_names = [n for n, _ in generator.named_parameters()]
+        self._names = {"psnr_opt_state": gen_names,
+                       "gen_opt_state": gen_names,
+                       "disc_opt_state": [
+                           n for n, _ in discriminator.named_parameters()]}
 
     def all(self) -> tuple:
         return (self.psnr, self.gen, self.disc)
@@ -93,11 +118,16 @@ class Optimizers:
                 "disc_opt_state": self.disc.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
+        """Each optimizer's state from ``state``: the port's own, or by
+        parameter name (a JAX checkpoint's, ``_from_named``)."""
         for key, opt in (("psnr_opt_state", self.psnr),
                          ("gen_opt_state", self.gen),
                          ("disc_opt_state", self.disc)):
             if key in state:
-                _load_keeping_form(opt, state[key])
+                own = state[key]
+                if "exp_avg" in own:
+                    own = _from_named(opt, own, self._names[key])
+                _load_keeping_form(opt, own)
 
 
 def step_lr_schedule(

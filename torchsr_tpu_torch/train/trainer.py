@@ -32,18 +32,26 @@ JAX multi-step programs (``pretrain_step_multi``, ``gan_step_multi``;
 captured CUDA graph of the step K times (``train/graphs.py``): the
 first call of a phase runs its first step eagerly on a side stream and
 captures the step after it.  The epoch's ragged tail replays the same
-graph once a batch.  On the CPU a K-step call runs K eager steps.
-Losses reach the host only when the logger consumes them, in one
-transfer a call.
+graph once a batch.  On the CPU, and under ``--fast-compile`` (no
+capture: the first step starts sooner, each one costs its host launch
+time), a K-step call runs K eager steps, with the same parameters and
+checkpoints.  Losses reach the host only when the logger consumes them,
+in one transfer a call.  ``--scale`` (2, 4 or 8) sets the generator's
+upsample stages and the LR synthesis ratio.
 
 The pretrain loss is L1 for ESRGAN and MSE for SRGAN.  Every residual
 dense block of the ESRGAN generator runs the RDB kernels on CUDA
 (``ops.rdb``), forward and backward; SRGAN runs no kernel of the port
 (the JAX SRGAN reaches no Pallas kernel).  Checkpoints are
-``{model}-{phase}-{best,latest}.pth`` in the working directory, written
-synchronously with the whole training state, and the resume priority
-is the reference's: an explicit checkpoint, else gan-latest, else
-psnr-latest (weights only across phases).
+``{model}-{phase}-{best,latest}.pth`` in the working directory, with the
+whole training state, written by a background thread from a device
+snapshot (``utils/checkpoint.py`` ``AsyncCheckpointWriter``; in the
+epoch loop under ``--sync-saves``), and the resume priority is the
+reference's: an explicit checkpoint, else gan-latest, else psnr-latest
+(weights only across phases).  A SIGTERM (``utils/preemption.py``;
+off under ``--no-preempt-save``) is read between host calls: the
+trainer writes the full ``-latest`` of the running phase, waits for it,
+and returns, and a resume re-runs that epoch.
 """
 
 from __future__ import annotations
@@ -84,11 +92,16 @@ from torchsr_tpu_torch.train.state import (
 )
 from torchsr_tpu_torch.utils import image_io
 from torchsr_tpu_torch.utils.checkpoint import (
+    AsyncCheckpointWriter,
     find_checkpoint,
     load_checkpoint,
     save_checkpoint,
 )
 from torchsr_tpu_torch.utils.logging import Logger
+from torchsr_tpu_torch.utils.preemption import (
+    PreemptionGuard,
+    TrainingPreempted,
+)
 from torchsr_tpu_torch.utils.profiling import StepProfiler
 
 SAMPLE_IMAGE_PATH = os.path.join("media", "waterfalls-low-res.png")
@@ -135,10 +148,16 @@ class GANTrainer:
         self.test_loader = test_loader
         self.train_len = train_len
         self.test_len = test_len
-        self.upscale = 4
+        self.upscale = getattr(args, "upscale_factor", 4)
         self.crop_size = train_loader.crop_size
         self.seed = getattr(args, "seed", 0) or 0
         self.step = 0
+        # eager steps on CUDA too: no graph is captured
+        self.fast_compile = bool(getattr(args, "fast_compile", False))
+        self.preempt_save = not getattr(args, "no_preempt_save", False)
+        self._preemption: PreemptionGuard | None = None
+        self.ckpt_writer = (None if getattr(args, "sync_saves", False)
+                            else AsyncCheckpointWriter())
         self.compute_dtype = resolve_compute_dtype(args, self.device)
         self.logger = logger or Logger(
             config=vars(args),
@@ -289,13 +308,13 @@ class GANTrainer:
     def _multi(self, phase: str, body, crops_k: torch.Tensor,
                flips_k: torch.Tensor) -> torch.Tensor:
         """K steps of ``body``, one stacked batch each; returns their
-        (K, n) outputs and moves the step counter by K.  On the CPU, K
-        eager steps.  On CUDA, replays of the phase's captured step: the
-        first call for a (phase, batch shape, dtype) runs its first step
-        eagerly on a side stream (the capture's warm-up) and captures
-        the step after it."""
+        (K, n) outputs and moves the step counter by K.  On the CPU and
+        under ``--fast-compile``, K eager steps.  On CUDA, replays of the
+        phase's captured step: the first call for a (phase, batch shape,
+        dtype) runs its first step eagerly on a side stream (the
+        capture's warm-up) and captures the step after it."""
         k = crops_k.shape[0]
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.fast_compile:
             out = torch.stack([body(c, f) for c, f in zip(crops_k, flips_k)])
             self.step += k
             return out
@@ -340,10 +359,11 @@ class GANTrainer:
             torch.cuda.synchronize(self.device)
 
     def _load_sample_image(self) -> None:
-        """The fixed progress-sample image, where present (the render is
-        skipped without it)."""
+        """The progress-sample image (``--sample-image``, else the
+        reference's), where present (the render is skipped without
+        it)."""
         self.sample_image = None
-        path = SAMPLE_IMAGE_PATH
+        path = getattr(self.args, "sample_image", None) or SAMPLE_IMAGE_PATH
         if self.save_image and os.path.exists(path):
             arr = image_io.load_image(path).astype(np.float32) / 255.0
             self.sample_image = torch.from_numpy(arr[None]).to(self.device)
@@ -378,8 +398,33 @@ class GANTrainer:
         return int(checkpoint.get("epoch", 1))
 
     def _save(self, epoch: int, phase: str, kind: str) -> None:
-        save_checkpoint(f"{phase}-{kind}.pth", epoch, phase,
-                        self.gen.state_dict(), extra=self._full_state())
+        """Write ``{phase}-{kind}.pth``: enqueued to the writer thread,
+        or in the loop under ``--sync-saves``."""
+        write = (save_checkpoint if self.ckpt_writer is None
+                 else self.ckpt_writer.save)
+        write(f"{phase}-{kind}.pth", epoch, phase, self.gen.state_dict(),
+              extra=self._full_state())
+
+    def _wait_saves(self) -> None:
+        """Drain the pending checkpoint writes (none under
+        ``--sync-saves``): before a checkpoint file is read, at a
+        phase's end, on preemption."""
+        if self.ckpt_writer is not None:
+            self.ckpt_writer.wait(log=self.logger.log)
+
+    def _check_preemption(self, epoch: int, phase: str) -> None:
+        """Between host calls: after a termination signal, write the full
+        ``{phase}-latest.pth`` of the interrupted epoch (a resume re-runs
+        it), wait for the file and raise ``TrainingPreempted``."""
+        if self._preemption is None or not self._preemption.requested:
+            return
+        self._sync()  # the replays in flight finish before the snapshot
+        self._save(epoch, phase, "latest")
+        self._wait_saves()
+        self.logger.log(f"Preemption signal received: saved "
+                        f"{phase}-latest.pth at epoch {epoch}; exiting "
+                        f"cleanly")
+        raise TrainingPreempted(phase)
 
     # ------------------------------------------------------------ eval
 
@@ -440,14 +485,16 @@ class GANTrainer:
     # --------------------------------------------------------- phases
 
     def _stacked_epoch(self, shuffle_epoch: int, epoch_offset: int,
-                       steps_per_call: int, run_call,
-                       metrics) -> tuple[int, float]:
+                       steps_per_call: int, run_call, metrics, *,
+                       epoch: int = 1, phase: str = "") -> tuple[int, float]:
         """One epoch's steps, K a call (the JAX ``_stacked_epoch_loop``):
         ``run_call(crops_k, flips_k) -> (K,) losses`` gets full groups
         of ``steps_per_call`` batches and the ragged tail one batch a
-        call.  Returns the reference's global sample-step of the last
-        batch and the epoch's crops/s.  Per-step losses reach the host
-        only when the logger consumes them, one transfer a call."""
+        call; the preemption flag is read after each call (a preemption
+        saves ``{phase}-latest.pth`` at ``epoch``).  Returns the
+        reference's global sample-step of the last batch and the epoch's
+        crops/s.  Per-step losses reach the host only when the logger
+        consumes them, one transfer a call."""
         step = epoch_offset
         done = 0
         start_time = time.time()
@@ -461,6 +508,7 @@ class GANTrainer:
             k = len(crops)
             self.profiler.step(k)
             done += k
+            self._check_preemption(epoch, phase)
             step = (done - 1) * self.batch_size + epoch_offset
             if self.logger.active:
                 for j, lv in enumerate(losses.tolist()):
@@ -476,6 +524,7 @@ class GANTrainer:
     def _pretrain(self) -> None:
         self.logger.log("=" * 80)
         self.logger.log("Starting pre-training")
+        self._wait_saves()  # the resume reads files still being written
         epoch = 1
         # an explicit --psnr-checkpoint replaces the default path
         path = find_checkpoint(
@@ -491,11 +540,13 @@ class GANTrainer:
                 epoch - 1, (epoch - 1) * self.train_len,
                 self.steps_per_call, self.pretrain_step_multi,
                 lambda lv: {"psnr/train-loss": lv, "psnr/epoch": epoch},
+                epoch=epoch, phase=f"{self.model_name}-psnr",
             )
             self.logger.log_metrics(
                 {"psnr/throughput/train": throughput, "psnr/epoch": epoch},
                 step=step)
             self._test(epoch, f"{self.model_name}-psnr", step)
+        self._wait_saves()
 
     def _warn_if_random_vgg(self) -> None:
         if not self.vgg_pretrained:
@@ -506,6 +557,7 @@ class GANTrainer:
         self.logger.log("Starting training loop")
         self._warn_if_random_vgg()
         self.drop_graphs()  # the pretrain step's graph is done with
+        self._wait_saves()  # the resume branch reads files
         epoch = 1
         self.best_psnr = -1.0
         # explicit GAN checkpoint (exclusive) > gan-latest > psnr-latest
@@ -539,20 +591,32 @@ class GANTrainer:
                 self.gan_steps_per_call, run_call,
                 lambda lv: {"gan/disc-lr": disc_lr, "gan/gen-lr": gen_lr,
                             "gan/train-loss": lv},
+                epoch=epoch, phase=f"{self.model_name}-gan",
             )
             self.logger.log_metrics(
                 {"gan/throughput/train": throughput, "gan/epoch": epoch},
                 step=step)
             self._test(epoch, f"{self.model_name}-gan", step)
+        self._wait_saves()
 
     def train(self) -> None:
-        """Pretrain, then GAN-train."""
+        """Pretrain, then GAN-train; after a termination signal (unless
+        ``--no-preempt-save``) return once ``-latest`` is written."""
+        if self.preempt_save:
+            self._preemption = PreemptionGuard().install()
         try:
             self._pretrain()
             self._gan_train()
+        except TrainingPreempted:
+            pass  # the checkpoint is on disk: exit cleanly
         finally:
+            if self._preemption is not None:
+                self._preemption.uninstall()
+                self._preemption = None
             self.profiler.stop()
             self.logger.finish()
+            if self.ckpt_writer is not None:
+                self.ckpt_writer.close()  # raises a failed write
 
 
 def discover_vgg_weights() -> str | None:
@@ -675,7 +739,9 @@ def run_train(args: Namespace) -> GANTrainer:
         args.train_dir, batch_size=args.batch_size,
         crop_size=getattr(args, "crop_size", None) or crop_size,
         dataset_multiplier=getattr(args, "dataset_multiplier", 1),
+        workers=getattr(args, "data_workers", 16),
         seed=args.seed, eval_directory=getattr(args, "eval_dir", None),
+        shuffle_window=getattr(args, "shuffle_window", 0),
     )
     trainer = trainer_cls(args, *loaders, device=device)
     trainer.train()

@@ -6,10 +6,13 @@ working-directory probes, and ``--json``.  Its device probes are the
 port's own: torch and CUDA versions, the card's name and power limit,
 whether ``nvcc`` is found, whether each kernel library of
 ``ops/_build.SIGNATURES`` is built and loads, and which RDB kernel
-variant the knobs select for training and for inference.  Every probe
-degrades to an ``error:`` string: a diagnostics tool must not crash on
-the broken setup it exists to explain.  It builds nothing: a library
-not built yet is reported as such (the first kernel call builds it).
+variant the knobs select for training and for inference, where the
+kernels are built (``utils/compile_cache.py``), and, unless
+``--no-device-check``, one tiny matmul on the card under a watchdog.
+Every probe degrades to an ``error:`` string: a diagnostics tool must
+not crash on the broken setup it exists to explain.  It builds nothing:
+a library not built yet is reported as such (the first kernel call
+builds it).
 
 Only the CLI imports this module.
 """
@@ -20,6 +23,8 @@ import json
 import os
 import platform
 import subprocess
+import threading
+import time
 
 # Every environment knob the port reads, with one-line meanings.
 _KNOBS = {
@@ -29,6 +34,8 @@ _KNOBS = {
     "TORCHSR_RDB_ILV": "interleaved RDB forward (B6) where no backward "
                        "follows",
     "TORCHSR_VGG_WEIGHTS": "VGG19 weights for the perceptual loss",
+    "TORCHSR_COMPILE_CACHE": "where the kernels are built (0: a fresh "
+                             "temporary directory a process)",
     "TORCH_HOME": "torch hub cache searched for VGG19 weights",
     "CUDA_HOME": "CUDA toolkit whose nvcc builds the kernels",
     "CUDA_PATH": "CUDA toolkit (when CUDA_HOME is unset)",
@@ -84,6 +91,7 @@ def _kernels() -> dict:
         import ctypes
 
         from torchsr_tpu_torch.ops import _build
+        from torchsr_tpu_torch.utils.compile_cache import kernel_build_dir
     except Exception as e:
         return {"error": _error(e)}
     out = {}
@@ -92,7 +100,7 @@ def _kernels() -> dict:
             path = _build.library_path(name)
             if not path.exists():
                 out[name] = (f"not built (built at first use into "
-                             f"{_build.BUILD_DIR})")
+                             f"{kernel_build_dir()})")
                 continue
             lib = ctypes.CDLL(str(path))
             missing = [s for s in symbols if not hasattr(lib, s)]
@@ -101,6 +109,48 @@ def _kernels() -> dict:
         except Exception as e:
             out[name] = _error(e)
     return out
+
+
+def _build_cache() -> dict:
+    try:
+        from torchsr_tpu_torch.utils.compile_cache import ENV, kernel_build_dir
+
+        return {"dir": str(kernel_build_dir()),
+                "from": f"{ENV}={os.environ[ENV]}" if os.environ.get(ENV)
+                else "default"}
+    except Exception as e:
+        return {"error": _error(e)}
+
+
+def _device_sanity(timeout_s: float = 120.0) -> dict:
+    """One 256 x 256 matmul on the card and a scalar read back, timed,
+    under a watchdog: a wedged card is reported as unresponsive instead
+    of hanging the report (the probe thread cannot be interrupted)."""
+    box: dict = {}
+
+    def run() -> None:
+        try:
+            import torch
+
+            if not torch.cuda.is_available():
+                box.update(ok=False, error="no CUDA device "
+                           "(torch.cuda.is_available() is False)")
+                return
+            t0 = time.perf_counter()
+            x = torch.ones(256, 256, device="cuda")
+            val = float((x @ x).mean())
+            box.update(ok=abs(val - 256.0) < 1e-3, roundtrip_ms=round(
+                (time.perf_counter() - t0) * 1e3, 1))
+        except Exception as e:
+            box.update(ok=False, error=_error(e))
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    thread.join(timeout_s)
+    if thread.is_alive():
+        return {"ok": False, "error": f"device unresponsive: probe still "
+                                      f"blocked after {timeout_s:.0f}s"}
+    return box
 
 
 def _nvcc() -> str:
@@ -165,12 +215,10 @@ def _dataset(train_dir: str | None) -> dict:
     if not train_dir:
         return {"skipped": "pass --train-dir to check a dataset"}
     try:
-        from torchsr_tpu_torch.data.discovery import (
-            discover_images,
-            split_dataset,
-        )
+        from torchsr_tpu_torch.data.discovery import split_dataset
+        from torchsr_tpu_torch.data.loader import dataset_source
 
-        train, test = split_dataset(discover_images(train_dir))
+        train, test = split_dataset(dataset_source(train_dir)[0])
         return {"path": train_dir, "train_images": len(train),
                 "val_images": len(test)}
     except Exception as e:
@@ -216,12 +264,14 @@ def _checkpoint_info(path: str | None) -> dict:
 
 
 def collect_report(train_dir: str | None = None,
-                   checkpoint: str | None = None) -> dict:
+                   checkpoint: str | None = None,
+                   device_check: bool = True) -> dict:
     report = {
         "versions": _versions(),
         "platform": f"{platform.system()} {platform.release()}",
         "cuda": _cuda(),
         "nvcc": _nvcc(),
+        "kernel_build_cache": _build_cache(),
         "kernels": _kernels(),
         "rdb_kernels": _rdb_kernels(),
         "env_knobs": _env_knobs() or {"none set": "defaults active"},
@@ -230,6 +280,8 @@ def collect_report(train_dir: str | None = None,
         "dataset": _dataset(train_dir),
         "checkpoint": _checkpoint_info(checkpoint),
     }
+    if device_check:
+        report["device_sanity"] = _device_sanity()
     return report
 
 
@@ -251,6 +303,7 @@ def run_doctor(args) -> dict:
     report = collect_report(
         train_dir=getattr(args, "train_dir", None),
         checkpoint=getattr(args, "checkpoint", None),
+        device_check=not getattr(args, "no_device_check", False),
     )
     if getattr(args, "json", False):
         print(json.dumps(report, indent=2, default=str))
@@ -258,7 +311,8 @@ def run_doctor(args) -> dict:
         print("torchsr-tpu (PyTorch/CUDA) doctor")
         print("=" * 33)
         _print_tree(report)
-        ok = report["cuda"].get("available") and not str(
-            report["nvcc"]).startswith("error")
+        ok = (report["cuda"].get("available")
+              and not str(report["nvcc"]).startswith("error")
+              and report.get("device_sanity", {}).get("ok", True))
         print(f"\nverdict: {'OK' if ok else 'PROBLEMS'}")
     return report
