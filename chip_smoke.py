@@ -196,6 +196,28 @@ renders, tile batches or tool calls imply, every other counter (the
     seed: no graph captured under the flag, the graphed run's gan-latest
     within the noise floor of the two eager runs, equal launches; the
     time to the first step both ways.
+32. shard_tiles (after external, on its generator and checkpoint): a
+    1080p frame through ``tiled_upscale_sharded`` over the card listed
+    twice (a replica and a graph each) equal to ``tiled_upscale`` bit
+    for bit; ``test --shard-tiles`` and a ``--shard-tiles`` service
+    answer; ``pair_conv`` split over the list (B4/B5 once a part).
+33. halo: a 2 x 2 grid on the card listed four times: a 1-RRDB
+    generator exact against its monolithic forward in f32, the full
+    ESRGAN in bf16 no further from its monolithic forward than the
+    tiled path at the same overlap; ``test --spatial-shard``.
+34. subpixel_head: SRGAN's 9x9 head (partially folded at 4x) and
+    ESRGAN's 3x3 tail in subpixel space against the direct conv, per
+    element in f32 and bf16, both times at the serving tile batches and
+    the headline batch (forward and backward); both generators both
+    ways (B1 on ESRGAN's); BatchNorm's one-pass form against
+    ``nn.BatchNorm2d`` at the SRGAN tower's shape.
+35. ddp_train (after fast_compile): ESRGAN's ``train`` three times in
+    one process under ``torchrun --standalone --nproc-per-node 1``,
+    twice without the launcher's variables, then with them (NCCL, world
+    1, the gradients' all-reduce captured with each step, the
+    preemption vote after each call): its gan-latest within the noise
+    floor of the other two; B1/B2's launches exact in each; the epoch
+    loop's replayed step timed in each.
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
 power limit again, a ``kernels`` JSON line (all eight kernels), and as
@@ -206,8 +228,12 @@ work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
 pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
 train_grad_ext, train_grad_xla, train, train_ext, train_speed, eval and
 interp (each after train), srgan_train, multistep, bench, serve_graph,
-export, batching, external (these four on a seeded 23-RRDB generator),
-pack_train, scale, preempt, fast_compile.
+export, batching, external, shard_tiles, halo (these six on a seeded
+23-RRDB generator), pack_train, scale, preempt, fast_compile,
+subpixel_head, ddp_train; and multi_card, on a machine with several
+cards only (``torchrun --nproc-per-node N`` training for both models,
+every rank's state the same; a frame over the N cards equal to one
+card's; the halo grid over them).
 """
 
 from __future__ import annotations
@@ -4064,6 +4090,593 @@ def phase_external(gen: ESRGANGenerator, ckpt: str, seed: int) -> dict:
     return paths
 
 
+# ------------------------------------------- heads and multiple devices
+
+SRGAN_SERVE_TILE = (8, 256, 256)  # the SRGAN serving tile batch (LR)
+SRGAN_HEADLINE = (128, 96, 96)  # the headline pretrain batch (HR crop)
+ESRGAN_TAIL = (16, 64, 64)  # the ESRGAN serving tile batch (LR)
+SRGAN_TOWER = (128, 24, 24, 64)  # the tower's BatchNorm input
+HALO_IMAGE = (96, 128)  # LR image of the halo phase
+HALO_OVERLAP = 16
+HALO_TOY_OVERLAP = 20  # covers one RRDB's receptive field
+SHARD_FRAME = (1080, 1920)
+SHARD_DEVICES = 2
+
+
+def _rand(shape, seed: int, dtype=torch.float32) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(shape, generator=g).to(DEVICE, dtype)
+
+
+def _rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+
+def _one_pass_bn(x: torch.Tensor, bn) -> torch.Tensor:
+    """Training-mode BatchNorm by the JAX package's moments (one pass,
+    shifted by the running mean) in f32, without the running-statistics
+    update: the form ``models/layers.py`` would take if it won."""
+    xf = x.float()
+    d = xf - bn.running_mean
+    m1 = d.mean((0, 1, 2))
+    var = (d * d).mean((0, 1, 2)) - m1 * m1
+    y = (xf - (bn.running_mean + m1)) * (torch.rsqrt(var + bn.eps)
+                                        * bn.weight) + bn.bias
+    return y.to(x.dtype)
+
+
+def phase_subpixel_head(seed: int) -> dict:
+    """SRGAN's 9x9 head (the partially folded form at 4x) and ESRGAN's
+    3x3 tail in subpixel space against the direct conv, at full width:
+    outputs per element in f32 (TF32 off) and bf16, both times at the
+    serving tile batches and the SRGAN headline batch forward and
+    backward; the whole generators both ways (B1's launches on the
+    ESRGAN path); BatchNorm's two forms at the SRGAN tower's shape."""
+    from torchsr_tpu_torch.models import esrgan as esrgan_mod
+    from torchsr_tpu_torch.models import srgan as srgan_mod
+    from torchsr_tpu_torch.models.layers import BatchNorm
+    from torchsr_tpu_torch.ops.pixel_shuffle import depth_to_space
+    from torchsr_tpu_torch.ops.subpixel_conv import (
+        conv_head_partially_folded,
+    )
+
+    g = torch.Generator().manual_seed(seed + 30)
+    srgan = srgan_mod.SRGANGenerator(
+        num_residual=SRGAN_BLOCKS, generator=g).to(DEVICE).eval()
+    w, b = srgan.conv3.weight.detach(), srgan.conv3.bias.detach()
+    rows: dict = {}
+
+    def head_pair(folded):
+        hr = depth_to_space(folded, 2)
+        return (lambda: conv_head_partially_folded(folded, w, b, 4, 2),
+                lambda: srgan.conv3(hr))
+
+    # the serving tile's head input: the last stage's pre-shuffle map
+    n, h, wd = SRGAN_SERVE_TILE
+    for dtype in (torch.float32, torch.bfloat16):
+        folded = _rand((n, 2 * h, 2 * wd, 256), seed + 31, dtype) - 0.5
+        sub, direct = head_pair(folded)
+        with torch.no_grad():
+            err = _rel_max(sub(), direct())
+            rows[f"srgan_serve_{str(dtype)[6:]}"] = {
+                "rel_err": err, "subpixel_ms": median_ms(sub, 10),
+                "direct_ms": median_ms(direct, 10)}
+        del folded
+    # the headline batch, forward and backward
+    n, hh, ww = SRGAN_HEADLINE
+    folded = (_rand((n, hh // 2, ww // 2, 256), seed + 32, torch.bfloat16)
+              - 0.5).requires_grad_(True)
+    hr = depth_to_space(folded.detach(), 2).requires_grad_(True)
+    wq = w.clone().requires_grad_(True)
+    cot = _rand((n, hh, ww, 3), seed + 33, torch.bfloat16)
+
+    def fwd_bwd(fn, x):
+        def run():
+            out = fn(x)
+            torch.autograd.grad(out, (x, wq), cot)
+        return run
+
+    def direct_head(x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), wq.to(x.dtype), b.to(x.dtype),
+                     padding=4)
+        return y.permute(0, 2, 3, 1)
+
+    sub_fb = fwd_bwd(lambda x: conv_head_partially_folded(x, wq, b, 4, 2),
+                     folded)
+    direct_fb = fwd_bwd(direct_head, hr)
+    rows["srgan_headline_fwd_bwd_bfloat16"] = {
+        "subpixel_ms": median_ms(sub_fb, 10),
+        "direct_ms": median_ms(direct_fb, 10)}
+    del folded, hr, cot
+    # ESRGAN's tail at the serving tile batch
+    esrgan = ESRGANGenerator(
+        num_rrdb_blocks=NUM_RRDB,
+        generator=torch.Generator().manual_seed(seed + 34)).to(
+        DEVICE).requires_grad_(False)
+    n, h, wd = ESRGAN_TAIL
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _rand((n, 4 * h, 4 * wd, 64), seed + 35, dtype) - 0.5
+        with torch.no_grad():
+            sub = lambda: esrgan.head(x, True)  # noqa: E731
+            direct = lambda: esrgan.head(x, False)  # noqa: E731
+            rows[f"esrgan_tail_{str(dtype)[6:]}"] = {
+                "rel_err": _rel_max(sub(), direct()),
+                "subpixel_ms": median_ms(sub, 10),
+                "direct_ms": median_ms(direct, 10)}
+        del x
+    # whole generators both ways (bf16): ESRGAN on B1, SRGAN on cuDNN
+    gens = {}
+    lr = _rand((n, h, wd, 3), seed + 36)
+    esrgan.compute_dtype = torch.bfloat16
+    paths = {}
+    for fused in (True, False):
+        esrgan.fused_tail = fused
+        reset_counters()
+        with torch.inference_mode():
+            gens[f"esrgan_{fused}"] = esrgan(lr)
+        torch.cuda.synchronize()
+        paths[f"subpixel_head: esrgan fused_tail={fused}"] = read_counters()
+    srgan.compute_dtype = torch.bfloat16
+    lr_s = _rand((2, 64, 64, 3), seed + 37)
+    for fused in (True, False):
+        srgan.fused_head = fused
+        with torch.inference_mode():
+            gens[f"srgan_{fused}"] = srgan(lr_s)
+    esrgan.fused_tail = srgan.fused_head = None
+    gen_err = {m: _rel_max(gens[f"{m}_True"], gens[f"{m}_False"])
+               for m in ("esrgan", "srgan")}
+    # BatchNorm at the tower's shape, forward and backward, bf16 input
+    bn = BatchNorm(64).to(DEVICE).train()
+    xb = (_rand(SRGAN_TOWER, seed + 38, torch.bfloat16) - 0.5) \
+        .requires_grad_(True)
+    gb = _rand(SRGAN_TOWER, seed + 39, torch.bfloat16)
+    with torch.no_grad():
+        bn.running_mean.copy_(xb.detach().float().mean((0, 1, 2)) + 0.01)
+    bn_err = _rel_max(_one_pass_bn(xb, bn), bn(xb))
+
+    def bn_fb(fn):
+        return lambda: torch.autograd.grad(fn(xb), xb, gb)
+
+    rows["batchnorm_fwd_bwd_bfloat16"] = {
+        "rel_err": bn_err, "one_pass_ms": median_ms(bn_fb(
+            lambda x: _one_pass_bn(x, bn)), 20),
+        "torch_ms": median_ms(bn_fb(bn), 20)}
+    say("subpixel_head", rows=rows, generator_rel_err=gen_err,
+        defaults={"srgan FUSED_HEAD_ON_CUDA": srgan_mod.FUSED_HEAD_ON_CUDA,
+                  "esrgan FUSED_TAIL_ON_CUDA":
+                      esrgan_mod.FUSED_TAIL_ON_CUDA},
+        launches=paths)
+    for name, row in rows.items():
+        if "rel_err" not in row:
+            continue
+        limit = 1e-5 if name.endswith("float32") else 2e-2
+        check(row["rel_err"] <= limit,
+              f"subpixel_head: {name} within {limit} of the direct conv")
+    for model, err in gen_err.items():
+        check(err <= 2e-2, f"subpixel_head: the {model} generator's two "
+                           f"heads agree in bf16 ({err})")
+    for name, counts in paths.items():
+        check_counts(name, counts, rdb_fwd=5 * 3 * NUM_RRDB)
+    return paths
+
+
+_TRAIN_SCRIPT = """
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+# the smoke's own settings: f32 convolutions and matmuls in full f32
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from torchsr_tpu_torch import cli
+from torchsr_tpu_torch.ops import rdb
+from torchsr_tpu_torch.tools.profile_gan_step import chained_ms
+from torchsr_tpu_torch.train.trainer import run_train
+from torchsr_tpu_torch.utils.preemption import PreemptionGuard
+dist = torch.distributed
+# the launcher's variables, hidden from the runs without it
+launcher = {k: os.environ.pop(k) for k in
+            ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+            if k in os.environ}
+out = {}
+for job in sys.argv[3].split(","):
+    run, model = job.split(":")
+    if run == "torchrun":
+        os.environ.update(launcher)
+    os.makedirs(os.path.join(run, model), exist_ok=True)  # every rank
+    os.chdir(os.path.join(run, model))
+    for n in rdb.LAUNCH_COUNTERS:
+        setattr(rdb, n, 0)
+    trainer = run_train(cli.parse_args([*sys.argv[4:], "--model", model]))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    state = [t.detach().double() for t in (
+        *trainer.gen.state_dict().values(),
+        *trainer.disc.state_dict().values())]
+    row = {
+        "counts": {n: getattr(rdb, n) for n in rdb.LAUNCH_COUNTERS},
+        "fingerprint": [float(t.abs().sum()) for t in state],
+        "finite": all(bool(torch.isfinite(t).all()) for t in state),
+        "world": dist.get_world_size() if dist.is_initialized() else 1,
+        "process_group": dist.is_initialized()}
+    # the replayed step (its one-step graph, the run's tail) alone, and
+    # with the preemption poll after each call as the epoch loop runs
+    # it: under torchrun the poll casts the ranks' vote
+    shape = (1, trainer.batch_size, trainer.crop_size, trainer.crop_size, 3)
+    crops = torch.randint(0, 256, shape, dtype=torch.uint8,
+                          device=trainer.device)
+    flips = torch.zeros((*shape[:2], 2), dtype=torch.bool,
+                        device=trainer.device)
+    trainer._preemption = PreemptionGuard()  # polled, never set
+
+    def call():
+        trainer.pretrain_step_multi(crops, flips)
+        trainer._check_preemption(1, "timing")
+
+    row["replay_ms"] = chained_ms(lambda: trainer.pretrain_step_multi(
+        crops, flips), 10)
+    row["loop_step_ms"] = chained_ms(call, 10)
+    trainer._check_preemption(1, "timing", last=True)
+    out[job] = row
+    os.chdir(os.path.join("..", ".."))
+rank = dist.get_rank() if dist.is_initialized() else 0
+with open(f"{sys.argv[2]}.{rank}", "w") as fh:
+    json.dump(out, fh)
+"""
+DDP_MODELS = ("esrgan", "srgan")
+DDP_RUNS = ("plain_a", "plain_b", "torchrun")
+
+
+def _driven_train(argv: list, jobs: list, nproc: int) -> list:
+    """``train`` (``argv`` plus ``--model m``) for each (run, model) of
+    ``jobs`` in order, in one process under ``torchrun --standalone
+    --nproc-per-node nproc``, each in its own ``run/model``
+    subdirectory; the runs not named "torchrun" see no launcher (no
+    process group).  Returns each rank's {"run:model": {"counts"
+    (launches, by counter name), "fingerprint", "finite", "world",
+    "process_group", "replay_ms", "loop_step_ms"}}."""
+    script = os.path.join(ROOT, "build", "chip_smoke", "train_runs.py")
+    os.makedirs(os.path.dirname(script), exist_ok=True)
+    with open(script, "w") as fh:
+        fh.write(_TRAIN_SCRIPT)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), script, ROOT, "rank.json",
+         ",".join(f"{run}:{model}" for run, model in jobs),
+         *map(str, argv)], capture_output=True,
+        text=True, timeout=900, env={**os.environ, "PYTHONPATH": ROOT})
+    check(out.returncode == 0, f"train (torchrun ranks {nproc}) exits 0: "
+          f"{out.stderr[-3000:]}")
+    ranks = []
+    for r in range(nproc):
+        with open(f"rank.json.{r}") as fh:
+            rank = json.load(fh)
+        for row in rank.values():
+            row["counts"] = {name: row["counts"].get(attr, 0)
+                             for name, (module, attr) in COUNTERS.items()}
+        ranks.append(rank)
+    return ranks
+
+
+def phase_ddp_train(seed: int) -> dict:
+    """ESRGAN's ``train``, one epoch a phase (graphed steps), three
+    times in one process under ``torchrun --standalone --nproc-per-node
+    1``: twice without the launcher's variables, then under them (NCCL,
+    world 1: the gradients' all-reduce captured with each step, the
+    preemption vote after each call).  The torchrun run's gan-latest
+    within the noise floor of the two plain runs (the multistep phase's
+    rule); B1/B2's launches exact in each; the epoch loop's replayed
+    step timed in each.  (SRGAN reaches no kernel, and its
+    world-size > 1 code, the global batch's BatchNorm and means, runs in
+    multi_card and the CPU tests.)"""
+    data = _run_data(seed)
+    argv = _train_argv(data, seed, "--skip-image-save")
+    paths, rows, states = {}, {}, {}
+    with _workdir("ddp_train"):
+        t0 = time.perf_counter()
+        rank0 = _driven_train(argv, [(run, "esrgan") for run in DDP_RUNS],
+                              1)[0]
+        rows["process_s"] = time.perf_counter() - t0
+        for run in DDP_RUNS:
+            row = rank0[f"{run}:esrgan"]
+            paths[f"ddp_train: esrgan {run}"] = row["counts"]
+            rows[f"{run}_group"] = [row["process_group"], row["world"]]
+            rows[f"{run}_step_ms"] = {"replay": row["replay_ms"],
+                                      "loop": row["loop_step_ms"]}
+            states[run] = _checkpoint_categories(
+                os.path.join(run, "esrgan", "esrgan-gan-latest.pth"))
+    floor = _state_diff(states["plain_a"], states["plain_b"])
+    diff = _state_diff(states["torchrun"], states["plain_a"])
+    rows["floor"], rows["torchrun_vs_plain"] = floor, diff
+    say("ddp_train", rows=rows, launches=paths)
+    check(rows["torchrun_group"] == [True, 1]
+          and rows["plain_a_group"] == rows["plain_b_group"] == [False, 1],
+          "ddp_train: a world-1 process group under torchrun alone")
+    check(_within_floor(diff, floor),
+          f"ddp_train: the torchrun checkpoint within the plain runs' "
+          f"floor: {diff} vs {floor}")
+    for name, counts in paths.items():
+        check_counts(name, counts, **_run_launches(renders=0))
+    return paths
+
+
+def phase_multi_card(seed: int) -> dict:
+    """Every visible card (run only with ``--only multi_card`` on a
+    machine with several): ``train`` under ``torchrun --nproc-per-node
+    N`` (NCCL: gradients averaged and BatchNorm statistics over the
+    global batch inside the captured steps) for each model, every rank's
+    generator and discriminator the same to the last bit, finite, B1/B2
+    launched on each rank as its shard implies; a 1080p frame over the N
+    cards (``tiled_upscale_sharded``) equal to one card's bit for bit;
+    the halo grid over the cards against the monolithic forward."""
+    from torchsr_tpu_torch.infer.halo import halo_upscale, make_spatial_mesh
+    from torchsr_tpu_torch.infer.multichip import (
+        sharded_forwards,
+        tiled_upscale_sharded,
+    )
+    from torchsr_tpu_torch.infer.tiled import tile_forward
+    from torchsr_tpu_torch.parallel.mesh import replicate_module
+
+    n = torch.cuda.device_count()
+    check(n > 1, f"multi_card: needs several cards, found {n}")
+    data = _run_data(seed)
+    paths, rows = {}, {}
+    per_rank = -(-RUN_IMAGES // n)
+    steps = max(1, per_rank // TRAIN_BATCH)
+    with _workdir("multi_card"):
+        t0 = time.perf_counter()
+        ranks = _driven_train(_train_argv(data, seed, "--skip-image-save",
+                                          "--num-devices", n),
+                              [("torchrun", m) for m in DDP_MODELS], n)
+        rows["train_s"] = time.perf_counter() - t0
+        for model in DDP_MODELS:
+            rows[f"{model}_files"] = sorted(
+                os.listdir(os.path.join("torchrun", model)))
+    for model in DDP_MODELS:
+        mine = [rank[f"torchrun:{model}"] for rank in ranks]
+        rows[f"{model}_step_ms"] = [{"replay": r["replay_ms"],
+                                     "loop": r["loop_step_ms"]}
+                                    for r in mine]
+        rows[f"{model}_ranks_equal"] = all(
+            r["fingerprint"] == mine[0]["fingerprint"] for r in mine)
+        rows[f"{model}_finite"] = all(r["finite"] for r in mine)
+        for r, row in enumerate(mine):
+            paths[f"multi_card: {model} rank {r}"] = row["counts"]
+        check(rows[f"{model}_ranks_equal"] and rows[f"{model}_finite"]
+              and all(r["world"] == n for r in mine),
+              f"multi_card: the {n} {model} ranks hold the same finite state")
+        check(f"{model}-gan-latest.pth" in rows[f"{model}_files"],
+              f"multi_card: rank 0 wrote the {model} checkpoints")
+    devices = [torch.device(DEVICE, i) for i in range(n)]
+    gen, _ = serving_generator(seed)
+    gen.compute_dtype = torch.bfloat16
+    h, w = SHARD_FRAME
+    x = _rand((h, w, 3), seed + 40)
+    kw = {"tile": 64, "overlap": 8, "tile_batch": 16}
+    single_forward = tile_forward(gen, DEVICE)
+    forwards = sharded_forwards(gen, devices)
+    frames = {"single": lambda: tiled_upscale(single_forward, x, **kw),
+              "sharded": lambda: tiled_upscale_sharded(forwards, x,
+                                                       devices, **kw)}
+    outs = {}
+    for name, frame in frames.items():
+        # the first call captures; each call timed from an idle host and
+        # idle cards
+        seconds = []
+        for _ in range(3):
+            for d in devices:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            outs[name] = frame()
+            for d in devices:
+                torch.cuda.synchronize(d)
+            seconds.append(time.perf_counter() - t0)
+        rows[f"{name}_frame_s"] = seconds
+    single, sharded = outs["single"], outs["sharded"]
+    rows["sharded_equals_single"] = torch.equal(sharded, single)
+    mesh = make_spatial_mesh(devices)
+    xh = _rand((*HALO_IMAGE, 3), seed + 52)
+    replicas = replicate_module(gen, devices)
+    with torch.inference_mode():
+        mono = gen(xh[None])[0]
+    halo = halo_upscale(replicas, xh, mesh, overlap=HALO_OVERLAP)
+    tiled = tiled_upscale(gen, xh, tile=64, overlap=HALO_OVERLAP,
+                          tile_batch=4)
+    gen.compute_dtype = None
+    rows["halo_grid"] = [mesh.ny, mesh.nx]
+    rows["halo_max_abs_err"] = float((halo - mono).abs().max())
+    rows["tiled_max_abs_err"] = float((tiled - mono).abs().max())
+    say("multi_card", cards=n, rows=rows, launches=paths)
+    for name, counts in paths.items():
+        if "esrgan" in name:
+            check_counts(name, counts, **_run_launches(steps=steps,
+                                                       renders=0))
+        else:
+            check_counts(name, counts)
+    check(rows["sharded_equals_single"],
+          "multi_card: the frame over the cards equals one card's")
+    check(rows["halo_max_abs_err"] <= rows["tiled_max_abs_err"],
+          "multi_card: the halo grid inside the tiled path's error")
+    return paths
+
+
+def phase_shard_tiles(gen: ESRGANGenerator, ckpt: str, seed: int) -> dict:
+    """A 1080p frame through ``tiled_upscale_sharded`` over the card
+    listed twice (a replica and a graph each) equals ``tiled_upscale``
+    bit for bit; ``test --shard-tiles`` and ``serve --shard-tiles``
+    answer; ``pair_conv`` over the device list equals one call (B4/B5
+    launched once a part)."""
+    from torchsr_tpu_torch.infer.multichip import (
+        sharded_forwards,
+        tiled_upscale_sharded,
+    )
+    from torchsr_tpu_torch.infer.tiled import tile_forward
+
+    h, w = SHARD_FRAME
+    tile, overlap, batch = 64, 8, 16
+    batches = bench_tile_batches(SHARD_FRAME, tile, overlap, batch)
+    x = _rand((h, w, 3), seed + 40)
+    gen.compute_dtype = torch.bfloat16
+    devices = [torch.device(DEVICE, 0)] * SHARD_DEVICES
+    paths = {}
+    forwards = sharded_forwards(gen, devices)
+    single = tile_forward(gen, DEVICE)
+    outs, secs = {}, {}
+    for name, fn in (("sharded", lambda: tiled_upscale_sharded(
+            forwards, x, devices, tile=tile, overlap=overlap,
+            tile_batch=batch)),
+                     ("single", lambda: tiled_upscale(
+            single, x, tile=tile, overlap=overlap, tile_batch=batch))):
+        # the counted call captures the graphs; a second call after it
+        secs[name] = []
+        for call in range(2):
+            torch.cuda.synchronize()
+            reset_counters()
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            if not call:
+                paths[f"shard_tiles: {name} frame"] = read_counters()
+    gen.compute_dtype = None
+    equal = torch.equal(outs["sharded"], outs["single"])
+    # the CLI and the daemon
+    frame = np.random.default_rng(seed + 41).integers(
+        0, 256, (150, 210, 3), np.uint8)
+    with _workdir("shard_tiles"):
+        _write_png("a.png", frame)
+        reset_counters()
+        _quiet(["test", "a.png", "--checkpoint", ckpt, "--shard-tiles",
+                "--tile-overlap", overlap])
+        torch.cuda.synchronize()
+        paths["shard_tiles: test --shard-tiles"] = read_counters()
+        from PIL import Image
+
+        tested = np.asarray(Image.open("upres-a.png"))
+    service = CheckpointUpscaleService(model="esrgan", checkpoint=ckpt,
+                                       device=DEVICE, shard_devices=devices)
+    reset_counters()
+    served = _unpng(service.upscale_bytes(_png(frame))[0])
+    torch.cuda.synchronize()
+    paths["shard_tiles: serve --shard-tiles"] = read_counters()
+    # pair_conv's batch split over the device list
+    rng = np.random.default_rng(seed + 42)
+    xp = torch.from_numpy(rng.standard_normal((128, 24, 24, 64))).to(
+        DEVICE, torch.bfloat16).requires_grad_(True)
+    kp = torch.from_numpy(rng.standard_normal((3, 3, 64, 64)) * 0.05).to(
+        DEVICE, torch.float32).requires_grad_(True)
+    grads = {}
+    for name, devs in (("split", devices), ("one", None)):
+        reset_counters()
+        y = pc_ops.pair_conv(xp, kp, devices=devs)
+        gx, gk = torch.autograd.grad(y.float().square().sum(), (xp, kp))
+        torch.cuda.synchronize()
+        grads[name] = (y, gx, gk)
+        if devs:
+            paths["shard_tiles: pair_conv split"] = read_counters()
+    pair_err = max(_rel_max(a, b) for a, b in zip(grads["split"],
+                                                   grads["one"]))
+    say("shard_tiles", frame=[h, w], devices=len(devices),
+        tile_batches=batches, sharded_equals_single=equal, seconds=secs,
+        test_shape=list(tested.shape), served_shape=list(served.shape),
+        served_equals_test=bool(np.array_equal(served, tested)),
+        pair_conv_split_rel_err=pair_err, launches=paths)
+    check(equal and outs["sharded"].shape == (4 * h, 4 * w, 3),
+          "shard_tiles: the sharded frame equals tiled_upscale bit for bit")
+    check(tested.shape == served.shape == (600, 840, 3),
+          "shard_tiles: test and serve --shard-tiles write 4x images")
+    check(pair_err <= 1e-2, f"shard_tiles: pair_conv split ({pair_err})")
+    fwd = 5 * 3 * NUM_RRDB
+    # each replica's graph: one eager warm-up forward, then a replay a
+    # batch
+    check_counts("shard_tiles: sharded frame",
+                 paths["shard_tiles: sharded frame"],
+                 rdb_fwd=fwd * (batches + SHARD_DEVICES * CAPTURE_FORWARDS))
+    check_counts("shard_tiles: single frame",
+                 paths["shard_tiles: single frame"],
+                 rdb_fwd=fwd * (batches + CAPTURE_FORWARDS))
+    check_counts("shard_tiles: pair_conv split",
+                 paths["shard_tiles: pair_conv split"],
+                 pair_fwd=SHARD_DEVICES, pair_bwd=SHARD_DEVICES)
+    # test: one card, tile batches of 8; serve: batches of 16 over two
+    # replicas (each captures at its first batch)
+    check_counts("shard_tiles: test --shard-tiles",
+                 paths["shard_tiles: test --shard-tiles"],
+                 rdb_fwd=fwd * (bench_tile_batches(frame.shape[:2], 64, 8, 8)
+                                + CAPTURE_FORWARDS))
+    served_batches = bench_tile_batches(frame.shape[:2], 64, 8, 16)
+    check_counts("shard_tiles: serve --shard-tiles",
+                 paths["shard_tiles: serve --shard-tiles"],
+                 rdb_fwd=fwd * (served_batches + CAPTURE_FORWARDS
+                                * min(served_batches, SHARD_DEVICES)))
+    return paths
+
+
+def phase_halo(gen: ESRGANGenerator, ckpt: str, seed: int) -> dict:
+    """A 2 x 2 grid on the card listed four times: a 1-RRDB generator
+    (receptive field inside ``HALO_TOY_OVERLAP``) exact against its
+    monolithic forward in f32; the full ESRGAN in bf16 no further from
+    its monolithic forward than the tiled path at the same overlap;
+    ``test --spatial-shard`` writes a 4x image."""
+    from torchsr_tpu_torch.infer.halo import halo_upscale, make_spatial_mesh
+
+    devices = [torch.device(DEVICE, 0)] * 4
+    mesh = make_spatial_mesh(devices, 2, 2)
+    toy = ESRGANGenerator(num_rrdb_blocks=1, generator=torch.Generator()
+                          .manual_seed(seed + 50)).to(DEVICE) \
+        .requires_grad_(False)
+    # blocks wider than two halos: no block sees the whole image
+    h, w = 6 * HALO_TOY_OVERLAP, 8 * HALO_TOY_OVERLAP
+    x = _rand((h, w, 3), seed + 51)
+    with torch.inference_mode():
+        mono = toy(x[None])[0]
+    toy_out = halo_upscale([toy] * 4, x, mesh, overlap=HALO_TOY_OVERLAP)
+    toy_err = _rel_max(toy_out, mono)
+    gen.compute_dtype = torch.bfloat16
+    x = _rand((*HALO_IMAGE, 3), seed + 52)
+    paths = {}
+    with torch.inference_mode():
+        reset_counters()
+        mono = gen(x[None])[0]
+        torch.cuda.synchronize()
+        paths["halo: monolithic"] = read_counters()
+    reset_counters()
+    halo = halo_upscale([gen] * 4, x, mesh, overlap=HALO_OVERLAP)
+    torch.cuda.synchronize()
+    paths["halo: 2x2 grid"] = read_counters()
+    tiled = tiled_upscale(gen, x, tile=64, overlap=HALO_OVERLAP,
+                          tile_batch=4)
+    gen.compute_dtype = None
+    halo_err = float((halo - mono).abs().max())
+    tiled_err = float((tiled - mono).abs().max())
+    with _workdir("halo"):
+        _write_png("a.png", np.random.default_rng(seed + 53).integers(
+            0, 256, (70, 90, 3), np.uint8))
+        reset_counters()
+        _quiet(["test", "a.png", "--checkpoint", ckpt, "--spatial-shard",
+                "--tile-overlap", 8])
+        torch.cuda.synchronize()
+        paths["halo: test --spatial-shard"] = read_counters()
+        from PIL import Image
+
+        shape = np.asarray(Image.open("upres-a.png")).shape
+    say("halo", grid=[2, 2], toy_rel_err=toy_err, image=list(HALO_IMAGE),
+        overlap=HALO_OVERLAP, halo_max_abs_err=halo_err,
+        tiled_max_abs_err=tiled_err, test_shape=list(shape),
+        launches=paths)
+    check(toy_err <= 1e-5, f"halo: exact against the monolithic forward "
+                           f"where the overlap covers the field ({toy_err})")
+    check(halo_err <= tiled_err,
+          f"halo: inside the tiled path's error ({halo_err} vs {tiled_err})")
+    check(shape == (280, 360, 3), "halo: test --spatial-shard writes 4x")
+    fwd = 5 * 3 * NUM_RRDB
+    check_counts("halo: 2x2 grid", paths["halo: 2x2 grid"], rdb_fwd=4 * fwd)
+    check_counts("halo: test --spatial-shard",
+                 paths["halo: test --spatial-shard"], rdb_fwd=fwd)
+    return paths
+
+
 # The kernels of the kernels line: (name, source, the TPU kernel it
 # replaces under torchsr_tpu/ops/pallas/, the timed rows and their key,
 # the timed shape).
@@ -4140,7 +4753,9 @@ def main() -> None:
              "train_grad_ext, train_grad_xla, train, train_ext, "
              "train_speed, eval, interp (both after train), srgan_train, "
              "multistep, bench, serve_graph, export, batching, external, "
-             "pack_train, scale, preempt, fast_compile.")
+             "pack_train, scale, preempt, fast_compile, subpixel_head, "
+             "ddp_train, shard_tiles, halo; multi_card (on a machine "
+             "with several cards only).")
     args = parser.parse_args()
     smi = phase_probe()
     # f32 references in full f32: cuDNN convolutions default to TF32
@@ -4196,7 +4811,12 @@ def main() -> None:
             "batching": serving(phase_batching, "ckpt"),
             "external": serving(phase_external, "gen", "ckpt"),
             "pack_train": phase_pack_train, "scale": phase_scale,
-            "preempt": phase_preempt, "fast_compile": phase_fast_compile}
+            "preempt": phase_preempt, "fast_compile": phase_fast_compile,
+            "subpixel_head": phase_subpixel_head,
+            "ddp_train": phase_ddp_train,
+            "shard_tiles": serving(phase_shard_tiles, "gen", "ckpt"),
+            "halo": serving(phase_halo, "gen", "ckpt"),
+            "multi_card": phase_multi_card}
         for name in args.only.split(","):
             run(name, phases[name], seed)
         say("seconds", **seconds)
@@ -4228,7 +4848,10 @@ def main() -> None:
     paths.update(run("batching", phase_batching, ckpt, seed))
     run("test", phase_test, ckpt, seed)
     paths.update(run("external", phase_external, gen, ckpt, seed))
+    paths.update(run("shard_tiles", phase_shard_tiles, gen, ckpt, seed))
+    paths.update(run("halo", phase_halo, gen, ckpt, seed))
     del gen
+    paths.update(run("subpixel_head", phase_subpixel_head, seed))
     for phase, ext in (("train", False), ("train_ext", True)):
         row = run(phase, phase_train, seed, ext=ext)
         paths[phase] = row["launches"]
@@ -4240,6 +4863,7 @@ def main() -> None:
                      ("preempt", phase_preempt),
                      ("fast_compile", phase_fast_compile)):
         paths.update(run(name, fn, seed))
+    paths.update(run("ddp_train", phase_ddp_train, seed))
     paths.update(run("srgan_train", phase_srgan_train, seed))
     paths.update(run("multistep", phase_multistep, seed))
     paths.update(run("bench", phase_bench, seed))

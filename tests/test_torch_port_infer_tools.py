@@ -76,7 +76,8 @@ def test_profile_infer(model, extra):
         assert [r["tile"] for r in out["sweep"]] == [16]
         assert _positive(out["sweep"][0]["wall_ms"])
         return
-    sections = {"conv1", "trunk", "conv2_skip", "upsample", "head"}
+    sections = {"conv1", "trunk", "conv2_skip", "upsample", "head",
+                "head_direct", "head_subpixel"}
     assert {"gen_fwd_graph", "gen_fwd_eager"} | sections == set(
         out["components"])
     assert all(_positive(r["wall_ms"]) for r in out["components"].values())

@@ -297,8 +297,15 @@ def test_cli_registers_only_ported_flags():
             args.shuffle_window) == (False, 4, 0)
     args = cli.parse_args(["pack", "ds", "ds.tsrpack"])
     assert (args.source, args.output) == ("ds", "ds.tsrpack")
-    for argv in (["test", "a.png", "--spatial-shard"],
-                 ["serve", "--shard-tiles"],
+    args = cli.parse_args(["train", "--num-devices", "2", "--master-addr",
+                           "10.0.0.1", "--master-port", "29501"])
+    assert (args.num_devices, args.master_addr, args.master_port) == (
+        2, "10.0.0.1", "29501")
+    assert cli.parse_args(["test", "a.png", "--spatial-shard"]).spatial_shard
+    assert cli.parse_args(["test", "a.png", "--shard-tiles"]).shard_tiles
+    assert cli.parse_args(["serve", "--shard-tiles"]).shard_tiles
+    for argv in (["test", "a.png", "--shard-tiles", "--spatial-shard"],
+                 ["serve", "a.pt2", "--shard-tiles"],
                  ["test", "a.png", "--tile", "8", "--tile-overlap", "8"],
                  ["eval", "val", "--tile", "8", "--tile-overlap", "8"]):
         with pytest.raises(SystemExit):

@@ -4,8 +4,12 @@ train|test|export|serve|eval|interp|pack|doctor``.
 The ported subcommands keep the JAX CLI's flag names and defaults, plus
 ``--device`` (default ``cuda``: the port runs on the card unless asked
 for the CPU, and raises when CUDA is absent; ``pack`` and ``doctor``
-are host-only).  Subcommands and flags that are not ported yet (the
-multi-process and mesh ones) are not registered (ROADMAP.md, queue A).
+are host-only).  Multi-device runs: ``train`` under ``torchrun`` is
+data-parallel (NCCL, one process a card; ``--master-addr``,
+``--master-port``, ``--num-devices``), ``test --shard-tiles`` /
+``serve --shard-tiles`` spread a frame's tile batches over the visible
+cards, and ``test --spatial-shard`` splits an image into a grid of
+blocks with halos over them.
 """
 
 from __future__ import annotations
@@ -111,6 +115,22 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     train.add_argument(
         "--model", type=str, default=MODEL, choices=MODEL_NAMES,
         help="Select the model to use for super resolution.",
+    )
+    train.add_argument(
+        "--master-addr", type=str,
+        help="Address used for multi-host coordination (overrides "
+             "MASTER_ADDR).",
+    )
+    train.add_argument(
+        "--master-port", type=str,
+        help="Port used for multi-host coordination (overrides "
+             "MASTER_PORT).",
+    )
+    train.add_argument(
+        "--num-devices", type=positive_integer,
+        help="Limit the data-parallel mesh to the first N local devices: "
+             "the number of torchrun processes (one card each), which "
+             "must equal it.",
     )
     train.add_argument(
         "--crop-size", type=positive_integer,
@@ -261,6 +281,20 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
         help="Run the generator forward in float32 (default: bfloat16 "
              "on CUDA, float32 on the CPU).",
     )
+    test.add_argument(
+        "--spatial-shard", action="store_true",
+        help="Shard the image spatially over all devices: a grid of "
+             "blocks, each run with an --tile-overlap halo of real "
+             "neighbour pixels (see infer/halo.py). Uses --tile-overlap "
+             "as the halo.",
+    )
+    test.add_argument(
+        "--shard-tiles", action="store_true",
+        help="Shard the tiled-inference tile batches over all devices "
+             "(a generator replica a device, no collectives; see "
+             "infer/multichip.py). Implies tiling: --tile defaults to "
+             "the measured per-model serving tile when unset.",
+    )
     _add_device(test)
 
     export = commands.add_parser(
@@ -366,6 +400,12 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
         "--disable-amp", action="store_true",
         help="Serve in float32 (default bfloat16 on CUDA, float32 on "
              "the CPU).",
+    )
+    serve.add_argument(
+        "--shard-tiles", action="store_true",
+        help="Checkpoint backend: shard each frame's tile batches over "
+             "all devices (a generator replica a device; see "
+             "infer/multichip.py) - scale-out serving on one host.",
     )
     serve.add_argument(
         "--batch-requests", action="store_true",
@@ -567,6 +607,18 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
             "pass either a serving-artifact path or --checkpoint (with "
             "--batch-requests), not both"
         )
+    if getattr(args, "shard_tiles", False):
+        if getattr(args, "spatial_shard", False):
+            parser.error(
+                "--shard-tiles and --spatial-shard are alternative "
+                "multi-device strategies; pick one"
+            )
+        if getattr(args, "artifact", None):
+            parser.error(
+                "--shard-tiles needs the checkpoint backend (a serving "
+                "artifact is one exported program on one device); drop "
+                "the artifact path and pass --model/--checkpoint"
+            )
     return args
 
 

@@ -113,7 +113,11 @@ class TrainLoader:
     global permutation: a decode cache that holds a window then decodes
     each image once an epoch however large the dataset.  ``reader``
     maps a name to its image (a pack's ``get``); by default names are
-    files, decoded and cached."""
+    files, decoded and cached.  ``num_shards`` / ``shard_index``: this
+    rank's share of every epoch under data parallelism, as the JAX
+    loader draws it (the permutation padded by wrapping to a multiple
+    of the shard count, DistributedSampler-style, then interleaved;
+    windows are cut within the shard)."""
 
     def __init__(
         self,
@@ -125,6 +129,8 @@ class TrainLoader:
         seed: int = 0,
         shuffle_window: int = 0,
         reader=None,
+        num_shards: int = 1,
+        shard_index: int = 0,
     ) -> None:
         if not paths:
             raise ValueError("TrainLoader needs at least one image")
@@ -132,12 +138,14 @@ class TrainLoader:
         self.batch_size = batch_size
         self.crop_size = crop_size
         self.seed = seed
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.shuffle_window = int(shuffle_window)
         self._cache = _cache_for(reader, _TRAIN_CACHE_BYTES)
         self._pool = ThreadPoolExecutor(max_workers=max(1, workers))
-        # full batches only (a tiny dataset wraps to fill one)
-        n = len(self.paths)
-        self.batches_per_epoch = max(1, n // batch_size)
+        # full batches of a shard only (a tiny dataset wraps to fill one)
+        per_shard = -(-len(self.paths) // num_shards)
+        self.batches_per_epoch = max(1, per_shard // batch_size)
         self.samples_per_epoch = self.batches_per_epoch * batch_size
 
     def __len__(self) -> int:
@@ -169,9 +177,15 @@ class TrainLoader:
         return np.concatenate(out)
 
     def epoch(self, epoch_idx: int) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """Iterate one epoch's batches (0-based ``epoch_idx``)."""
+        """Iterate one epoch's batches of this shard (0-based
+        ``epoch_idx``)."""
+        n = len(self.paths)
         rng = np.random.default_rng((self.seed, epoch_idx))
-        order = rng.permutation(len(self.paths))
+        order = rng.permutation(n)
+        total = -(-n // self.num_shards) * self.num_shards
+        if total > n:
+            order = np.concatenate([order, order[: total - n]])
+        order = order[self.shard_index::self.num_shards]
         if len(order) < self.samples_per_epoch:
             order = np.tile(order, -(-self.samples_per_epoch // len(order)))
         order = self._window_reorder(order[: self.samples_per_epoch], rng)
@@ -190,7 +204,9 @@ class TrainLoader:
 class EvalLoader:
     """Deterministic eval loader of padded uint8 crop batches: yields
     ``(crops_u8, valid)``; crops are a fixed function of (seed, image
-    index), the same every epoch."""
+    index), the same every epoch.  ``num_shards`` / ``shard_index``:
+    every ``num_shards``-th image from ``shard_index``, as the JAX
+    loader shards."""
 
     def __init__(
         self,
@@ -201,6 +217,8 @@ class EvalLoader:
         workers: int = 16,
         seed: int = 0,
         reader=None,
+        num_shards: int = 1,
+        shard_index: int = 0,
     ) -> None:
         if not paths:
             raise ValueError("EvalLoader needs at least one image")
@@ -210,7 +228,8 @@ class EvalLoader:
         self.seed = seed
         self._cache = _cache_for(reader, _EVAL_CACHE_BYTES)
         self._pool = ThreadPoolExecutor(max_workers=max(1, workers))
-        self.batches_per_epoch = -(-len(self.paths) // batch_size)
+        self.indices = np.arange(len(self.paths))[shard_index::num_shards]
+        self.batches_per_epoch = -(-len(self.indices) // batch_size)
 
     def __len__(self) -> int:
         return self.batches_per_epoch
@@ -227,7 +246,7 @@ class EvalLoader:
     def __iter__(self) -> Iterator[tuple[np.ndarray, int]]:
         bs = self.batch_size
         for b in range(self.batches_per_epoch):
-            idx = range(b * bs, min((b + 1) * bs, len(self.paths)))
+            idx = self.indices[b * bs:(b + 1) * bs]
             crops = list(self._pool.map(self._sample, idx))
             valid = len(crops)
             crops += [np.zeros_like(crops[0])] * (bs - valid)
@@ -251,13 +270,16 @@ def initialize_datasets(
     train_directory: str, batch_size: int, crop_size: int = 128,
     dataset_multiplier: int = 1, workers: int = 16, seed: int = 0,
     eval_directory: str | None = None, shuffle_window: int = 0,
+    num_shards: int = 1, shard_index: int = 0,
 ) -> tuple[TrainLoader, EvalLoader, int, int]:
     """Discover (a directory or a pack), split 90/10 by ``seed``, and
     build the loaders: (train_loader, test_loader, train_len, test_len),
     the reference's ``initialize_datasets`` contract.  With
     ``eval_directory`` the eval loader takes all of it and training all
     of ``train_directory``.  Each loader decodes and crops on
-    ``workers`` threads."""
+    ``workers`` threads.  ``num_shards`` / ``shard_index`` shard the
+    training loader only: every rank evaluates the whole eval set, so
+    a data-parallel run's eval reads as one process's."""
     from torchsr_tpu_torch.data.discovery import split_dataset
 
     images, train_reader = dataset_source(train_directory)
@@ -274,7 +296,8 @@ def initialize_datasets(
                                dataset_multiplier=dataset_multiplier,
                                workers=workers, seed=seed,
                                shuffle_window=shuffle_window,
-                               reader=train_reader)
+                               reader=train_reader, num_shards=num_shards,
+                               shard_index=shard_index)
     eval_loader = EvalLoader(test_paths, batch_size, crop_size,
                              dataset_multiplier=dataset_multiplier,
                              workers=workers, seed=seed, reader=eval_reader)

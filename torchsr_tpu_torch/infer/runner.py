@@ -4,7 +4,8 @@ upscale images, or write it as a serving artifact.
 Accepts the reference's ``.pth`` and the JAX package's ``.ckpt``,
 strips a DDP ``module.`` prefix, names outputs ``upres-{basename}``,
 and offers tiled overlap-blend inference (``--tile``; on CUDA each tile
-batch replays the generator's captured graph).  Runs on the CUDA device
+batch replays the generator's captured graph), over several devices
+with ``--shard-tiles`` or ``--spatial-shard``.  Runs on the CUDA device
 unless the caller asks for the CPU.
 """
 
@@ -84,18 +85,22 @@ def run_test(args: Namespace, generator_cls) -> str:
         compute_dtype=resolve_compute_dtype(args, device),
     )
 
-    forward = tile_forward(generator, device)
+    if getattr(args, "shard_tiles", False) or getattr(
+            args, "spatial_shard", False):
+        upscale_one = _sharded_upscaler(args, generator, device)
+    else:
+        forward = tile_forward(generator, device)
 
-    def upscale_one(path: str) -> np.ndarray:
-        return upscale_image(
-            forward,
-            image_io.load_image(path),
-            scale=generator.scale_factor,
-            tile=getattr(args, "tile", 0) or 0,
-            overlap=getattr(args, "tile_overlap", 16),
-            tile_batch=getattr(args, "tile_batch", 8),
-            device=device,
-        )
+        def upscale_one(path: str) -> np.ndarray:
+            return upscale_image(
+                forward,
+                image_io.load_image(path),
+                scale=generator.scale_factor,
+                tile=getattr(args, "tile", 0) or 0,
+                overlap=getattr(args, "tile_overlap", 16),
+                tile_batch=getattr(args, "tile_batch", 8),
+                device=device,
+            )
 
     if os.path.isdir(args.image):
         paths = image_io.discover_images(args.image)
@@ -111,6 +116,52 @@ def run_test(args: Namespace, generator_cls) -> str:
     out_path = f"upres-{os.path.basename(args.image)}"
     image_io.save_image(upscale_one(args.image), out_path)
     return out_path
+
+
+def _sharded_upscaler(args: Namespace, generator, device: torch.device):
+    """``test``'s upscale over every visible device of ``device``'s kind
+    (``parallel/mesh.py`` ``local_devices``): ``--shard-tiles`` spreads
+    the tile batches (``infer/multichip.py``; ``--tile`` defaults to the
+    model's serving tile), ``--spatial-shard`` splits the image into a
+    grid of blocks with ``--tile-overlap`` halos (``infer/halo.py``)."""
+    from torchsr_tpu_torch.infer.halo import halo_upscale, make_spatial_mesh
+    from torchsr_tpu_torch.infer.multichip import (
+        sharded_forwards,
+        tiled_upscale_sharded,
+    )
+    from torchsr_tpu_torch.infer.tiled import DEFAULT_SERVING_TILE
+    from torchsr_tpu_torch.parallel.mesh import (
+        local_devices,
+        replicate_module,
+    )
+
+    devices = local_devices(device=device)
+    scale = generator.scale_factor
+    overlap = getattr(args, "tile_overlap", 16)
+    if getattr(args, "shard_tiles", False):
+        tile = getattr(args, "tile", 0) or DEFAULT_SERVING_TILE.get(
+            args.model.lower(), 64)
+        forwards = sharded_forwards(generator, devices)
+
+        def run(x):
+            return tiled_upscale_sharded(
+                forwards, x, devices, scale=scale, tile=tile,
+                overlap=min(overlap, tile - 1),
+                tile_batch=getattr(args, "tile_batch", 8))
+    else:
+        spatial = make_spatial_mesh(devices)
+        replicas = replicate_module(generator, list(spatial.devices))
+
+        def run(x):
+            return halo_upscale(replicas, x, spatial, scale=scale,
+                                overlap=overlap)
+
+    def upscale_one(path: str) -> np.ndarray:
+        arr = image_io.load_image(path).astype(np.float32) / 255.0
+        out = run(torch.from_numpy(arr).to(devices[0]))
+        return out.clamp(0.0, 1.0).cpu().numpy()
+
+    return upscale_one
 
 
 def run_export(args: Namespace, generator_cls) -> str:

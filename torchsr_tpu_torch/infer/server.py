@@ -240,7 +240,12 @@ class CheckpointUpscaleService(_Service):
     (``infer/batching.py``): a frame that tiles to fewer than
     ``tile_batch`` tiles goes through a shared ``TileBatcher``, so
     concurrent small frames fill one device batch together; frames that
-    fill a batch alone keep the on-device tiled path."""
+    fill a batch alone keep the on-device tiled path.
+
+    ``shard_devices`` (``--shard-tiles``): each frame's tile batches
+    spread over these devices, a generator replica on each
+    (``infer/multichip.py``); the frame's tiles and blend stay on
+    ``device``."""
 
     def __init__(
         self,
@@ -253,6 +258,7 @@ class CheckpointUpscaleService(_Service):
         device: str | torch.device = "cuda",
         batch_requests: bool = False,
         batch_wait_ms: float = 2.0,
+        shard_devices: list | None = None,
         **limits,
     ):
         from argparse import Namespace
@@ -279,6 +285,12 @@ class CheckpointUpscaleService(_Service):
             compute_dtype=dtype,
         )
         self._forward = tile_forward(self._generator, self.device)
+        self._shard = None
+        if shard_devices:
+            from torchsr_tpu_torch.infer.multichip import sharded_forwards
+
+            self._shard = (list(shard_devices), sharded_forwards(
+                self._generator, list(shard_devices)))
         self.tile = int(tile) or DEFAULT_SERVING_TILE.get(model, 64)
         self.tile_batch = int(tile_batch)
         self.scale = int(self._generator.scale_factor)
@@ -300,6 +312,7 @@ class CheckpointUpscaleService(_Service):
             "compute_dtype": str(dtype).removeprefix("torch."),
             "device": _device_name(self.device),
             "batch_requests": self._batcher is not None,
+            "shard_devices": len(self._shard[0]) if self._shard else 0,
         }
 
     def warmup(self) -> None:
@@ -368,14 +381,18 @@ class CheckpointUpscaleService(_Service):
             self._batcher.close()
 
     def _upscale(self, arr: np.ndarray, overlap: int | None) -> np.ndarray:
+        from torchsr_tpu_torch.infer.multichip import tiled_upscale_sharded
         from torchsr_tpu_torch.infer.tiled import tiled_upscale
 
-        x = torch.tensor(arr, device=self.device)
-        out = tiled_upscale(
-            self._forward, x.float() / 255.0, scale=self.scale,
-            tile=self.tile, overlap=self._resolve_overlap(overlap),
-            tile_batch=self.tile_batch,
-        )
+        x = torch.tensor(arr, device=self.device).float() / 255.0
+        kw = {"scale": self.scale, "tile": self.tile,
+              "overlap": self._resolve_overlap(overlap),
+              "tile_batch": self.tile_batch}
+        if self._shard is not None:
+            devices, forwards = self._shard
+            out = tiled_upscale_sharded(forwards, x, devices, **kw)
+        else:
+            out = tiled_upscale(self._forward, x, **kw)
         # round to uint8 on the device: the host copy moves 4x fewer
         # bytes than the f32 frame
         u8 = (out.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
@@ -553,6 +570,8 @@ def run_server(args) -> None:
     checkpoint), until SIGTERM or Ctrl-C."""
     import signal
 
+    from torchsr_tpu_torch.parallel.mesh import local_devices
+
     limits = {"max_request_mb": args.max_request_mb,
               "max_input_mp": args.max_input_mp,
               "max_pending": args.max_pending}
@@ -572,6 +591,8 @@ def run_server(args) -> None:
             device=args.device,
             batch_requests=args.batch_requests,
             batch_wait_ms=args.batch_wait_ms,
+            shard_devices=(local_devices(device=args.device)
+                           if getattr(args, "shard_tiles", False) else None),
             **limits,
         )
         what = f"checkpoint {service.meta['checkpoint']}"

@@ -158,6 +158,39 @@ def blend_tiles(sr: torch.Tensor, padded_hw, tile: int, overlap: int,
     return acc / wacc
 
 
+def cut_tiles(image: torch.Tensor, tile: int, overlap: int,
+              tile_batch: int) -> tuple[torch.Tensor, int, tuple]:
+    """The tiles of an ``(H, W, 3)`` image, in one gather: ``(N, tile,
+    tile, 3)`` with N padded to whole batches of ``tile_batch`` by
+    copies of tile (0, 0), the number of real tiles, and the (reflect-
+    padded) size they cover.  Call under ``torch.inference_mode``."""
+    if not 0 <= overlap < tile:
+        raise ValueError(
+            f"overlap must satisfy 0 <= overlap < tile, got "
+            f"overlap={overlap} tile={tile} (the tiling stride is "
+            f"tile - overlap and must stay positive)"
+        )
+    device = image.device
+    h, w = image.shape[:2]
+    if h < tile or w < tile:
+        rows = _reflect_index(max(h, tile), h, device)
+        cols = _reflect_index(max(w, tile), w, device)
+        image = image[rows[:, None], cols[None, :]]
+    ph, pw = image.shape[:2]
+    stride = tile - overlap
+    grid = [(y, x) for y in _positions(ph, tile, stride)
+            for x in _positions(pw, tile, stride)]
+    n_tiles = len(grid)
+    n_padded = -(-n_tiles // tile_batch) * tile_batch
+    starts = torch.tensor(
+        grid + [(0, 0)] * (n_padded - n_tiles), device=device
+    )
+    ar = torch.arange(tile, device=device)
+    rows = starts[:, 0, None] + ar  # (N, tile)
+    cols = starts[:, 1, None] + ar
+    return image[rows[:, :, None], cols[:, None, :]], n_tiles, (ph, pw)
+
+
 def tiled_upscale(
     infer_fn,
     image: torch.Tensor,
@@ -172,39 +205,16 @@ def tiled_upscale(
     NHWC and return float32; its result is copied out before the next
     call (a ``TileForward`` returns its graph's static output).  Returns
     ``(H*scale, W*scale, 3)`` float32 on the image's device."""
-    if not 0 <= overlap < tile:
-        raise ValueError(
-            f"overlap must satisfy 0 <= overlap < tile, got "
-            f"overlap={overlap} tile={tile} (the tiling stride is "
-            f"tile - overlap and must stay positive)"
-        )
-    device = image.device
     h, w = image.shape[:2]
     with torch.inference_mode():
-        if h < tile or w < tile:
-            rows = _reflect_index(max(h, tile), h, device)
-            cols = _reflect_index(max(w, tile), w, device)
-            image = image[rows[:, None], cols[None, :]]
-        ph, pw = image.shape[:2]
-        stride = tile - overlap
-        grid = [(y, x) for y in _positions(ph, tile, stride)
-                for x in _positions(pw, tile, stride)]
-        n_tiles = len(grid)
-        n_padded = -(-n_tiles // tile_batch) * tile_batch
-        starts = torch.tensor(
-            grid + [(0, 0)] * (n_padded - n_tiles), device=device
-        )
-        ar = torch.arange(tile, device=device)
-        rows = starts[:, 0, None] + ar  # (N, tile)
-        cols = starts[:, 1, None] + ar
-        tiles = image[rows[:, :, None], cols[:, None, :]]  # (N, t, t, 3)
+        tiles, n_tiles, padded = cut_tiles(image, tile, overlap, tile_batch)
         t4 = tile * scale
-        sr = torch.empty((n_padded, t4, t4, 3), device=device)
-        for first in range(0, n_padded, tile_batch):
+        sr = torch.empty((len(tiles), t4, t4, 3), device=image.device)
+        for first in range(0, len(tiles), tile_batch):
             sr[first:first + tile_batch] = infer_fn(
                 tiles[first:first + tile_batch])
         # padded entries (index >= n_tiles) carry weight 0: left out
-        out = blend_tiles(sr[:n_tiles], (ph, pw), tile, overlap, scale)
+        out = blend_tiles(sr[:n_tiles], padded, tile, overlap, scale)
     return out[: h * scale, : w * scale]
 
 
@@ -218,20 +228,26 @@ class TileForward:
     the capture under ``torch.inference_mode``; the launch counters a
     capture advances are taken back and added once per replay.  A
     capture that fails raises: the card never runs the tiles eagerly
-    behind a graph's back."""
+    behind a graph's back.  Capture and replays run with ``device``
+    current, on a stream of that device."""
 
     def __init__(self, module, shape: tuple, device: torch.device) -> None:
         from torchsr_tpu_torch.train import graphs
 
         self.shape = tuple(shape)
-        with torch.inference_mode():
+        self.device = torch.device(device)
+        with torch.inference_mode(), torch.cuda.device(self.device):
             self.input = torch.zeros(self.shape, device=device)
             graphs.warm_up(module, self.input)
             torch.cuda.synchronize(device)
             self.graph = torch.cuda.CUDAGraph()
             before = graphs.launch_counts()
             try:
+                # a capture stream of this device: torch.cuda.graph's
+                # default one is made once, on whichever device was
+                # current then
                 with torch.cuda.graph(self.graph,
+                                      stream=torch.cuda.Stream(self.device),
                                       capture_error_mode="thread_local"):
                     self.output = module(self.input)
             except RuntimeError as exc:
@@ -250,7 +266,7 @@ class TileForward:
         if tuple(x.shape) != self.shape:
             raise ValueError(f"this tile forward takes {self.shape}, got "
                              f"{tuple(x.shape)}")
-        with torch.inference_mode():
+        with torch.inference_mode(), torch.cuda.device(self.device):
             self.input.copy_(x)
             self.graph.replay()
         graphs.add_launch_counts(self.launches)

@@ -11,9 +11,11 @@ on CUDA), and the outputs cast to f32.
 
 Every residual dense block runs through ``ops.rdb.fused_rdb``: the CUDA
 kernels on the card (forward, and backward when trained), the plain
-versions on the CPU.  The final conv is a
-plain conv; the JAX ``SubpixelSpaceConv`` tail is an exact relayout of
-it.  ``state_dict`` keys are the reference's (``conv1``,
+versions on the CPU.  The final 64->3 conv runs, as the JAX
+generator's ``fused_tail`` does, in subpixel space
+(``ops/subpixel_conv.py``) where ``fused_tail`` says so (None: on CUDA
+where ``FUSED_TAIL_ON_CUDA`` says so, the direct conv on the CPU); both
+compute the same conv with the same parameters.  ``state_dict`` keys are the reference's (``conv1``,
 ``blocks.{i}.RDB{j}.conv{1..4}.0``, ``blocks.{i}.RDB{j}.conv5``,
 ``conv2``, ``upsample{k}``, ``conv3.0``, ``conv4``), so a reference
 ``.pth`` loads as it is.
@@ -29,8 +31,12 @@ from torch import nn
 from torchsr_tpu_torch.models.layers import BatchNorm, Conv, Dense, leaky_relu
 from torchsr_tpu_torch.ops.rdb import CHANNELS, CIN, COUT, fused_rdb
 from torchsr_tpu_torch.ops.resize import nearest_upsample
+from torchsr_tpu_torch.ops.subpixel_conv import conv_subpixel_space
 
 NUM_RESIDUAL = 23
+# the tail's form on CUDA when ``fused_tail`` is None (the faster one
+# on the H100: PERF.md)
+FUSED_TAIL_ON_CUDA = False
 
 
 def _rdb_std(fan_in: int) -> float:
@@ -114,7 +120,8 @@ class ESRGANGenerator(nn.Module):
     upsample stages.  ``compute_dtype`` is the activation dtype (None =
     f32); parameters are stored in ``dtype`` (f32).  ``generator`` seeds
     the initialization: RDB kernels kaiming-normal x 0.1, everything
-    else torch's defaults.
+    else torch's defaults.  ``fused_tail``: the final conv in subpixel
+    space (module docstring).
     """
 
     def __init__(
@@ -126,6 +133,7 @@ class ESRGANGenerator(nn.Module):
         device=None,
         dtype=None,
         generator: torch.Generator | None = None,
+        fused_tail: bool | None = None,
     ):
         super().__init__()
         n_up = int(math.log2(scale_factor))
@@ -135,6 +143,7 @@ class ESRGANGenerator(nn.Module):
             )
         self.scale_factor = scale_factor
         self.num_rrdb_blocks = num_rrdb_blocks
+        self.fused_tail = fused_tail
         self.compute_dtype = compute_dtype
         kw = {"device": device, "dtype": dtype}
         self.conv1 = Conv(3, CHANNELS, **kw)
@@ -177,8 +186,20 @@ class ESRGANGenerator(nn.Module):
         out = conv1 + out
         for up in self.upsamplers():
             out = leaky_relu(up(nearest_upsample(out, 2)), 0.2)
-        out = leaky_relu(self.conv3[0](out), 0.2)
-        return self.conv4(out).float()
+        return self.head(leaky_relu(self.conv3[0](out), 0.2)).float()
+
+    def head(self, x: torch.Tensor, fused: bool | None = None):
+        """The final 64->3 conv: direct, or in subpixel space
+        (``fused``; None: ``fused_tail``, else CUDA and
+        ``FUSED_TAIL_ON_CUDA``)."""
+        if fused is None:
+            fused = self.fused_tail
+        if fused is None:
+            fused = x.is_cuda and FUSED_TAIL_ON_CUDA
+        if fused:
+            return conv_subpixel_space(x, self.conv4.weight, self.conv4.bias,
+                                       self.scale_factor)
+        return self.conv4(x)
 
 
 

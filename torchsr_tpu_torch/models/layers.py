@@ -153,12 +153,55 @@ class BatchNorm(nn.BatchNorm2d):
     ``layers.BatchNorm``: statistics and normalization in f32 whatever
     the compute dtype, the output cast back to it.  ``nn.BatchNorm2d``
     keys (weight, bias, running_mean, running_var,
-    num_batches_tracked)."""
+    num_batches_tracked).
+
+    ``sync_group`` (a ``torch.distributed`` group, set by
+    ``sync_batchnorm``): in training mode the batch statistics span the
+    global batch of every rank, as the JAX package's BatchNorm over a
+    sharded batch does: one all-reduce a call of the sums of
+    (x - running mean) and its square and of the count, the JAX
+    package's one-pass moments shifted by the running mean
+    (``layers.py`` ``_TorchBN``), differentiable (the backward
+    all-reduces their gradients)."""
+
+    sync_group = None
 
     def __init__(self, channels: int, *, device=None, dtype=None):
         super().__init__(channels, eps=1e-5, momentum=0.1, device=device,
                          dtype=dtype or torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.sync_group is not None:
+            return self._synced(x.float()).to(x.dtype)
         y = super().forward(x.permute(0, 3, 1, 2).float())
         return y.permute(0, 2, 3, 1).to(x.dtype)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        from torchsr_tpu_torch.parallel.mesh import all_reduce_sum
+
+        shift = self.running_mean.detach().clone()
+        d = x - shift
+        local = torch.cat([d.sum((0, 1, 2)), (d * d).sum((0, 1, 2)),
+                           d.new_full((1,), d.numel() // d.shape[-1])])
+        total = all_reduce_sum(local, self.sync_group)
+        c = self.num_features
+        count = total[2 * c]
+        m1 = total[:c] / count
+        var = (total[c:2 * c] / count - m1 * m1).clamp_min(0.0)
+        mean = shift + m1
+        with torch.no_grad():  # no host read: a CUDA graph captures it
+            unbiased = count / (count - 1.0).clamp_min(1.0)
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach() * unbiased, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+def sync_batchnorm(module: nn.Module, group) -> nn.Module:
+    """Every ``BatchNorm`` of ``module`` to statistics over ``group``'s
+    global batch (None: each process's own batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.sync_group = group
+    return module

@@ -12,8 +12,14 @@ on CUDA), BatchNorm statistics in f32, and the outputs cast to f32.
     LeakyReLU, Linear->1, sigmoid in f32.
 
 No TPU kernel is on this path: every layer is a plain PyTorch op.  The
-JAX generator's head (``SubpixelSpaceConv``) is an exact relayout of a
-9x9 conv, so the port runs the conv.  ``state_dict`` keys are the
+9x9 64->3 head runs, as the JAX generator's ``fused_head`` does, in
+subpixel space (``ops/subpixel_conv.py``): at 4x the last upsample
+stage skips its pixel shuffle (its PReLU has one scalar slope, so it
+commutes) and the head consumes the pre-shuffle map through a
+partially folded kernel; at 2x and 8x it folds the HR map.  The
+``fused_head`` attribute picks it (None: the subpixel form on CUDA
+where ``FUSED_HEAD_ON_CUDA`` says so, the direct conv on the CPU);
+both compute the same conv with the same parameters.  ``state_dict`` keys are the
 reference's (``conv1.{0,1}``, ``blocks.{i}.conv1/bn1/prelu/conv2/bn2``,
 ``conv2.{0,1}``, ``conv_layers.{i}.conv/prelu``, ``conv3``;
 ``features.{i}``, ``classifier.{0,2}``), so a reference ``.pth`` loads
@@ -31,9 +37,16 @@ from torch import nn
 
 from torchsr_tpu_torch.models.layers import BatchNorm, Conv, Dense, PReLU
 from torchsr_tpu_torch.ops.pixel_shuffle import depth_to_space
+from torchsr_tpu_torch.ops.subpixel_conv import (
+    conv_head_partially_folded,
+    conv_subpixel_space,
+)
 
 NUM_RESIDUAL = 16
 CHANNELS = 64
+# the head's form on CUDA when ``fused_head`` is None (the faster one
+# on the H100: PERF.md)
+FUSED_HEAD_ON_CUDA = True
 
 
 def _reset(module: nn.Module, generator: torch.Generator | None) -> None:
@@ -71,8 +84,10 @@ class SubpixelConv(nn.Module):
         self.conv = Conv(channels, channels * 4, device=device, dtype=dtype)
         self.prelu = PReLU(device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.prelu(depth_to_space(self.conv(x), 2))
+    def forward(self, x: torch.Tensor, shuffle: bool = True) -> torch.Tensor:
+        """``shuffle=False`` leaves the output folded (B, H, W, 4C)."""
+        y = self.conv(x)
+        return self.prelu(depth_to_space(y, 2) if shuffle else y)
 
 
 class SRGANGenerator(nn.Module):
@@ -83,6 +98,7 @@ class SRGANGenerator(nn.Module):
     parameters are stored in ``dtype`` (f32).  ``generator`` seeds the
     torch-default initialization; PReLU slopes start at 0.25 and
     BatchNorms at scale 1, bias 0, as in the JAX package.
+    ``fused_head``: the head in subpixel space (module docstring).
     """
 
     def __init__(
@@ -94,6 +110,7 @@ class SRGANGenerator(nn.Module):
         device=None,
         dtype=None,
         generator: torch.Generator | None = None,
+        fused_head: bool | None = None,
     ):
         super().__init__()
         n_up = int(math.log2(scale_factor))
@@ -104,6 +121,7 @@ class SRGANGenerator(nn.Module):
         self.scale_factor = scale_factor
         self.num_residual = num_residual
         self.compute_dtype = compute_dtype
+        self.fused_head = fused_head
         kw = {"device": device, "dtype": dtype}
         self.conv1 = nn.Sequential(Conv(3, CHANNELS, 9, **kw), PReLU(**kw))
         self.blocks = nn.Sequential(
@@ -131,7 +149,34 @@ class SRGANGenerator(nn.Module):
         """(B, H, W, 3) in [0, 1] -> (B, sH, sW, 3) float32."""
         conv1 = self.conv1(x.to(self.compute_dtype or torch.float32))
         out = conv1 + self.conv2(self.blocks(conv1))
-        return self.conv3(self.conv_layers(out)).float()
+        return self.tail(out).float()
+
+    def uses_fused_head(self, x: torch.Tensor) -> bool:
+        if self.fused_head is not None:
+            return self.fused_head
+        return x.is_cuda and FUSED_HEAD_ON_CUDA
+
+    def tail(self, out: torch.Tensor) -> torch.Tensor:
+        """The upsample stages and the head, from the trunk's output."""
+        fused = self.uses_fused_head(out)
+        fold_last = fused and self.scale_factor == 4
+        n_up = len(self.conv_layers)
+        for i, stage in enumerate(self.conv_layers):
+            out = stage(out, shuffle=not (fold_last and i == n_up - 1))
+        if fold_last:
+            return conv_head_partially_folded(
+                out, self.conv3.weight, self.conv3.bias, 4, 2)
+        return self.head(out, fused)
+
+    def head(self, up: torch.Tensor, fused: bool | None = None):
+        """The 9x9 head on the HR map ``up``: direct, or in subpixel
+        space (``fused``; None: ``uses_fused_head``)."""
+        if fused is None:
+            fused = self.uses_fused_head(up)
+        if fused:
+            return conv_subpixel_space(up, self.conv3.weight,
+                                       self.conv3.bias, self.scale_factor)
+        return self.conv3(up)
 
 
 # (channels, stride, batch norm) of the discriminator's conv stages

@@ -140,10 +140,25 @@ class _PairConv(torch.autograd.Function):
 
 
 def pair_conv(x: torch.Tensor, kernel: torch.Tensor,
-              bias: torch.Tensor | None = None) -> torch.Tensor:
+              bias: torch.Tensor | None = None, *,
+              devices: list | None = None) -> torch.Tensor:
     """3x3 stride-1 SAME conv, 64 -> 64 channels, NHWC, differentiable in
     x, the kernel and the bias.  Refuses, with the JAX package's
-    message, any shape ``pair_conv_supported`` does not admit."""
+    message, any shape ``pair_conv_supported`` does not admit.
+
+    ``devices`` (the JAX package's ``mesh`` / ``batch_axis``): with more
+    than one device and a batch they divide, the batch is split into
+    equal parts, part i runs on ``devices[i]`` (operands copied there)
+    and the outputs are concatenated on x's device; the copies are
+    differentiable, so the kernel's and bias's gradients sum the
+    parts'."""
+    if devices is not None and len(devices) > 1 \
+            and x.shape[0] % len(devices) == 0:
+        home = x.device
+        parts = [pair_conv(xp.to(d), kernel.to(d),
+                           None if bias is None else bias.to(d))
+                 for xp, d in zip(x.chunk(len(devices)), devices)]
+        return torch.cat([p.to(home) for p in parts])
     if not pair_conv_supported(x.shape, kernel.shape):
         raise ValueError(
             f"pair_conv: unsupported shapes x={tuple(x.shape)} "

@@ -21,9 +21,15 @@ Components:
                  before the graph)
   <sections>     the generator's sections, eagerly, at their inputs'
                  shapes: ESRGAN conv1, trunk (the RRDBs), conv2_skip,
-                 upsample (nearest x2 + conv + LReLU, twice), head;
+                 upsample (nearest x2 + conv + LReLU, twice), head (conv3
+                 + LReLU + the 64->3 conv in the model's form), and the
+                 64->3 conv alone both ways: head_direct, head_subpixel;
                  SRGAN conv1, tower (the residual blocks), conv2_skip,
-                 ups (the subpixel stages), head
+                 ups (the subpixel stages), tail (the stages and the
+                 head as the model runs them), and the 9x9 head alone
+                 both ways: head_direct (on the 4x map), head_folded
+                 (the partially folded form on the last stage's
+                 pre-shuffle map)
 Frame probes (a 1080p -> 4K frame, ``--frames`` frames, wall ms a
 frame to a scalar readback, and the profiler's busy share over one):
   frame          ``tiled_upscale`` through the graphed tile forward (the
@@ -88,6 +94,9 @@ def sections(gen, x: torch.Tensor) -> dict:
     from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
     from torchsr_tpu_torch.models.layers import leaky_relu
     from torchsr_tpu_torch.ops.resize import nearest_upsample
+    from torchsr_tpu_torch.ops.subpixel_conv import (
+        conv_head_partially_folded,
+    )
 
     with torch.inference_mode():
         xc = x.to(gen.compute_dtype or torch.float32)
@@ -105,25 +114,33 @@ def sections(gen, x: torch.Tensor) -> dict:
                     out = leaky_relu(conv(nearest_upsample(out, 2)), 0.2)
                 return out
 
+            pre = leaky_relu(gen.conv3[0](up), 0.2)
             calls = {
                 "conv1": lambda: gen.conv1(xc),
                 "trunk": lambda: gen.blocks(c1),
                 "conv2_skip": lambda: c1 + gen.conv2(trunk),
                 "upsample": upsample,
-                "head": lambda: gen.conv4(
+                "head": lambda: gen.head(
                     leaky_relu(gen.conv3[0](up), 0.2)).float(),
+                "head_direct": lambda: gen.head(pre, False),
+                "head_subpixel": lambda: gen.head(pre, True),
             }
         else:
             c1 = gen.conv1(xc)
             tower = gen.blocks(c1)
             mid = gen.conv2(tower) + c1
             up = gen.conv_layers(mid)
+            folded = gen.conv_layers[-1](gen.conv_layers[:-1](mid),
+                                         shuffle=False)
             calls = {
                 "conv1": lambda: gen.conv1(xc),
                 "tower": lambda: gen.blocks(c1),
                 "conv2_skip": lambda: gen.conv2(tower) + c1,
                 "ups": lambda: gen.conv_layers(mid),
-                "head": lambda: gen.conv3(up).float(),
+                "tail": lambda: gen.tail(mid).float(),
+                "head_direct": lambda: gen.head(up, False),
+                "head_folded": lambda: conv_head_partially_folded(
+                    folded, gen.conv3.weight, gen.conv3.bias, 4, 2),
             }
 
     def inference(fn):

@@ -19,8 +19,10 @@ train mode, on seeded bf16 inputs of the shapes the step gives them:
   trunk      conv2 + bn2 + the long skip
   up0        subpixel stage 0: conv 64->256, pixel shuffle, PReLU
   up1        subpixel stage 1's conv, before its shuffle
-  head       the 9x9 64->3 conv at 4x (the port's plain head; the JAX
-             one folds it into a (2x, 256) input)
+  head       the 9x9 64->3 conv at 4x, direct
+  head_folded  the same conv partially folded (the JAX package's and,
+             where faster, the port's form): on the last stage's
+             (2x, 256) pre-shuffle map
   adam       the pretrain's Adam step on zero gradients
   synth      on-device LR/HR pair synthesis
   gen_fwd / gen_fwd_bwd   the whole generator
@@ -58,6 +60,23 @@ def _fwd_bwd(module, x: torch.Tensor):
         torch.autograd.grad(out.float().mean(), [xx, *params])
 
     return call
+
+
+class _FoldedHead(torch.nn.Module):
+    """The generator's 9x9 head on a pre-shuffle map, partially folded
+    (its own parameters, so ``_fwd_bwd`` differentiates them)."""
+
+    def __init__(self, conv3):
+        super().__init__()
+        self.conv3 = conv3
+
+    def forward(self, y):
+        from torchsr_tpu_torch.ops.subpixel_conv import (
+            conv_head_partially_folded,
+        )
+
+        return conv_head_partially_folded(y, self.conv3.weight,
+                                          self.conv3.bias, 4, 2)
 
 
 def sections(trainer) -> dict:
@@ -112,6 +131,8 @@ def sections(trainer) -> dict:
         "up0": _fwd_bwd(gen.conv_layers[0], t64),
         "up1": _fwd_bwd(gen.conv_layers[1].conv, u64),
         "head": _fwd_bwd(gen.conv3, h64),
+        "head_folded": _fwd_bwd(_FoldedHead(gen.conv3),
+                                mk(b, 2 * lr_hw, 2 * lr_hw, 256)),
         "adam": adam,
         "synth": lambda: synthesize_pair(crops, flips, trainer.upscale),
         "gen_fwd": gen_fwd, "gen_fwd_bwd": gen_fwd_bwd,
@@ -142,7 +163,10 @@ def main(argv=None) -> dict:
            **card("cuda"), "components": rows}
     if "full_step_replayed" in rows:
         row["step_device_ms"] = rows["full_step_replayed"]["device_ms"]
-    parts = ("conv1", "tower", "trunk", "up0", "up1", "head", "adam",
+    from torchsr_tpu_torch.models.srgan import FUSED_HEAD_ON_CUDA
+
+    parts = ("conv1", "tower", "trunk", "up0", "up1",
+             "head_folded" if FUSED_HEAD_ON_CUDA else "head", "adam",
              "synth")
     if all(p in rows for p in parts):
         row["sum_sections_device_ms"] = sum(rows[p]["device_ms"]

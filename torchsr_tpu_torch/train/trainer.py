@@ -48,8 +48,21 @@ whole training state, written by a background thread from a device
 snapshot (``utils/checkpoint.py`` ``AsyncCheckpointWriter``; in the
 epoch loop under ``--sync-saves``), and the resume priority is the
 reference's: an explicit checkpoint, else gan-latest, else psnr-latest
-(weights only across phases).  A SIGTERM (``utils/preemption.py``;
-off under ``--no-preempt-save``) is read between host calls: the
+(weights only across phases).
+
+Data parallelism (``torchrun``; ``parallel/mesh.py``): one process a
+device, each rank building the state from the seed and taking rank 0's
+(one broadcast), training on its shard of every epoch, averaging the
+gradients over ranks inside the step (one all-reduce of the flattened
+gradients before each optimizer step, which the CUDA graph captures
+with the step), with BatchNorm statistics and the relativistic losses'
+batch means over the global batch.  Every rank evaluates the whole eval set (so the reports
+are one process's); only rank 0 logs, renders and writes checkpoints,
+and the ranks meet at a barrier before any checkpoint file is read.
+
+A SIGTERM (``utils/preemption.py``; off under ``--no-preempt-save``)
+is read between host calls (under data parallelism, or'd over the
+ranks, so that all leave after the same call): the
 trainer writes the full ``-latest`` of the running phase, waits for it,
 and returns, and a resume re-runs that epoch.
 """
@@ -76,11 +89,13 @@ from torchsr_tpu_torch.models.esrgan import (
     ESRGANDiscriminator,
     ESRGANGenerator,
 )
+from torchsr_tpu_torch.models.layers import sync_batchnorm
 from torchsr_tpu_torch.models.srgan import (
     SRGANDiscriminator,
     SRGANGenerator,
 )
 from torchsr_tpu_torch.models.vgg import VGG19Features, load_vgg19_state_dict
+from torchsr_tpu_torch.parallel import mesh
 from torchsr_tpu_torch.train import losses as L
 from torchsr_tpu_torch.train.graphs import StepGraph, warm_up
 from torchsr_tpu_torch.train.metrics import mse_per_sample, ssim_per_sample
@@ -134,9 +149,15 @@ class GANTrainer:
         *,
         device: torch.device,
         logger: Logger | None = None,
+        dist_ctx: mesh.DistributedContext = mesh.SINGLE,
     ) -> None:
         self.args = args
         self.device = torch.device(device)
+        self.world_size = dist_ctx.world_size
+        self.main_process = dist_ctx.main_process
+        # gradients averaged over a process group (world 1 included)
+        self.data_parallel = (dist_ctx.distributed
+                              and torch.distributed.is_initialized())
         self.batch_size = args.batch_size
         self.best_psnr = -1.0
         self.epochs = args.epochs
@@ -156,12 +177,16 @@ class GANTrainer:
         self.fast_compile = bool(getattr(args, "fast_compile", False))
         self.preempt_save = not getattr(args, "no_preempt_save", False)
         self._preemption: PreemptionGuard | None = None
-        self.ckpt_writer = (None if getattr(args, "sync_saves", False)
-                            else AsyncCheckpointWriter())
+        self._vote = (mesh.RankVote(self.device) if self.data_parallel
+                      else None)
+        self.ckpt_writer = (
+            None if getattr(args, "sync_saves", False)
+            or not self.main_process else AsyncCheckpointWriter())
         self.compute_dtype = resolve_compute_dtype(args, self.device)
         self.logger = logger or Logger(
             config=vars(args),
             metrics_path=getattr(args, "metrics_file", None),
+            main_process=self.main_process,
         )
         explicit_k = int(getattr(args, "steps_per_call", 0) or 0)
         self.steps_per_call = explicit_k or 8
@@ -173,6 +198,13 @@ class GANTrainer:
         # captured steps by (phase, batch shape, dtype); CUDA only
         self._graphs: dict = {}
         self._build_models()
+        if self.data_parallel:
+            for module in (self.gen, self.disc, self.vgg):
+                mesh.broadcast_module(module)
+            if self.world_size > 1:
+                group = torch.distributed.group.WORLD
+                sync_batchnorm(self.gen, group)
+                sync_batchnorm(self.disc, group)
         self.opt = Optimizers(self.gen, self.disc, device=self.device)
         self._load_sample_image()
 
@@ -238,6 +270,7 @@ class GANTrainer:
         self.opt.psnr.zero_grad(set_to_none=True)
         loss = self._pixel_loss(self._generate(lr_img, True), hr_img)
         loss.backward()
+        self._average_gradients(self.gen)
         self.opt.psnr.step()
         return loss.detach().reshape(1)
 
@@ -253,6 +286,7 @@ class GANTrainer:
         self.opt.disc.zero_grad(set_to_none=True)
         disc_loss = self._disc_loss(self.disc(hr_img), self.disc(sr.detach()))
         disc_loss.backward()
+        self._average_gradients(self.disc)
         self.opt.disc.step()
 
         self.disc.requires_grad_(False)
@@ -265,8 +299,24 @@ class GANTrainer:
             gen_loss.backward()
         finally:
             self.disc.requires_grad_(True)
+        self._average_gradients(self.gen)
         self.opt.gen.step()
         return torch.stack([disc_loss.detach(), gen_loss.detach()])
+
+    def _batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the global batch (every rank's; the
+        relativistic losses compare against it, as the JAX package's
+        mean over its sharded batch does), differentiable."""
+        if not (self.data_parallel and self.world_size > 1):
+            return t.mean()
+        return mesh.all_reduce_sum(t.sum()) / (t.numel() * self.world_size)
+
+    def _average_gradients(self, module) -> None:
+        """Under data parallelism, ``module``'s gradients averaged over
+        the ranks (``mesh.allreduce_gradients``); the losses stay each
+        rank's own."""
+        if self.data_parallel:
+            mesh.allreduce_gradients(module)
 
     def _set_gan_lrs(self, gen_lr: float, disc_lr: float) -> None:
         set_lr(self.opt.disc, disc_lr)
@@ -364,11 +414,12 @@ class GANTrainer:
         it)."""
         self.sample_image = None
         path = getattr(self.args, "sample_image", None) or SAMPLE_IMAGE_PATH
-        if self.save_image and os.path.exists(path):
+        if not (self.save_image and self.main_process):
+            return
+        if os.path.exists(path):
             arr = image_io.load_image(path).astype(np.float32) / 255.0
             self.sample_image = torch.from_numpy(arr[None]).to(self.device)
-        if self.save_image:
-            os.makedirs("output", exist_ok=True)
+        os.makedirs("output", exist_ok=True)
 
     def _full_state(self) -> dict:
         return {
@@ -398,25 +449,41 @@ class GANTrainer:
         return int(checkpoint.get("epoch", 1))
 
     def _save(self, epoch: int, phase: str, kind: str) -> None:
-        """Write ``{phase}-{kind}.pth``: enqueued to the writer thread,
-        or in the loop under ``--sync-saves``."""
+        """Write ``{phase}-{kind}.pth`` (rank 0 only): enqueued to the
+        writer thread, or in the loop under ``--sync-saves``."""
+        if not self.main_process:
+            return
         write = (save_checkpoint if self.ckpt_writer is None
                  else self.ckpt_writer.save)
         write(f"{phase}-{kind}.pth", epoch, phase, self.gen.state_dict(),
               extra=self._full_state())
 
-    def _wait_saves(self) -> None:
+    def _wait_saves(self, barrier: bool = False) -> None:
         """Drain the pending checkpoint writes (none under
         ``--sync-saves``): before a checkpoint file is read, at a
-        phase's end, on preemption."""
+        phase's end, on preemption.  ``barrier``: then every rank meets
+        (before a read: rank 0 alone writes)."""
         if self.ckpt_writer is not None:
             self.ckpt_writer.wait(log=self.logger.log)
+        if barrier and self.data_parallel:
+            torch.distributed.barrier()
 
-    def _check_preemption(self, epoch: int, phase: str) -> None:
+    def _check_preemption(self, epoch: int, phase: str,
+                          last: bool = False) -> None:
         """Between host calls: after a termination signal, write the full
         ``{phase}-latest.pth`` of the interrupted epoch (a resume re-runs
-        it), wait for the file and raise ``TrainingPreempted``."""
-        if self._preemption is None or not self._preemption.requested:
+        it), wait for the file and raise ``TrainingPreempted``.  Under
+        data parallelism every rank leaves after the same call: the
+        ranks' flags are or'd (``mesh.RankVote``), read one call late,
+        and ``last`` (after an epoch's final call) reads the vote still
+        pending."""
+        if self._preemption is None:
+            return
+        requested = self._preemption.requested
+        if self._vote is not None:
+            requested = (self._vote.drain() if last
+                         else self._vote.cast(requested))
+        if not requested:
             return
         self._sync()  # the replays in flight finish before the snapshot
         self._save(epoch, phase, "latest")
@@ -497,6 +564,7 @@ class GANTrainer:
         consumes them, one transfer a call."""
         step = epoch_offset
         done = 0
+        scale = self.batch_size * self.world_size
         start_time = time.time()
         for kind, (crops, flips) in prefetch_to_device_stacked(
             self.train_loader.epoch(shuffle_epoch), self.device,
@@ -509,22 +577,21 @@ class GANTrainer:
             self.profiler.step(k)
             done += k
             self._check_preemption(epoch, phase)
-            step = (done - 1) * self.batch_size + epoch_offset
+            step = (done - 1) * scale + epoch_offset
             if self.logger.active:
                 for j, lv in enumerate(losses.tolist()):
                     self.logger.log_metrics(
-                        metrics(lv),
-                        step=(done - k + j) * self.batch_size + epoch_offset)
+                        metrics(lv), step=(done - k + j) * scale + epoch_offset)
+        self._check_preemption(epoch, phase, last=True)
         self._sync()
-        throughput = done * self.batch_size / max(time.time() - start_time,
-                                                  1e-9)
+        throughput = done * scale / max(time.time() - start_time, 1e-9)
         self.logger.log(f"Throughput: {round(throughput, 3)} images/sec")
         return step, throughput
 
     def _pretrain(self) -> None:
         self.logger.log("=" * 80)
         self.logger.log("Starting pre-training")
-        self._wait_saves()  # the resume reads files still being written
+        self._wait_saves(barrier=True)  # the resume reads files
         epoch = 1
         # an explicit --psnr-checkpoint replaces the default path
         path = find_checkpoint(
@@ -546,7 +613,7 @@ class GANTrainer:
                 {"psnr/throughput/train": throughput, "psnr/epoch": epoch},
                 step=step)
             self._test(epoch, f"{self.model_name}-psnr", step)
-        self._wait_saves()
+        self._wait_saves(barrier=True)
 
     def _warn_if_random_vgg(self) -> None:
         if not self.vgg_pretrained:
@@ -557,7 +624,7 @@ class GANTrainer:
         self.logger.log("Starting training loop")
         self._warn_if_random_vgg()
         self.drop_graphs()  # the pretrain step's graph is done with
-        self._wait_saves()  # the resume branch reads files
+        self._wait_saves(barrier=True)  # the resume branch reads files
         epoch = 1
         self.best_psnr = -1.0
         # explicit GAN checkpoint (exclusive) > gan-latest > psnr-latest
@@ -703,9 +770,9 @@ class ESRGANTrainer(GANTrainer):
 
     def _disc_loss(self, real, fake):
         # [BCEwL(D(hr) - mean D(sr), 1) + BCEwL(D(sr) - mean D(hr), 0)] / 2
-        loss_real = L.bce_with_logits_loss(real - fake.mean(),
+        loss_real = L.bce_with_logits_loss(real - self._batch_mean(fake),
                                            torch.ones_like(real))
-        loss_fake = L.bce_with_logits_loss(fake - real.mean(),
+        loss_fake = L.bce_with_logits_loss(fake - self._batch_mean(real),
                                            torch.zeros_like(fake))
         return (loss_real + loss_fake) / 2.0
 
@@ -715,15 +782,16 @@ class ESRGANTrainer(GANTrainer):
         with torch.no_grad():
             real = self.disc(hr)
         fake = self.disc(sr)
-        adv = L.bce_with_logits_loss(fake - real.mean(),
+        adv = L.bce_with_logits_loss(fake - self._batch_mean(real),
                                      torch.ones_like(fake))
         return 0.01 * L.l1_loss(sr, hr) + content + 0.005 * adv
 
 
 def run_train(args: Namespace) -> GANTrainer:
     """The ``train`` subcommand: datasets from ``--train-dir`` (and
-    ``--eval-dir``), the model's trainer on ``--device``, both
-    phases."""
+    ``--eval-dir``), the model's trainer on ``--device``, both phases;
+    under torchrun (or Slurm) one data-parallel rank a process, on
+    ``cuda:{LOCAL_RANK}`` with NCCL (gloo under ``--device cpu``)."""
     import random
 
     from torchsr_tpu_torch.data.loader import initialize_datasets
@@ -731,6 +799,11 @@ def run_train(args: Namespace) -> GANTrainer:
     from torchsr_tpu_torch.registry import select_trainer_model
 
     device = resolve_device(getattr(args, "device", "cuda"))
+    ctx = mesh.detect_distributed(getattr(args, "master_addr", None),
+                                  getattr(args, "master_port", None),
+                                  device=device)
+    mesh.check_num_devices(ctx, getattr(args, "num_devices", None))
+    device = mesh.rank_device(ctx, device)
     if getattr(args, "seed", 0):
         random.seed(args.seed)
         np.random.seed(args.seed)
@@ -742,7 +815,8 @@ def run_train(args: Namespace) -> GANTrainer:
         workers=getattr(args, "data_workers", 16),
         seed=args.seed, eval_directory=getattr(args, "eval_dir", None),
         shuffle_window=getattr(args, "shuffle_window", 0),
+        num_shards=ctx.world_size, shard_index=max(ctx.rank, 0),
     )
-    trainer = trainer_cls(args, *loaders, device=device)
+    trainer = trainer_cls(args, *loaders, device=device, dist_ctx=ctx)
     trainer.train()
     return trainer

@@ -14,18 +14,24 @@ import json
 
 
 class Logger:
-    """Print + JSONL (+ WandB where installed) metric logging."""
+    """Print + JSONL (+ WandB where installed) metric logging; on a
+    data-parallel run's other ranks (``main_process`` False) it prints
+    and writes nothing."""
 
-    def __init__(self, config=None, metrics_path: str | None = None) -> None:
-        try:
-            import wandb
-        except ImportError:
-            wandb = None
+    def __init__(self, config=None, metrics_path: str | None = None,
+                 main_process: bool = True) -> None:
+        self.main_process = main_process
+        wandb = None
+        if main_process:
+            try:
+                import wandb
+            except ImportError:
+                wandb = None
         self._wandb = wandb
         self._metrics_fh = None
         if wandb is not None:
             wandb.init(config=config, name="TorchSR", project="torchsr")
-        if metrics_path:
+        if metrics_path and main_process:
             self._metrics_fh = open(metrics_path, "a", buffering=1)
             if config is not None:
                 self._metrics_fh.write(json.dumps({"config": {
@@ -44,7 +50,8 @@ class Logger:
         return self._wandb is not None
 
     def log(self, statement: str) -> None:
-        print(statement, flush=True)
+        if self.main_process:
+            print(statement, flush=True)
 
     def log_metrics(self, contents: dict, step: int | None = None) -> None:
         if self._wandb is not None:
