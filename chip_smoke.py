@@ -192,10 +192,11 @@ renders, tile batches or tool calls imply, every other counter (the
     ``esrgan-psnr-latest.pth`` at that step; the resume re-runs the
     epoch; an async and a sync save of one state are byte-equal (each
     one's stall of the loop printed).
-31. fast_compile: ``train`` and ``train --fast-compile`` twice from one
-    seed: no graph captured under the flag, the graphed run's gan-latest
-    within the noise floor of the two eager runs, equal launches; the
-    time to the first step both ways.
+31. fast_compile: ``train`` and ``train --fast-compile`` from one seed
+    (7 steps an epoch): the flag logs its one line, both runs capture
+    the same graphs and their gan-latest is equal bit for bit, equal
+    launches; the replayed step time and the time to the first step
+    both ways.
 32. shard_tiles (after external, on its generator and checkpoint): a
     1080p frame through ``tiled_upscale_sharded`` over the card listed
     twice (a replica and a graph each) equal to ``tiled_upscale`` bit
@@ -218,6 +219,13 @@ renders, tile batches or tool calls imply, every other counter (the
     preemption vote after each call): its gan-latest within the noise
     floor of the other two; B1/B2's launches exact in each; the epoch
     loop's replayed step timed in each.
+36. prefetch (after ddp_train): the prefetcher's host-to-device copies
+    on a stream of their own under ``torch.profiler``, every batch
+    bit-equal to its host arrays although the consumer's stream holds
+    back its read; replayed ESRGAN GAN steps fed by the prefetcher
+    bit-equal to the same steps fed by synchronous copies, the launches
+    exact; the headline's replayed SRGAN pretrain steps fed from a pack
+    through the loader, their time and the device's busy share.
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
 power limit again, a ``kernels`` JSON line (all eight kernels), and as
@@ -230,7 +238,7 @@ train_grad_ext, train_grad_xla, train, train_ext, train_speed, eval and
 interp (each after train), srgan_train, multistep, bench, serve_graph,
 export, batching, external, shard_tiles, halo (these six on a seeded
 23-RRDB generator), pack_train, scale, preempt, fast_compile,
-subpixel_head, ddp_train; and multi_card, on a machine with several
+subpixel_head, ddp_train, prefetch; and multi_card, on a machine with several
 cards only (``torchrun --nproc-per-node N`` training for both models,
 every rank's state the same; a frame over the N cards equal to one
 card's; the halo grid over them).
@@ -3958,27 +3966,35 @@ def _checkpoint_categories(path: str) -> dict:
     return {c: [t.float() for t in ts] for c, ts in cats.items()}
 
 
+FAST_COMPILE_MULTIPLIER = 3  # 120 samples, 7 steps of 16 an epoch
+# the flag's replayed step against the plain run's: eager steps took
+# 3.8-4.8x the replayed time at batch 16 on an H100
+FAST_COMPILE_STEP_FACTOR = 1.5
+
+
 def phase_fast_compile(seed: int) -> dict:
-    """``train`` (graphed steps) and ``train --fast-compile`` (eager
-    steps, no capture) twice, from one seed: the graphed run's gan-latest
-    within the noise floor of the two eager runs (``_within_floor``),
-    the launches equal, no graph captured under the flag; the time from
-    the call to the first step's end both ways."""
+    """``train`` and ``train --fast-compile`` from one seed, 7 steps an
+    epoch: the flag logs its one line and changes nothing, so both runs
+    capture the same graphs and their gan-latest is equal bit for bit,
+    the launches equal; each run's median replayed call time a step
+    (the calls after each phase's capturing one), the flag's within
+    ``FAST_COMPILE_STEP_FACTOR`` of the plain run's; the time from the
+    call to the first step's end both ways."""
     from torchsr_tpu_torch.train import trainer as trainer_mod
 
     data = _run_data(seed)
     runs, paths = {}, {}
-    for name, extra in (("graphed", ()), ("fast_a", ("--fast-compile",)),
-                        ("fast_b", ("--fast-compile",))):
-        captures, first = [], []
+    for name, extra in (("plain", ()), ("fast", ("--fast-compile",))):
+        captures, calls = [], []
         real_multi, real_graph = (trainer_mod.GANTrainer._multi,
                                   trainer_mod.StepGraph)
 
-        def multi(self, *a, **kw):
-            out = real_multi(self, *a, **kw)
-            if not first:
-                torch.cuda.synchronize()
-                first.append(time.perf_counter())
+        def multi(self, phase, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_multi(self, phase, *a, **kw)
+            torch.cuda.synchronize()
+            calls.append((phase, len(a[1]), t0, time.perf_counter()))
             return out
 
         def graph(*a, **kw):
@@ -3991,34 +4007,264 @@ def phase_fast_compile(seed: int) -> dict:
             try:
                 reset_counters()
                 t0 = time.perf_counter()
-                _quiet(_train_argv(data, seed, "--skip-image-save", *extra))
+                log = _quiet(_train_argv(
+                    data, seed, "--skip-image-save", "--dataset-multiplier",
+                    FAST_COMPILE_MULTIPLIER, *extra))
                 torch.cuda.synchronize()
                 wall_s = time.perf_counter() - t0
             finally:
                 trainer_mod.GANTrainer._multi = real_multi
                 trainer_mod.StepGraph = real_graph
             paths[f"fast_compile: {name}"] = read_counters()
-            runs[name] = {"first_step_s": first[0] - t0, "wall_s": wall_s,
-                          "captures": captures,
-                          "state": _checkpoint_categories(
-                              "esrgan-gan-latest.pth")}
-    floor = _state_diff(runs["fast_a"]["state"], runs["fast_b"]["state"])
-    diff = _state_diff(runs["graphed"]["state"], runs["fast_a"]["state"])
-    say("fast_compile", first_step_s={k: r["first_step_s"]
-                                      for k, r in runs.items()},
-        wall_s={k: r["wall_s"] for k, r in runs.items()},
-        captures={k: r["captures"] for k, r in runs.items()},
-        floor=floor, graphed_vs_fast=diff, launches=paths)
-    check(runs["graphed"]["captures"] == ["esrgan psnr", "esrgan gan"]
-          and not runs["fast_a"]["captures"]
-          and not runs["fast_b"]["captures"],
-          "fast_compile: graphs captured only without the flag")
-    check(_within_floor(diff, floor),
-          f"fast_compile: the graphed run's checkpoint within the eager "
-          f"runs' noise floor: {diff} vs {floor}")
+            replayed = [(end - start) / k * 1e3
+                        for i, (ph, k, start, end) in enumerate(calls)
+                        if any(c[0] == ph for c in calls[:i])]
+            runs[name] = {
+                "first_step_s": calls[0][3] - t0, "wall_s": wall_s,
+                "captures": captures,
+                "said": log.count("--fast-compile: the port has no long "
+                                  "compile to shorten"),
+                "replayed_step_ms": statistics.median(replayed),
+                "replayed_calls": len(replayed),
+                "state": _checkpoint_categories("esrgan-gan-latest.pth")}
+    diff = _state_diff(runs["plain"]["state"], runs["fast"]["state"])
+    say("fast_compile", **{key: {k: r[key] for k, r in runs.items()}
+                           for key in ("first_step_s", "wall_s", "captures",
+                                       "said", "replayed_step_ms",
+                                       "replayed_calls")},
+        plain_vs_fast=diff, launches=paths)
+    check(runs["plain"]["captures"] == runs["fast"]["captures"]
+          == ["esrgan psnr", "esrgan gan"],
+          "fast_compile: both runs capture each phase's step")
+    check((runs["plain"]["said"], runs["fast"]["said"]) == (0, 1),
+          "fast_compile: the flag logs its line once, and only under it")
+    check(all(d["max"] == 0 for d in diff.values()),
+          f"fast_compile: the flag's checkpoint equals the plain run's bit "
+          f"for bit: {diff}")
+    check(runs["fast"]["replayed_step_ms"] <= FAST_COMPILE_STEP_FACTOR
+          * runs["plain"]["replayed_step_ms"],
+          "fast_compile: the flag's steps run at the replayed speed")
     for name, counts in paths.items():
-        check_counts(name, counts, **_run_launches(renders=0))
+        check_counts(name, counts, **_run_launches(
+            steps=FAST_COMPILE_MULTIPLIER * RUN_IMAGES // TRAIN_BATCH,
+            renders=0))
     return paths
+
+
+# prefetch: the host-to-device copies on the prefetcher's own stream.
+PREFETCH_BATCHES = 6  # headline-shaped host batches through a prefetcher
+PREFETCH_SLEEP_CYCLES = 20_000_000  # ~10 ms of the consumer stream a batch
+# profiler windows at most for the copies' streams (~0.2 s each with
+# the pause after an empty one): late in a full run up to 31 windows in
+# a row came back with no device event at all, so a window that shows
+# some copies and some consumer kernels ends the search
+PREFETCH_WINDOWS = 100
+PREFETCH_GAN_BATCHES = 5  # two 2-step calls and the ragged tail
+HEADLINE_BATCH, HEADLINE_CROP = 128, 96
+HEADLINE_EPOCH_STEPS = 16  # two 8-step calls an epoch
+
+
+def _prefetch_streams(seed: int) -> dict:
+    """Headline-shaped uint8 batches through ``prefetch_to_device``
+    under the profiler.  Before it reads a batch, the consumer's stream
+    sleeps (``torch.cuda._sleep``), so that the batch is read long after
+    the prefetcher has moved on: a copy on the consumer's stream, a read
+    not ordered after the copy, or memory handed to a later copy before
+    the read (no ``record_stream``) shows as a batch unequal to its host
+    array (checked in every window).  After one pass outside the
+    profiler, a window whose profile lost the copies is run again,
+    ``PREFETCH_WINDOWS`` windows at most (as ``device_spans`` does); no
+    copy seen in any window may share a stream with a consumer kernel.
+    Returns the copies' and the consumer's streams."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchsr_tpu_torch.data.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(seed + 40)
+    host = [(rng.integers(0, 256, (HEADLINE_BATCH, HEADLINE_CROP,
+                                   HEADLINE_CROP, 3), dtype=np.uint8),
+             rng.integers(0, 2, (HEADLINE_BATCH, 2)).astype(bool))
+            for _ in range(PREFETCH_BATCHES)]
+    for _ in prefetch_to_device(iter(host), DEVICE):  # outside a window
+        pass
+    copies, consumer, seen = set(), set(), []
+    for _ in range(PREFETCH_WINDOWS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            read = []
+            for crops, flips in prefetch_to_device(iter(host), DEVICE):
+                torch.cuda._sleep(PREFETCH_SLEEP_CYCLES)
+                read.append((crops.clone(), flips.clone()))
+                del crops, flips
+            torch.cuda.synchronize()
+        equal = [np.array_equal(c.cpu().numpy(), h[0])
+                 and np.array_equal(f.cpu().numpy(), h[1])
+                 for (c, f), h in zip(read, host)]
+        check(all(equal), f"prefetch: every batch equals its host arrays "
+                          f"bit for bit: {equal}")
+        n_copies = n_consumer = 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            stream = getattr(e, "device_resource_id", None)
+            if "HtoD" in e.name:
+                copies.add(stream)
+                n_copies += 1
+            else:
+                consumer.add(stream)
+                n_consumer += 1
+        seen.append([n_copies, n_consumer])
+        if n_copies and n_consumer:
+            break
+        if not n_copies + n_consumer:
+            time.sleep(0.1)  # an empty profile: give the tracer time
+    check(bool(copies) and bool(consumer),
+          f"prefetch: the profiler saw copies and the consumer's kernels "
+          f"(copies, kernels a window: {seen})")
+    check(None not in copies and not copies & consumer,
+          f"prefetch: the copies run on a stream of their own: copies on "
+          f"{sorted(map(str, copies))}, the consumer's kernels on "
+          f"{sorted(map(str, consumer))}")
+    return {"batches": len(equal), "copies_kernels_a_window": seen,
+            "copy_streams": sorted(copies),
+            "consumer_streams": sorted(consumer)}
+
+
+def _prefetch_gan(seed: int) -> tuple[dict, dict]:
+    """Replayed ESRGAN GAN steps (full width, batch 16, K = 2) fed by
+    ``prefetch_to_device_stacked``, then the same batches as host tensors
+    copied synchronously, from the same state: the states after each
+    equal bit for bit.  Returns the row and the prefetched run's
+    launches."""
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.data.prefetch import prefetch_to_device_stacked
+    from torchsr_tpu_torch.train.trainer import ESRGANTrainer
+    from torchsr_tpu_torch.utils.logging import Logger
+
+    args = Namespace(batch_size=MULTI_BATCH, epochs=1, pretrain_epochs=1,
+                     seed=seed, skip_image_save=True, disable_amp=False,
+                     metrics_file=None)
+    tr = ESRGANTrainer(args, Namespace(crop_size=128), None, 1, 1,
+                       device=torch.device(DEVICE), logger=Logger())
+    k = tr.gan_steps_per_call
+    warm = _stacks(MULTI_BATCH, 128, k, seed + 41)
+    tr.gan_step_multi(*warm, MULTI_LR, MULTI_LR)  # captures
+    torch.cuda.synchronize()
+    snap = _snapshot(tr)
+    rng = np.random.default_rng(seed + 42)
+    host = [(rng.integers(0, 256, (MULTI_BATCH, 128, 128, 3),
+                          dtype=np.uint8),
+             rng.integers(0, 2, (MULTI_BATCH, 2)).astype(bool))
+            for _ in range(PREFETCH_GAN_BATCHES)]
+
+    def call(crops_k, flips_k):
+        tr.gan_step_multi(crops_k, flips_k, MULTI_LR, MULTI_LR)
+
+    reset_counters()
+    kinds = []
+    for kind, (crops, flips) in prefetch_to_device_stacked(
+            iter(host), DEVICE, k):
+        kinds.append(kind)
+        if kind == "single":
+            crops, flips = crops[None], flips[None]
+        call(crops, flips)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    fed = _snapshot(tr)
+    _restore_in_place(tr, snap)
+    groups = [host[i:i + k] for i in range(0, len(host) - len(host) % k, k)]
+    groups += [[b] for b in host[len(host) - len(host) % k:]]
+    for group in groups:
+        call(*(torch.from_numpy(np.stack([b[j] for b in group])).to(DEVICE)
+               for j in range(2)))
+    torch.cuda.synchronize()
+    diff = _state_diff(fed, _snapshot(tr))
+    del tr, snap, fed
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(kinds == ["multi"] * (len(host) // k) + ["single"] * (len(host) % k),
+          f"prefetch: the stacked prefetcher grouped {kinds}")
+    check(all(d["max"] == 0 for d in diff.values()),
+          f"prefetch: steps fed by the prefetcher equal the same steps fed "
+          f"by synchronous copies bit for bit: {diff}")
+    per_step = {"rdb_fwd": 5 * 3 * NUM_RRDB, "rdb_bwd": 3 * NUM_RRDB}
+    check_counts("prefetch: esrgan gan", launches,
+                 **{c: n * len(host) for c, n in per_step.items()})
+    return {"kinds": kinds, "prefetched_vs_sync": diff}, launches
+
+
+def _prefetch_headline(seed: int) -> dict:
+    """The headline's replayed SRGAN pretrain (batch 128, crop 96, K = 8)
+    fed from a pack of the run images through the training loader and
+    ``prefetch_to_device_stacked``: one epoch to capture, then one
+    epoch timed by the host clock and one under the profiler: ms a
+    step, device ms a step and the device's busy share."""
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.data.loader import TrainLoader, dataset_source
+    from torchsr_tpu_torch.data.prefetch import prefetch_to_device_stacked
+    from torchsr_tpu_torch.train.trainer import SRGANTrainer
+    from torchsr_tpu_torch.utils.logging import Logger
+
+    data = _run_data(seed)
+    with _workdir("prefetch_pack"):
+        _quiet(["pack", data["ds"], "ds.tsrpack"])
+        names, reader = dataset_source("ds.tsrpack")
+        loader = TrainLoader(
+            names, HEADLINE_BATCH, HEADLINE_CROP,
+            dataset_multiplier=-(-HEADLINE_EPOCH_STEPS * HEADLINE_BATCH
+                                 // len(names)),
+            workers=8, seed=seed, reader=reader)
+        check(len(loader) == HEADLINE_EPOCH_STEPS,
+              f"prefetch: the headline epoch holds {len(loader)} steps")
+        args = Namespace(batch_size=HEADLINE_BATCH, epochs=1,
+                         pretrain_epochs=1, seed=seed, skip_image_save=True,
+                         disable_amp=False, metrics_file=None)
+        tr = SRGANTrainer(args, Namespace(crop_size=HEADLINE_CROP), None,
+                          1, 1, device=torch.device(DEVICE), logger=Logger())
+        k = tr.steps_per_call
+
+        def epoch(i):
+            for kind, (crops, flips) in prefetch_to_device_stacked(
+                    loader.epoch(i), DEVICE, k):
+                if kind == "single":
+                    crops, flips = crops[None], flips[None]
+                tr.pretrain_step_multi(crops, flips)
+
+        epoch(0)  # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch(1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / HEADLINE_EPOCH_STEPS * 1e3
+        prof = profile_device_time(lambda: epoch(2), 1)
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": HEADLINE_BATCH, "crop": HEADLINE_CROP,
+            "steps_per_call": k, "step_ms": step_ms,
+            "crops_per_s": HEADLINE_BATCH / step_ms * 1e3,
+            "device_ms_per_step": sum(prof["device_ms_per_batch"].values())
+            / HEADLINE_EPOCH_STEPS,
+            "busy_share": prof["busy_share_of_span"]}
+
+
+def phase_prefetch(seed: int) -> dict:
+    """The prefetch's copies on a stream of their own (the consumer's
+    stream waits on each batch's event): every batch bit-equal to its
+    host arrays although its read is held back; replayed ESRGAN GAN
+    steps fed by the prefetcher bit-equal to the same steps fed by
+    synchronous copies; the headline's replayed steps fed from a pack,
+    their time and busy share."""
+    streams = _prefetch_streams(seed)
+    gan, launches = _prefetch_gan(seed)
+    headline = _prefetch_headline(seed)
+    say("prefetch", streams=streams, esrgan_gan=gan, headline=headline,
+        launches=launches)
+    return {"prefetch: esrgan gan": launches}
 
 
 def _old_arch(sd: dict) -> dict:
@@ -4754,8 +5000,8 @@ def main() -> None:
              "train_speed, eval, interp (both after train), srgan_train, "
              "multistep, bench, serve_graph, export, batching, external, "
              "pack_train, scale, preempt, fast_compile, subpixel_head, "
-             "ddp_train, shard_tiles, halo; multi_card (on a machine "
-             "with several cards only).")
+             "ddp_train, prefetch, shard_tiles, halo; multi_card (on a "
+             "machine with several cards only).")
     args = parser.parse_args()
     smi = phase_probe()
     # f32 references in full f32: cuDNN convolutions default to TF32
@@ -4813,7 +5059,7 @@ def main() -> None:
             "pack_train": phase_pack_train, "scale": phase_scale,
             "preempt": phase_preempt, "fast_compile": phase_fast_compile,
             "subpixel_head": phase_subpixel_head,
-            "ddp_train": phase_ddp_train,
+            "ddp_train": phase_ddp_train, "prefetch": phase_prefetch,
             "shard_tiles": serving(phase_shard_tiles, "gen", "ckpt"),
             "halo": serving(phase_halo, "gen", "ckpt"),
             "multi_card": phase_multi_card}
@@ -4864,6 +5110,7 @@ def main() -> None:
                      ("fast_compile", phase_fast_compile)):
         paths.update(run(name, fn, seed))
     paths.update(run("ddp_train", phase_ddp_train, seed))
+    paths.update(run("prefetch", phase_prefetch, seed))
     paths.update(run("srgan_train", phase_srgan_train, seed))
     paths.update(run("multistep", phase_multistep, seed))
     paths.update(run("bench", phase_bench, seed))

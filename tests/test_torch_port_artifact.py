@@ -57,6 +57,16 @@ JAX_SIDECAR_KEYS = {"format_version", "model", "scale", "input_shape",
                     "platforms", "calling_convention", "native_kernels"}
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def one_thread():
     threads = torch.get_num_threads()

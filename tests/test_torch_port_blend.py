@@ -34,6 +34,16 @@ RTOL = 1e-5
 SCALE = 4
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _stand_in(batch):
     """(B, t, t, 3) -> (B, 4t, 4t, 3), in numpy, JAX or torch alike."""
     t4 = batch.shape[1] * SCALE

@@ -46,6 +46,16 @@ SIZES = {"a.png": (40, 48), "b.png": (38, 45), "c.png": (9, 30),
          "d.png": (52, 44)}
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _structured(rng, h, w):
     """Smooth waves and noise: bicubic recovers real signal."""
     yy, xx = np.mgrid[0:h, 0:w]

@@ -38,7 +38,8 @@ from torchsr_tpu_torch.utils.checkpoint import load_checkpoint
 N_BLOCKS = 2
 
 
-@pytest.fixture(autouse=True)
+# for the module, its module fixtures included
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

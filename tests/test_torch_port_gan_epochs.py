@@ -73,7 +73,8 @@ NOISE_DISC = {2: 0.25}
 WITNESS_FACTOR = 4.0
 
 
-@pytest.fixture(autouse=True)
+# for the module, its module fixtures included
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -106,10 +107,11 @@ class ShuffledLoader:
             yield batches[b]
 
 
-def _args(model, metrics):
+def _args(model, metrics, vgg_convs=2):
     return ts._args(model=model, batch_size=BATCH, epochs=EPOCHS,
                     pretrain_epochs=PRE_EPOCHS, steps_per_call=K,
-                    sync_saves=True, metrics_file=str(metrics))
+                    sync_saves=True, metrics_file=str(metrics),
+                    vgg_convs=vgg_convs)
 
 
 def _crop_id(crops) -> int:
@@ -123,18 +125,20 @@ def _psnrs(metrics) -> list:
     return [r["gan/PSNR"] for r in rows if "gan/PSNR" in r]
 
 
-def _run_jax(model, tmp_path, monkeypatch):
-    """JAX's GAN phase; returns the state at each epoch's start and end
-    (host copies), the steps' (gen_lr, disc_lr, batch ids), the epoch
-    indices asked for, the PSNRs and the ``-best`` epochs."""
+def _run_jax(model, tmp_path, monkeypatch, crop=CROP, vgg_convs=2):
+    """JAX's GAN phase at ``crop`` with the VGG trunk cut to
+    ``vgg_convs`` convs (None: all 16); returns the state at each
+    epoch's start and end (host copies), the steps' (gen_lr, disc_lr,
+    batch ids), the epoch indices asked for, the PSNRs and the ``-best``
+    epochs."""
     jax_cls = TRAINERS[model][0]
     loader = ShuffledLoader(jax_synthetic.SyntheticTrainLoader(
-        BATCH, CROP, n_batches=N_BATCHES))
+        BATCH, crop, n_batches=N_BATCHES))
     run_dir = tmp_path / f"jax-{model}"
     run_dir.mkdir()
     monkeypatch.chdir(run_dir)
-    jt = jax_cls(_args(model, run_dir / "m.jsonl"), loader,
-                 jax_synthetic.SyntheticEvalLoader(BATCH, CROP, n_batches=1),
+    jt = jax_cls(_args(model, run_dir / "m.jsonl", vgg_convs), loader,
+                 jax_synthetic.SyntheticEvalLoader(BATCH, crop, n_batches=1),
                  loader.dataset_len, BATCH, make_mesh(num_devices=1),
                  DistributedContext(1, -1, -1, 1, False))
     states = [jax.device_get(jt.state)]
@@ -199,7 +203,7 @@ def _ulp(module, seed):
 
 
 def _run_port(model, tmp_path, monkeypatch, jax_run, resync, ulp=False,
-              epochs=EPOCHS):
+              epochs=EPOCHS, crop=CROP, vgg_convs=2):
     """The port's GAN phase from JAX's initial state; with ``resync``
     each epoch starts from JAX's state at that epoch's start, with
     ``ulp`` moved by one ulp (``_ulp``); the first ``epochs`` epochs.
@@ -208,12 +212,12 @@ def _run_port(model, tmp_path, monkeypatch, jax_run, resync, ulp=False,
     moments by name."""
     port_cls = TRAINERS[model][1]
     loader = ShuffledLoader(synthetic.SyntheticTrainLoader(
-        BATCH, CROP, n_batches=N_BATCHES))
+        BATCH, crop, n_batches=N_BATCHES))
     run_dir = tmp_path / f"port-{model}-{resync}-{ulp}"
     run_dir.mkdir()
     monkeypatch.chdir(run_dir)
-    pt = port_cls(_args(model, run_dir / "m.jsonl"), loader,
-                  synthetic.SyntheticEvalLoader(BATCH, CROP, n_batches=1),
+    pt = port_cls(_args(model, run_dir / "m.jsonl", vgg_convs), loader,
+                  synthetic.SyntheticEvalLoader(BATCH, crop, n_batches=1),
                   loader.dataset_len, BATCH, device=torch.device("cpu"))
     pt.vgg.load_state_dict(from_jax_variables(
         {"params": ts._np(jax_run["vgg"])}))
@@ -266,17 +270,21 @@ def _run_port(model, tmp_path, monkeypatch, jax_run, resync, ulp=False,
             "psnr": _psnrs(run_dir / "m.jsonl"), "best": bests}
 
 
+def all_runs(model, tmp_path, **size):
+    """JAX's run, the port's re-synced, one-ulp (epoch 1) and free runs
+    (``size``: ``crop``, ``vgg_convs``)."""
+    with pytest.MonkeyPatch.context() as mp:
+        jax_run = _run_jax(model, tmp_path, mp, **size)
+        resynced = _run_port(model, tmp_path, mp, jax_run, True, **size)
+        moved = _run_port(model, tmp_path, mp, jax_run, True, ulp=True,
+                          epochs=1, **size)
+        free = _run_port(model, tmp_path, mp, jax_run, False, **size)
+    return model, jax_run, resynced, free, moved
+
+
 @pytest.fixture(scope="module", params=["esrgan", "srgan"])
 def runs(request, tmp_path_factory):
-    model = request.param
-    tmp_path = tmp_path_factory.mktemp(model)
-    with pytest.MonkeyPatch.context() as mp:
-        jax_run = _run_jax(model, tmp_path, mp)
-        resynced = _run_port(model, tmp_path, mp, jax_run, True)
-        moved = _run_port(model, tmp_path, mp, jax_run, True, ulp=True,
-                          epochs=1)
-        free = _run_port(model, tmp_path, mp, jax_run, False)
-    return model, jax_run, resynced, free, moved
+    return all_runs(request.param, tmp_path_factory.mktemp(request.param))
 
 
 def test_learning_rates_and_data_order_per_step(runs):

@@ -30,6 +30,16 @@ from torchsr_tpu_torch.registry import select_test_model
 ATOL = 1e-5
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_model():
     gen = JaxGenerator(num_rrdb_blocks=2)

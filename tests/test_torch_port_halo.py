@@ -52,7 +52,8 @@ CPU = torch.device("cpu")
 ATOL_GEN = 2e-4
 
 
-@pytest.fixture(autouse=True)
+# for the module, its module fixtures included
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

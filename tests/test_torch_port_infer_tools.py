@@ -20,6 +20,16 @@ from torchsr_tpu_torch.tools import (
 TINY = ["--device", "cpu", "--blocks", "1"]
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def one_thread(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)

@@ -32,6 +32,16 @@ MODELS = {"esrgan": lambda n: JaxESRGAN(num_rrdb_blocks=n),
           "srgan": lambda n: JaxSRGAN(num_residual=n)}
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _variables(model, seed, blocks=1):
     variables = jax.tree.map(np.asarray, dict(MODELS[model](blocks).init(
         jax.random.PRNGKey(seed), jnp.zeros((1, 8, 8, 3)), train=False)))

@@ -40,7 +40,8 @@ CROP = ts.CROP
 TRAINERS = {"esrgan": ESRGANTrainer, "srgan": SRGANTrainer}
 
 
-@pytest.fixture(autouse=True)
+# for the module, its module fixtures included
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """Each step here is tiny: on one intra-op thread it runs as fast as
     on all of them, and the test workers that share the machine do not

@@ -36,7 +36,8 @@ JAX_TRAINERS = {"esrgan": (JaxESRGAN, convert_esrgan_generator),
                 "srgan": (JaxSRGAN, convert_srgan_generator)}
 
 
-@pytest.fixture(autouse=True)
+# for the module, its module fixtures included
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """Each step here is tiny: on one intra-op thread it runs as fast as
     on all of them, and the test workers that share the machine do not

@@ -21,7 +21,8 @@ from torchsr_tpu_torch.data import loader, packed
 from torchsr_tpu_torch.utils.image_io import load_image
 
 
-@pytest.fixture(autouse=True)
+# for the module, its module fixtures included
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

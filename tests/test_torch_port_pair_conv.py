@@ -28,6 +28,16 @@ SHAPES = [(2, 8, 16, 64), (1, 12, 8, 64), (2, 5, 10, 64), (1, 3, 2, 64),
           (4, 4, 6, 64)]
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(shape, seed=0, bias=True):
     rng = np.random.default_rng(seed)
     x = rng.normal(0, 0.5, shape).astype(np.float32)

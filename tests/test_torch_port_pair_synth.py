@@ -25,6 +25,16 @@ LR_ATOL = 1 / 255 + 1e-6
 LR_FRACTION = 1e-3
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(b, s, seed, flips=True):
     rng = np.random.default_rng(seed)
     crops = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)

@@ -36,6 +36,16 @@ MEAN_REL_BF16 = 2e-2
 SHAPES = [(2, 8, 8, 64), (1, 5, 7, 64)]  # 5 x 7: ragged tiles, edges
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(0, 0.5, shape).astype(np.float32)

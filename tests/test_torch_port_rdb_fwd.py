@@ -48,6 +48,16 @@ EXT_SHAPES = [(2, 1, 16, 64), (2, 9, 32, 64), (3, 37, 48, 64)]
 DTYPES = ["float32", "bfloat16"]
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(0, 0.5, shape).astype(np.float32)

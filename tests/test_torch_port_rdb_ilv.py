@@ -37,6 +37,16 @@ BF16_RTOL, BF16_ATOL = 2**-7, 1e-3
 ILV_SHAPE = (3, 5, 9, 64)  # odd width, several images
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _weights(shape, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(0, 0.5, shape).astype(np.float32)

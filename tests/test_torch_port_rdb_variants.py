@@ -46,6 +46,16 @@ ATOL_ILV_SLOT = 5e-7
 REL_SAME_FEAT = {"float32": 1e-5, "bfloat16": 1e-4}
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _weights(shape, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(0, 0.5, shape).astype(np.float32)

@@ -51,7 +51,8 @@ TRAIN = ["--device", "cpu", "--gen-blocks", "1", "--vgg-convs", "2",
          "--crop-size", "32", "--batch-size", "2", "--skip-image-save"]
 
 
-@pytest.fixture(autouse=True)
+# for the module, its module fixtures included
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -257,10 +258,12 @@ def test_check_preemption_saves_and_raises(tmp_path, monkeypatch):
 
 # -------------------------------------------------------- fast compile
 
-def test_fast_compile_gives_the_default_checkpoint(tmp_path, monkeypatch):
+def test_fast_compile_gives_the_default_checkpoint(tmp_path, monkeypatch,
+                                                  capsys):
     """Both runs on four seeded 40 x 40 images: one step a phase (on the
-    CPU every step is eager either way; the card's check is
-    ``chip_smoke.py``'s fast_compile phase)."""
+    CPU every step is eager either way; the card's check, both runs
+    captured and equal, is ``chip_smoke.py``'s fast_compile phase).  The
+    flag is accepted and logs its one line, once, and only under it."""
     monkeypatch.setenv("WANDB_MODE", "disabled")
     images = tmp_path / "images"
     images.mkdir()
@@ -272,8 +275,12 @@ def test_fast_compile_gives_the_default_checkpoint(tmp_path, monkeypatch):
     for name, extra in (("default", []), ("fast", ["--fast-compile"])):
         os.makedirs(tmp_path / name)
         monkeypatch.chdir(tmp_path / name)
+        capsys.readouterr()
         cli.main(["train", "--train-dir", str(images), *TRAIN, "--epochs",
                   "1", "--pretrain-epochs", "1", *extra])
+        said = capsys.readouterr().out.count(
+            "--fast-compile: the port has no long compile to shorten")
+        assert said == (1 if extra else 0), (name, said)
         files[name] = torch.load("esrgan-gan-latest.pth", weights_only=True)
     a, b = files["default"], files["fast"]
     assert a["state"].keys() == b["state"].keys()

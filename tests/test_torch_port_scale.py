@@ -52,7 +52,8 @@ MODELS = {"esrgan": (JaxESRGAN, ESRGANGenerator, "num_rrdb_blocks"),
           "srgan": (JaxSRGAN, SRGANGenerator, "num_residual")}
 
 
-@pytest.fixture(autouse=True)
+# for the module, its module fixtures included
+@pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

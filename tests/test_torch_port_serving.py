@@ -44,6 +44,16 @@ ATOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):
     """One set of 1-RRDB ESRGAN weights as JAX variables, as a port

@@ -43,6 +43,16 @@ SHAPE = (2, 8, 12, 64)
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(dtype):
     x = np.random.default_rng(7).normal(0, 0.5, SHAPE).astype(np.float32)
     ks, bs = smoke._rdb_weights(torch.Generator().manual_seed(7), "cpu")

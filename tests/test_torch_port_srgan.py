@@ -64,6 +64,16 @@ ATOL_STATS_FWD = 1e-5
 ATOL_PROB = 1e-5
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 

@@ -33,6 +33,16 @@ ATOL_GEN = 2e-5
 CASES = [(9, 2), (9, 4), (9, 8), (3, 2), (3, 4), (3, 8)]
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

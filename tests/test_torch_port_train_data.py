@@ -47,6 +47,16 @@ TIE_FRACTION = 1e-3
 RTOL_METRIC = 1e-5
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _assert_synth_close(got: np.ndarray, want: np.ndarray) -> None:
     diff = np.abs(got - want)
     assert float(diff.max()) <= 1 / 255 + ATOL_SYNTH, float(diff.max())

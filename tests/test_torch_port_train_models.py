@@ -28,6 +28,16 @@ ATOL_STATS = 1e-5
 ATOL_VGG = 1e-5
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 
@@ -128,12 +138,17 @@ def test_discriminator_bf16_keeps_f32_statistics(jax_disc):
     assert float((out - want).abs().max()) <= 0.1 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("max_convs", [2, 3, 4])
+@pytest.mark.parametrize("max_convs", [2, 3, 4, None])
 def test_vgg_matches_jax(max_convs):
+    # None: the whole trunk (16 convs, four max-pools, relu5_4) on a
+    # 32 x 32 image, so that its last map is 2 x 2 and the pools'
+    # positions matter; held at 1e-5 of the output's largest value
+    full = max_convs is None
+    seed = 16 if full else max_convs
     vgg_j = JaxVGG(max_convs=max_convs)
-    x = np.random.default_rng(max_convs).random((2, 16, 16, 3)).astype(
-        np.float32)
-    variables = _np_tree(dict(vgg_j.init(jax.random.PRNGKey(max_convs),
+    x = np.random.default_rng(seed).random(
+        (1, 32, 32, 3) if full else (2, 16, 16, 3)).astype(np.float32)
+    variables = _np_tree(dict(vgg_j.init(jax.random.PRNGKey(seed),
                                          jnp.asarray(x))))
     want = np.asarray(vgg_j.apply(variables, jnp.asarray(x)))
     vgg = VGG19Features(max_convs)
@@ -143,7 +158,10 @@ def test_vgg_matches_jax(max_convs):
     with torch.no_grad():
         got = vgg(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_VGG)
+    if full:
+        assert got.shape == (1, 2, 2, 512) and np.abs(want).max() > 0
+    atol = 1e-5 * float(np.abs(want).max()) if full else ATOL_VGG
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
 
 
 def _torchvision_sequential():

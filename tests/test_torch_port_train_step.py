@@ -77,6 +77,16 @@ SCALE_BATCH = 4
 ATOL_STATS, RTOL_STATS = 5e-3, 1e-3
 
 
+# one torch thread for the module, its module fixtures included: the
+# test workers share the machine's cores
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _args(**kw):
     base = dict(batch_size=BATCH, disable_amp=True, epochs=1,
                 pretrain_epochs=1, gan_checkpoint=None, psnr_checkpoint=None,

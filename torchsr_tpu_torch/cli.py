@@ -185,11 +185,10 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     )
     train.add_argument(
         "--fast-compile", action="store_true",
-        help="Shorten the cold start: run every training step eagerly "
-             "instead of capturing it into a CUDA graph (the first step "
-             "starts sooner; later steps pay their host launch time). "
-             "Parameters and checkpoints are the same as a default "
-             "run's.",
+        help="Kept for parity with the JAX CLI, whose flag shortens "
+             "the XLA compile. The port has no long compile to shorten: "
+             "it logs one line and trains as without the flag (the "
+             "steps captured and replayed on CUDA).",
     )
     train.add_argument(
         "--sync-saves", action="store_true",

@@ -2,9 +2,17 @@
 
 The port of ``torchsr_tpu/data/prefetch.py``: a thread assembles the
 next batches and starts their copies while the device computes.  On
-CUDA each host array is put in pinned (page-locked) memory and copied
-with ``non_blocking=True``; the copy is queued on the current stream,
-so the step that consumes it is ordered after it.
+CUDA each prefetcher owns a stream of its own (``_Copier``): each host
+array is put in pinned (page-locked) memory and copied there with
+``non_blocking=True``, and an event is recorded after the batch's
+copies.  Before a batch is yielded, the consumer's current stream waits
+on that event (so the step, and a captured step's copy into its static
+inputs, read the batch only once it has landed), and each tensor is
+marked as used on the consumer's stream (``record_stream``), so that
+the caching allocator does not hand its memory to a later copy while
+the step still reads it.  A copy so no longer waits behind the step
+queued before it, as JAX's ``device_put`` does not.  On the CPU the
+arrays are wrapped and moved as they are.
 ``prefetch_to_device_stacked`` feeds the trainer's multi-step programs:
 full groups of K batches go in one copy on a leading step axis.
 """
@@ -13,7 +21,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -21,27 +29,51 @@ import torch
 _SENTINEL = object()
 
 
-def _to_device(item: tuple, device: torch.device) -> tuple:
-    if device.type != "cuda":
-        return tuple(torch.from_numpy(arr).to(device) for arr in item)
-    return tuple(torch.from_numpy(arr).pin_memory().to(device,
-                                                       non_blocking=True)
-                 for arr in item)
+class _Copier:
+    """A prefetcher's host-to-device copies: ``put`` on the producer
+    thread starts them, ``take`` on the consumer's makes its current
+    stream wait for them.  On CUDA the copies run on ``stream``, a
+    stream of the copier's own."""
+
+    def __init__(self, device: torch.device):
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def put(self, item: tuple):
+        if self.stream is None:
+            return tuple(torch.from_numpy(arr).to(self.device)
+                         for arr in item)
+        with torch.cuda.stream(self.stream):
+            tensors = tuple(torch.from_numpy(arr).pin_memory().to(
+                self.device, non_blocking=True) for arr in item)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return tensors, done
+
+    def take(self, copied) -> tuple:
+        if self.stream is None:
+            return copied
+        tensors, done = copied
+        consumer = torch.cuda.current_stream(self.device)
+        consumer.wait_event(done)
+        for t in tensors:
+            t.record_stream(consumer)
+        return tensors
 
 
-def prefetch_to_device(
-    iterator: Iterable, device: torch.device, size: int = 2,
-) -> Iterator[tuple]:
-    """Yield each tuple of host arrays from ``iterator`` as device
-    tensors, ``size`` batches ahead.  Exceptions of the producer reach
-    the consumer."""
+def _run(produce: Callable[[Callable], None], size: int,
+         take: Callable) -> Iterator:
+    """Run ``produce(put)`` on a thread, ``size`` items ahead, and yield
+    ``take`` of each item it puts; the producer's exceptions reach the
+    consumer."""
     q: queue.Queue = queue.Queue(maxsize=size)
-    device = torch.device(device)
 
     def producer() -> None:
         try:
-            for item in iterator:
-                q.put(_to_device(tuple(item), device))
+            produce(q.put)
         except BaseException as exc:  # propagate to the consumer
             q.put(exc)
             return
@@ -55,8 +87,23 @@ def prefetch_to_device(
             break
         if isinstance(item, BaseException):
             raise item
-        yield item
+        yield take(item)
     thread.join()
+
+
+def prefetch_to_device(
+    iterator: Iterable, device: torch.device, size: int = 2,
+) -> Iterator[tuple]:
+    """Yield each tuple of host arrays from ``iterator`` as device
+    tensors, ``size`` batches ahead.  Exceptions of the producer reach
+    the consumer."""
+    copier = _Copier(torch.device(device))
+
+    def produce(put) -> None:
+        for item in iterator:
+            put(copier.put(tuple(item)))
+
+    return _run(produce, size, copier.take)
 
 
 def prefetch_to_device_stacked(
@@ -72,33 +119,19 @@ def prefetch_to_device_stacked(
     ``("single", batch_tuple)``.  ``steps_per_call <= 1`` yields every
     batch as ``("single", ...)``.  Exceptions of the producer reach the
     consumer."""
-    q: queue.Queue = queue.Queue(maxsize=size)
-    device = torch.device(device)
+    copier = _Copier(torch.device(device))
 
-    def producer() -> None:
-        try:
-            buf: list[tuple] = []
-            for item in iterator:
-                buf.append(tuple(item))
-                if len(buf) == steps_per_call and steps_per_call > 1:
-                    stacked = tuple(np.stack([b[i] for b in buf])
-                                    for i in range(len(buf[0])))
-                    q.put(("multi", _to_device(stacked, device)))
-                    buf = []
-            for b in buf:
-                q.put(("single", _to_device(b, device)))
-        except BaseException as exc:  # propagate to the consumer
-            q.put(exc)
-            return
-        q.put(_SENTINEL)
+    def produce(put) -> None:
+        buf: list[tuple] = []
+        for item in iterator:
+            buf.append(tuple(item))
+            if len(buf) == steps_per_call and steps_per_call > 1:
+                stacked = tuple(np.stack([b[i] for b in buf])
+                                for i in range(len(buf[0])))
+                put(("multi", copier.put(stacked)))
+                buf = []
+        for b in buf:
+            put(("single", copier.put(b)))
 
-    thread = threading.Thread(target=producer, daemon=True)
-    thread.start()
-    while True:
-        item = q.get()
-        if item is _SENTINEL:
-            break
-        if isinstance(item, BaseException):
-            raise item
-        yield item
-    thread.join()
+    return _run(produce, size,
+                lambda item: (item[0], copier.take(item[1])))

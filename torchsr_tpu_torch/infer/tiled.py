@@ -246,9 +246,9 @@ class TileForward:
                 # a capture stream of this device: torch.cuda.graph's
                 # default one is made once, on whichever device was
                 # current then
-                with torch.cuda.graph(self.graph,
-                                      stream=torch.cuda.Stream(self.device),
-                                      capture_error_mode="thread_local"):
+                with graphs.gc_paused(), torch.cuda.graph(
+                        self.graph, stream=torch.cuda.Stream(self.device),
+                        capture_error_mode="thread_local"):
                     self.output = module(self.input)
             except RuntimeError as exc:
                 raise RuntimeError(

@@ -2,18 +2,22 @@
 
 The GAN-phase stability campaign (``docs/benchmarks.md``; configs and
 reports under ``artifacts/quality_r05/``) trains on the smooth corpus
-that ``tools/make_quality_dataset.py --photo-only --no-decimate``
-builds from ``media/waterfalls-low-res.png`` (200 training and 24
-evaluation images of 176 x 176), then scores the checkpoints with
-``eval``.  This tool runs the same recipe through the port's own entry
-points, in this process:
+that ``make_quality_dataset --photo-only --no-decimate`` builds from
+``media/waterfalls-low-res.png`` (200 training and 24 evaluation images
+of 176 x 176), then scores the checkpoints with ``eval``.  This tool
+runs the same recipe through the port's own entry points, in this
+process:
 
-1. the corpus, by that script (numpy and Pillow only);
+1. the corpus, by the port's own copy of that script
+   (``torchsr_tpu_torch/tools/make_quality_dataset.py``, numpy and
+   Pillow only), in this process;
 2. ``train`` with the run's config (line 1 of
    ``metrics_{model}_smooth.jsonl.gz``): ESRGAN batch 32, 60 pretrain
    and 20 GAN epochs; SRGAN batch 128, 40 and 40; both
    ``--dataset-multiplier 16 --seed 1 --skip-image-save`` (``--seed``
-   sets another seed, for a spread over seeds);
+   sets another seed, for a spread over seeds; ``--f32`` adds
+   ``--disable-amp`` and turns cuDNN's and CUDA matmul's TF32 off for
+   the whole run, so that every product of both phases is f32);
 3. ``eval`` on the eval images for psnr-best, gan-best and gan-latest,
    then ``interp`` of psnr-best and gan-best at alpha 0.2 and ``eval``
    of it; psnr-best is also scored with TF32 allowed and with
@@ -34,7 +38,7 @@ card's name and power limit) under ``--out``.
 
 Usage: python -m torchsr_tpu_torch.tools.quality_run --model esrgan
        [--out build/quality/reports] [--device cuda|cpu] [--seed N]
-       [--bf16-operands] [--vgg-weights PATH]
+       [--f32] [--bf16-operands] [--vgg-weights PATH]
        [--pretrain-epochs N --epochs N --batch-size N
         --dataset-multiplier N --gen-blocks N --vgg-convs N]
 (the last flags shrink the recipe for a rehearsal on the CPU).
@@ -54,7 +58,6 @@ import os
 import shutil
 import statistics
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -137,17 +140,30 @@ def main(argv=None) -> dict:
     parser.add_argument("--vgg-weights",
                         help="train's --vgg-weights (default: the port's "
                              "seeded random features)")
+    parser.add_argument("--f32", action="store_true",
+                        help="train in f32 (train's --disable-amp) with "
+                             "TF32 off for the whole run")
     parser.add_argument("--bf16-operands", action="store_true",
                         help="also score psnr-best with the LR and the "
                              "bicubic baseline synthesized at the JAX "
                              "reports' precision (bf16 operands)")
     args = parser.parse_args(argv)
 
+    from torchsr_tpu_torch.infer.evaluate import tf32_allowed
+
+    # --f32 turns TF32 off for the whole run; otherwise PyTorch's
+    # defaults hold (cuDNN TF32 on, matmul TF32 off)
+    with tf32_allowed(False) if args.f32 else contextlib.nullcontext():
+        return _run(args)
+
+
+def _run(args) -> dict:
     import torch
 
     from torchsr_tpu_torch import cli
     from torchsr_tpu_torch.infer.evaluate import run_eval
     from torchsr_tpu_torch.registry import select_test_model
+    from torchsr_tpu_torch.tools import make_quality_dataset
 
     recipe = dict(RECIPES[args.model])
     for key in recipe:
@@ -160,10 +176,9 @@ def main(argv=None) -> dict:
     os.makedirs(work)
     os.makedirs(out, exist_ok=True)
     corpus = os.path.join(work, "qds")
-    subprocess.run([sys.executable,
-                    os.path.join(ROOT, "tools", "make_quality_dataset.py"),
-                    "--out", corpus, "--photo-only", "--no-decimate"],
-                   check=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_quality_dataset.main(["--out", corpus, "--photo-only",
+                                   "--no-decimate"])
     os.environ.setdefault("WANDB_MODE", "disabled")  # no network sink
     t0 = time.time()
     cwd = os.getcwd()
@@ -178,6 +193,8 @@ def main(argv=None) -> dict:
             "--pretrain-epochs", str(recipe["pretrain_epochs"]),
             "--epochs", str(recipe["epochs"]), "--seed", str(args.seed),
             "--skip-image-save", "--metrics-file", "metrics.jsonl"]
+        if args.f32:
+            train_argv.append("--disable-amp")
         for flag, value in (("--gen-blocks", args.gen_blocks),
                             ("--vgg-convs", args.vgg_convs),
                             ("--vgg-weights", vgg_weights)):
@@ -231,6 +248,10 @@ def main(argv=None) -> dict:
     summary = {
         "model": args.model, "card": card(), "recipe": recipe,
         "seed": args.seed, "vgg_weights": args.vgg_weights,
+        "f32": args.f32,
+        "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                 "matmul": torch.backends.cuda.matmul.allow_tf32},
+        "rdb_bwd": os.environ.get("TORCHSR_RDB_BWD", "pallas"),
         "dataset_multiplier": args.dataset_multiplier,
         "train_wall_s": train_s, "wall_s": time.time() - t0,
         "reports": {k: _headline(v) for k, v in reports.items()},

@@ -24,6 +24,9 @@ counter still states launches that ran.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+
 import torch
 
 from torchsr_tpu_torch.ops import rdb as rdb_ops
@@ -37,6 +40,24 @@ def launch_counts() -> dict:
 def add_launch_counts(delta: dict, times: int = 1) -> None:
     for name, n in delta.items():
         setattr(rdb_ops, name, getattr(rdb_ops, name) + n * times)
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Collect Python's dead cycles, then keep the cyclic collector off
+    for the block (a capture): a collection inside a capture can free an
+    older CUDA graph held by a dead cycle, whose reset is not permitted
+    while a stream captures, and the capture fails ("operation failed
+    due to a previous error during capture").  ``torch.cuda.graph`` no
+    longer collects before it begins unless asked to."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def warm_up(body, *inputs) -> torch.Tensor:
@@ -67,7 +88,7 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         try:
-            with torch.cuda.graph(self.graph):
+            with gc_paused(), torch.cuda.graph(self.graph):
                 self.out = body(self.crops, self.flips)
         except RuntimeError as exc:
             raise RuntimeError(

@@ -32,10 +32,11 @@ JAX multi-step programs (``pretrain_step_multi``, ``gan_step_multi``;
 captured CUDA graph of the step K times (``train/graphs.py``): the
 first call of a phase runs its first step eagerly on a side stream and
 captures the step after it.  The epoch's ragged tail replays the same
-graph once a batch.  On the CPU, and under ``--fast-compile`` (no
-capture: the first step starts sooner, each one costs its host launch
-time), a K-step call runs K eager steps, with the same parameters and
-checkpoints.  Losses reach the host only when the logger consumes them,
+graph once a batch.  On the CPU a K-step call runs K eager steps, with
+the same parameters and checkpoints.  ``--fast-compile`` (the JAX
+package's shorter XLA compile) changes nothing: the port has no long
+compile to shorten, so the trainer logs one line and captures as
+without it.  Losses reach the host only when the logger consumes them,
 in one transfer a call.  ``--scale`` (2, 4 or 8) sets the generator's
 upsample stages and the LR synthesis ratio.
 
@@ -173,8 +174,6 @@ class GANTrainer:
         self.crop_size = train_loader.crop_size
         self.seed = getattr(args, "seed", 0) or 0
         self.step = 0
-        # eager steps on CUDA too: no graph is captured
-        self.fast_compile = bool(getattr(args, "fast_compile", False))
         self.preempt_save = not getattr(args, "no_preempt_save", False)
         self._preemption: PreemptionGuard | None = None
         self._vote = (mesh.RankVote(self.device) if self.data_parallel
@@ -188,6 +187,11 @@ class GANTrainer:
             metrics_path=getattr(args, "metrics_file", None),
             main_process=self.main_process,
         )
+        if getattr(args, "fast_compile", False):
+            self.logger.log(
+                "--fast-compile: the port has no long compile to shorten "
+                "(its kernels are built once and cached); the steps are "
+                "captured and replayed as without the flag")
         explicit_k = int(getattr(args, "steps_per_call", 0) or 0)
         self.steps_per_call = explicit_k or 8
         self.gan_steps_per_call = explicit_k or self.GAN_STEPS_PER_CALL
@@ -358,13 +362,13 @@ class GANTrainer:
     def _multi(self, phase: str, body, crops_k: torch.Tensor,
                flips_k: torch.Tensor) -> torch.Tensor:
         """K steps of ``body``, one stacked batch each; returns their
-        (K, n) outputs and moves the step counter by K.  On the CPU and
-        under ``--fast-compile``, K eager steps.  On CUDA, replays of the
+        (K, n) outputs and moves the step counter by K.  On the CPU, K
+        eager steps.  On CUDA, replays of the
         phase's captured step: the first call for a (phase, batch shape,
         dtype) runs its first step eagerly on a side stream (the
         capture's warm-up) and captures the step after it."""
         k = crops_k.shape[0]
-        if self.device.type != "cuda" or self.fast_compile:
+        if self.device.type != "cuda":
             out = torch.stack([body(c, f) for c, f in zip(crops_k, flips_k)])
             self.step += k
             return out
