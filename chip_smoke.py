@@ -12,7 +12,8 @@ The script sets the RDB knobs of ``ops/rdb.py`` (``EXT_KERNEL``,
 ``ILV_KERNEL``, ``BWD_XLA``) itself: off on the default paths, on for
 the drives that name them.  Each path's launch counters
 (``ops.rdb.RDB_*_LAUNCHES``, ``ops.preprocess.PAIR_SYNTH_LAUNCHES``,
-``ops.pair_conv.PAIR_FWD_LAUNCHES`` and ``PAIR_BWD_LAUNCHES``) are set
+``ops.pair_conv.PAIR_FWD_LAUNCHES``, ``PAIR_BWD_LAUNCHES`` and their
+f32 counterparts ``PAIR_FWD_F32_LAUNCHES``, ``PAIR_BWD_F32_LAUNCHES``) are set
 to 0 just before it and must read exactly what its steps, evals,
 renders, tile batches or tool calls imply, every other counter (the
 ``TORCHSR_RDB_BWD=xla`` one included) at 0.  Phases, one line each:
@@ -82,15 +83,17 @@ renders, tile batches or tool calls imply, every other counter (the
    the gate's largest image, an all-edge (4, 3, 2, 64) and a ragged
    persistent schedule (7, 33, 46, 64), f32 and bf16: y, dx, dW and db
    per element against the plain versions, beside five wrong kernels
-   (six where a persistent CTA walks several runs: ``stale_stage``); two
-   backwards' dW and db bit-equal; timed beside the plain versions and
-   the library call (cuDNN's convolution and its
-   ``convolution_backward``), each call's profile holding only its own
-   kernels (one for B4, three for B5).
+   (six where a persistent CTA walks several runs: ``stale_stage``; in
+   f32 also the 3xTF32 products short of a term, ``WRONG_PAIR_TF32``,
+   forward and backward); two backwards' dW and db bit-equal; timed
+   beside the plain versions and the library call (cuDNN's convolution
+   and its ``convolution_backward``, TF32 off), each call's profile
+   holding only its own kernels (one for B4, three for B5).
 10. bench_preprocess, bench_pair_conv: the two bench tools
-    (``torchsr_tpu_torch/tools/``) at their default shapes, in this
-    process, printing their own lines; the pair counters must read what
-    their calls imply.
+    (``torchsr_tpu_torch/tools/``) at their default shapes (and
+    bench_pair_conv again with ``--dtype f32``), in this process,
+    printing their own lines; the pair counters must read what their
+    calls imply.
 11. train_grad, train_grad_ext, train_grad_xla: one L1 backward of the
     23-RRDB generator, every parameter gradient of the kernel path
     against the plain path: on B1/B2, with ``EXT_KERNEL`` on B7/B8, and
@@ -306,6 +309,8 @@ from torchsr_tpu_torch.utils.checkpoint import (  # noqa: E402
 # of its bytes over HBM bandwidth and its operations over the peak rate
 # of their type.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The dense TF32 peak: an f32 product taken as three TF32 ones (3xTF32)
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 RDB_FLOP_PER_PX = 2 * 9 * sum(
     ci * co for ci, co in zip(rdb_ops.CIN, rdb_ops.COUT)
@@ -342,6 +347,8 @@ COUNTERS = {
     "pair_synth": (ps_ops, "PAIR_SYNTH_LAUNCHES"),
     "pair_fwd": (pc_ops, "PAIR_FWD_LAUNCHES"),
     "pair_bwd": (pc_ops, "PAIR_BWD_LAUNCHES"),
+    "pair_fwd_f32": (pc_ops, "PAIR_FWD_F32_LAUNCHES"),
+    "pair_bwd_f32": (pc_ops, "PAIR_BWD_F32_LAUNCHES"),
 }
 # Per-element limits.  A result passes when at every element
 #     |got - ref| <= rel * |ref| + frac * max|ref - base|,
@@ -1268,9 +1275,9 @@ def rdb_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
 
 
 # Profiler windows a profile may take: torch.profiler now and then
-# returns a window without a single device event although its kernels
-# ran; such a window is run again.
-PROFILE_WINDOWS = 3
+# returns a window without a single device event, or without some of
+# them, although its kernels ran; such a window is run again.
+PROFILE_WINDOWS = 5
 
 
 def device_spans(fn, calls: int) -> list:
@@ -1675,6 +1682,12 @@ PAIR_CONV_SHAPES = ((128, 24, 24), (3, 5, 10), (1, 128, 256), (4, 3, 2),
 # pixels in another order, take BWD_STAGE_LIMITS.
 WRONG_PAIR_FWD = ("k_transposed", "no_column_mask", "bias_dropped")
 WRONG_PAIR_BWD = ("dx_unflipped", "dw_partial_dropped")
+# The f32 kernels' wrong products (3xTF32 short of a term, emulated by
+# pc_ops.pair_conv_3xtf32_reference): hi.hi only (plain TF32) and hi.hi
+# + hi.lo (lo.hi dropped); each forward, and each backward (the worst of
+# dx and dW), must read over its limit.
+WRONG_PAIR_TF32 = {"tf32_once": (("hi", "hi"),),
+                   "cross_term_dropped": (("hi", "hi"), ("hi", "lo"))}
 # Held where some persistent CTA walks more than one run (elsewhere the
 # fault changes nothing): the bench tool's shape and the gate's largest.
 WRONG_PAIR_STALE = "stale_stage"
@@ -1701,7 +1714,7 @@ def conv_no_column_mask(x, k, bias):
 def dw_partial_dropped(x, k, g):
     """The backward whose reduce skips the wgrad's partial 0 (the pixels
     ``pc_ops.wgrad_partition`` gives it): ``(dW, db)``."""
-    keep = pc_ops.wgrad_partition(*x.shape[:3], x.dtype) != 0
+    keep = pc_ops.wgrad_partition(*x.shape[:3]) != 0
     _, dw, db = pc_ops.pair_conv_bwd_reference(
         x, k, g * keep[..., None].to(g.device, g.dtype))
     return dw, db
@@ -1747,7 +1760,9 @@ def pair_scores(x, k, bias, g, y, grads) -> dict:
 def pair_wrong_scores(x, k, bias, g) -> dict:
     """What the ``WRONG_PAIR_FWD`` and ``WRONG_PAIR_BWD`` kernels read
     under the same limits (the worst of dW and db for the dropped
-    partial), and ``WRONG_PAIR_STALE`` where ``multi_run``."""
+    partial), ``WRONG_PAIR_STALE`` where ``multi_run``, and in f32 the
+    ``WRONG_PAIR_TF32`` products, forward and backward (``bwd_`` before
+    the name)."""
     dt = x.dtype
     zeros = torch.zeros_like(bias)
     ref_y = pc_ops.pair_conv_reference(x, k, bias)
@@ -1767,6 +1782,15 @@ def pair_wrong_scores(x, k, bias, g) -> dict:
     rows["dw_partial_dropped"] = max(
         excess(dw, ref_dw, BWD_STAGE_LIMITS[dt]),
         excess(db, ref_db, BWD_STAGE_LIMITS[dt]))
+    if dt == torch.float32:
+        for name, terms in WRONG_PAIR_TF32.items():
+            rows[name] = excess(pc_ops.pair_conv_3xtf32_reference(
+                x, k, bias, terms), ref_y, STAGE_LIMITS[dt])
+            dx, dw, _ = pc_ops.pair_conv_bwd_3xtf32_reference(x, k, g,
+                                                              terms)
+            rows[f"bwd_{name}"] = max(
+                excess(dx, ref_dx, STAGE_LIMITS[dt]),
+                excess(dw, ref_dw, BWD_STAGE_LIMITS[dt]))
     return rows
 
 
@@ -1774,14 +1798,16 @@ def hold_pair_conv(x, k, bias, g) -> dict:
     """One forward and two backward kernel calls, each output held
     against the plain versions, beside the wrong kernels; the two
     backwards' dW and db must be bit-equal."""
-    fwd0, bwd0 = pc_ops.PAIR_FWD_LAUNCHES, pc_ops.PAIR_BWD_LAUNCHES
+    f32 = "_f32" if x.dtype == torch.float32 else ""
+    before = read_counters()
     y = pc_ops.pair_conv_fwd_cuda(x, k, bias)
     grads = pc_ops.pair_conv_bwd_cuda(x, k, g)
     again = pc_ops.pair_conv_bwd_cuda(x, k, g)
     torch.cuda.synchronize()
-    check(pc_ops.PAIR_FWD_LAUNCHES == fwd0 + 1
-          and pc_ops.PAIR_BWD_LAUNCHES == bwd0 + 2,
-          "one forward and two backwards counted")
+    moved = {name: n - before[name] for name, n in read_counters().items()
+             if n != before[name]}
+    check(moved == {f"pair_fwd{f32}": 1, f"pair_bwd{f32}": 2},
+          f"one forward and two backwards counted, as {x.dtype}: {moved}")
     check(all(torch.equal(a, b) for a, b in zip(grads, again)),
           f"pair_conv {x.dtype} {tuple(x.shape)}: two backwards bit-equal")
     check(all(bool(torch.isfinite(t).all()) for t in (y, *grads)),
@@ -1799,7 +1825,9 @@ def hold_pair_conv(x, k, bias, g) -> dict:
 def pair_conv_bound_ms(shape, dtype, backward: bool = False) -> tuple:
     """The forward reads x, the kernel and the bias once and writes y;
     the backward reads x, g and the kernel and writes dx, dW and db,
-    with twice the forward's operations."""
+    with twice the forward's operations.  f32's least time takes its
+    products as three TF32 ones (3xTF32) at the TF32 peak:
+    ``pair_conv_ffma_ms`` gives one f32 product at the FMA peak."""
     b, h, w = shape
     px = b * h * w
     item = torch.finfo(dtype).bits // 8
@@ -1810,9 +1838,17 @@ def pair_conv_bound_ms(shape, dtype, backward: bool = False) -> tuple:
         nbytes = 2 * px * pc_ops.C * item + kbytes * item + 4 * pc_ops.C
     flops = 2 * kbytes * px * (2 if backward else 1)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = (3 * flops / TF32_FLOPS if dtype == torch.float32
+             else flops / PEAK_FLOPS[dtype])
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes > t_ops else "operations")
+
+
+def pair_conv_ffma_ms(shape, backward: bool = False) -> float:
+    """The f32 conv's operations at the 67 TFLOP/s FMA peak (the bound
+    of the FFMA kernels the 3xTF32 ones replaced)."""
+    flops = 2 * 9 * pc_ops.C * pc_ops.C * math.prod(shape) * (1 + backward)
+    return 1e3 * flops / PEAK_FLOPS[torch.float32]
 
 
 def conv_backward(g, x, k):
@@ -1828,6 +1864,19 @@ def conv_backward(g, x, k):
 PAIR_KERNELS = {False: ("conv_",), True: ("conv_", "wgrad_", "reduce_partials")}
 
 
+def pair_profile(kernel, backward: bool, calls: int = 10) -> dict:
+    """``kernel`` profiled over ``calls`` calls by kernel name.  A window
+    that lost some of its kernels (fewer than ``PAIR_KERNELS`` a call)
+    is run again, ``PROFILE_WINDOWS`` windows at most; one with more
+    kernels is kept, for ``check_pair_profile`` to refuse."""
+    for window in range(1, PROFILE_WINDOWS + 1):
+        prof = profile_device_time(kernel, calls, _kernel_name)
+        if prof["kernels_per_batch"] >= len(PAIR_KERNELS[backward]):
+            break
+    prof["windows"] = window
+    return prof
+
+
 def check_pair_profile(prof: dict, dtype, backward: bool) -> None:
     names = PAIR_KERNELS[backward]
     kinds = prof["device_ms_per_batch"]
@@ -1835,7 +1884,8 @@ def check_pair_profile(prof: dict, dtype, backward: bool) -> None:
           and len(kinds) == len(names)
           and all(any(n in k for n in names) for k in kinds),
           f"one pair_conv {'backward' if backward else 'forward'} "
-          f"({dtype}) launches only {names}: {kinds}")
+          f"({dtype}) launches only {names}, "
+          f"{prof['kernels_per_batch']} kernels a call: {kinds}")
 
 
 def phase_pair_conv(seed: int) -> dict:
@@ -1879,13 +1929,15 @@ def phase_pair_conv(seed: int) -> dict:
                                            else "max_abs_err"],
                        "ms": median_ms(kernel), "plain_ms": median_ms(plain),
                        "library_ms": median_ms(library),
-                       "profile": profile_device_time(kernel, 10,
-                                                      _kernel_name),
+                       "profile": pair_profile(kernel, backward),
                        "library_profile": profile_device_time(
                            library, 10, _kernel_name)}
                 check_pair_profile(row["profile"], dtype, backward)
                 row["bound_ms"], row["bound_by"] = pair_conv_bound_ms(
                     shape, dtype, backward)
+                if dtype == torch.float32:
+                    row["ffma_bound_ms"] = pair_conv_ffma_ms(shape,
+                                                             backward)
                 flops = 2 * 9 * 64 * 64 * math.prod(shape) * (1 + backward)
                 row["tflops"] = flops / row["ms"] / 1e9
                 timed[f"pair_{part}"][name] = row
@@ -1916,19 +1968,24 @@ def phase_bench_preprocess(seed: int) -> dict:
 
 def phase_bench_pair_conv(seed: int) -> dict:
     """``tools/bench_pair_conv.py``'s port at its defaults (bf16, both
-    modes), in this process.  Each measurement of the kernel path runs
-    each chain length three times (warm-up, two phases), one conv per
-    link: forward chains call B4 once a link, forward-backward chains
-    B4 and B5 once a link."""
-    reset_counters()
-    bench_pair_conv.main([])
-    torch.cuda.synchronize()
-    counts = read_counters()
+    modes), then with ``--dtype f32``, in this process.  Each
+    measurement of the kernel path runs each chain length three times
+    (warm-up, two phases), one conv per link: forward chains call B4
+    once a link, forward-backward chains B4 and B5 once a link.  Returns
+    each run's counts, the runs' paths."""
     calls = 3 * (bench_pair_conv.REPS_LO + bench_pair_conv.REPS_HI)
-    say("bench_pair_conv", launches=counts)
-    check_counts("bench_pair_conv", counts, pair_fwd=2 * calls,
-                 pair_bwd=calls)
-    return counts
+    paths = {}
+    for path, argv, f32 in (("bench_pair_conv", [], ""),
+                            ("bench_pair_conv --dtype f32",
+                             ["--dtype", "f32"], "_f32")):
+        reset_counters()
+        bench_pair_conv.main(argv)
+        torch.cuda.synchronize()
+        paths[path] = counts = read_counters()
+        say(path, launches=counts)
+        check_counts(path, counts, **{f"pair_fwd{f32}": 2 * calls,
+                                      f"pair_bwd{f32}": calls})
+    return paths
 
 
 class _WrongBwdBlock(torch.autograd.Function):
@@ -4943,6 +5000,10 @@ KERNELS = (
      (*PAIR_CONV_SHAPES[0], 64)),
     ("pair_bwd", "pair_conv.cu", "pair_conv.py:148", "pair_bwd", "bfloat16",
      (*PAIR_CONV_SHAPES[0], 64)),
+    ("pair_fwd_f32", "pair_conv.cu", "pair_conv.py:134", "pair_fwd",
+     "float32", (*PAIR_CONV_SHAPES[0], 64)),
+    ("pair_bwd_f32", "pair_conv.cu", "pair_conv.py:148", "pair_bwd",
+     "float32", (*PAIR_CONV_SHAPES[0], 64)),
 )
 
 
@@ -5078,8 +5139,7 @@ def main() -> None:
              **run("pair_conv", phase_pair_conv, seed)}
     paths = {"bench_preprocess": run("bench_preprocess",
                                      phase_bench_preprocess, seed),
-             "bench_pair_conv": run("bench_pair_conv",
-                                    phase_bench_pair_conv, seed)}
+             **run("bench_pair_conv", phase_bench_pair_conv, seed)}
     for variant in TRAIN_GRAD_VARIANTS:
         run("train_grad", phase_train_grad, seed, variant)
     gen = run("generator", phase_generator, seed,

@@ -7,10 +7,15 @@ in interpret mode, forward and custom-VJP backward.  Both compute f32
 sums of the same products in other orders: the forward within 1e-5, the
 gradients within rtol 1e-4 / atol 1e-5 (dW sums over every pixel).  The
 CUDA kernels are held to per-element limits on the card by
-chip_smoke.py.
+chip_smoke.py; the f32 kernels' 3xTF32 arithmetic, emulated
+(``pair_conv_3xtf32_reference``, ``pair_conv_bwd_3xtf32_reference``),
+is held here to the same limits against the JAX package's f32 Pallas
+kernels.
 """
 
+import importlib.util
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +26,13 @@ import torch
 from torchsr_tpu.ops.pallas import pair_conv as jax_pc
 from torchsr_tpu_torch.ops import pair_conv as pc
 from torchsr_tpu_torch.tools import bench_pair_conv
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+F32 = torch.float32
 
 # The JAX package's own test shapes (test_pallas_pair_conv.py:34): even
 # widths, odd heights, W = 2 (every pixel at both edges), multi-image.
@@ -99,6 +111,59 @@ def test_gradients_match_the_jax_custom_vjp(shape):
                                    atol=1e-5)
 
 
+def test_tf32_split_rounds_to_nearest_away_and_keeps_the_rest():
+    """hi: 10 mantissa bits, ties away from zero (cvt.rna); lo: t - hi
+    cut to the 19 bits the tensor core reads, so that hi + lo is within
+    2^-21 of t (2^-11 of it for hi alone)."""
+    ulp = 2.0 ** -10
+    t = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      3 + ulp, 0.0])  # ties at 1 and (ulp 2^-9) at 3
+    hi, lo = pc.tf32_split(t)
+    assert hi.tolist() == [1 + ulp, -(1 + ulp), 1.0, 3 + 2 * ulp, 0.0]
+    # 2^-11 - 2^-23 has 11 mantissa bits: cut to 10, 2^-11 - 2^-22
+    assert lo.tolist()[:3] == [-ulp / 2, ulp / 2, ulp / 2 - 2 ** -22]
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        0, 3, 4096).astype(np.float32))
+    hi, lo = pc.tf32_split(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((x - hi).abs() <= x.abs() * 2.0 ** -11).all()
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert (err <= x.abs().double() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_3xtf32_forward_matches_jax(shape):
+    """The f32 kernel's arithmetic against the JAX package's f32 forward
+    within the limit chip_smoke.py holds the f32 kernel to."""
+    x, k, b = _inputs(shape)
+    got = pc.pair_conv_3xtf32_reference(
+        *(torch.from_numpy(a) for a in (x, k, b)))
+    want = torch.from_numpy(_jax(x, k, b))
+    assert smoke.excess(got, want, smoke.STAGE_LIMITS[F32]) <= 1
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 10, 64), (6, 4, 4, 64)], ids=str)
+def test_3xtf32_gradients_match_the_jax_custom_vjp(shape):
+    """The f32 backward kernels' arithmetic (dgrad, wgrad, db) against
+    the JAX custom VJP: dx within the forward's limit, dW and db within
+    the backward's."""
+    x, k, b = _inputs(shape, seed=3)
+    g = np.random.default_rng(4).normal(0, 1, shape).astype(np.float32)
+
+    def loss(x, k, b):
+        return jnp.sum(jax_pc.pair_conv(x, k, b, interpret=True) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    got = pc.pair_conv_bwd_3xtf32_reference(
+        *(torch.from_numpy(a) for a in (x, k, g)))
+    limits = (smoke.STAGE_LIMITS[F32], smoke.BWD_STAGE_LIMITS[F32],
+              smoke.BWD_STAGE_LIMITS[F32])
+    for t, w, lim in zip(got, want, limits):
+        assert smoke.excess(t, torch.from_numpy(np.asarray(w)), lim) <= 1
+
+
 def test_backward_reference_keeps_the_precision_contract():
     """bf16: g rounded to bf16 first, dx in bf16, dW and db in f32 over
     the rounded g (an f32 kernel gets its gradient in f32)."""
@@ -162,16 +227,16 @@ def test_kernel_paths_take_cuda_tensors_only():
 
 
 def test_wgrad_groups():
-    """The wgrad's f32 partials: in bf16 one per persistent CTA (one per
-    128-pixel run, at most 132), in f32 one per 8 x 32 pixel tile, at
-    most 132."""
+    """The wgrad's f32 partials, in both dtypes: one per persistent CTA
+    (one per 128-pixel run, at most 132).  The f32 conv runs two CTAs a
+    walk of runs, one a half of the output channels, over at most 66
+    walks."""
     assert pc.wgrad_groups(128, 24, 24) == 132
     assert pc.wgrad_groups(3, 5, 10) == 3
     assert pc.wgrad_groups(1, 128, 256) == 132
-    f32 = torch.float32
-    assert pc.wgrad_groups(128, 24, 24, f32) == 132
-    assert pc.wgrad_groups(3, 5, 10, f32) == 3
-    assert pc.wgrad_groups(1, 128, 256, f32) == 128
+    assert pc.conv_ctas(128, 24, 24, F32) == 132
+    assert pc.conv_ctas(3, 5, 10, F32) == 6
+    assert pc.conv_ctas(1, 128, 256, F32) == 132
 
 
 # chip_smoke.py's pair_conv shapes
@@ -198,7 +263,7 @@ def test_schedule_covers_each_pixel_once(shape):
             assert p0 // w == (p0 + n - 1) // w
         seen[img, p0:p0 + n] += 1
     assert (seen == 1).all()
-    part = pc.wgrad_partition(b, h, w, torch.bfloat16).view(b, h * w)
+    part = pc.wgrad_partition(b, h, w).view(b, h * w)
     for cta, walk in enumerate(walks):
         mask = np.zeros((b, h * w), bool)
         for t in walk:

@@ -12,7 +12,9 @@ slot convs stopping short of it.  The
 same for the pair synthesis (B3: H pass first, no quantization between
 the passes, flip columns swapped, a true division by 255) and the 3x3
 64 -> 64 conv (B4, B5: K transposed, no column mask, bias dropped, dx
-with the unflipped kernel, one CTA's dW partial dropped).  The eval
+with the unflipped kernel, one CTA's dW partial dropped; in f32 the
+3xTF32 arithmetic passes and plain TF32, or 3xTF32 short of lo.hi,
+fails).  The eval
 phase's checks run on the port's CPU ``eval``: the float64 recompute of
 a report (an SR one level off on a patch, a box window in the SSIM),
 the skip rule, and the forward count B1's launches are held to.  The
@@ -440,8 +442,35 @@ def test_pair_conv_limits_catch_each_wrong_kernel(dtype):
     reads over its limit."""
     x, k, b, g = _pair_inputs(dtype)
     wrong = smoke.pair_wrong_scores(x, k, b, g)
-    assert set(wrong) == set(smoke.WRONG_PAIR_FWD + smoke.WRONG_PAIR_BWD)
+    tf32 = [f"{p}{name}" for name in smoke.WRONG_PAIR_TF32
+            for p in ("", "bwd_")] if dtype == torch.float32 else []
+    assert set(wrong) == set(smoke.WRONG_PAIR_FWD + smoke.WRONG_PAIR_BWD
+                             + tuple(tf32))
     assert min(wrong.values()) > 1, wrong
+
+
+@pytest.mark.parametrize("shape", [PAIR_SHAPE, (4, 3, 2, 64),
+                                   (2, 8, 12, 64)], ids=str)
+def test_pair_conv_limits_pass_3xtf32_and_fail_plain_tf32(shape):
+    """The f32 kernels' 3xTF32 arithmetic (emulated) passes B4's and
+    B5's f32 limits against the plain f32 versions; plain TF32 (hi.hi
+    only) and 3xTF32 with lo.hi dropped fail them, forward and dx."""
+    rng = np.random.default_rng(14)
+    x, g = (torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+            for s in (0.5, 0.1))
+    _, k, b, _ = _pair_inputs(torch.float32)
+    y = pc_ops.pair_conv_3xtf32_reference(x, k, b)
+    row = smoke.pair_scores(x, k, b, g, y,
+                            pc_ops.pair_conv_bwd_3xtf32_reference(x, k, g))
+    assert max(row[key] for key in ("fwd", "dx", "dw", "db")) <= 1, row
+    limits = smoke.STAGE_LIMITS[torch.float32]
+    ref_dx = pc_ops.pair_conv_bwd_reference(x, k, g)[0]
+    for terms in smoke.WRONG_PAIR_TF32.values():
+        wrong_y = pc_ops.pair_conv_3xtf32_reference(x, k, b, terms)
+        assert smoke.excess(wrong_y, pc_ops.pair_conv_reference(x, k, b),
+                            limits) > 1
+        wrong_dx = pc_ops.pair_conv_bwd_3xtf32_reference(x, k, g, terms)[0]
+        assert smoke.excess(wrong_dx, ref_dx, limits) > 1
 
 
 STALE_SHAPE = (133, 2, 2, 64)  # 133 one-run images: CTA 0 walks two runs

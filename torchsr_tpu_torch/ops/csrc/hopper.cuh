@@ -5,11 +5,13 @@
 // the wgmma shared-memory descriptors (128- and 64-byte swizzle), the
 // bf16 m64n96k16, m64n64k16 and m64n32k16 wgmma with A in registers
 // (m64n96k16 also with A in shared memory), with their fence, commit and
-// wait, and on the host the tensor maps' encoding.
+// wait, the TF32 split of an f32 operand and the tf32 m64n64k8 and
+// m64n32k8 wgmma with A in registers (three of them make an f32 product:
+// 3xTF32), and on the host the tensor maps' encoding.
 // Shared-memory tiles that wgmma or ldmatrix read are rows of 128 bytes
-// (64 bf16) in the 128-byte swizzle: the 16-byte chunk c of row r lies at
-// chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes, aligned to 1024), as
-// TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them.
+// (64 bf16, or 32 f32 / tf32) in the 128-byte swizzle: the 16-byte chunk
+// c of row r lies at chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes,
+// aligned to 1024), as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them.
 #pragma once
 
 #include <cuda.h>
@@ -164,6 +166,7 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
 // `addr` (its atom 1024-aligned; a K step inside the row adds its byte
 // offset to addr).  Both strides are one atom, 1024 bytes: the stride
 // between 8-row groups, and (an N of 64 is one atom wide) the unused one.
+// A K step is 32 bytes of each row in both types: 16 bf16 or 8 tf32.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -272,6 +275,65 @@ __device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48], uint64_t a,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------------- tf32
+
+// a = hi + lo: hi is a rounded to TF32 (10 mantissa bits, to nearest,
+// ties away from zero: cvt.rna), lo = a - hi, exact in f32 (at most
+// 2^-11 of |a|).  Both as f32 bits for a tf32 operand; the tensor core
+// reads the top 19 bits of each, which costs lo at most 2^-10 of itself.
+__device__ __forceinline__ void tf32_split(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+template <int N>
+__device__ __forceinline__ void tf32_split(const uint32_t (&a)[N],
+                                           uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) tf32_split(__uint_as_float(a[i]), hi[i], lo[i]);
+}
+
+// d (64 x 64 f32) += A (64 x 8 tf32, in registers: each warp's 16 rows as
+// mma.sync's m16n8k8 tf32 A fragment, a[0..3] at (row, k) = (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4) for g = lane / 4, t = lane % 4,
+// which ldmatrix without .trans gives from rows of f32) * B (8 x 64 tf32
+// at descriptor `b`, K-major: [n][k], rows of k; tf32 takes no other).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// As wgmma_m64n64k8_tf32 with N = 32: d is 64 x 32 f32.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // ------------------------------------------------------- host side

@@ -20,7 +20,7 @@
 // Design.  The TPU kernel packs two neighbouring pixels into one
 // 128-lane row so that a 64-channel conv fills the MXU (module docstring
 // :3-20).  wgmma has no such waste at N = 64, so this is the plain conv.
-// bf16 (the tensor-core kernels):
+// bf16:
 //
 //  * Tiles are runs of up to 128 output pixels of one image: where
 //    W <= 64 a run crosses row ends (ldmatrix takes one row address per
@@ -56,17 +56,50 @@
 //  * reduce (rdb_mma.cuh) sums the partials in a fixed order: dW and db
 //    are the same from run to run, with no atomics.
 //
-// f32 (FFMA: tensor cores would round to TF32, above the f32 limit):
-// one CTA per 8 x 16 (conv) or per group of 8 x 32 tiles and 32-channel
-// chunk (wgrad), staged synchronously; the dgrad reads K' in the
-// kernel as the bf16 conv does.
+// f32 (3xTF32, on the same tensor cores: one TF32 product keeps ~2^-11
+// of each operand, above the f32 limit).  Each operand a = hi + lo, hi
+// its TF32 rounding, lo = a - hi (exact); a product is hi.lo + lo.hi +
+// hi.hi in the f32 accumulators, with ~2^-21 of it lost, the order of
+// an f32 FMA's rounding.  The operand wgmma reads from registers (A) is
+// split there; the one it reads from shared memory (B) is staged as a
+// hi and a lo plane, K-major: tf32 wgmma reads no other.
+//
+//  * conv (forward and dgrad): the bf16 conv's runs, ring and bias, B =
+//    the weights.  Shared memory sets the design: the two planes of all
+//    9 x 64 x 64 weights take 295 KB, above an SM's 227 KB.  Reckoned:
+//    (a) a CTA computes N = 32 output channels: both planes 147 KB,
+//    staged once a CTA; each run's halo (100 KB in f32) read from L2
+//    twice, once a half; (b) N = 64 with the planes streamed a ky (three
+//    taps, 98 KB) at a time: 295 KB of weights through the ring a run,
+//    three times the halo, split anew on every pass, and one stage of
+//    each left at most.  (a) moves about half of (b)'s bytes into
+//    shared memory a run (200 KB of halo against 295 KB of weights and
+//    100 KB of halo), none of them through registers, and is the one
+//    built; (b) was not.  So two CTAs a run (c % 2 the half) over 66
+//    walks of runs.  The 80 KB beside the planes hold a
+//    ring of three quarter stages (16 channels of a halo in 64-byte rows,
+//    25 KB): a run is four items, and per tap and 8 channels three wgmma
+//    m64n32k8, A by ldmatrix (which moves 32-bit words as pairs of
+//    halves: the tf32 fragment) and split in registers.  The epilogue
+//    stores from the accumulators, 32-byte rows.
+//  * wgrad: three warpgroups of three taps as in bf16, M = 64 ci, N = 64
+//    co, K = 8 pixels a wgmma m64n64k8.  B = g^T must be pixel-contiguous,
+//    and ldmatrix .trans cannot move 32-bit elements: g goes through
+//    registers, read, split and written transposed into two planes (64
+//    KB).  A = x^T by 32-bit loads from a halo stage padded to 72 floats
+//    a pixel (113 KB), so that a warp's 4 pixels x 8 channels hit 32
+//    banks.  One halo stage fits beside the planes: run t + 1's copies
+//    fly while its g^T is staged.  Partials and reduce as in bf16.
 //
 // Bound on this card (H100 SXM).  At the tool's shape (128, 24, 24, 64)
 // one bf16 conv moves x in and y out, 18.9 MB: 5.6 us at 3.35 TB/s,
 // above its 5.44 GFLOP at the 989 TFLOP/s peak (5.5 us): bound by bytes,
-// 0.0057 ms.  f32: 81 us at the 67 TFLOP/s FMA peak.  The backward
-// reads x and g and writes dx (28.3 MB, 8.5 us) for twice the FLOP
-// (11.0 us): 0.0110 ms, bound by operations.
+// 0.0057 ms.  The backward reads x and g and writes dx (28.3 MB, 8.5 us)
+// for twice the FLOP (11.0 us): 0.0110 ms, bound by operations.  f32:
+// three TF32 products at the 495 TFLOP/s dense TF32 peak, 0.033 ms
+// forward and 0.066 backward, above the bytes (37.7 MB, 0.0113 ms; 56.6
+// MB, 0.0169 ms); one f32 product at the 67 TFLOP/s FMA peak would take
+// 0.081 and 0.162.
 
 #include "hopper.cuh"
 #include "rdb_mma.cuh"
@@ -76,28 +109,7 @@ namespace {
 using rdb::allow_smem;
 using rdb::store2;
 
-constexpr int C = 64;       // input and output channels
-constexpr int TH = 8;       // f32 tile rows
-constexpr int CCHUNK = 32;  // input channels per f32 wgrad CTA
-
-struct Tile {
-  int b, y0, x0;
-};
-
-// Tile `t` of a batch of H x W images cut into TH x tw tiles.
-__device__ __forceinline__ Tile tile_of(int t, int H, int W, int tw) {
-  const int nw = (W + tw - 1) / tw, nh = (H + TH - 1) / TH;
-  Tile r;
-  r.b = t / (nw * nh);
-  const int q = t % (nw * nh);
-  r.y0 = (q / nw) * TH;
-  r.x0 = (q % nw) * tw;
-  return r;
-}
-
-__host__ __device__ constexpr int n_tiles(int B, int H, int W, int tw) {
-  return B * ((H + TH - 1) / TH) * ((W + tw - 1) / tw);
-}
+constexpr int C = 64;  // input and output channels
 
 // ---------------------------------------------------------------- bf16
 
@@ -462,213 +474,368 @@ wgrad_bf16(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-}  // namespace tensor_core
+// ------------------------------------------------------ f32 (3xTF32)
+//
+// Each f32 operand is split into a TF32 hi and lo part (hopper.cuh
+// tf32_split), and each product taken as hi.lo + lo.hi + hi.hi in the
+// f32 accumulators: A (the register operand) is split in registers, B
+// (shared memory, read by wgmma) is staged as a hi and a lo plane.
 
-// ----------------------------------------------------------------- f32
+constexpr int NH = 32;                    // conv output channels a CTA
+constexpr int W_KB = NH * ROW;            // 32 rows of 32 k (f32): 4,096
+constexpr int W_TAP_F = 2 * W_KB;         // one tap's 64 k: 8,192
+constexpr int W_PLANE = 9 * W_TAP_F;      // one plane (hi or lo): 73,728
+constexpr int QROW = 64;                  // bytes of a pixel's 16 channels
+constexpr int STAGE_Q = HALO_MAX * QROW;  // 25,088
+constexpr int NSTAGE = 3;                 // conv ring depth
+constexpr int XROW = (C + 8) * 4;         // a wgrad halo pixel, padded: 288
+constexpr int STAGE_XF = HALO_MAX * XROW;  // 112,896
+constexpr int G_KB = C * ROW;             // g^T of 32 pixels: 8,192
+constexpr int G_PLANE = (RUN / 32) * G_KB;  // g^T of a run: 32,768
 
-namespace cuda_core {
-
-constexpr int TW = 16;                 // conv tile columns
-constexpr int HALO_W = TW + 2;
-constexpr int HALO_PX = (TH + 2) * HALO_W;
-constexpr int IN_LD = HALO_PX + 1;     // odd: conflict-free staging
-constexpr int KC = 16;                 // input channels per stage
-constexpr int PX = 4;                  // pixels per thread (one row)
-constexpr int CO = 8;                  // output channels per thread
-constexpr int NCOG = C / CO;
-constexpr int NT = (TH * TW / PX) * NCOG;  // 256
-constexpr int WLD = C + 4;  // weight rows: the flipped staging's 8 x 4
-                            // (ci x co) warp footprint hits 32 banks
-
-constexpr size_t conv_smem() {
-  return (size_t)(KC * IN_LD + 9 * KC * WLD) * sizeof(float);
+constexpr size_t conv_f32_smem() {  // weight planes, the ring
+  return 1024 + 2 * W_PLANE + NSTAGE * STAGE_Q;
+}
+constexpr size_t wgrad_f32_smem() {  // g^T planes, one halo stage
+  return 1024 + 2 * G_PLANE + STAGE_XF;
 }
 
-// As conv_bf16, in f32, on an f32 kernel.
-__global__ void __launch_bounds__(NT)
-conv_f32(const float* __restrict__ x, const float* __restrict__ w,
-         int flip, const float* __restrict__ bias, float* __restrict__ y,
-         int H, int W) {
-  extern __shared__ __align__(16) float smem_f[];
-  float* in_s = smem_f;              // [KC][IN_LD]
-  float* w_s = smem_f + KC * IN_LD;  // [9][KC][WLD]
+// Byte offset of 16-byte chunk c (0..3) of 64-byte row r of a quarter
+// stage: ldmatrix's 8 rows of one chunk, any 8 consecutive rows, hit
+// all 32 banks.
+__device__ __forceinline__ uint32_t swz64(int r, int c) {
+  return (uint32_t)(r * QROW + ((c ^ ((r >> 1) & 3)) << 4));
+}
 
-  const int tid = threadIdx.x;
-  const int cog = tid % NCOG, pg = tid / NCOG;
-  const int ty = pg / (TW / PX), tx0 = (pg % (TW / PX)) * PX;
-  const Tile t = tile_of(blockIdx.x, H, W, TW);
-  const size_t img = (size_t)t.b * H * W;
+// cp.async of input channels 16 q .. 16 q + 15 of run r's halo of `src`
+// into the quarter stage at shared `dst`.
+__device__ __forceinline__ void stage_halo_q(const float* __restrict__ src,
+                                             const Run& r, int q, int H,
+                                             int W, uint32_t dst, int tid) {
+  const size_t img = (size_t)r.b * H * W;
+  for (int i = tid; i < r.hpx * 4; i += CONV_NT) {
+    const int px = i >> 2, c = i & 3;
+    const int gy = r.r0 - 1 + px / r.hw, gx = r.hx0 - 1 + px % r.hw;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    hopper::cp_async_16(
+        dst + swz64(px, c),
+        ok ? src + (img + (size_t)gy * W + gx) * C + 16 * q + 4 * c : src,
+        ok);
+  }
+}
 
-  float acc[PX][CO];
+// Four k of row n of tap's B, split, into the hi and lo planes.
+__device__ __forceinline__ void put4_tf32(uint8_t* w_s, int tap, int n,
+                                          int k4, float4 v) {
+  uint32_t hi[4], lo[4];
+  hopper::tf32_split(v.x, hi[0], lo[0]);
+  hopper::tf32_split(v.y, hi[1], lo[1]);
+  hopper::tf32_split(v.z, hi[2], lo[2]);
+  hopper::tf32_split(v.w, hi[3], lo[3]);
+  uint8_t* p = w_s + tap * W_TAP_F + (k4 / 8) * W_KB + swz(n, k4 % 8);
+  *reinterpret_cast<uint4*>(p) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(p + W_PLANE) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// The f32 conv's B for output channels 32 h .. 32 h + 31, as
+// stage_weights reads K (flip 0: B[t][co][ci] = K[t][ci][32 h + co],
+// row n fastest across threads; flip 1: B[t][ci][co] = K[8 - t][32 h +
+// ci][co], a float4 a thread): tap t's 32 rows n of 64 k in two blocks
+// of 32, hi plane then lo plane.
+__device__ __forceinline__ void stage_weights_tf32(
+    const float* __restrict__ w, int flip, int h, uint8_t* w_s, int tid) {
+  constexpr int ITEMS = 9 * NH * 16 / CONV_NT;  // 18 float4 a thread
+  static_assert(ITEMS * CONV_NT == 9 * NH * 16, "whole items per thread");
+  if (flip) {
+#pragma unroll 6
+    for (int k = 0; k < ITEMS; ++k) {
+      const int i = tid + k * CONV_NT, tap = i / (16 * NH);
+      const int n = (i / 16) % NH, k4 = i % 16;
+      put4_tf32(w_s, tap, n, k4,
+                *reinterpret_cast<const float4*>(
+                    w + ((size_t)(8 - tap) * C + NH * h + n) * C + 4 * k4));
+    }
+  } else {
+#pragma unroll 3
+    for (int k = 0; k < ITEMS; ++k) {
+      const int i = tid + k * CONV_NT, tap = i / (16 * NH);
+      const int n = i % NH, k4 = (i / NH) % 16;
+      const float* s = w + ((size_t)tap * C + 4 * k4) * C + NH * h + n;
+      put4_tf32(w_s, tap, n, k4, make_float4(s[0], s[C], s[2 * C], s[3 * C]));
+    }
+  }
+}
+
+// As conv_bf16 in f32 on an f32 kernel, on the tensor cores (3xTF32).
+// CTA c computes output channels 32 (c % 2) .. + 31 of runs c / 2,
+// c / 2 + gridDim.x / 2, ... (gridDim.x even), each in four steps of 16
+// input channels (one quarter stage of the ring each); per tap and 8
+// channels three wgmma m64n32k8.
+__global__ void __launch_bounds__(CONV_NT, 1)
+conv_tf32(const float* __restrict__ x, const float* __restrict__ w,
+          int flip, const float* __restrict__ bias, float* __restrict__ y,
+          int B, int H, int W) {
+  extern __shared__ uint8_t smem_f[];
+  uint8_t* w_s = align_1024(smem_f);  // [hi | lo][9][2][32][128 B]
+  uint8_t* x_s = w_s + 2 * W_PLANE;   // [NSTAGE][HALO_MAX][64 B]
+  const uint32_t w_u = hopper::smem_u32(w_s), x_u = hopper::smem_u32(x_s);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int m0 = (warp / 4) * 64, wrow = m0 + 16 * (warp % 4);
+  const int g = lane / 4, tq = lane % 4;
+  const int h = blockIdx.x % 2, first = blockIdx.x / 2,
+            walks = gridDim.x / 2;
+  const int runs = B * runs_per_image(H, W);
+  // item i: quarter i % 4 of this CTA's run i / 4
+  const int items =
+      first < runs ? 4 * ((runs - first + walks - 1) / walks) : 0;
+  auto stage = [&](int i) {
+    stage_halo_q(x, run_of(first + walks * (i / 4), H, W), i % 4, H, W,
+                 x_u + (i % NSTAGE) * STAGE_Q, tid);
+  };
 #pragma unroll
-  for (int c = 0; c < CO; ++c) {
-    const float b = bias ? bias[cog * CO + c] : 0.f;
+  for (int i = 0; i < NSTAGE - 1; ++i) {
+    if (i < items) stage(i);
+    hopper::cp_async_commit();
+  }
+  stage_weights_tf32(w, flip, h, w_s, tid);
+  hopper::fence_proxy_async();  // the weights, for wgmma's reads
+
+  // the bias at the accumulator's columns 8j + 2tq, 8j + 2tq + 1
+  float bj[8];
 #pragma unroll
-    for (int p = 0; p < PX; ++p) acc[p][c] = b;
+  for (int j = 0; j < 4; ++j) {
+    bj[2 * j] = bias ? bias[NH * h + 8 * j + 2 * tq] : 0.f;
+    bj[2 * j + 1] = bias ? bias[NH * h + 8 * j + 2 * tq + 1] : 0.f;
   }
 
-  for (int c0 = 0; c0 < C; c0 += KC) {
-    __syncthreads();  // the previous stage is fully consumed
-    for (int i = tid; i < HALO_PX * KC; i += NT) {
-      const int px = i / KC, ci = i % KC;
-      const int gy = t.y0 - 1 + px / HALO_W, gx = t.x0 - 1 + px % HALO_W;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = x[(img + (size_t)gy * W + gx) * C + c0 + ci];
-      in_s[ci * IN_LD + px] = v;
-    }
-    if (flip) {  // K'[tap][ci][co] = K[8 - tap][co][ci]; 32-byte reads
-#pragma unroll 4
-      for (int i = tid; i < 9 * KC * C; i += NT) {
-        const int tap = i / (KC * C), r = i % (KC * C);
-        const int ci = r % 8 + 8 * (r / (8 * C)), co = (r / 8) % C;
-        w_s[(tap * KC + ci) * WLD + co] =
-            w[((size_t)(8 - tap) * C + co) * C + c0 + ci];
-      }
-    } else {
-      for (int i = tid; i < 9 * KC * C; i += NT) {
-        const int tap = i / (KC * C), r = i % (KC * C);
-        w_s[(tap * KC + r / C) * WLD + r % C] =
-            w[((size_t)tap * C + c0) * C + r];
-      }
-    }
-    __syncthreads();
+  float acc[16];
+  for (int i = 0; i < items; ++i) {
+    if (i + NSTAGE - 1 < items) stage(i + NSTAGE - 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<NSTAGE - 1>();
+    __syncthreads();  // item i's quarter (and the weights) are in place
 
-#pragma unroll 2
-    for (int ci = 0; ci < KC; ++ci) {
-      const float* in_c = in_s + ci * IN_LD;
+    const Run r = run_of(first + walks * (i / 4), H, W);
+    const int q = i % 4;
+    if (m0 < r.n) {  // a warpgroup whose 64 rows are all past n idles
+      if (q == 0) {
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float a[PX + 2];
+        for (int j = 0; j < 4; ++j) {
+          acc[4 * j] = acc[4 * j + 2] = bj[2 * j];
+          acc[4 * j + 1] = acc[4 * j + 3] = bj[2 * j + 1];
+        }
+      }
+      hopper::fence_operands(acc);
+      const uint8_t* xs = x_s + (i % NSTAGE) * STAGE_Q;
+      const int hb = halo_base(r, wrow + lane % 16, W);
+      // k (input channel) 16 q + 8 s of tap t: plane byte t * W_TAP_F +
+      // (q / 2) * W_KB + (q % 2) * 64 + 32 s
+      const uint32_t wq = w_u + (q / 2) * W_KB + (q % 2) * 64;
+      uint32_t a[2][2][2][4];  // [tap % 2][k step][hi, lo], two taps
 #pragma unroll
-        for (int j = 0; j < PX + 2; ++j)
-          a[j] = in_c[(ty + ky) * HALO_W + tx0 + j];
+      for (int tap = 0; tap < 9; ++tap) {
+        const int hp = hb + (tap / 3) * r.hw + tap % 3;
+        if (tap >= 2) hopper::wgmma_wait<1>();  // tap - 2 read a[tap % 2]
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4* wp = reinterpret_cast<const float4*>(
-              w_s + ((ky * 3 + kx) * KC + ci) * WLD + cog * CO);
-          const float4 wa = wp[0], wb = wp[1];
-          const float wv[CO] = {wa.x, wa.y, wa.z, wa.w,
-                                wb.x, wb.y, wb.z, wb.w};
+        for (int s = 0; s < 2; ++s) {
+          uint32_t raw[4];
+          rdb::ldmatrix_x4(raw, xs + swz64(hp, 2 * s + lane / 16));
+          hopper::tf32_split(raw, a[tap % 2][s][0], a[tap % 2][s][1]);
+        }
+        hopper::wgmma_fence();
 #pragma unroll
-          for (int p = 0; p < PX; ++p)
+        for (int s = 0; s < 2; ++s) {
+          const uint32_t b = wq + tap * W_TAP_F + 32 * s;
+          hopper::wgmma_m64n32k8_tf32(acc, a[tap % 2][s][0],
+                                      hopper::desc_sw128(b + W_PLANE));
+          hopper::wgmma_m64n32k8_tf32(acc, a[tap % 2][s][1],
+                                      hopper::desc_sw128(b));
+          hopper::wgmma_m64n32k8_tf32(acc, a[tap % 2][s][0],
+                                      hopper::desc_sw128(b));
+        }
+        hopper::wgmma_commit();
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+
+      if (q == 3) {  // rows wrow + g (+ 8) of the run, 32-byte rows a warp
+        float* yr = y + ((size_t)r.b * H * W + r.p0) * C + NH * h;
 #pragma unroll
-            for (int c = 0; c < CO; ++c)
-              acc[p][c] = fmaf(a[p + kx], wv[c], acc[p][c]);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = wrow + g + 8 * hh;
+          if (row < r.n)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              store2(yr + (size_t)row * C + 8 * j + 2 * tq,
+                     acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
         }
       }
     }
-  }
-
-  const int gy = t.y0 + ty;
-  if (gy >= H) return;
-#pragma unroll
-  for (int p = 0; p < PX; ++p) {
-    const int gx = t.x0 + tx0 + p;
-    if (gx >= W) continue;
-    float* o = y + (img + (size_t)gy * W + gx) * C + cog * CO;
-#pragma unroll
-    for (int c = 0; c < CO; c += 2) store2(o + c, acc[p][c], acc[p][c + 1]);
+    __syncthreads();  // the stage is consumed before it is refilled
   }
 }
 
-constexpr int WTW = 32;  // wgrad tile columns
-constexpr int WHALO_W = WTW + 2;
-constexpr int WHALO_PX = (TH + 2) * WHALO_W;
-constexpr int LDX = CCHUNK + 1;  // odd: conflict-free staging
-constexpr int WNT = 256;
-constexpr int CT = C / (WNT / CCHUNK);  // output channels per thread: 8
-
-constexpr size_t wgrad_smem() {
-  return ((size_t)WHALO_PX * LDX + (size_t)TH * WTW * C) * sizeof(float);
+// cp.async of run r's halo of `src`, all 64 channels, into the padded
+// stage at shared `dst`: pixel px at px * XROW.
+__device__ __forceinline__ void stage_halo_pad(const float* __restrict__ src,
+                                               const Run& r, int H, int W,
+                                               uint32_t dst, int tid) {
+  const size_t img = (size_t)r.b * H * W;
+  for (int i = tid; i < r.hpx * 16; i += WGRAD_NT) {
+    const int px = i >> 4, c = i & 15;
+    const int gy = r.r0 - 1 + px / r.hw, gx = r.hx0 - 1 + px % r.hw;
+    const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    hopper::cp_async_16(
+        dst + px * XROW + c * 16,
+        ok ? src + (img + (size_t)gy * W + gx) * C + 4 * c : src, ok);
+  }
 }
 
-// As wgrad_bf16 in f32 FFMA: thread t owns input channel t % 32 and the
-// eight output channels of group t / 32, for all nine taps.
-__global__ void __launch_bounds__(WNT)
-wgrad_f32(const float* __restrict__ x, const float* __restrict__ g,
-          float* __restrict__ part, float* __restrict__ db_part, int B,
-          int H, int W, int groups) {
-  extern __shared__ __align__(16) float smem_wf[];
-  float* in_s = smem_wf;                  // [WHALO_PX][LDX]
-  float* g_s = smem_wf + WHALO_PX * LDX;  // [TH * WTW][C]
-
-  const int tid = threadIdx.x;
-  const int ci = tid % CCHUNK, cog = tid / CCHUNK;
-  const int c0 = blockIdx.y * CCHUNK;
-  const int grp = blockIdx.x;
-  const bool with_db = blockIdx.y == 0;
-  const int dc = tid % C, dq = tid / C;
-  const int tiles = n_tiles(B, H, W, WTW);
-
-  float acc[9][CT];
+// The wgrad's B, g^T of run r (zeros past n), split into the hi and lo
+// planes at gt: element (co, px) at (px / 32) * G_KB + swz(co, (px % 32)
+// / 4) + 4 (px % 4), lo G_PLANE further.  Thread tid reads 16 bytes
+// (channels 4 c4 .. 4 c4 + 3 of one pixel, c4 the same in every
+// iteration) and adds them to its db partial.
+__device__ __forceinline__ void stage_gt(const float* __restrict__ g,
+                                         const Run& r, int H, int W,
+                                         uint8_t* gt, int tid, float4& db) {
+  const float* base = g + ((size_t)r.b * H * W + r.p0) * C;
+  const int c4 = tid % 4 + 4 * ((tid / 32) % 4);
+  for (int i = tid; i < RUN * 16; i += WGRAD_NT) {
+    const int px = (i / 4) % 8 + 8 * (i / 128);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (px < r.n)
+      v = *reinterpret_cast<const float4*>(base + (size_t)px * C + 4 * c4);
+    db.x += v.x, db.y += v.y, db.z += v.z, db.w += v.w;
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    uint8_t* p = gt + (px / 32) * G_KB + 4 * (px % 4);
 #pragma unroll
-  for (int t = 0; t < 9; ++t)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) acc[t][j] = 0.f;
-  float db = 0.f;
-
-  for (int tl = grp; tl < tiles; tl += groups) {
-    const Tile t = tile_of(tl, H, W, WTW);
-    const size_t img = (size_t)t.b * H * W;
-    __syncthreads();
-    for (int i = tid; i < WHALO_PX * CCHUNK; i += WNT) {
-      const int px = i / CCHUNK, c = i % CCHUNK;
-      const int gy = t.y0 - 1 + px / WHALO_W, gx = t.x0 - 1 + px % WHALO_W;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = x[(img + (size_t)gy * W + gx) * C + c0 + c];
-      in_s[px * LDX + c] = v;
+    for (int k = 0; k < 4; ++k) {
+      uint32_t hi, lo;
+      hopper::tf32_split(e[k], hi, lo);
+      const uint32_t o = swz(4 * c4 + k, (px % 32) / 4);
+      *reinterpret_cast<uint32_t*>(p + o) = hi;
+      *reinterpret_cast<uint32_t*>(p + G_PLANE + o) = lo;
     }
-    for (int i = tid; i < TH * WTW * C; i += WNT) {
-      const int p = i / C, c = i % C;
-      const int gy = t.y0 + p / WTW, gx = t.x0 + p % WTW;
-      float v = 0.f;
-      if (gy < H && gx < W) v = g[(img + (size_t)gy * W + gx) * C + c];
-      g_s[i] = v;
-    }
+  }
+}
+
+// As wgrad_bf16 in f32 (3xTF32): M = 64 ci, N = 64 co, K = 8 pixels a
+// wgmma m64n64k8; A = the tap-shifted halo transposed, by 32-bit loads
+// (4 pixels x 8 channels of a warp hit 32 banks in the padded stage) and
+// split in registers; B = g^T, staged through registers (tf32 wgmma
+// takes B K-major only: pixel-contiguous rows of co).  One halo stage:
+// run t + 1's copies fly under run t's g^T staging.
+__global__ void __launch_bounds__(WGRAD_NT, 1)
+wgrad_tf32(const float* __restrict__ x, const float* __restrict__ g,
+           float* __restrict__ part, float* __restrict__ db_part, int B,
+           int H, int W) {
+  extern __shared__ uint8_t smem_wf[];
+  uint8_t* gt = align_1024(smem_wf);  // [hi | lo][4][64][128 B]
+  uint8_t* xs = gt + 2 * G_PLANE;     // [HALO_MAX][XROW]
+  const uint32_t gt_u = hopper::smem_u32(gt), xs_u = hopper::smem_u32(xs);
+  const float* xf = reinterpret_cast<const float*>(xs);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wg = warp / 4, wq = warp % 4;
+  const int ci = 16 * wq + lane / 4, tq = lane % 4;
+  const int runs = B * runs_per_image(H, W);
+
+  float acc[3][32];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[k][e] = 0.f;
+  float4 db = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  int t = blockIdx.x;
+  if (t < runs) stage_halo_pad(x, run_of(t, H, W), H, W, xs_u, tid);
+  hopper::cp_async_commit();
+
+  for (; t < runs; t += gridDim.x) {
+    const Run r = run_of(t, H, W);
+    stage_gt(g, r, H, W, gt, tid, db);
+    hopper::cp_async_wait<0>();
+    hopper::fence_proxy_async();  // g^T, for wgmma's reads
     __syncthreads();
 
-    if (with_db)
-      for (int p = dq; p < TH * WTW; p += WNT / C) db += g_s[p * C + dc];
-
-#pragma unroll 2
-    for (int p = 0; p < TH * WTW; ++p) {
-      const int ty = p / WTW, tx = p % WTW;
-      float d[CT];
+    hopper::fence_operands(acc[0]);
+    hopper::fence_operands(acc[1]);
+    hopper::fence_operands(acc[2]);
+    const int nks = (r.n + 7) / 8;  // 8-pixel K steps with pixels
+    uint32_t a[2][3][2][4];         // [ks % 2][kx][hi, lo]
 #pragma unroll
-      for (int j = 0; j < CT; ++j) d[j] = g_s[p * C + cog * CT + j];
+    for (int ks = 0; ks < RUN / 8; ++ks) {
+      if (ks >= nks) break;
+      // A = x^T: (ci, pixel) = (g, t), (g + 8, t), (g, t + 4), (g + 8,
+      // t + 4) at halo row ky = wg
+      const int h0 = halo_base(r, 8 * ks + tq, W) + wg * r.hw;
+      const int h1 = halo_base(r, 8 * ks + tq + 4, W) + wg * r.hw;
+      if (ks >= 2) hopper::wgmma_wait<1>();  // ks - 2 read a[ks % 2]
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const float xv =
-            in_s[((ty + tap / 3) * WHALO_W + tx + tap % 3) * LDX + ci];
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[tap][j] = fmaf(xv, d[j], acc[tap][j]);
+      for (int kx = 0; kx < 3; ++kx) {
+        const float* p0 = xf + (h0 + kx) * (XROW / 4) + ci;
+        const float* p1 = xf + (h1 + kx) * (XROW / 4) + ci;
+        const uint32_t raw[4] = {__float_as_uint(p0[0]),
+                                 __float_as_uint(p0[8]),
+                                 __float_as_uint(p1[0]),
+                                 __float_as_uint(p1[8])};
+        hopper::tf32_split(raw, a[ks % 2][kx][0], a[ks % 2][kx][1]);
       }
+      hopper::wgmma_fence();
+      const uint32_t b = gt_u + (ks / 4) * G_KB + (ks % 4) * 32;
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx) {
+        hopper::wgmma_m64n64k8_tf32(acc[kx], a[ks % 2][kx][0],
+                                    hopper::desc_sw128(b + G_PLANE));
+        hopper::wgmma_m64n64k8_tf32(acc[kx], a[ks % 2][kx][1],
+                                    hopper::desc_sw128(b));
+        hopper::wgmma_m64n64k8_tf32(acc[kx], a[ks % 2][kx][0],
+                                    hopper::desc_sw128(b));
+      }
+      hopper::wgmma_commit();
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc[0]);
+    hopper::fence_operands(acc[1]);
+    hopper::fence_operands(acc[2]);
+    __syncthreads();  // the halo and g^T are consumed
+    if (t + (int)gridDim.x < runs)
+      stage_halo_pad(x, run_of(t + gridDim.x, H, W), H, W, xs_u, tid);
+    hopper::cp_async_commit();
+  }
+
+  // rows (ci) 16 wq + lane / 4 (+ 8), columns (co) 8j + 2 (lane % 4) (+ 1)
+  float* out = part + (size_t)blockIdx.x * 9 * C * C;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float* o = out + ((size_t)(3 * wg + k) * C + ci) * C + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      store2(o + 8 * j, acc[k][4 * j], acc[k][4 * j + 1]);
+      store2(o + 8 * C + 8 * j, acc[k][4 * j + 2], acc[k][4 * j + 3]);
     }
   }
 
-  float* out = part + (size_t)grp * 9 * C * C;
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
-#pragma unroll
-    for (int j = 0; j < CT; ++j)
-      out[((size_t)tap * C + c0 + ci) * C + cog * CT + j] = acc[tap][j];
-
-  if (with_db) {
-    __syncthreads();
-    float* red = smem_wf;
-    red[tid] = db;
-    __syncthreads();
-    if (tid < C) {
-      float s = 0.f;
-      for (int q = 0; q < WNT / C; ++q) s += red[q * C + tid];
-      db_part[(size_t)grp * C + tid] = s;
-    }
+  // db: the 24 threads of each channel group c4, in thread order
+  float4* red = reinterpret_cast<float4*>(xs);  // every copy has landed
+  red[tid] = db;
+  __syncthreads();
+  if (tid < C) {
+    const int c4 = tid / 4, e = tid % 4;
+    float sum = 0.f;
+    for (int m = 0; m < WGRAD_NT / 128; ++m)
+      for (int l = 0; l < 8; ++l) {
+        const float4 v = red[32 * (4 * m + c4 / 4) + 4 * l + c4 % 4];
+        sum += e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+      }
+    db_part[(size_t)blockIdx.x * C + tid] = sum;
   }
 }
 
-}  // namespace cuda_core
+}  // namespace tensor_core
 
 }  // namespace
 
@@ -677,8 +844,9 @@ extern "C" {
 // y (B, H, W, 64) = bias + conv3x3(x, K) on `stream` of `device`; w is
 // HWIO (3, 3, 64, 64), f32 (w_f32 = 1) or x's dtype, read as K (flip 0)
 // or as the dgrad's K' (flip 1); bias (64,) f32 or null (zeros; the
-// dgrad).  bf16 runs on `ctas` persistent CTAs.  Returns the
-// cudaError_t of the launch (0 on success), as every entry point below.
+// dgrad); on `ctas` persistent CTAs (f32: an even number, two a walk of
+// runs).  Returns the cudaError_t of the launch (0 on success), as every
+// entry point below.
 int pair_conv_launch(int is_bf16, int w_f32, int flip, const void* x,
                      const void* w, const void* bias, void* y, int B, int H,
                      int W, int ctas, int device, void* stream) {
@@ -705,20 +873,19 @@ int pair_conv_launch(int is_bf16, int w_f32, int flip, const void* x,
     }
   } else {
     if (!w_f32) return (int)cudaErrorInvalidValue;
-    constexpr size_t smem = cuda_core::conv_smem();
-    err = allow_smem(cuda_core::conv_f32, smem);
+    constexpr size_t smem = tensor_core::conv_f32_smem();
+    err = allow_smem(tensor_core::conv_tf32, smem);
     if (err != cudaSuccess) return (int)err;
-    cuda_core::conv_f32<<<n_tiles(B, H, W, cuda_core::TW), cuda_core::NT,
-                          smem, s>>>(
+    tensor_core::conv_tf32<<<ctas, tensor_core::CONV_NT, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), flip, b,
-        static_cast<float*>(y), H, W);
+        static_cast<float*>(y), B, H, W);
   }
   return (int)cudaGetLastError();
 }
 
 // `groups` f32 partials of dW, (groups, 3, 3, 64, 64), into dw_part and
-// of db, (groups, 64), into db_part, from x and g (B, H, W, 64); bf16
-// runs one persistent CTA per partial.
+// of db, (groups, 64), into db_part, from x and g (B, H, W, 64); one
+// persistent CTA per partial.
 int pair_conv_wgrad_launch(int is_bf16, const void* x, const void* g,
                            void* dw_part, void* db_part, int B, int H,
                            int W, int groups, int device, void* stream) {
@@ -734,14 +901,12 @@ int pair_conv_wgrad_launch(int is_bf16, const void* x, const void* g,
         static_cast<const __nv_bfloat16*>(g), static_cast<float*>(dw_part),
         static_cast<float*>(db_part), B, H, W);
   } else {
-    constexpr size_t smem = cuda_core::wgrad_smem();
-    err = allow_smem(cuda_core::wgrad_f32, smem);
+    constexpr size_t smem = tensor_core::wgrad_f32_smem();
+    err = allow_smem(tensor_core::wgrad_tf32, smem);
     if (err != cudaSuccess) return (int)err;
-    cuda_core::wgrad_f32<<<dim3(groups, C / CCHUNK), cuda_core::WNT, smem,
-                           s>>>(
+    tensor_core::wgrad_tf32<<<groups, tensor_core::WGRAD_NT, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<float*>(dw_part), static_cast<float*>(db_part), B, H, W,
-        groups);
+        static_cast<float*>(dw_part), static_cast<float*>(db_part), B, H, W);
   }
   return (int)cudaGetLastError();
 }

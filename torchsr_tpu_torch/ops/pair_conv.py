@@ -21,16 +21,21 @@ kernel's dtype; db sums the rounded g in f32.
 
 The TPU kernels pack two pixels per 128-lane row to fill the MXU; the
 Hopper kernels (``csrc/pair_conv.cu``, design and bound in its header)
-compute the plain conv: in bf16 on ``wgmma`` over a persistent grid that
-walks runs of up to 128 output pixels, ``conv_runs`` and
-``conv_schedule`` below mirroring their schedule.  The kernels read the
-caller's kernel (f32 or x's dtype) and round and flip it themselves, so
-no weight copy is made on the host.  A CUDA tensor runs them through ``_PairConv``;
-a CPU tensor runs the plain versions, ``pair_conv_reference`` and
-``pair_conv_bwd_reference``, through the same Function.  There is no
-fallback: on CUDA the kernel runs or the call raises.  The JAX
-function's ``mesh`` argument (shard_map over a device mesh) is not
-ported: multi-device runs are ROADMAP A12.
+compute the plain conv on ``wgmma`` over a persistent grid that walks
+runs of up to 128 output pixels, ``conv_runs`` and ``conv_schedule``
+below mirroring their schedule.  bf16 multiplies in bf16; f32 in
+3xTF32: each f32 operand split into a TF32 high and low part and each
+product taken as three TF32 products, hi.lo + lo.hi + hi.hi, in f32
+(``tf32_split``, ``pair_conv_3xtf32_reference`` and
+``pair_conv_bwd_3xtf32_reference`` emulate that arithmetic).  The
+kernels read the caller's kernel (f32 or x's dtype) and round, split and
+flip it themselves, so no weight copy is made on the host.  A CUDA
+tensor runs them through ``_PairConv``; a CPU tensor runs the plain
+versions, ``pair_conv_reference`` and ``pair_conv_bwd_reference``,
+through the same Function.  There is no fallback: on CUDA the kernel
+runs or the call raises.  The JAX function's ``mesh`` argument
+(shard_map over a device mesh) is not ported: multi-device runs are
+ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -44,23 +49,29 @@ C = 64  # the only channel count the gate admits
 # The JAX package's per-image cap (pair_conv.py:58): H * W / 2 pair rows
 _MAX_IMAGE_PAIR_ROWS = 16384
 # Forward calls (one conv launch each) and backward calls (a dgrad, a
-# wgrad and a reduce launch each) on CUDA.  A run reads them to show
-# that its path went through the kernels.
+# wgrad and a reduce launch each) on CUDA, in bf16 and in f32.  A run
+# reads them to show that its path went through the kernels.
 PAIR_FWD_LAUNCHES = 0
 PAIR_BWD_LAUNCHES = 0
-# The bf16 kernels' schedule (csrc/pair_conv.cu): runs of up to _RUN
-# output pixels of one image, across row ends where W <= _NARROW_W, else
-# inside one row; min(runs, _CTAS) persistent CTAs, one per SM of the
-# H100 (a CTA's stages take most of an SM's shared memory), CTA c
-# walking runs c, c + grid, ...  A stage holds _HALO_MAX halo pixels.
+PAIR_FWD_F32_LAUNCHES = 0
+PAIR_BWD_F32_LAUNCHES = 0
+# The kernels' schedule (csrc/pair_conv.cu): runs of up to _RUN output
+# pixels of one image, across row ends where W <= _NARROW_W, else inside
+# one row; min(runs, _CTAS) persistent walks, one CTA each (two in the
+# f32 conv, one a half of the output channels), a CTA per SM of the
+# H100 (a CTA's stages take most of an SM's shared memory), walk c
+# taking runs c, c + walks, ...  A stage holds _HALO_MAX halo pixels.
 _RUN = 128
 _NARROW_W = 64
 _CTAS = 132
 _HALO_MAX = 392
-# The f32 wgrad: CTAs per 32-channel chunk, each summing the 8 x 32
-# pixel tiles k, k + groups, ... into an f32 partial of dW
-_F32_WGRAD_GROUPS = 132
-_F32_WGRAD_TILE = (8, 32)
+# The f32 operand's low 13 bits, which TF32 drops, and half a TF32 ulp
+_TF32_DROP = 0x1FFF
+_TF32_HALF = 0x1000
+# The three TF32 products of a 3xTF32 f32 product, (A's part, B's part):
+# A is the operand the kernels split in registers (x; g in the dgrad), B
+# the one staged as two planes (the kernel; g in the wgrad).
+TF32_TERMS = (("hi", "lo"), ("lo", "hi"), ("hi", "hi"))
 
 
 def pair_conv_supported(shape, kernel_shape=(3, 3, C, C)) -> bool:
@@ -105,6 +116,50 @@ def pair_conv_bwd_reference(x: torch.Tensor, kernel: torch.Tensor,
                                      _nchw(g), padding=1)
     return (dx.permute(0, 2, 3, 1).to(x.dtype), dw.permute(2, 3, 1, 0),
             g.sum(dim=(0, 1, 2)))
+
+
+def tf32_split(t: torch.Tensor):
+    """``(hi, lo)`` of an f32 tensor as the kernels split and read it
+    (csrc/hopper.cuh ``tf32_split``): hi = t rounded to TF32 (10 mantissa
+    bits, to nearest, ties away from zero: ``cvt.rna``), lo = t - hi
+    (exact in f32) cut to the 19 bits the tensor core reads."""
+    bits = t.float().contiguous().view(torch.int32)
+    hi = ((bits + _TF32_HALF) & ~_TF32_DROP).view(torch.float32)
+    lo = (t.float() - hi).view(torch.int32) & ~_TF32_DROP
+    return hi, lo.view(torch.float32)
+
+
+def _parts(t: torch.Tensor) -> dict:
+    return dict(zip(("hi", "lo"), tf32_split(t)))
+
+
+def pair_conv_3xtf32_reference(x: torch.Tensor, kernel: torch.Tensor,
+                               bias: torch.Tensor,
+                               terms=TF32_TERMS) -> torch.Tensor:
+    """The f32 forward kernel's arithmetic in plain PyTorch: the bias
+    plus the f32 convs of the TF32 parts of x and the kernel that
+    ``terms`` names (all three: the kernel; fewer: a wrong one)."""
+    xs, ks = _parts(x), _parts(kernel)
+    y = bias.float().view(1, C, 1, 1)
+    for a, b in terms:
+        y = y + F.conv2d(_nchw(xs[a]), _oihw(ks[b]), padding=1)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def pair_conv_bwd_3xtf32_reference(x: torch.Tensor, kernel: torch.Tensor,
+                                   g: torch.Tensor, terms=TF32_TERMS):
+    """The f32 backward kernels' arithmetic: ``(dx, dW, db)`` as
+    ``pair_conv_bwd_reference``, dx from the TF32 parts of g (A) and the
+    kernel (B), dW from those of x (A) and g (B), db the f32 sum of g."""
+    xs, ks, gs = _parts(x), _parts(kernel), _parts(g)
+    dx = dw = 0
+    for a, b in terms:
+        dx = dx + torch.nn.grad.conv2d_input(
+            _nchw(x).shape, _oihw(ks[b]), _nchw(gs[a]), padding=1)
+        dw = dw + torch.nn.grad.conv2d_weight(
+            _nchw(xs[a]), _oihw(ks[b]).shape, _nchw(gs[b]), padding=1)
+    return (dx.permute(0, 2, 3, 1).contiguous(), dw.permute(2, 3, 1, 0),
+            g.float().sum(dim=(0, 1, 2)))
 
 
 def conv_reference(x: torch.Tensor, kernel: torch.Tensor,
@@ -181,8 +236,8 @@ def _check_cuda(x: torch.Tensor, kernel: torch.Tensor, what: str) -> None:
 
 
 def conv_runs(b: int, h: int, w: int) -> list:
-    """The bf16 kernels' tiles, image by image: ``(image, p0, n)``, the
-    output pixels p0 .. p0 + n - 1 of the image flattened as y * w + x."""
+    """The kernels' tiles, image by image: ``(image, p0, n)``, the output
+    pixels p0 .. p0 + n - 1 of the image flattened as y * w + x."""
     if w <= _NARROW_W:
         per = [(p0, min(_RUN, h * w - p0)) for p0 in range(0, h * w, _RUN)]
     else:
@@ -191,46 +246,39 @@ def conv_runs(b: int, h: int, w: int) -> list:
     return [(i, p0, n) for i in range(b) for p0, n in per]
 
 
-def conv_ctas(b: int, h: int, w: int) -> int:
-    """The bf16 kernels' persistent grid: min(runs, _CTAS), counted as
-    the kernels count the runs."""
+def conv_ctas(b: int, h: int, w: int, dtype=torch.bfloat16) -> int:
+    """The kernels' persistent grid: min(runs, _CTAS) walks, counted as
+    the kernels count the runs; the f32 conv runs two CTAs a walk (one a
+    half of the output channels) over min(runs, _CTAS / 2) walks."""
     per = -(-h * w // _RUN) if w <= _NARROW_W else h * -(-w // _RUN)
+    if dtype == torch.float32:
+        return 2 * min(b * per, _CTAS // 2)
     return min(b * per, _CTAS)
 
 
 def conv_schedule(b: int, h: int, w: int) -> list:
     """The runs (indices into ``conv_runs``) each persistent CTA of the
-    bf16 conv and wgrad walks, in order; the wgrad's CTA c writes dW's
-    partial c."""
+    bf16 conv and of the wgrad walks, in order; the wgrad's CTA c writes
+    dW's partial c."""
     runs, ctas = len(conv_runs(b, h, w)), conv_ctas(b, h, w)
     return [list(range(c, runs, ctas)) for c in range(ctas)]
 
 
-def wgrad_groups(b: int, h: int, w: int, dtype=torch.bfloat16) -> int:
-    """The wgrad's f32 partials of dW for a (b, h, w) batch: one per
-    persistent CTA in bf16, one per group of 8 x 32 tiles in f32."""
-    if dtype == torch.bfloat16:
-        return conv_ctas(b, h, w)
-    th, tw = _F32_WGRAD_TILE
-    return max(1, min(_F32_WGRAD_GROUPS, b * -(-h // th) * -(-w // tw)))
+def wgrad_groups(b: int, h: int, w: int) -> int:
+    """The wgrad's f32 partials of dW for a (b, h, w) batch, in either
+    dtype: one per persistent CTA."""
+    return conv_ctas(b, h, w)
 
 
-def wgrad_partition(b: int, h: int, w: int, dtype) -> torch.Tensor:
+def wgrad_partition(b: int, h: int, w: int) -> torch.Tensor:
     """The partial of dW each pixel's products go to: (b, h, w) int64."""
-    if dtype == torch.bfloat16:
-        part = torch.empty((b, h * w), dtype=torch.int64)
-        runs = conv_runs(b, h, w)
-        for cta, walk in enumerate(conv_schedule(b, h, w)):
-            for t in walk:
-                img, p0, n = runs[t]
-                part[img, p0:p0 + n] = cta
-        return part.view(b, h, w)
-    th, tw = _F32_WGRAD_TILE
-    nh, nw = -(-h // th), -(-w // tw)
-    tile = (torch.arange(b).view(b, 1, 1) * nh * nw
-            + (torch.arange(h) // th).view(1, h, 1) * nw
-            + (torch.arange(w) // tw).view(1, 1, w))
-    return tile % wgrad_groups(b, h, w, dtype)
+    part = torch.empty((b, h * w), dtype=torch.int64)
+    runs = conv_runs(b, h, w)
+    for cta, walk in enumerate(conv_schedule(b, h, w)):
+        for t in walk:
+            img, p0, n = runs[t]
+            part[img, p0:p0 + n] = cta
+    return part.view(b, h, w)
 
 
 def _kernel_operand(kernel: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -244,7 +292,7 @@ def _kernel_operand(kernel: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 def pair_conv_fwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
                        bias: torch.Tensor) -> torch.Tensor:
     """The forward kernel on a CUDA ``x``: one launch."""
-    global PAIR_FWD_LAUNCHES
+    global PAIR_FWD_LAUNCHES, PAIR_FWD_F32_LAUNCHES
     from torchsr_tpu_torch.ops._build import load_library
 
     _check_cuda(x, kernel, "pair_conv_fwd_cuda")
@@ -259,10 +307,13 @@ def pair_conv_fwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
     err = lib.pair_conv_launch(
         int(dt == torch.bfloat16), int(kernel.dtype == torch.float32), 0,
         x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), y.data_ptr(), b,
-        h, w, conv_ctas(b, h, w), x.device.index,
+        h, w, conv_ctas(b, h, w, dt), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, lib.pair_conv_error_string, "pair_conv forward")
-    PAIR_FWD_LAUNCHES += 1
+    if dt == torch.float32:
+        PAIR_FWD_F32_LAUNCHES += 1
+    else:
+        PAIR_FWD_LAUNCHES += 1
     return y
 
 
@@ -273,7 +324,7 @@ def pair_conv_bwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
     of dW and db, and their fixed-order reduce: three launches.  Returns
     ``(dx, dW, db)``: dx in x's dtype, dW (3, 3, 64, 64) and db (64,) in
     f32."""
-    global PAIR_BWD_LAUNCHES
+    global PAIR_BWD_LAUNCHES, PAIR_BWD_F32_LAUNCHES
     from torchsr_tpu_torch.ops._build import load_library
 
     _check_cuda(x, kernel, "pair_conv_bwd_cuda")
@@ -286,7 +337,7 @@ def pair_conv_bwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
     g = _aligned(g, dt)
     kernel = _kernel_operand(kernel, dt)
     b, h, w, _ = x.shape
-    groups = wgrad_groups(b, h, w, dt)
+    groups = wgrad_groups(b, h, w)
     dx = torch.empty_like(x)
     dw_part = torch.empty((groups, 3, 3, C, C), dtype=torch.float32,
                           device=dev)
@@ -300,7 +351,8 @@ def pair_conv_bwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
     _raise_on(lib.pair_conv_launch(
         is_bf16, int(kernel.dtype == torch.float32), 1, g.data_ptr(),
         kernel.data_ptr(), None, dx.data_ptr(), b, h, w,
-        conv_ctas(b, h, w), dev.index, stream), errstr, "pair_conv dgrad")
+        conv_ctas(b, h, w, dt), dev.index, stream), errstr,
+        "pair_conv dgrad")
     _raise_on(lib.pair_conv_wgrad_launch(
         is_bf16, x.data_ptr(), g.data_ptr(), dw_part.data_ptr(),
         db_part.data_ptr(), b, h, w, groups, dev.index, stream), errstr,
@@ -309,5 +361,8 @@ def pair_conv_bwd_cuda(x: torch.Tensor, kernel: torch.Tensor,
         dw_part.data_ptr(), groups, dw.numel(), db_part.data_ptr(), groups,
         C, dw.data_ptr(), db.data_ptr(), dev.index, stream), errstr,
         "pair_conv reduce")
-    PAIR_BWD_LAUNCHES += 1
+    if dt == torch.float32:
+        PAIR_BWD_F32_LAUNCHES += 1
+    else:
+        PAIR_BWD_LAUNCHES += 1
     return dx, dw, db

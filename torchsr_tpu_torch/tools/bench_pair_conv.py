@@ -9,8 +9,11 @@ host; a throwaway measured phase runs first; each path is measured twice
 and the second kept.  ``reference`` is ``ops.pair_conv.conv_reference``
 (one cuDNN convolution, and its autograd backward), ``kernel`` is
 ``ops.pair_conv.pair_conv`` (csrc/pair_conv.cu).  In f32 the library
-convolution runs without TF32, as the kernels do.  The port runs
-eagerly: there is no compile step to warm.  One JSON line per mode.
+convolution runs without TF32 (full f32 products); the kernels take
+each f32 product as three TF32 products of the operands' high and low
+TF32 parts (3xTF32), which holds the f32 limits that one TF32 product
+breaks.  The port runs eagerly: there is no compile step to warm.  One
+JSON line per mode.
 
 Usage: python -m torchsr_tpu_torch.tools.bench_pair_conv [--batch 128]
        [--h 24] [--w 24] [--dtype bf16|f32] [--mode fwd|fwdbwd|both]
