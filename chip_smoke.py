@@ -12,8 +12,9 @@ The script sets the RDB knobs of ``ops/rdb.py`` (``EXT_KERNEL``,
 ``ILV_KERNEL``, ``BWD_XLA``) itself: off on the default paths, on for
 the drives that name them.  Each path's launch counters
 (``ops.rdb.RDB_*_LAUNCHES``, ``ops.preprocess.PAIR_SYNTH_LAUNCHES``,
-``ops.pair_conv.PAIR_FWD_LAUNCHES``, ``PAIR_BWD_LAUNCHES`` and their
-f32 counterparts ``PAIR_FWD_F32_LAUNCHES``, ``PAIR_BWD_F32_LAUNCHES``) are set
+``ops.pair_conv.PAIR_FWD_LAUNCHES``, ``PAIR_BWD_LAUNCHES``, and the
+f32 kernels' own ``RDB_FWD_F32_LAUNCHES``, ``RDB_FWD_EXT_F32_LAUNCHES``,
+``PAIR_FWD_F32_LAUNCHES``, ``PAIR_BWD_F32_LAUNCHES``) are set
 to 0 just before it and must read exactly what its steps, evals,
 renders, tile batches or tool calls imply, every other counter (the
 ``TORCHSR_RDB_BWD=xla`` one included) at 0.  Phases, one line each:
@@ -24,8 +25,9 @@ renders, tile batches or tool calls imply, every other counter (the
    started together.
 3. rdb_fwd (B1): the RDB forward at the serving shape (16 tiles of
    64x64, 64 channels), at a ragged shape, at a width (140) whose runs
-   lie inside a row and at the training shape (64, 32, 32, 64), whose
-   runs are whole rows, in f32 and bf16.  Each of its five convs is
+   lie inside a row, at the training shape (64, 32, 32, 64), whose
+   runs are whole rows, and at ``eval``'s whole image (1, 44, 44, 64),
+   in f32 and bf16.  Each of its five convs is
    held against its own convolution of the feature buffer the kernel
    filled, and the block against its plain PyTorch version; each check
    also prints what a wrong kernel reads under its limit, among them the
@@ -36,7 +38,13 @@ renders, tile batches or tool calls imply, every other counter (the
    trainer's) must equal the call with bf16 contiguous ones bit for bit,
    and a call's profile must hold only its own kernels (at most six);
    at each shape the schedule the launches run (runs, grids, halo box,
-   ring) must be the one ``ops.rdb.fwd_schedule`` mirrors.  In bf16
+   ring) must be the one ``ops.rdb.fwd_schedule`` mirrors.  In f32 (the
+   3xTF32 kernels, ``ops/csrc/rdb_fwd_tf32_sm90.cuh``) the same, with
+   ``fwd_tf32_schedule``, the f32 views bit-equal too, a call's profile
+   exactly six kernels, and two more wrong kernels that must fail, launch
+   by launch and for the block: plain TF32 and 3xTF32 without lo.hi
+   (``WRONG_PAIR_TF32``'s products); the 3xTF32 bound printed beside
+   the FMA one.  In bf16
    also the LR batch ``train --scale 8`` gives the blocks at crop 128
    (16, 16, 16, 64) (``--scale 2``'s (16, 64, 64, 64) is the serving
    shape).  Median times over 30 calls (CUDA events) and the device
@@ -45,8 +53,8 @@ renders, tile batches or tool calls imply, every other counter (the
    data rows of its padded buffer, at the serving shape, a row-ragged
    eligible one, a wide eligible one (W = 144) and the training shape;
    its pad rows must be zero, what a kernel that writes them reads is
-   printed, and the block must equal B1's on the same inputs bit for
-   bit.  Routing: with the knob set, an ineligible width (45) goes to
+   printed, and the block and its buffer must equal B1's on the same
+   inputs bit for bit (f32 too: one 3xTF32 code path).  Routing: with the knob set, an ineligible width (45) goes to
    B1.
 5. rdb_fwd_ilv (B6): the interleaved forward, checked as rdb_fwd on the
    mid copies of its buffer (the up and dn copies must equal the rows
@@ -99,8 +107,10 @@ renders, tile batches or tool calls imply, every other counter (the
     against the plain path: on B1/B2, with ``EXT_KERNEL`` on B7/B8, and
     with ``BWD_XLA`` on B1 and the plain backward (its own counter).
 12. generator: the 23-RRDB ESRGAN (seeded random weights) on one tile
-    batch, kernel path against plain path in f32 and bf16, timed in
-    bf16, and a ``profile`` line (``torch.profiler`` device time per
+    batch, kernel path against plain path in f32 and bf16 (generators
+    with wrong blocks must read over the f32 limit; one whose blocks
+    multiply in plain TF32 at the blocks' default init), timed in bf16,
+    and a ``profile`` line (``torch.profiler`` device time per
     kernel class over three tile batches).
 13. serve, the main path: the weights saved as a .pth,
     ``CheckpointUpscaleService`` on ``cuda`` behind ``make_server``,
@@ -143,8 +153,10 @@ renders, tile batches or tool calls imply, every other counter (the
     launches a generator forward; every value finite; each report's
     per-image PSNR/SSIM recomputed in float64 numpy from the float SR it
     scored, equal to the report's rounding; one f32 SR against
-    ``plain_generator`` on the card; the f32 report again with TF32
-    allowed, and the difference printed.
+    ``plain_generator`` on the card (a generator whose blocks lost conv5
+    must read over that limit; what one whose blocks multiply in plain
+    TF32 reads is printed); the f32 report
+    again with TF32 allowed, and the difference printed.
 22. interp: ``interp`` of the train phase's psnr-best and gan-best at
     alpha 0.2 (alpha 0 and 1 must return the inputs bit for bit), then
     ``eval`` of the blend (B1).
@@ -317,6 +329,11 @@ RDB_FLOP_PER_PX = 2 * 9 * sum(
 )  # 479,232
 SERVE_RDB_SHAPE = (16, 64, 64, 64)  # tile_batch 16 of 64 px LR tiles
 RAGGED = (3, 37, 45)  # partial CTA tiles, as the whole-image `test` gives
+# ``eval``'s whole 176 x 176 HR image (EVAL_SIZES' first) in LR: one image
+# a call, as the f32 eval, validation and renders run the blocks; the
+# generator-level limits cannot tell plain TF32 there (``phase_eval``),
+# so this hold is what guards that path's precision.
+EVAL_RDB_SHAPE = (1, 44, 44, 64)
 # Wider than 64: the bf16 forward's runs lie inside a row, two a row,
 # each with an extension pixel at each end (``run_edge_lost`` shows);
 # the second is also eligible for the row-extended kernels.
@@ -339,8 +356,10 @@ SCALE_RDB_SHAPES = {"scale2": (16, 64, 64, 64), "scale8": (16, 16, 16, 64)}
 # here; the pair kernels run on the two bench tools' paths only.
 COUNTERS = {
     "rdb_fwd": (rdb_ops, "RDB_FWD_LAUNCHES"),
+    "rdb_fwd_f32": (rdb_ops, "RDB_FWD_F32_LAUNCHES"),
     "rdb_bwd": (rdb_ops, "RDB_BWD_LAUNCHES"),
     "rdb_fwd_ext": (rdb_ops, "RDB_FWD_EXT_LAUNCHES"),
+    "rdb_fwd_ext_f32": (rdb_ops, "RDB_FWD_EXT_F32_LAUNCHES"),
     "rdb_bwd_ext": (rdb_ops, "RDB_BWD_EXT_LAUNCHES"),
     "rdb_fwd_ilv": (rdb_ops, "RDB_FWD_ILV_LAUNCHES"),
     "rdb_bwd_xla": (rdb_ops, "RDB_BWD_XLA_LAUNCHES"),
@@ -460,6 +479,12 @@ def read_counters() -> dict:
             for name, (module, attr) in COUNTERS.items()}
 
 
+def fwd_counter(kernel: str, dtype: torch.dtype) -> str:
+    """The counter of forward ``kernel`` ("rdb_fwd" or "rdb_fwd_ext") in
+    ``dtype``: f32 runs the 3xTF32 kernels, counted apart."""
+    return f"{kernel}_f32" if dtype == torch.float32 else kernel
+
+
 def check_counts(path: str, got: dict, **want) -> None:
     """Every counter equals ``want`` (0 where not named)."""
     want = {name: want.get(name, 0) for name in COUNTERS}
@@ -495,15 +520,27 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 
 def rdb_bound_ms(shape, dtype) -> tuple[float, str]:
+    """The forward reads x, the kernels and the biases once and writes
+    out; f32's least time takes its products as three TF32 ones (3xTF32)
+    at the TF32 peak: ``rdb_ffma_ms`` gives one f32 product at the FMA
+    peak."""
     b, h, w, c = shape
     px = b * h * w
     item = torch.finfo(dtype).bits // 8
     weights = sum(9 * ci * co for ci, co in zip(rdb_ops.CIN, rdb_ops.COUT))
     nbytes = 2 * px * c * item + weights * item + 4 * sum(rdb_ops.COUT)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = px * RDB_FLOP_PER_PX / PEAK_FLOPS[dtype]
+    t_ops = (3 * px * RDB_FLOP_PER_PX / TF32_FLOPS if dtype == torch.float32
+             else px * RDB_FLOP_PER_PX / PEAK_FLOPS[dtype])
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes > t_ops else "operations")
+
+
+def rdb_ffma_ms(shape) -> float:
+    """The f32 forward's operations at the 67 TFLOP/s FMA peak (the bound
+    of the FFMA kernels the 3xTF32 ones replaced)."""
+    return 1e3 * math.prod(shape[:3]) * RDB_FLOP_PER_PX / PEAK_FLOPS[
+        torch.float32]
 
 
 def excess(got, ref, limits, base=None) -> float:
@@ -539,15 +576,24 @@ def grown_zero(y, kernels, biases, *, scale_ratio):
 
 
 WRONG_BLOCKS = {"conv5_skipped": conv5_skipped, "grown_zero": grown_zero}
+
+
+def tf32_block(y, kernels, biases, *, scale_ratio):
+    """A wrong f32 block that multiplies in plain TF32 (hi.hi only)."""
+    return rdb_ops.rdb_fwd_3xtf32_reference(
+        y, kernels, biases, scale_ratio,
+        terms=WRONG_PAIR_TF32["tf32_once"])[0]
 # The wrong bf16 forward kernels proper to the kx-packed product
 # (csrc/rdb_fwd_sm90.cuh), emulated by ``kxpack_emulated_fwd``: the
 # column masks dropped, so a row end takes the neighbour row's y; y left
 # at zero at a run's two extension pixels (runs inside a row, W > 64:
 # ``edge_runs``); y0 and y2 exchanged.
 WRONG_KXPACK = ("col_mask_dropped", "run_edge_lost", "kx_swapped")
-# At most this many kernels in one bf16 forward call's profile: prep and
-# five convs (no cast or copy beside them).
+# The kernels of one forward call's profile: prep and five convs (no
+# cast or copy beside them), at most in bf16, exactly in f32 (where
+# ``bwd_profile`` runs a window that lost some again).
 FWD_BF16_KERNELS = 6
+FWD_F32_KERNELS = 6
 
 
 def kxpack_emulated_fwd(x, ks, bs, fault=None):
@@ -613,14 +659,37 @@ def f32_views(ks):
             for k in ks]
 
 
-def check_fwd_profile(prof: dict, name: str) -> None:
+def check_fwd_profile(prof: dict, name: str,
+                      dtype=torch.bfloat16) -> None:
     """A bf16 forward call launches at most ``FWD_BF16_KERNELS`` kernels,
-    all its own (no cast or copy beside them)."""
+    all its own (no cast or copy beside them); an f32 one exactly
+    ``FWD_F32_KERNELS``, all the 3xTF32 forward's."""
     names = [n for n, _ in prof["by_launch"]]
+    if dtype == torch.float32:
+        check(prof["kernels_per_call"] == FWD_F32_KERNELS
+              and all("rdb_fwd_tf32" in n for n in names),
+              f"{name}: one f32 call launches only its own kernels, "
+              f"{FWD_F32_KERNELS}: {names}")
+        return
     check(prof["kernels_per_call"] <= FWD_BF16_KERNELS
           and all("rdb_fwd_" in n for n in names),
           f"{name}: one bf16 call launches only its own kernels, at most "
           f"{FWD_BF16_KERNELS}: {names}")
+
+
+def tf32_wrong_excess(x, ks, bs, padded: bool = False) -> dict:
+    """What the f32 forward with each ``WRONG_PAIR_TF32`` product (plain
+    TF32, and 3xTF32 without lo.hi; emulated by
+    ``rdb_fwd_3xtf32_reference``) reads under the f32 limits: its largest
+    launch excess and its block excess, each of which must exceed 1."""
+    rows = {}
+    for fault, terms in WRONG_PAIR_TF32.items():
+        out, feat = rdb_ops.rdb_fwd_3xtf32_reference(
+            x, ks, bs, SCALE, terms=terms, padded=padded)
+        row = rdb_scores(x, ks, bs, out, feat[:, 1:-1] if padded else feat)
+        rows[fault] = {"stage": max(row["stage_excess"]),
+                       "block": row["block_excess"]}
+    return rows
 
 
 def _dgrad_sum(f, ks, dy, convs, lo, hi, flip=(2, 3)):
@@ -831,10 +900,11 @@ def hold_rdb(x: torch.Tensor, ks, bs, ks32=None) -> dict:
     held against plain convolutions in f32 (see the limits above),
     beside the wrong kernels; in bf16 also the call with f32 views of
     ``ks32`` (the f32 weights ``ks`` were rounded from) bit-equal."""
-    before = rdb_ops.RDB_FWD_LAUNCHES
+    counter = fwd_counter("rdb_fwd", x.dtype)
+    before = read_counters()[counter]
     out, feat = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
-    check(rdb_ops.RDB_FWD_LAUNCHES == before + 5,
-          "fused_rdb launched its kernel five times")
+    check(read_counters()[counter] == before + 5,
+          f"fused_rdb launched its kernel five times ({counter})")
     check(bool(torch.isfinite(out).all()), "rdb_fwd output finite")
     row = rdb_scores(x, ks, bs, out, feat)
     name = f"rdb_fwd {x.dtype} {tuple(x.shape)}"
@@ -845,20 +915,30 @@ def hold_rdb(x: torch.Tensor, ks, bs, ks32=None) -> dict:
           and min(row["block_wrong_excess"].values()) > 1
           and min(row["kxpack_wrong_excess"].values()) > 1,
           f"{name}: the limits see a wrong kernel: {row}")
-    if x.dtype == torch.bfloat16 and ks32 is not None:
+    if x.dtype == torch.float32:
+        row["tf32_wrong_excess"] = tf32_wrong_excess(x, ks, bs)
+        check(min(min(r.values()) for r in row["tf32_wrong_excess"].values())
+              > 1, f"{name}: the limits see plain TF32 and 3xTF32 short "
+                   f"of a term, launch by launch and for the block: "
+                   f"{row['tf32_wrong_excess']}")
+    if ks32 is not None:
         out32, feat32 = rdb_ops.rdb_fwd_cuda(x, f32_views(ks32), bs,
                                              scale_ratio=SCALE)
         row["f32_views_bit_equal"] = bool(torch.equal(out32, out)
                                           and torch.equal(feat32, feat))
         check(row["f32_views_bit_equal"],
-              f"{name}: f32 weight views give the bf16 weights' block")
+              f"{name}: f32 weight views give the contiguous weights' "
+              f"block")
+    b, h, w, _ = x.shape
     if x.dtype == torch.bfloat16:
-        b, h, w, _ = x.shape
-        sched = rdb_ops.fwd_kernel_schedule(b, h, w)
-        row["schedule"] = sched
-        check(sched == rdb_ops.fwd_schedule(b, h, w),
-              f"{name}: the kernel runs the schedule fwd_schedule mirrors: "
-              f"{sched} vs {rdb_ops.fwd_schedule(b, h, w)}")
+        sched, mirror = (rdb_ops.fwd_kernel_schedule(b, h, w),
+                         rdb_ops.fwd_schedule(b, h, w))
+    else:
+        sched, mirror = (rdb_ops.fwd_tf32_kernel_schedule(b, h, w),
+                         rdb_ops.fwd_tf32_schedule(b, h, w))
+    row["schedule"] = sched
+    check(sched == mirror, f"{name}: the kernel runs the schedule its "
+                           f"mirror gives: {sched} vs {mirror}")
     return row
 
 
@@ -903,16 +983,20 @@ def phase_rdb(seed: int) -> dict:
     xw = (torch.randn((*WIDE, 64), generator=g) * 0.5).to(dev)
     xt = (torch.randn(TRAIN_RDB_SHAPE, generator=g) * 0.5).to(dev)
     xs8 = (torch.randn(SCALE_RDB_SHAPES["scale8"], generator=g) * 0.5).to(dev)
+    xe = (torch.randn(EVAL_RDB_SHAPE, generator=g) * 0.5).to(dev)
     b, h, w = RAGGED
     rows = {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
             kd = [k.to(dtype) for k in ks]
+            f32 = dtype == torch.float32
+            xtd = xt.to(dtype)
             row = hold_rdb(xd, kd, bs, ks)
             row["ragged"] = hold_rdb(xd[:b, :h, :w], kd, bs, ks)
             row["wide"] = hold_rdb(xw.to(dtype), kd, bs, ks)
-            row["train"] = hold_rdb(xt.to(dtype), kd, bs, ks)
+            row["train"] = hold_rdb(xtd, kd, bs, ks)
+            row["eval"] = hold_rdb(xe.to(dtype), kd, bs, ks)
             check("run_edge_lost" in row["wide"]["kxpack_wrong_excess"],
                   "rdb_fwd: the wide shape holds run_edge_lost")
             if dtype == torch.bfloat16:
@@ -924,13 +1008,21 @@ def phase_rdb(seed: int) -> dict:
                     SCALE_RDB_SHAPES["scale8"], dtype)[0]
             row["ms"] = median_ms(lambda: rdb_ops.fused_rdb(xd, kd, bs))
             row["profile"] = bwd_profile(
-                lambda: rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE))
-            if dtype == torch.bfloat16:
-                check_fwd_profile(row["profile"], "rdb_fwd bfloat16")
+                lambda: rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE),
+                kernels=FWD_F32_KERNELS if f32 else None)
+            check_fwd_profile(row["profile"], f"rdb_fwd {dtype}", dtype)
             row["plain_ms"] = median_ms(
                 lambda: rdb_ops.rdb_reference(xd, kd, bs))
             row["bound_ms"], row["bound_by"] = rdb_bound_ms(SERVE_RDB_SHAPE,
                                                             dtype)
+            if f32:
+                row["ffma_bound_ms"] = rdb_ffma_ms(SERVE_RDB_SHAPE)
+                row["train"]["ms"] = median_ms(
+                    lambda: rdb_ops.fused_rdb(xtd, kd, bs))
+                row["train"]["plain_ms"] = median_ms(
+                    lambda: rdb_ops.rdb_reference(xtd, kd, bs))
+                row["train"]["bound_ms"] = rdb_bound_ms(TRAIN_RDB_SHAPE,
+                                                        dtype)[0]
             row["tflops"] = (SERVE_RDB_SHAPE[0] * 64 * 64 * RDB_FLOP_PER_PX
                              / row["ms"] / 1e9)
             name = str(dtype).removeprefix("torch.")
@@ -968,10 +1060,11 @@ def hold_rdb_ext(x: torch.Tensor, ks, bs, ks32=None) -> dict:
     to B1's on the same inputs bit for bit; in bf16 the call with f32
     views of ``ks32`` bit-equal."""
     dt = x.dtype
-    before = rdb_ops.RDB_FWD_EXT_LAUNCHES
+    counter = fwd_counter("rdb_fwd_ext", dt)
+    before = read_counters()[counter]
     out, feat = rdb_ops.rdb_fwd_ext_cuda(x, ks, bs, scale_ratio=SCALE)
-    check(rdb_ops.RDB_FWD_EXT_LAUNCHES == before + 5,
-          "rdb_fwd_ext_cuda launched its kernel five times")
+    check(read_counters()[counter] == before + 5,
+          f"rdb_fwd_ext_cuda launched its kernel five times ({counter})")
     check(bool(torch.isfinite(out).all()), "rdb_fwd_ext output finite")
     row = rdb_scores(x, ks, bs, out, feat[:, 1:-1])
     row["pad_rows_max_abs"] = float(feat[:, [0, -1]].float().abs().max())
@@ -979,28 +1072,38 @@ def hold_rdb_ext(x: torch.Tensor, ks, bs, ks32=None) -> dict:
     wrong = rdb_scores(x, ks, bs, w_out, w_feat[:, 1:-1])
     row["pad_rows_written_excess"] = {
         "stage": max(wrong["stage_excess"]), "block": wrong["block_excess"]}
-    out1, _ = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
+    out1, feat1 = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
     row["vs_b1_block_excess"] = excess(out, out1, BLOCK_LIMITS[dt], x)
     row["vs_b1_max_abs"] = float((out.float() - out1.float()).abs().max())
+    row["b1_bit_equal"] = bool(torch.equal(out, out1)
+                               and torch.equal(feat[:, 1:-1], feat1))
     row["kxpack_wrong_excess"] = kxpack_wrong_excess(x, ks, bs)
     name = f"rdb_fwd_ext {dt} {tuple(x.shape)}"
     check(max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1,
           f"{name} within its limits: {row}")
     check(row["pad_rows_max_abs"] == 0, f"{name}: pad rows zero")
-    check(row["vs_b1_block_excess"] <= 1 and row["vs_b1_max_abs"] == 0,
-          f"{name}: equals B1 bit for bit")
+    check(row["vs_b1_block_excess"] <= 1 and row["vs_b1_max_abs"] == 0
+          and row["b1_bit_equal"],
+          f"{name}: equals B1 bit for bit (output and feature buffer)")
     check(min(row["stage_wrong_excess"]) > 1
           and min(row["block_wrong_excess"].values()) > 1
           and row["pad_rows_written_excess"]["stage"] > 1
           and min(row["kxpack_wrong_excess"].values()) > 1,
           f"{name}: the limits see a wrong kernel: {row}")
-    if dt == torch.bfloat16 and ks32 is not None:
+    if dt == torch.float32:
+        row["tf32_wrong_excess"] = tf32_wrong_excess(x, ks, bs, padded=True)
+        check(min(min(r.values()) for r in row["tf32_wrong_excess"].values())
+              > 1, f"{name}: the limits see plain TF32 and 3xTF32 short "
+                   f"of a term, launch by launch and for the block: "
+                   f"{row['tf32_wrong_excess']}")
+    if ks32 is not None:
         out32, feat32 = rdb_ops.rdb_fwd_ext_cuda(x, f32_views(ks32), bs,
                                                  scale_ratio=SCALE)
         row["f32_views_bit_equal"] = bool(torch.equal(out32, out)
                                           and torch.equal(feat32, feat))
         check(row["f32_views_bit_equal"],
-              f"{name}: f32 weight views give the bf16 weights' block")
+              f"{name}: f32 weight views give the contiguous weights' "
+              f"block")
     return row
 
 
@@ -1217,10 +1320,12 @@ def phase_rdb_variant(seed: int, variant: str) -> dict:
             row["ms"] = median_ms(
                 lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
             row["profile"] = bwd_profile(
-                lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
-            if dtype == torch.bfloat16:
+                lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE),
+                kernels=(FWD_F32_KERNELS if ext and dtype == torch.float32
+                         else None))
+            if ext or dtype == torch.bfloat16:
                 check_fwd_profile(row["profile"], f"rdb_fwd_{variant} "
-                                  "bfloat16")
+                                  f"{dtype}", dtype)
                 if not ext:
                     check(row["profile"]["kernels_per_call"]
                           == ILV_BF16_KERNELS,
@@ -1305,18 +1410,26 @@ def device_spans(fn, calls: int) -> list:
     return spans
 
 
-def bwd_profile(fn, calls: int = 10) -> dict:
-    """``fn`` (one backward call) under ``torch.profiler``: device ms per
+def bwd_profile(fn, calls: int = 10, kernels: int | None = None) -> dict:
+    """``fn`` (one kernel call) under ``torch.profiler``: device ms per
     call, kernels per call, and each launch of a call by its position
     (name and device ms, averaged over the calls).  A window that lost
     some of its kernels (the profiler drops some now and then) is run
-    again, ``PROFILE_WINDOWS`` windows at most."""
+    again, ``PROFILE_WINDOWS`` windows at most: one whose count is not a
+    whole number of calls, or, where a call's ``kernels`` are known, one
+    that holds other than ``kernels`` a call (a window that lost a
+    multiple of ``calls`` events would otherwise read as fewer kernels a
+    call)."""
+    def whole(n: int) -> bool:
+        return n % calls == 0 if kernels is None else n == kernels * calls
+
     for _ in range(PROFILE_WINDOWS):
         spans = device_spans(fn, calls)
-        if len(spans) % calls == 0:
+        if whole(len(spans)):
             break
-    check(len(spans) % calls == 0,
-          f"the profiler recorded whole calls ({len(spans)} kernels)")
+    check(whole(len(spans)),
+          f"the profiler recorded whole calls ({len(spans)} kernels"
+          f"{'' if kernels is None else f', {kernels} a call wanted'})")
     per = len(spans) // calls
     by_launch = [[_kernel_name(spans[i][2]), sum(
         spans[c * per + i][1] - spans[c * per + i][0]
@@ -1683,7 +1796,8 @@ PAIR_CONV_SHAPES = ((128, 24, 24), (3, 5, 10), (1, 128, 256), (4, 3, 2),
 WRONG_PAIR_FWD = ("k_transposed", "no_column_mask", "bias_dropped")
 WRONG_PAIR_BWD = ("dx_unflipped", "dw_partial_dropped")
 # The f32 kernels' wrong products (3xTF32 short of a term, emulated by
-# pc_ops.pair_conv_3xtf32_reference): hi.hi only (plain TF32) and hi.hi
+# pc_ops.pair_conv_3xtf32_reference and, for the RDB forward,
+# rdb_ops.rdb_fwd_3xtf32_reference): hi.hi only (plain TF32) and hi.hi
 # + hi.lo (lo.hi dropped); each forward, and each backward (the worst of
 # dx and dW), must read over its limit.
 WRONG_PAIR_TF32 = {"tf32_once": (("hi", "hi"),),
@@ -2061,7 +2175,8 @@ def _train_grad(seed: int, phase: str, kernels: tuple,
         got = grads(gen)
         torch.cuda.synchronize()
         counts = read_counters()
-        launches = tuple(counts[k] for k in kernels)
+        fwd = fwd_counter(kernels[0], dtype)
+        launches = (counts[fwd], counts[kernels[1]])
         ref = grads(lambda t: plain_generator(gen, t))
         bad = grads(lambda t: plain_generator(gen, t, wrong))
         rel, rel_wrong = _rel_grads(got, ref), _rel_grads(bad, ref)
@@ -2080,7 +2195,7 @@ def _train_grad(seed: int, phase: str, kernels: tuple,
         say(f"{phase}[{name}]", batch=TRAIN_GRAD_BATCH, rrdb=NUM_RRDB,
             lr_hw=lr, kernels=list(kernels), **row)
         check_counts(f"{phase} {name}: one kernel forward and backward "
-                     f"per block", counts, **{kernels[0]: 5 * 3 * NUM_RRDB,
+                     f"per block", counts, **{fwd: 5 * 3 * NUM_RRDB,
                                               kernels[1]: 3 * NUM_RRDB})
         check(row["max_rel"] <= TOL_GRAD[dtype],
               f"{phase} {name}: gradients within {TOL_GRAD[dtype]}")
@@ -2175,8 +2290,12 @@ def hold_generator(gen: ESRGANGenerator, x: torch.Tensor) -> dict:
         row["wrong_block_vs_f32_plain"] = {
             name: _dist(plain_generator(gen, x, fn), ref)
             for name, fn in WRONG_BLOCKS.items()}
+        row["tf32_block_vs_f32_plain"] = _dist(
+            plain_generator(gen, x, tf32_block), ref)
     scale = float(ref.abs().max())
     row["f32_limit"] = TOL_GEN_F32 * scale
+    row["tf32_block_excess"] = (row["tf32_block_vs_f32_plain"]["max"]
+                                / row["f32_limit"])
     row["bf16_limit"] = TOL_GEN_BF16 * scale
     row["out_range"] = [float(ref.min()), float(ref.max())]
     check(row["f32_vs_f32_plain"]["max"] <= row["f32_limit"],
@@ -2213,6 +2332,12 @@ def phase_generator(seed: int, rdb_bf16_ms: float) -> ESRGANGenerator:
         d["mean"] for d in row["wrong_block_vs_f32_plain"].values())
     check(row["bf16_vs_bf16_plain"]["mean"] <= limit,
           f"generator bf16 within {GEN_BF16_FRAC} of a wrong block: {row}")
+    # plain TF32 in the blocks moves the output by the TF32 rounding of
+    # what the blocks add: at the model's own init that is the limit's
+    # order (read 1.05 on the card), at the default init five times it
+    check(row["tf32_block_excess"] > 1,
+          f"the f32 limit sees a generator whose blocks multiply in plain "
+          f"TF32: {row}")
     with torch.inference_mode():
         gen.compute_dtype = torch.bfloat16
         ms = median_ms(lambda: gen(x), reps=5, warmup=1)
@@ -2726,10 +2851,12 @@ def _train(seed: int, phase: str, ext: bool) -> dict:
     steps = (TRAIN_IMAGES - n_eval) // TRAIN_BATCH  # per epoch
     evals = -(-n_eval // TRAIN_BATCH)
     # two epochs (pretrain, GAN): steps run the kernels forward and
-    # backward; evals and sample renders forward only
+    # backward in bf16; evals and sample renders forward only, in f32
     fwd, bwd = ("rdb_fwd_ext", "rdb_bwd_ext") if ext else ("rdb_fwd",
                                                             "rdb_bwd")
-    want = {fwd: 5 * 3 * NUM_RRDB * 2 * (steps + evals + 1),
+    want = {fwd: 5 * 3 * NUM_RRDB * 2 * steps,
+            fwd_counter(fwd, torch.float32): 5 * 3 * NUM_RRDB * 2
+            * (evals + 1),
             bwd: 3 * NUM_RRDB * 2 * steps}
     h, w = TEST_IMAGE
     tiles = (len(_positions(h, 64, 48)) * len(_positions(w, 64, 48)))
@@ -3050,8 +3177,9 @@ def phase_eval(seed: int) -> dict:
                           "recompute_excess": max(
                               max(e["psnr"], e["ssim"]) for e in excess)}
             _check_report(report, f"eval {name}")
-            check_counts(f"eval {name}", counts, rdb_fwd=5 * 3 * NUM_RRDB
-                         * eval_forwards(EVAL_SIZES, extra))
+            fwd = "rdb_fwd" if "--bf16" in extra else "rdb_fwd_f32"
+            check_counts(f"eval {name}", counts, **{fwd: 5 * 3 * NUM_RRDB
+                         * eval_forwards(EVAL_SIZES, extra)})
             check(rows[name]["recompute_excess"] <= 1,
                   f"eval {name}: the report's PSNR/SSIM equal float64 "
                   f"numpy's of the saved SR to the report's rounding: "
@@ -3077,6 +3205,7 @@ def phase_eval(seed: int) -> dict:
         lr = bicubic_resize(hr_t[None], (h // 4, w // 4), quantize=True)
         ref = plain_generator(gen, lr)[0].clamp(0, 1)
         wrong = plain_generator(gen, lr, conv5_skipped)[0].clamp(0, 1)
+        tf32_sr = plain_generator(gen, lr, tf32_block)[0].clamp(0, 1)
     sr = torch.from_numpy(srs["f32"][f"upres-{first['image']}"]).to(DEVICE)
     limit = TOL_GEN_F32 * float(ref.abs().max())
     vs_plain = _dist(sr, ref)
@@ -3093,6 +3222,12 @@ def phase_eval(seed: int) -> dict:
     say("eval", checkpoint="train phase gan-best", sizes=EVAL_SIZES,
         tile=EVAL_TILE, runs=rows, f32_vs_plain=vs_plain, f32_limit=limit,
         conv5_skipped_vs_plain=_dist(wrong, ref),
+        # printed, not held: after one epoch a phase the blocks add too
+        # little to the SR for this limit to see plain TF32 in them (0.95
+        # of it on the card); rdb_fwd holds it at this path's own block
+        # shape (EVAL_RDB_SHAPE), launch by launch and for the block
+        tf32_blocks_vs_plain=_dist(tf32_sr, ref),
+        tf32_blocks_excess=_dist(tf32_sr, ref)["max"] / limit,
         tf32_on_minus_off=tf32_diff, tf32_on=_headline(tf32))
     check(vs_plain["max"] <= limit,
           f"eval f32 SR within {TOL_GEN_F32} of the plain generator's "
@@ -3145,7 +3280,7 @@ def phase_interp(seed: int) -> dict:
     check(moved > 0, "the alpha 0.2 blend differs from psnr-best")
     _check_report(report, "eval of the interp checkpoint")
     check_counts("interp: eval", counts,
-                 rdb_fwd=5 * 3 * NUM_RRDB * eval_forwards(EVAL_SIZES))
+                 rdb_fwd_f32=5 * 3 * NUM_RRDB * eval_forwards(EVAL_SIZES))
     return {"interp: eval": counts}
 
 
@@ -3728,10 +3863,12 @@ def _train_argv(data: dict, seed: int, *extra) -> list:
 
 def _run_launches(phases: int = 2, steps: int = RUN_STEPS,
                   renders: int = 1) -> dict:
-    """B1 and B2 launches of a run: each phase's steps forward and
-    backward; its eval batches and its sample render forward only."""
-    return {"rdb_fwd": 5 * 3 * NUM_RRDB * phases * (steps + RUN_EVALS
-                                                     + renders),
+    """B1 and B2 launches of a run: each phase's steps forward (bf16)
+    and backward; its eval batches and its sample render forward only
+    (f32)."""
+    return {"rdb_fwd": 5 * 3 * NUM_RRDB * phases * steps,
+            "rdb_fwd_f32": 5 * 3 * NUM_RRDB * phases * (RUN_EVALS
+                                                        + renders),
             "rdb_bwd": 3 * NUM_RRDB * phases * steps}
 
 
@@ -3809,7 +3946,7 @@ def phase_pack_train(seed: int) -> dict:
         [TRAIN_IMAGE_HW] * RUN_EVAL_IMAGES)
     for name, counts in paths.items():
         if "eval" in name:
-            check_counts(name, counts, rdb_fwd=want_eval)
+            check_counts(name, counts, rdb_fwd_f32=want_eval)
     a, b = reports.values()
     check(a == b, "pack_train: eval on the pack equals eval on the "
                   "directory")
@@ -4986,10 +5123,14 @@ def phase_halo(gen: ESRGANGenerator, ckpt: str, seed: int) -> dict:
 KERNELS = (
     ("rdb_fwd", "rdb_fwd.cu", "rdb.py:142", "rdb_fwd", "bfloat16",
      SERVE_RDB_SHAPE),
+    ("rdb_fwd_f32", "rdb_fwd_tf32_sm90.cuh", "rdb.py:142", "rdb_fwd",
+     "float32", SERVE_RDB_SHAPE),
     ("rdb_bwd", "rdb_bwd.cu", "rdb.py:495", "rdb_bwd", "bfloat16",
      TRAIN_RDB_SHAPE),
     ("rdb_fwd_ext", "rdb_ext.cu", "rdb.py:299", "rdb_fwd_ext", "bfloat16",
      SERVE_RDB_SHAPE),
+    ("rdb_fwd_ext_f32", "rdb_fwd_tf32_sm90.cuh", "rdb.py:299",
+     "rdb_fwd_ext", "float32", SERVE_RDB_SHAPE),
     ("rdb_bwd_ext", "rdb_ext.cu", "rdb.py:594", "rdb_bwd_ext", "bfloat16",
      TRAIN_RDB_SHAPE),
     ("rdb_fwd_ilv", "rdb_ilv.cu", "rdb.py:223", "rdb_fwd_ilv", "bfloat16",
@@ -5005,6 +5146,7 @@ KERNELS = (
     ("pair_bwd_f32", "pair_conv.cu", "pair_conv.py:148", "pair_bwd",
      "float32", (*PAIR_CONV_SHAPES[0], 64)),
 )
+
 
 
 def _profiled_ms(prof) -> float | None:

@@ -10,6 +10,9 @@
 - ``quality_run --f32`` passes ``train --disable-amp`` and runs with
   TF32 off (and restores the caller's switches after); without it the
   caller's switches hold.
+- ``quality_run --plain-rdb`` runs its train call under
+  ``ops.rdb.plain_forward()``: every ``fused_rdb`` there is
+  ``rdb_reference``, no launch counter moves, and the summary says so.
 """
 
 import gzip
@@ -183,3 +186,51 @@ def test_quality_run_f32_trains_in_f32_with_tf32_off(f32, tmp_path,
     assert after == (True, True)
     # n_train, n_eval, seed, photo_only, decimate
     assert seen["build"] == (200, 24, 4, True, False)
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["kernel", "plain"])
+def test_quality_run_plain_rdb_reaches_rdb_reference(plain, tmp_path,
+                                                     monkeypatch):
+    """``quality_run``'s train call, stopped there after one block of
+    the generator's kind with a gradient to follow: under
+    ``--plain-rdb`` the block is ``rdb_reference`` (the spy sees it and
+    its result comes back), else ``rdb_reference`` is not reached; the
+    launch counters stay at 0 either way."""
+    from torchsr_tpu_torch.ops import rdb
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 4, 64),
+                                             dtype=np.float32))
+    kernels = [torch.from_numpy(
+        0.05 * rng.standard_normal((3, 3, cin, cout), dtype=np.float32)
+    ).requires_grad_() for cin, cout in zip(rdb.CIN, rdb.COUT)]
+    biases = [torch.zeros(cout, requires_grad=True) for cout in rdb.COUT]
+    want = rdb._rdb_plain(x, kernels, biases, 0.2)[0]
+    seen = {"calls": 0}
+    reference = rdb.rdb_reference
+
+    def spy(*a, **kw):
+        seen["calls"] += 1
+        return reference(*a, **kw)
+
+    def train(argv):
+        seen["out"] = rdb.fused_rdb(x, kernels, biases)
+        seen["counts"] = [getattr(rdb, n) for n in rdb.LAUNCH_COUNTERS]
+        raise _Stop
+
+    monkeypatch.setattr(rdb, "rdb_reference", spy)
+    monkeypatch.setattr(cli, "main", train)
+    monkeypatch.setattr(make_quality_dataset, "build", lambda *a: None)
+    for name in rdb.LAUNCH_COUNTERS:
+        monkeypatch.setattr(rdb, name, 0)
+    with pytest.raises(_Stop):
+        quality_run.main(
+            ["--model", "esrgan", "--device", "cpu",
+             "--out", str(tmp_path / "out"),
+             "--workdir", str(tmp_path / "work")]
+            + (["--plain-rdb"] if plain else []))
+    assert seen["calls"] == int(plain)
+    assert seen["counts"] == [0] * len(rdb.LAUNCH_COUNTERS)
+    torch.testing.assert_close(seen["out"], want, rtol=0, atol=0)
+    # the context ends with the tool
+    assert not rdb._PLAIN.get()

@@ -14,7 +14,9 @@ the passes, flip columns swapped, a true division by 255) and the 3x3
 64 -> 64 conv (B4, B5: K transposed, no column mask, bias dropped, dx
 with the unflipped kernel, one CTA's dW partial dropped; in f32 the
 3xTF32 arithmetic passes and plain TF32, or 3xTF32 short of lo.hi,
-fails).  The eval
+fails; the same for the f32 RDB forward, launch by launch and for the
+block, flat and row-extended, and its profile held to six kernels a
+call, a window short of whole calls run again).  The eval
 phase's checks run on the port's CPU ``eval``: the float64 recompute of
 a report (an SR one level off on a patch, a box window in the SSIM),
 the skip rule, and the forward count B1's launches are held to.  The
@@ -145,6 +147,77 @@ def test_fwd_profile_check_takes_only_own_kernels():
                 {"kernels_per_call": 7, "by_launch": own + own[:1]}):
         with pytest.raises(RuntimeError, match="own kernels"):
             smoke.check_fwd_profile(bad, "bad")
+
+
+def test_fwd_profile_check_holds_f32_to_its_six_kernels():
+    """An f32 forward call's profile passes with the 3xTF32 prep and five
+    convs, and fails one kernel short, with a bf16 kernel in it, or with
+    a cast beside them."""
+    own = [["rdb_fwd_tf32::rdb_fwd_tf32_prep", 0.003]] + [
+        ["rdb_fwd_tf32::rdb_fwd_tf32_conv", 0.05]] * 5
+    smoke.check_fwd_profile({"kernels_per_call": 6, "by_launch": own},
+                            "ok", torch.float32)
+    bf16 = own[:5] + [["rdb_fwd_sm90::rdb_fwd_conv", 0.01]]
+    cast = own[:5] + [["at::native::vectorized_elementwise_kernel", 0.01]]
+    for bad in ({"kernels_per_call": 5, "by_launch": own[:5]},
+                {"kernels_per_call": 6, "by_launch": bf16},
+                {"kernels_per_call": 6, "by_launch": cast}):
+        with pytest.raises(RuntimeError, match="own kernels"):
+            smoke.check_fwd_profile(bad, "bad", torch.float32)
+
+
+def test_profile_runs_a_window_short_of_whole_calls_again(monkeypatch):
+    """Where a call's kernels are known, a window that lost a multiple of
+    ``calls`` events (50 of 60: whole calls by count) is run again, and
+    the next whole one is read; one that never comes fails."""
+    windows = []
+
+    def spans(fn, calls):
+        n = 50 if not windows else 60
+        windows.append(n)
+        return [(i, i + 1, f"k{i % 6}") for i in range(n)]
+
+    monkeypatch.setattr(smoke, "device_spans", spans)
+    prof = smoke.bwd_profile(lambda: None, calls=10, kernels=6)
+    assert windows == [50, 60] and prof["kernels_per_call"] == 6
+    windows.clear()
+    assert smoke.bwd_profile(lambda: None, calls=10)["kernels_per_call"] == 5
+    monkeypatch.setattr(smoke, "device_spans",
+                        lambda fn, calls: [(0, 1, "k")] * 50)
+    with pytest.raises(RuntimeError, match="whole calls"):
+        smoke.bwd_profile(lambda: None, calls=10, kernels=6)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["b1", "b7"])
+@pytest.mark.parametrize("shape", [SHAPE, (1, 4, 140, 64)], ids=str)
+def test_rdb_limits_pass_3xtf32_and_fail_plain_tf32(shape, padded):
+    """The f32 RDB forward's 3xTF32 arithmetic (emulated) passes the f32
+    limits launch by launch and for the block, flat (B1) and on the
+    padded buffer's data rows (B7); plain TF32 (hi.hi only) and 3xTF32
+    with lo.hi dropped read over both."""
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.normal(0, 0.5, shape).astype(np.float32))
+    _, ks, bs = _inputs(torch.float32)
+    out, feat = rdb_ops.rdb_fwd_3xtf32_reference(x, ks, bs, smoke.SCALE,
+                                                 padded=padded)
+    row = smoke.rdb_scores(x, ks, bs, out, feat[:, 1:-1] if padded else feat)
+    assert max(row["stage_excess"]) <= 1 and row["block_excess"] <= 1, row
+    wrong = smoke.tf32_wrong_excess(x, ks, bs, padded=padded)
+    assert set(wrong) == set(smoke.WRONG_PAIR_TF32)
+    assert min(min(r.values()) for r in wrong.values()) > 1, wrong
+
+
+def test_tf32_block_is_the_plain_tf32_forward():
+    """The generator's and eval's wrong block multiplies in plain TF32:
+    the hi.hi emulation, over the f32 block limit against the plain
+    block."""
+    x, ks, bs = _inputs(torch.float32)
+    got = smoke.tf32_block(x, ks, bs, scale_ratio=smoke.SCALE)
+    want = rdb_ops.rdb_fwd_3xtf32_reference(
+        x, ks, bs, smoke.SCALE, terms=(("hi", "hi"),))[0]
+    assert torch.equal(got, want)
+    ref = rdb_ops.rdb_reference(x, ks, bs, scale_ratio=smoke.SCALE)
+    assert smoke.excess(got, ref, smoke.BLOCK_LIMITS[torch.float32], x) > 1
 
 
 def test_kernel_path_refuses_cpu_tensors():
@@ -537,6 +610,40 @@ def test_kernels_line_reads_both_profile_shapes():
         assert k["device_ms"] == want[k["name"]]
         assert k["library_device_ms"] is None
         assert k["launches"] == 3
+
+
+def test_kernels_line_reads_each_kernels_own_counter():
+    """Every kernel of the kernels line has a counter of its own: the f32
+    kernels' launches are not the bf16 ones' (a path that ran bf16 B1
+    only gives the f32 rows 0)."""
+    names = [name for name, *_ in smoke.KERNELS]
+    assert set(names) <= set(smoke.COUNTERS)
+    assert len({smoke.COUNTERS[n] for n in names}) == len(names)
+    timed = {}
+    for _, _, _, phase, key, _ in smoke.KERNELS:
+        timed.setdefault(phase, {})[key] = {
+            "max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
+            "bound_by": "operations"}
+    counts = {name: 0 for name in smoke.COUNTERS}
+    line = smoke.kernels_line(timed, {"serve": {**counts, "rdb_fwd": 345},
+                                      "eval": {**counts, "rdb_fwd_f32": 5}})
+    got = {k["name"]: k["launches_by_path"] for k in line["kernels"]}
+    assert got["rdb_fwd"] == {"serve": 345, "eval": 0}
+    assert got["rdb_fwd_f32"] == {"serve": 0, "eval": 5}
+    assert got["rdb_fwd_ext_f32"] == {"serve": 0, "eval": 0}
+
+
+@pytest.mark.parametrize("kernel", ["rdb_fwd", "rdb_fwd_ext"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_counter_names_the_dtypes_kernel(kernel, dtype):
+    """The smoke's per-dtype forward counter is the one the wrapper of
+    that dtype adds to."""
+    name = smoke.fwd_counter(kernel, dtype)
+    assert name in smoke.COUNTERS
+    attr = smoke.COUNTERS[name][1]
+    assert ("_F32_" in attr) == (dtype == torch.float32)
+    assert attr.startswith("RDB_FWD_EXT" if kernel == "rdb_fwd_ext"
+                           else "RDB_FWD_")
 
 
 # ------------------------------------------------ eval, interp, SRGAN

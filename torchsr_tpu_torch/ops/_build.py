@@ -42,13 +42,15 @@ _BWD_BF16 = (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
 # out, the kernels' pointer and stride arrays, w_f32, the biases' pointer
 # array, the packed-weight scratch, B, H, W, scale, device, stream.
 _FWD_BF16 = (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P)
+# The f32 block forward's one entry (rdb_fwd.cu, rdb_ext.cu): as
+# _FWD_BF16 without w_f32 (the kernels are f32).
+_FWD_TF32 = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
 SIGNATURES = {
     "rdb_fwd": {
         "rdb_fwd_bf16_launch": (_I, _FWD_BF16),
         "rdb_fwd_bf16_schedule": (_I, (_I, _I, _I, _P)),
-        "rdb_fwd_f32_launch": (
-            _I, (_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
-        ),
+        "rdb_fwd_tf32_launch": (_I, _FWD_TF32),
+        "rdb_fwd_tf32_schedule": (_I, (_I, _I, _I, _P)),
         "rdb_error_string": (ctypes.c_char_p, (_I,)),
     },
     "rdb_bwd": {
@@ -67,9 +69,7 @@ SIGNATURES = {
     },
     "rdb_ext": {
         "rdb_ext_fwd_bf16_launch": (_I, _FWD_BF16),
-        "rdb_ext_fwd_f32_launch": (
-            _I, (_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
-        ),
+        "rdb_ext_fwd_tf32_launch": (_I, _FWD_TF32),
         "rdb_ext_bwd_bf16_launch": (_I, _BWD_BF16),
         "rdb_ext_prep_launch": (
             _I, (_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)

@@ -5,9 +5,10 @@
 // the wgmma shared-memory descriptors (128- and 64-byte swizzle), the
 // bf16 m64n96k16, m64n64k16 and m64n32k16 wgmma with A in registers
 // (m64n96k16 also with A in shared memory), with their fence, commit and
-// wait, the TF32 split of an f32 operand and the tf32 m64n64k8 and
-// m64n32k8 wgmma with A in registers (three of them make an f32 product:
-// 3xTF32), and on the host the tensor maps' encoding.
+// wait, the TF32 split of an f32 operand and the tf32 m64n96k8,
+// m64n64k8 and m64n32k8 wgmma with A in registers (three of them make an
+// f32 product: 3xTF32), and on the host the tensor maps' encoding (bf16
+// or f32).
 // Shared-memory tiles that wgmma or ldmatrix read are rows of 128 bytes
 // (64 bf16, or 32 f32 / tf32) in the 128-byte swizzle: the 16-byte chunk
 // c of row r lies at chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes,
@@ -336,6 +337,32 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// As wgmma_m64n64k8_tf32 with N = 96: d is 64 x 96 f32 (48 registers a
+// thread, the fragment layout of wgmma_m64n96k16).
+__device__ __forceinline__ void wgmma_m64n96k8_tf32(float (&d)[48],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // ------------------------------------------------------- host side
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry
@@ -360,23 +387,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (C, x, y, b) map of B images of H rows of W pixels of `ch` bf16
-// channels at `base` (image stride `img_px` pixels), boxes of {bc, bw,
-// bh, 1}; outside the tensor a load reads zeros and a store writes
-// nothing.
-inline bool tensor_map(CUtensorMap* map, const void* base, int ch, int W,
-                       int H, int B, long long img_px, int bc, int bw, int bh,
-                       CUtensorMapSwizzle swizzle) {
+// The (C, x, y, b) map of B images of H rows of W pixels of `ch`
+// channels of `type` (bf16, or f32) at `base` (image stride `img_px`
+// pixels), boxes of {bc, bw, bh, 1}; outside the tensor a load reads
+// zeros and a store writes nothing.
+inline bool tensor_map(
+    CUtensorMap* map, const void* base, int ch, int W, int H, int B,
+    long long img_px, int bc, int bw, int bh, CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint64_t item = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)ch, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ch * 2, (cuuint64_t)W * ch * 2,
-                                 (cuuint64_t)img_px * ch * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)ch * item,
+                                 (cuuint64_t)W * ch * item,
+                                 (cuuint64_t)img_px * ch * item};
   const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)bw, (cuuint32_t)bh,
                              1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return encode(map, type, 4,
                 const_cast<void*>(base), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -201,8 +201,8 @@ constexpr size_t dgrad_smem() {
 
 // The conv of dy_i (DY channels COUT_ALL - 64 .. +CIN) by wt, HWIO (3, 3,
 // CIN, COUT_ALL), for dF channels [32 c, 32 c + 32), c = blockIdx.z %
-// nchunks: the layout of rdb_fwd.cu's conv3x3_f32 with 32 output
-// channels.  ACCUM adds into dF (else stores); FINAL also writes dx =
+// nchunks: an 8 x 16 tile, each thread 4 neighbouring pixels of a row x
+// 8 of the 32 output channels.  ACCUM adds into dF (else stores); FINAL also writes dx =
 // dF[:, :64] + g.
 template <int CIN, int COUT_ALL, bool ACCUM, bool FINAL>
 __global__ void __launch_bounds__(DNT)

@@ -21,10 +21,10 @@
 // only the column edges (x = -1, x = W) are masked, as first_col/last_col
 // are on the TPU.  A tile row that falls past the buffer's ends is
 // clamped to the nearest row; it feeds only outputs on pad rows, which
-// are never stored (forward) or multiply a zero dy (wgrad).  W % 16 == 0
-// (the gate) makes the 16-column tiles exact.  The f32 forward computes
-// the 2 pad rows of each image too and drops them: 2 / (H + 2) extra
-// work (3% at the serving shape, 6% at the training shape).
+// are never read back (dgrad) or multiply a zero dy (wgrad).  W % 16 ==
+// 0 (the gate) makes the 16-column tiles exact.  The f32 dgrad computes
+// the 2 pad rows of each image too: 2 / (H + 2) extra work (3% at the
+// serving shape, 6% at the training shape).
 //
 // Forward, bf16 (AMP): the six launches of csrc/rdb_fwd_sm90.cuh (B1's
 // kernels) with the layout's row stride and offset: image b's row y is
@@ -33,11 +33,10 @@
 // and the stores cover the image rows only, so pad rows are never read or
 // computed, and the block equals B1's bit for bit.
 //
-// Forward, f32 (five launches of conv_f32 with FwdEpi): launch i reads
-// channels [0, C_in) of the buffer and writes [C_in, C_in + 32) of its
-// data rows; the wrapper zeroes both pad rows of every image (all 192
-// channels) and copies x into channels [0, 64) first.  Launch 5 writes
-// out = x + scale * (conv5 + b5), unpadded.
+// Forward, f32: the six launches of csrc/rdb_fwd_tf32_sm90.cuh (B1's
+// f32 kernels, 3xTF32 on wgmma) with the same row stride and offset, so
+// that B7 equals B1 bit for bit in f32 too: the prep zeroes the pad rows
+// and conv 1 copies x into the data rows.
 //
 // Backward, bf16 (AMP): the eight launches of csrc/rdb_bwd_sm90.cuh (B2's
 // kernels) with the layout's row stride and offset: image b's row y is
@@ -65,25 +64,20 @@
 //    dF, the others add into it; conv 1 also writes dx = dF[data rows,
 //    :64] + g, unpadded.
 //
-// The f32 forward is B1's f32 direct conv (nine taps, FFMA on the CUDA
-// cores: tensor cores would round to TF32; 8 x 16 tiles, 4 pixels x 8
-// channels per thread): the same products summed in the same order, so
-// it too equals B1's bit for bit.
-//
 // Bound on this card (H100 SXM).  Forward at the serving shape (16, 64,
-// 64, 64): 31.4 GFLOP, 0.0318 ms at 989 TFLOP/s bf16 (0.469 ms at 67
-// TFLOP/s f32); its bytes (x in, out) 16.8 MB bf16, 0.005 ms: compute-
+// 64, 64): 31.4 GFLOP, 0.0318 ms at 989 TFLOP/s bf16 (0.190 ms as three
+// TF32 products at 495 TFLOP/s in f32); its bytes (x in, out) 16.8 MB bf16, 0.005 ms: compute-
 // bound, as B1.  Backward at the training shape (64, 32, 32, 64): 62.8
 // GFLOP, 0.0635 ms bf16 (0.94 ms f32) against 0.013 ms of bytes.
 
 #include "rdb_bwd_sm90.cuh"
 #include "rdb_fwd_sm90.cuh"
+#include "rdb_fwd_tf32_sm90.cuh"
 #include "rdb_mma.cuh"
 
 namespace {
 
 using rdb::allow_smem;
-using rdb::leaky;
 using rdb::load2;
 using rdb::store2;
 
@@ -111,46 +105,6 @@ struct Tall {
 
 // An epilogue's row(r) resolves row r's addresses once; the Row it
 // returns takes the accumulators of channels co, co + 1 at column x.
-
-// Forward conv with C_in = CIN: bias, then LeakyReLU into channels
-// [CIN, CIN + 32) of the buffer's data rows, or (LAST) out = x + scale *
-// (conv5 + b5) unpadded.  Outputs on pad rows are dropped.
-template <typename T, int CIN, bool LAST>
-struct FwdEpi {
-  T* buf;
-  const float* bias;
-  T* out;
-  float scale;
-  Tall t;
-
-  struct Row {
-    const T* src;  // the buffer's row r at column 0
-    T* dst;        // where column 0's outputs go; nullptr on a pad row
-    const float* bias;
-    float scale;
-
-    __device__ __forceinline__ void operator()(int x, int co, float v0,
-                                               float v1) const {
-      if (dst == nullptr) return;
-      v0 += bias[co];
-      v1 += bias[co + 1];
-      if constexpr (LAST) {
-        const float2 r = load2(src + (size_t)x * FEAT + co);
-        store2(dst + (size_t)x * CH + co, v0 * scale + r.x,
-               v1 * scale + r.y);
-      } else {
-        store2(dst + (size_t)x * FEAT + CIN + co, leaky(v0), leaky(v1));
-      }
-    }
-  };
-
-  __device__ __forceinline__ Row row(int r) const {
-    const long long q = t.data_row(r);
-    T* src = buf + (size_t)r * t.W * FEAT;
-    return Row{src, q < 0 ? nullptr : LAST ? out + q * CH : src, bias,
-               scale};
-  }
-};
 
 // dgrad: dF (f32, tall) channels co, co + 1 of every row, stored or
 // (ACCUM) added; FINAL also writes dx = dF + g on data rows.
@@ -215,8 +169,10 @@ constexpr size_t conv_smem() {
   return (size_t)(KC * IN_LD + 9 * KC * NOUT) * sizeof(float);
 }
 
-// A 3x3 SAME conv over the tall layout in f32 FFMA, the thread layout
-// of rdb_fwd.cu's conv3x3_f32: src (R, W, LD_SRC), channels [0, CIN); w
+// A 3x3 SAME conv over the tall layout in f32 FFMA (the dgrad; an 8 x 16
+// tile, each thread 4 neighbouring pixels of a row x 8 output channels,
+// so 6 staged inputs serve 3 horizontal taps): src (R, W, LD_SRC),
+// channels [0, CIN); w
 // HWIO (3, 3, CIN, WN), output channels [co0, co0 + NOUT) with co0 =
 // NOUT * blockIdx.z.  Rows are not predicated (see the header); columns
 // outside [0, W) are zero.
@@ -445,15 +401,6 @@ cudaError_t launch_conv(const void* src, const void* w, Epi epi, Tall t,
   return cudaGetLastError();
 }
 
-template <int CIN, int COUT, bool LAST>
-cudaError_t fwd(void* buf, const void* w, const void* bias, void* out,
-                float scale, Tall t, cudaStream_t s) {
-  FwdEpi<float, CIN, LAST> epi{static_cast<float*>(buf),
-                               static_cast<const float*>(bias),
-                               static_cast<float*>(out), scale, t};
-  return launch_conv<CIN, FEAT, COUT, COUT>(buf, w, epi, t, s);
-}
-
 // f32 dgrad of conv (CIN_I -> COUT_I): dy_i is DY's channels CIN_I - 64
 // .. +COUT_I, the kernel wt is (3, 3, COUT_I, CIN_I), and dF channels
 // [0, CIN_I) are written.
@@ -514,26 +461,19 @@ int rdb_ext_fwd_bf16_launch(const void* x, void* feat, void* out,
       device, stream);
 }
 
-// f32 forward conv `stage` of a block on the (B, H + 2, W, 192) buffer
-// `feat` (pad rows zero, x in channels [0, 64)): stages 0..3 append 32
-// channels to its data rows, stage 4 writes out (B, H, W, 64).  W % 16
-// == 0.
-int rdb_ext_fwd_f32_launch(int stage, void* feat, const void* w,
-                           const void* bias, void* out, int B, int H, int W,
-                           float scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (W % 16 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Tall t = tall_of(B, H, W);
-  switch (stage) {
-    case 0: return (int)fwd<64, 32, false>(feat, w, bias, out, scale, t, s);
-    case 1: return (int)fwd<96, 32, false>(feat, w, bias, out, scale, t, s);
-    case 2: return (int)fwd<128, 32, false>(feat, w, bias, out, scale, t, s);
-    case 3: return (int)fwd<160, 32, false>(feat, w, bias, out, scale, t, s);
-    case 4: return (int)fwd<192, 64, true>(feat, w, bias, out, scale, t, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// The f32 block forward (3xTF32) into the (B, H + 2, W, 192) buffer
+// `feat`: the six launches of csrc/rdb_fwd_tf32_sm90.cuh on the
+// row-extended layout (x into the data rows, pad rows zeroed, out (B, H,
+// W, 64) unpadded); arguments as rdb_fwd.cu's rdb_fwd_tf32_launch.
+int rdb_ext_fwd_tf32_launch(const void* x, void* feat, void* out,
+                            const void* wptr, const void* wstride,
+                            const void* bptr, void* wpack, int B, int H,
+                            int W, float scale, int device, void* stream) {
+  return rdb_fwd_tf32::launch_fwd_entry(
+      x, feat, out, static_cast<const void* const*>(wptr),
+      static_cast<const long long*>(wstride),
+      static_cast<const void* const*>(bptr), wpack, B, H, W, 1, scale,
+      device, stream);
 }
 
 // The bf16 block backward on the (B, H + 2, W, 192) buffer `feat`: the

@@ -114,32 +114,13 @@ __host__ __device__ constexpr int slot_wofs(int s) {
 }
 constexpr int WPACK = slot_wofs(NSLOTS);  // 258,048 packed weights
 
-// Runs.  Where W <= 64, a run is rows_per_run(W) whole image rows (the
-// last of an image may hold fewer): every horizontal tap that crosses a
-// row end is masked, so its y rows are its own pixels.  Else a run is up
-// to M - 2 pixels inside one row (a row's runs of equal length), its y
-// rows its pixels and one beyond each end.  A run's halo is one TMA box
-// of the rows above and below: box_w x box_h pixels of 64 channels.
-__host__ __device__ inline int rows_per_run(int W) { return M / W; }
-__host__ __device__ inline int runs_per_row(int W) {
-  return (W + M - 3) / (M - 2);
-}
-__host__ __device__ inline int run_len(int W) {
-  return (W + runs_per_row(W) - 1) / runs_per_row(W);
-}
-__host__ __device__ inline int runs_per_image(int H, int W) {
-  return W <= NARROW_W ? (H + rows_per_run(W) - 1) / rows_per_run(W)
-                       : H * runs_per_row(W);
-}
-__host__ __device__ inline int box_w(int W) {
-  return W <= NARROW_W ? W : run_len(W) + 2;
-}
-__host__ __device__ inline int box_h(int W) {
-  return W <= NARROW_W ? rows_per_run(W) + 2 : 3;
-}
+// Runs (rdb_mma.cuh): up to M - 2 pixels where a run lies inside a row.
+using Runs = rdb::FwdRuns<M, M, NARROW_W, CTAS>;
+using rdb::Run;
+
 // Bytes of a ring stage: one halo box, rounded up to a swizzle atom.
 __host__ __device__ inline int stage_bytes(int W) {
-  return (box_w(W) * box_h(W) * ROW + 1023) / 1024 * 1024;
+  return (Runs::box_w(W) * Runs::box_h(W) * ROW + 1023) / 1024 * 1024;
 }
 // Ring stages of slot s's conv: as many as fit beside its weights and the
 // two output tiles (at most MAX_STAGES; at least 2 for every W).
@@ -152,45 +133,6 @@ __host__ __device__ inline int slot_stages(int s, int W) {
 inline size_t slot_smem(int s, int W) {
   return 1024 + (size_t)slot_chunks(s) * 3 * W_KY + 2 * OUT_TILE +
          (size_t)slot_stages(s, W) * stage_bytes(W);
-}
-// Persistent CTAs of slot s's conv: one per run up to CTAS for convs 1-4,
-// half as many for each of conv 5's two halves (its grid's y).
-inline int slot_ctas(int s, int B, int H, int W) {
-  const int runs = B * runs_per_image(H, W), cap = s < 4 ? CTAS : CTAS / 2;
-  return runs < 1 ? 1 : runs < cap ? runs : cap;
-}
-
-// Run `t`, image by image: output pixels p0 .. p0 + n - 1 of image b
-// (y * W + x); its y row m (0 .. n + 2 e - 1) is pixel p0 - e + m.  Its
-// halo box starts at image pixel (r0 - 1, hx0), hw = box_w pixels a row;
-// y row m's A row for tap ky is box pixel m + ky hw.
-struct Run {
-  int b, p0, n, e, r0, hx0, hw;
-};
-
-__device__ __forceinline__ Run run_of(int t, int H, int W) {
-  const int per = runs_per_image(H, W);
-  Run r;
-  r.b = t / per;
-  const int q = t % per;
-  r.hw = box_w(W);
-  if (W <= NARROW_W) {
-    const int rows = rows_per_run(W);
-    r.r0 = q * rows;
-    r.p0 = r.r0 * W;
-    r.n = min(rows, H - r.r0) * W;
-    r.e = 0;
-    r.hx0 = 0;
-  } else {
-    const int nx = runs_per_row(W), len = run_len(W);
-    const int x0 = (q % nx) * len;
-    r.r0 = q / nx;
-    r.p0 = r.r0 * W + x0;
-    r.n = min(len, W - x0);
-    r.e = 1;
-    r.hx0 = x0 - 1;
-  }
-  return r;
 }
 
 // ----------------------------------------------------------------- prep
@@ -315,7 +257,7 @@ rdb_fwd_conv(const __grid_constant__ CUtensorMap in_map,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int G = gridDim.x;
-  const int runs = L.B * runs_per_image(L.H, L.W);
+  const int runs = L.B * Runs::runs_per_image(L.H, L.W);
   const int nr = (int)blockIdx.x < runs ? (runs - 1 - blockIdx.x) / G + 1 : 0;
 
   if (tid == 0) {
@@ -335,11 +277,11 @@ rdb_fwd_conv(const __grid_constant__ CUtensorMap in_map,
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(in))
                    : "memory");
-      const int box = box_w(L.W) * box_h(L.W) * ROW;
+      const int box = Runs::box_w(L.W) * Runs::box_h(L.W) * ROW;
       for (int k = 0; k < nr * nch; ++k) {
         const int st = k % nst;
         if (k >= nst) hopper::mbar_wait(e_u + 8 * st, (k / nst - 1) & 1);
-        const Run r = run_of(blockIdx.x + (k / nch) * G, L.H, L.W);
+        const Run r = Runs::run_of(blockIdx.x + (k / nch) * G, L.H, L.W);
         // the full barrier of the warpgroup that takes run k / nch
         const uint32_t bar = f_u + 8 * ((k / nch) % 2 * MAX_STAGES + st);
         hopper::mbar_expect_tx(bar, box);
@@ -382,7 +324,7 @@ rdb_fwd_conv(const __grid_constant__ CUtensorMap in_map,
   // own uses of a stage alternate phases; the other's do not touch them)
   uint32_t par = 0;
   for (int k = wg; k < nr; k += 2) {  // this warpgroup's runs
-    const Run r = run_of(blockIdx.x + k * G, L.H, L.W);
+    const Run r = Runs::run_of(blockIdx.x + k * G, L.H, L.W);
     const int ny = r.n + 2 * r.e;   // y rows
     const int tiles = ny > 64 ? 2 : 1;
     int hb[2];  // the lane's A row of each m-tile (rows past ny: ny - 1)
@@ -414,62 +356,24 @@ rdb_fwd_conv(const __grid_constant__ CUtensorMap in_map,
     hopper::fence_operands(acc[0]);
     hopper::fence_operands(acc[1]);
 
-    // The epilogue.  Tile T = 4 t + q holds y rows 16 T + gq + 8 h,
-    // columns 8 j + 2 tq (+ 1) of y0 (acc[t][4 j + 2 h]), y1 (j + 4) and
-    // y2 (j + 8).  The output at y row m takes y0 of row m - 1 and y2 of
-    // row m + 1: from the lanes four below and above, across the tile's
-    // two 8-row halves, and from the neighbour tiles' boundary rows
-    // through shared memory.
+    // The epilogue: tile T = 4 t + q of the warpgroup's y rows, its row
+    // exchange (rdb_mma.cuh fwd_store_bounds, fwd_combine) through the
+    // warpgroup's bnd[wg].
     if (q == 0 && lane == 0) hopper::bulk_wait_read<0>();  // tile is read
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int T = 4 * t + q;
-      if (gq == 7) {
-#pragma unroll
-        for (int k2 = 0; k2 < 8; ++k2)
-          bnd[wg][0][T][8 * (k2 / 2) + 2 * tq + k2 % 2] =
-              acc[t][4 * (k2 / 2) + k2 % 2 + 2];
-      }
-      if (gq == 0) {
-#pragma unroll
-        for (int k2 = 0; k2 < 8; ++k2)
-          bnd[wg][1][T][8 * (k2 / 2) + 2 * tq + k2 % 2] =
-              acc[t][4 * (k2 / 2 + 8) + k2 % 2];
-      }
-    }
+    for (int t = 0; t < 2; ++t)
+      rdb::fwd_store_bounds(acc[t], bnd[wg][0], bnd[wg][1], 4 * t + q, gq,
+                            tq);
     wg_sync();
-    const unsigned all = 0xffffffffu;
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       const int T = 4 * t + q;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = 16 * T + gq + 8 * h;  // y row; output row m - e
-        const int x = (r.p0 + m - r.e) % L.W;
         float v[8];
-#pragma unroll
-        for (int k2 = 0; k2 < 8; ++k2) {  // column 8 (k2/2) + 2 tq + k2%2
-          const int a0 = 4 * (k2 / 2) + k2 % 2, a2 = a0 + 32;
-          const int col = 8 * (k2 / 2) + 2 * tq + k2 % 2;
-          const float up0 = __shfl_up_sync(all, acc[t][a0 + 2 * h], 4);
-          const float wrap0 =
-              __shfl_sync(all, acc[t][a0], (lane + 28) & 31);
-          const float dn2 = __shfl_down_sync(all, acc[t][a2 + 2 * h], 4);
-          const float wrap2 =
-              __shfl_sync(all, acc[t][a2 + 2], (lane + 4) & 31);
-          float left, right;
-          if (h == 0) {
-            left = gq > 0 ? up0 : T > 0 ? bnd[wg][0][T - 1][col] : 0.f;
-            right = gq < 7 ? dn2 : wrap2;
-          } else {
-            left = gq > 0 ? up0 : wrap0;
-            right = gq < 7 ? dn2 : T < 7 ? bnd[wg][1][T + 1][col] : 0.f;
-          }
-          float v1 = acc[t][a0 + 16 + 2 * h];
-          if (x > 0) v1 = left + v1;
-          if (x < L.W - 1) v1 += right;
-          v[k2] = v1 + bv[k2];
-        }
+        rdb::fwd_combine(acc[t], bnd[wg][0], bnd[wg][1], T, h, gq, tq, lane,
+                         (r.p0 + m - r.e) % L.W, L.W, bv, v);
         const int row = m - r.e;
         if (row < 0 || row >= r.n) continue;  // not an output row
 #pragma unroll
@@ -518,8 +422,9 @@ rdb_fwd_conv(const __grid_constant__ CUtensorMap in_map,
 // The six launches of one bf16 block forward on `stream`; returns the
 // first launch's error (0 on success).  Grids: slot_ctas for convs 1-4,
 // (slot_ctas, 2) for conv 5 (ops/rdb.py fwd_schedule mirrors them and
-// the ring's size; fwd_schedule_of reports them).  feat's maps cover its image rows only, so that the
-// row-extended layout's pad rows are neither read nor written.
+// the ring's size; fwd_schedule_of reports them).  feat's maps cover its
+// image rows only, so that the row-extended layout's pad rows are
+// neither read nor written.
 template <typename TW>
 cudaError_t launch_fwd(const __nv_bfloat16* x, __nv_bfloat16* feat,
                        __nv_bfloat16* out, const Weights<TW>& w,
@@ -534,15 +439,16 @@ cudaError_t launch_fwd(const __nv_bfloat16* x, __nv_bfloat16* feat,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const int W = L.W;
-  const int ow = W <= NARROW_W ? W : run_len(W);
-  const int oh = W <= NARROW_W ? rows_per_run(W) : 1;
+  const int ow = W <= NARROW_W ? W : Runs::run_len(W);
+  const int oh = W <= NARROW_W ? Runs::rows_per_run(W) : 1;
   const __nv_bfloat16* rows = feat + (size_t)L.Y0 * W * FEAT;
   const long long img = (long long)L.HP * W;
+  const int bw = Runs::box_w(W), bh = Runs::box_h(W);
   CUtensorMap x_map, in_map, feat_out, out_map;
-  if (!tensor_map(&x_map, x, CH, W, L.H, L.B, (long long)L.H * W, 64,
-                  box_w(W), box_h(W), CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&in_map, rows, FEAT, W, L.H, L.B, img, 64, box_w(W),
-                  box_h(W), CU_TENSOR_MAP_SWIZZLE_128B) ||
+  if (!tensor_map(&x_map, x, CH, W, L.H, L.B, (long long)L.H * W, 64, bw,
+                  bh, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&in_map, rows, FEAT, W, L.H, L.B, img, 64, bw, bh,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map(&feat_out, rows, FEAT, W, L.H, L.B, img, 32, ow, oh,
                   CU_TENSOR_MAP_SWIZZLE_64B) ||
       !tensor_map(&out_map, out, CH, W, L.H, L.B, (long long)L.H * W, 32, ow,
@@ -552,7 +458,7 @@ cudaError_t launch_fwd(const __nv_bfloat16* x, __nv_bfloat16* feat,
     return err;
   for (int i = 0; i < 5; ++i) {
     if (slot_stages(i, W) < 2) return cudaErrorInvalidValue;
-    const int g = slot_ctas(i, L.B, L.H, W);
+    const int g = Runs::slot_ctas(i, L.B, L.H, W);
     const dim3 grid = i < 4 ? dim3(g) : dim3(g, 2);
     rdb_fwd_conv<<<grid, CONV_NT, slot_smem(i, W), s>>>(
         i == 0 ? x_map : in_map, i < 4 ? feat_out : out_map, feat, wpack,
@@ -595,11 +501,11 @@ inline int launch_fwd_entry(const void* x, void* feat, void* out,
 // and its dynamic shared memory (bytes).
 constexpr int SCHEDULE_INTS = 6 + 2 * NSLOTS;
 inline void fwd_schedule_of(int B, int H, int W, int* out) {
-  out[0] = B * runs_per_image(H, W);
-  out[1] = slot_ctas(0, B, H, W);
-  out[2] = slot_ctas(4, B, H, W);
-  out[3] = box_w(W);
-  out[4] = box_h(W);
+  out[0] = B * Runs::runs_per_image(H, W);
+  out[1] = Runs::slot_ctas(0, B, H, W);
+  out[2] = Runs::slot_ctas(4, B, H, W);
+  out[3] = Runs::box_w(W);
+  out[4] = Runs::box_h(W);
   out[5] = stage_bytes(W);
   for (int s = 0; s < NSLOTS; ++s) {
     out[6 + s] = slot_stages(s, W);

@@ -26,7 +26,7 @@ runs of up to 128 output pixels, ``conv_runs`` and ``conv_schedule``
 below mirroring their schedule.  bf16 multiplies in bf16; f32 in
 3xTF32: each f32 operand split into a TF32 high and low part and each
 product taken as three TF32 products, hi.lo + lo.hi + hi.hi, in f32
-(``tf32_split``, ``pair_conv_3xtf32_reference`` and
+(``ops/tf32.py`` ``tf32_split``, and ``pair_conv_3xtf32_reference`` and
 ``pair_conv_bwd_3xtf32_reference`` emulate that arithmetic).  The
 kernels read the caller's kernel (f32 or x's dtype) and round, split and
 flip it themselves, so no weight copy is made on the host.  A CUDA
@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from torchsr_tpu_torch.ops.rdb import _aligned, _cuda_operands, _raise_on
+from torchsr_tpu_torch.ops.tf32 import TF32_TERMS, tf32_parts, tf32_split
 
 C = 64  # the only channel count the gate admits
 # The JAX package's per-image cap (pair_conv.py:58): H * W / 2 pair rows
@@ -65,13 +66,6 @@ _RUN = 128
 _NARROW_W = 64
 _CTAS = 132
 _HALO_MAX = 392
-# The f32 operand's low 13 bits, which TF32 drops, and half a TF32 ulp
-_TF32_DROP = 0x1FFF
-_TF32_HALF = 0x1000
-# The three TF32 products of a 3xTF32 f32 product, (A's part, B's part):
-# A is the operand the kernels split in registers (x; g in the dgrad), B
-# the one staged as two planes (the kernel; g in the wgrad).
-TF32_TERMS = (("hi", "lo"), ("lo", "hi"), ("hi", "hi"))
 
 
 def pair_conv_supported(shape, kernel_shape=(3, 3, C, C)) -> bool:
@@ -118,28 +112,13 @@ def pair_conv_bwd_reference(x: torch.Tensor, kernel: torch.Tensor,
             g.sum(dim=(0, 1, 2)))
 
 
-def tf32_split(t: torch.Tensor):
-    """``(hi, lo)`` of an f32 tensor as the kernels split and read it
-    (csrc/hopper.cuh ``tf32_split``): hi = t rounded to TF32 (10 mantissa
-    bits, to nearest, ties away from zero: ``cvt.rna``), lo = t - hi
-    (exact in f32) cut to the 19 bits the tensor core reads."""
-    bits = t.float().contiguous().view(torch.int32)
-    hi = ((bits + _TF32_HALF) & ~_TF32_DROP).view(torch.float32)
-    lo = (t.float() - hi).view(torch.int32) & ~_TF32_DROP
-    return hi, lo.view(torch.float32)
-
-
-def _parts(t: torch.Tensor) -> dict:
-    return dict(zip(("hi", "lo"), tf32_split(t)))
-
-
 def pair_conv_3xtf32_reference(x: torch.Tensor, kernel: torch.Tensor,
                                bias: torch.Tensor,
                                terms=TF32_TERMS) -> torch.Tensor:
     """The f32 forward kernel's arithmetic in plain PyTorch: the bias
     plus the f32 convs of the TF32 parts of x and the kernel that
     ``terms`` names (all three: the kernel; fewer: a wrong one)."""
-    xs, ks = _parts(x), _parts(kernel)
+    xs, ks = tf32_parts(x), tf32_parts(kernel)
     y = bias.float().view(1, C, 1, 1)
     for a, b in terms:
         y = y + F.conv2d(_nchw(xs[a]), _oihw(ks[b]), padding=1)
@@ -151,7 +130,7 @@ def pair_conv_bwd_3xtf32_reference(x: torch.Tensor, kernel: torch.Tensor,
     """The f32 backward kernels' arithmetic: ``(dx, dW, db)`` as
     ``pair_conv_bwd_reference``, dx from the TF32 parts of g (A) and the
     kernel (B), dW from those of x (A) and g (B), db the f32 sum of g."""
-    xs, ks, gs = _parts(x), _parts(kernel), _parts(g)
+    xs, ks, gs = tf32_parts(x), tf32_parts(kernel), tf32_parts(g)
     dx = dw = 0
     for a, b in terms:
         dx = dx + torch.nn.grad.conv2d_input(

@@ -15,8 +15,11 @@ saves it.  A CUDA tensor runs the hand-written kernels: ``csrc/rdb_fwd.cu``
 (in bf16 the six launches of ``csrc/rdb_fwd_sm90.cuh``, a prep and five
 convs with the TPU kernel's kx-packed product, the three horizontal taps
 along N and reduced on the results: ``rdb_fwd_kxpack_reference`` is that
-data flow in plain PyTorch; in f32 one FFMA direct conv launched five
-times, filling the feature buffer) and, in the backward,
+data flow in plain PyTorch; in f32 the same data flow in the six
+launches of ``csrc/rdb_fwd_tf32_sm90.cuh``, each product taken as three
+TF32 ones on the tensor cores (3xTF32: ``rdb_fwd_3xtf32_reference`` is
+that arithmetic), whatever ``torch.backends``' TF32 switches say) and,
+in the backward,
 ``csrc/rdb_bwd.cu``: in bf16 the eight launches of
 ``csrc/rdb_bwd_sm90.cuh``, where each slot's dense gradient is one conv
 over the later convs' cotangents, held in one working-dtype buffer DY
@@ -52,7 +55,9 @@ gradient-debugging backend, runs every backward as ``rdb_bwd_reference``
 from the saved buffer instead of a kernel.
 
 Precision (the TPU kernels' contract): products take working-dtype
-operands (bf16 under AMP, else f32) and accumulate in f32; biases, dW,
+operands (bf16 under AMP, else f32; the f32 forward takes each f32
+product as three TF32 ones, ~2^-21 of it lost, the order of an f32
+FMA's rounding) and accumulate in f32; biases, dW,
 db and every sum stay f32 (the f32 backward's dense gradient too); dx
 and the cotangents dy_i are stored in the working dtype.  The weight
 gradients reach the f32 parameters in f32, never rounded through bf16.
@@ -75,17 +80,20 @@ COUT = (32, 32, 32, 32, 64)
 FEAT = CIN[-1]
 
 # Kernel launches by the forward on CUDA: five per block (its five
-# convs; the bf16 prep launch is not counted).  A run reads it to show
+# convs; the prep launch is not counted), in bf16 here and in f32 (the
+# 3xTF32 kernels) in RDB_FWD_F32_LAUNCHES.  A run reads them to show
 # that its path went through the kernel.
 RDB_FWD_LAUNCHES = 0
+RDB_FWD_F32_LAUNCHES = 0
 # Block backwards run by the backward kernels on CUDA: one per block
 # backward (eight launches of csrc/rdb_bwd.cu in bf16, twenty in f32).
 RDB_BWD_LAUNCHES = 0
-# The row-extended forward (five launches per block) and backward (one
-# per block backward, eight or twenty launches), and the interleaved
-# forward (five conv launches per block; its one prep or grow launch is
-# not counted).
+# The row-extended forward (five launches per block; f32 in
+# RDB_FWD_EXT_F32_LAUNCHES) and backward (one per block backward, eight
+# or twenty launches), and the interleaved forward (five conv launches
+# per block; its one prep or grow launch is not counted).
 RDB_FWD_EXT_LAUNCHES = 0
+RDB_FWD_EXT_F32_LAUNCHES = 0
 RDB_BWD_EXT_LAUNCHES = 0
 RDB_FWD_ILV_LAUNCHES = 0
 # Block backwards run on CUDA by the TORCHSR_RDB_BWD=xla backend
@@ -93,8 +101,9 @@ RDB_FWD_ILV_LAUNCHES = 0
 RDB_BWD_XLA_LAUNCHES = 0
 # Every counter above, by name (train/graphs.py adds a captured step's
 # share of each once per replay).
-LAUNCH_COUNTERS = ("RDB_FWD_LAUNCHES", "RDB_BWD_LAUNCHES",
-                   "RDB_FWD_EXT_LAUNCHES", "RDB_BWD_EXT_LAUNCHES",
+LAUNCH_COUNTERS = ("RDB_FWD_LAUNCHES", "RDB_FWD_F32_LAUNCHES",
+                   "RDB_BWD_LAUNCHES", "RDB_FWD_EXT_LAUNCHES",
+                   "RDB_FWD_EXT_F32_LAUNCHES", "RDB_BWD_EXT_LAUNCHES",
                    "RDB_FWD_ILV_LAUNCHES", "RDB_BWD_XLA_LAUNCHES")
 
 # The JAX package's knobs, names and defaults (torchsr_tpu/ops/pallas/
@@ -111,7 +120,7 @@ _EXT_TILE_W = 16
 _EXT_MAX_ROWS = 65535 * 8
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# CUDA's limit on gridDim.z, which carries the batch of the f32 forward
+# CUDA's limit on gridDim.z
 _MAX_GRID_Z = 65535
 # The f32 backward's dgrad launches carry batch x (C_in / 32) CTAs in z
 _MAX_BWD_BATCH = _MAX_GRID_Z // (FEAT // 32)
@@ -203,6 +212,22 @@ _FWD_BF16_ENTRY = {"rdb_fwd": "rdb_fwd_bf16_launch",
                    "rdb_ilv": "rdb_ilv_bf16_launch"}
 _FWD_BF16_WPACK = {"rdb_fwd": _FWD_WPACK, "rdb_ext": _FWD_WPACK,
                    "rdb_ilv": _ILV_WPACK}
+# The f32 forward (3xTF32, csrc/rdb_fwd_tf32_sm90.cuh; mirrored by
+# fwd_tf32_schedule): the bf16 forward's runs, except that a run inside a
+# row has at most _FWD_TF32_WIDE_M y rows; K chunks of _FWD_TF32_KC
+# channels (a 128-byte f32 row), chunk 0 first; a ring item is one
+# chunk of one run, its halo box (rounded up to 1024 bytes) and the
+# chunk's hi and lo weight planes (3 ky x 2 x 96 rows x 128 bytes); the
+# ring holds as many items as fit, at most _FWD_MAX_STAGES.  Grids as in
+# bf16.
+_FWD_TF32_WIDE_M = 96
+_FWD_TF32_KC = 32
+_FWD_TF32_W_CHUNK = 3 * 2 * 3 * GROWTH * 128
+_FWD_TF32_SLOT_CHUNKS = tuple(ci // _FWD_TF32_KC for ci in (*CIN, CIN[4]))
+# the prep's hi and lo planes (f32 elements)
+_FWD_TF32_WPACK = sum(_FWD_TF32_SLOT_CHUNKS) * _FWD_TF32_W_CHUNK // 4
+_FWD_TF32_ENTRY = {"rdb_fwd": "rdb_fwd_tf32_launch",
+                   "rdb_ext": "rdb_ext_fwd_tf32_launch"}
 
 
 def _check_kernels(kernels) -> None:
@@ -740,11 +765,10 @@ def rdb_fwd_cuda(
     block output and the (B, H, W, 192) feature buffer the launches
     filled (x, then the four grown 32-channel slices), so that each
     conv can be held against its own convolution, and the backward can
-    start from it.  In bf16 the kernels go to the kernel as they are (f32
-    or bf16, any strides)."""
-    global RDB_FWD_LAUNCHES
-    from torchsr_tpu_torch.ops._build import load_library
-
+    start from it.  The kernels go to the kernel as they are (f32, or in
+    bf16 also bf16; any strides); f32 runs 3xTF32 on the tensor cores,
+    whatever ``torch.backends``' TF32 switches say."""
+    global RDB_FWD_LAUNCHES, RDB_FWD_F32_LAUNCHES
     kernels, biases = tuple(kernels), tuple(biases)
     _check(x, kernels, biases)
     _cuda_operands(x, (*kernels, *biases), "rdb_fwd_cuda")
@@ -752,49 +776,33 @@ def rdb_fwd_cuda(
     b, h, w, _ = x.shape
     feat = torch.empty((b, h, w, FEAT), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    if x.dtype == torch.bfloat16:
-        _fwd_bf16("rdb_fwd", x, kernels, biases, scale_ratio, feat, out)
+    _fwd_launch("rdb_fwd", x, kernels, biases, scale_ratio, feat, out)
+    if x.dtype == torch.float32:
+        RDB_FWD_F32_LAUNCHES += 5
+    else:
         RDB_FWD_LAUNCHES += 5
-        return out, feat
-    if b > _MAX_GRID_Z:
-        raise ValueError(
-            f"the f32 RDB forward takes at most {_MAX_GRID_Z} images per "
-            f"call, got {b}"
-        )
-    kernels = [_aligned(k, x.dtype) for k in kernels]
-    biases = [b_.to(torch.float32).contiguous() for b_ in biases]
-    feat[..., :CHANNELS].copy_(x)
-
-    lib = load_library("rdb_fwd")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    for i in range(5):
-        dst = out if i == 4 else feat
-        err = lib.rdb_fwd_f32_launch(
-            i, feat.data_ptr(), kernels[i].data_ptr(), biases[i].data_ptr(),
-            dst.data_ptr(), b, h, w, float(scale_ratio), x.device.index,
-            stream,
-        )
-        _raise_on(err, lib.rdb_error_string, f"rdb_fwd conv {i + 1}")
-        RDB_FWD_LAUNCHES += 1
     return out, feat
 
 
-def _fwd_box(w: int) -> tuple:
-    """The bf16 forward's halo box at width w: (box_w, box_h) pixels."""
+def _fwd_box(w: int, wide_m: int = _FWD_M) -> tuple:
+    """The forward's halo box at width w: (box_w, box_h) pixels; a run
+    inside a row has at most ``wide_m`` y rows (bf16: ``_FWD_M``, f32:
+    ``_FWD_TF32_WIDE_M``)."""
     if w <= _FWD_NARROW_W:
         return w, _FWD_M // w + 2
-    nx = -(-w // (_FWD_M - 2))
+    nx = -(-w // (wide_m - 2))
     return -(-w // nx) + 2, 3
 
 
-def fwd_runs(b: int, h: int, w: int) -> list:
-    """The bf16 forward's runs, as its kernels count them (``run_of`` in
-    ``csrc/rdb_fwd_sm90.cuh``): ``(img, p0, n, e, r0, hx0, hw)`` each.
-    Output pixels p0 .. p0 + n - 1 of image img (y * W + x); y row m (0
-    .. n + 2 e - 1) is pixel p0 - e + m, its A row for tap ky the box
-    pixel m + ky hw; the halo box (hw pixels a row) starts at image pixel
-    (r0 - 1, hx0)."""
-    hw = _fwd_box(w)[0]
+def fwd_runs(b: int, h: int, w: int, wide_m: int = _FWD_M) -> list:
+    """The forward's runs, as its kernels count them (``run_of`` in
+    ``csrc/rdb_fwd_sm90.cuh``, and with ``wide_m=_FWD_TF32_WIDE_M`` in
+    ``csrc/rdb_fwd_tf32_sm90.cuh``): ``(img, p0, n, e, r0, hx0, hw)``
+    each.  Output pixels p0 .. p0 + n - 1 of image img (y * W + x); y row
+    m (0 .. n + 2 e - 1) is pixel p0 - e + m, its A row for tap ky the
+    box pixel m + ky hw; the halo box (hw pixels a row) starts at image
+    pixel (r0 - 1, hx0)."""
+    hw = _fwd_box(w, wide_m)[0]
     runs = []
     for img in range(b):
         if w <= _FWD_NARROW_W:
@@ -811,25 +819,41 @@ def fwd_runs(b: int, h: int, w: int) -> list:
     return runs
 
 
+def _fwd_grid(b: int, h: int, w: int, wide_m: int) -> tuple:
+    """What the two forwards' schedules share (``FwdRuns`` in
+    ``csrc/rdb_mma.cuh``): their runs, persistent grids (``conv_ctas``
+    for each of convs 1-4, ``c5_ctas`` for each of conv 5's two halves)
+    and halo box (pixels), and the box's bytes rounded up to a swizzle
+    atom."""
+    runs = b * (-(-h // (_FWD_M // w)) if w <= _FWD_NARROW_W
+                else h * -(-w // (wide_m - 2)))
+    bw, bh = _fwd_box(w, wide_m)
+    return ({"runs": runs, "conv_ctas": max(1, min(runs, _FWD_CTAS)),
+             "c5_ctas": max(1, min(runs, _FWD_CTAS // 2)), "box": (bw, bh)},
+            -(-bw * bh * 128 // 1024) * 1024)
+
+
+def _fwd_walk(sched: dict, slot: int, chunks) -> list:
+    """The (run, K chunk) items each CTA of slot ``slot``'s conv takes
+    under ``sched``, the chunks of a run in the order ``chunks``."""
+    ctas = sched["conv_ctas" if slot < 4 else "c5_ctas"]
+    return [[(t, c) for t in range(cta, sched["runs"], ctas)
+             for c in chunks] for cta in range(ctas)]
+
+
 @functools.cache
 def fwd_schedule(b: int, h: int, w: int) -> dict:
-    """The bf16 forward's persistent grids (``conv_ctas`` for each of
-    convs 1-4, ``c5_ctas`` for each of conv 5's two halves), its halo box
-    (pixels) and ring stage (bytes) and, per slot, its stages and dynamic
-    shared memory (bytes): a mirror of what the launches compute
-    (``fwd_schedule_of`` in ``csrc/rdb_fwd_sm90.cuh``; the card's smoke
-    test holds it against :func:`fwd_kernel_schedule`)."""
-    runs = (b * -(-h // (_FWD_M // w)) if w <= _FWD_NARROW_W
-            else b * h * -(-w // (_FWD_M - 2)))
-    bw, bh = _fwd_box(w)
-    stage = -(-bw * bh * 128 // 1024) * 1024
+    """The bf16 forward's persistent grids, halo box (pixels) and ring
+    stage (bytes) and, per slot, its stages and dynamic shared memory
+    (bytes): a mirror of what the launches compute (``fwd_schedule_of``
+    in ``csrc/rdb_fwd_sm90.cuh``; the card's smoke test holds it against
+    :func:`fwd_kernel_schedule`)."""
+    grid, stage = _fwd_grid(b, h, w, _FWD_M)
     weights = [nch * 3 * 3 * GROWTH * 128 for nch in _FWD_SLOT_CHUNKS]
     stages = [min(_FWD_MAX_STAGES,
                   (_FWD_SMEM_DYN - 1024 - 2 * _FWD_OUT_TILE - wb) // stage)
               for wb in weights]
-    return {"runs": runs, "conv_ctas": max(1, min(runs, _FWD_CTAS)),
-            "c5_ctas": max(1, min(runs, _FWD_CTAS // 2)), "box": (bw, bh),
-            "stage_bytes": stage, "stages": tuple(stages),
+    return {**grid, "stage_bytes": stage, "stages": tuple(stages),
             "smem": tuple(1024 + wb + 2 * _FWD_OUT_TILE + n * stage
                           for wb, n in zip(weights, stages))}
 
@@ -851,13 +875,46 @@ def fwd_kernel_schedule(b: int, h: int, w: int) -> dict:
 
 def fwd_walk(b: int, h: int, w: int, slot: int) -> list:
     """The (run, K chunk) items each CTA of slot ``slot``'s conv takes, in
-    order: one list per CTA (conv 5's halves, slots 4 and 5, one grid
-    each)."""
-    sched = fwd_schedule(b, h, w)
-    ctas = sched["conv_ctas" if slot < 4 else "c5_ctas"]
-    nch = _FWD_SLOT_CHUNKS[slot]
-    return [[(t, c) for t in range(cta, sched["runs"], ctas)
-             for c in reversed(range(nch))] for cta in range(ctas)]
+    order (chunk 0 last): one list per CTA (conv 5's halves, slots 4 and
+    5, one grid each)."""
+    return _fwd_walk(fwd_schedule(b, h, w), slot,
+                     range(_FWD_SLOT_CHUNKS[slot] - 1, -1, -1))
+
+
+@functools.cache
+def fwd_tf32_schedule(b: int, h: int, w: int) -> dict:
+    """The f32 forward's persistent grids, halo box (pixels), ring stage
+    and its halo (bytes), ring stages and dynamic shared memory (bytes):
+    a mirror of what its launches compute (``fwd_schedule_of`` in
+    ``csrc/rdb_fwd_tf32_sm90.cuh``; the card's smoke test holds it
+    against :func:`fwd_tf32_kernel_schedule`)."""
+    grid, halo = _fwd_grid(b, h, w, _FWD_TF32_WIDE_M)
+    stage = halo + _FWD_TF32_W_CHUNK
+    stages = min(_FWD_MAX_STAGES, (_FWD_SMEM_DYN - 1024) // stage)
+    return {**grid, "stage_bytes": stage, "halo_bytes": halo,
+            "stages": stages, "smem": 1024 + stages * stage}
+
+
+def fwd_tf32_kernel_schedule(b: int, h: int, w: int) -> dict:
+    """The schedule the f32 forward's launches run at (b, h, w), as the
+    built library reports it (``rdb_fwd_tf32_schedule``), in the form of
+    :func:`fwd_tf32_schedule`, which mirrors it."""
+    import ctypes
+
+    from torchsr_tpu_torch.ops._build import load_library
+
+    v = (ctypes.c_int * 9)()
+    load_library("rdb_fwd").rdb_fwd_tf32_schedule(b, h, w, v)
+    return {"runs": v[0], "conv_ctas": v[1], "c5_ctas": v[2],
+            "box": (v[3], v[4]), "stage_bytes": v[5], "halo_bytes": v[6],
+            "stages": v[7], "smem": v[8]}
+
+
+def fwd_tf32_walk(b: int, h: int, w: int, slot: int) -> list:
+    """The (run, K chunk) items each CTA of slot ``slot``'s f32 conv
+    takes, in order (chunk 0 first): one list per CTA."""
+    return _fwd_walk(fwd_tf32_schedule(b, h, w), slot,
+                     range(_FWD_TF32_SLOT_CHUNKS[slot]))
 
 
 def _fwd_slot(s: int) -> tuple:
@@ -896,9 +953,92 @@ def fwd_unpack_weights(packed: torch.Tensor) -> tuple:
     return (*halves[:4], torch.cat(halves[4:], dim=-1))
 
 
+def _swizzle128(rows: int) -> torch.Tensor:
+    """Element order of a tile of ``rows`` rows of 32 f32 in the 128-byte
+    swizzle: entry i is the element (row i // 32, k i % 32) that float i
+    of the tile holds (16-byte chunk c of row n at chunk c ^ (n % 8))."""
+    n = torch.arange(rows).view(rows, 1, 1)
+    c = torch.arange(8).view(1, 8, 1)
+    e = torch.arange(4).view(1, 1, 4)
+    return (n * 32 + (c ^ (n % 8)) * 4 + e).reshape(-1)
+
+
+def fwd_tf32_pack_weights(kernels) -> torch.Tensor:
+    """The five HWIO kernels split into TF32 hi and lo planes as the f32
+    forward's prep launch writes them (``rdb_fwd_tf32_prep``): per slot,
+    per K chunk c of 32 channels, per ky, a hi plane then a lo plane of
+    96 rows (kx * 32 + co) of 32 columns (input channel 32 c + k) in the
+    128-byte swizzle, the order in which the conv CTAs stage them.  lo is
+    the exact f32 rest (hi + lo is the weight)."""
+    from torchsr_tpu_torch.ops.tf32 import tf32_split
+
+    order = _swizzle128(3 * GROWTH)
+    parts = []
+    for s, nch in enumerate(_FWD_TF32_SLOT_CHUNKS):
+        i, _, co0 = _fwd_slot(s)
+        k = kernels[i].float()[..., co0:co0 + GROWTH]
+        hi = tf32_split(k)[0]
+        # (chunk, ky, row kx * 32 + co, k)
+        planes = [t.reshape(3, 3, nch, _FWD_TF32_KC, GROWTH)
+                  .permute(2, 0, 1, 4, 3).reshape(nch, 3, -1)
+                  for t in (hi, k - hi)]
+        parts.append(torch.stack(planes, dim=2)[..., order].reshape(-1))
+    return torch.cat(parts)
+
+
+def fwd_tf32_unpack_weights(packed: torch.Tensor) -> tuple:
+    """Inverse of :func:`fwd_tf32_pack_weights`: the five HWIO kernels as
+    hi + lo."""
+    inverse = torch.argsort(_swizzle128(3 * GROWTH))
+    halves, o = [], 0
+    for nch in _FWD_TF32_SLOT_CHUNKS:
+        n = nch * _FWD_TF32_W_CHUNK // 4
+        t = packed[o:o + n].view(nch, 3, 2, -1)[..., inverse]
+        t = (t[:, :, 0] + t[:, :, 1]).view(nch, 3, 3, GROWTH, _FWD_TF32_KC)
+        halves.append(t.permute(1, 2, 0, 4, 3).reshape(3, 3, -1, GROWTH))
+        o += n
+    return (*halves[:4], torch.cat(halves[4:], dim=-1))
+
+
+def rdb_fwd_3xtf32_reference(x: torch.Tensor, kernels, biases,
+                             scale_ratio: float = 0.2, *, terms=None,
+                             padded: bool = False):
+    """The f32 forward kernels' arithmetic in plain PyTorch (3xTF32,
+    ``csrc/rdb_fwd_tf32_sm90.cuh``): per conv, the f32 convs of the TF32
+    parts (``ops/tf32.py`` ``tf32_split``) of the feature buffer's C_in
+    prefix (A, split where the kernel splits it, in registers) and of
+    the kernel (B, the prep's planes) that ``terms`` names, summed in the
+    kernel's order (``TF32_TERMS``, the default: hi.lo, lo.hi, hi.hi;
+    fewer terms: a wrong kernel), then the bias; LeakyReLU into the
+    buffer's slot (convs 1-4) or x + scale * conv5.  Returns the block
+    output and the (B, H, W, 192) feature buffer, or with ``padded`` the
+    row-extended (B, H + 2, W, 192) one with zero pad rows (B7's)."""
+    from torchsr_tpu_torch.ops.tf32 import TF32_TERMS, tf32_parts
+
+    _check(x, kernels, biases)
+    terms = TF32_TERMS if terms is None else terms
+    xf = x.float()
+    b, h, w, _ = x.shape
+    feat = xf.new_zeros((b, h, w, FEAT))
+    feat[..., :CHANNELS] = xf
+    acc = None
+    for i, (cin, cout) in enumerate(zip(CIN, COUT)):
+        fs = tf32_parts(feat[..., :cin].permute(0, 3, 1, 2))
+        ks = tf32_parts(kernels[i].float().permute(3, 2, 0, 1))
+        acc = sum(F.conv2d(fs[a], ks[k], padding=1) for a, k in terms)
+        acc = (acc + biases[i].float().view(1, cout, 1, 1)).permute(
+            0, 2, 3, 1)
+        if i < 4:
+            feat[..., cin:cin + cout] = F.leaky_relu(acc, 0.2)
+    out = (acc * scale_ratio + xf).contiguous()
+    if padded:
+        feat = F.pad(feat, (0, 0, 0, 0, 1, 1))
+    return out, feat
+
+
 def _weight_args(kernels):
-    """The five kernels as the bf16 entries take them: f32 as they are
-    (any strides), else in bf16.  Returns the tensors (keep them alive
+    """The five kernels as the forward's and the bf16 backward's entries
+    take them: f32 as they are (any strides), else in bf16.  Returns the tensors (keep them alive
     over the call), ctypes arrays of their pointers and (ky, kx, ci, co)
     strides, and whether they are f32."""
     import ctypes
@@ -912,34 +1052,45 @@ def _weight_args(kernels):
     return kernels, ptrs, strides, w_f32
 
 
-def _fwd_bf16(lib_name, x, kernels, biases, scale_ratio, feat, out):
-    """The bf16 forward's one entry in library ``lib_name`` (``rdb_fwd``
-    on the (B, H, W, 192) ``feat``, ``rdb_ext`` on the row-extended one,
-    ``rdb_ilv`` on the interleaved (B, H, W, 576) one): a prep launch
-    packs the kernels (and zeroes ``feat``'s pad rows, or writes x's
-    chunks and the edge zeros into the interleaved buffer), five conv
-    launches fill ``feat`` (B1's first copies x into it) and ``out``."""
+def _fwd_launch(lib_name, x, kernels, biases, scale_ratio, feat, out):
+    """The forward's one entry in library ``lib_name`` for x's dtype
+    (``rdb_fwd`` on the (B, H, W, 192) ``feat``, ``rdb_ext`` on the
+    row-extended one; in bf16 also ``rdb_ilv`` on the interleaved (B, H,
+    W, 576) one): a prep launch packs the kernels (in f32: splits them
+    into TF32 hi and lo planes; and zeroes ``feat``'s pad rows, or
+    writes x's chunks and the edge zeros into the interleaved buffer),
+    five conv launches fill ``feat`` (B1's and B7's first copies x into
+    it) and ``out``."""
     import ctypes
 
     from torchsr_tpu_torch.ops._build import load_library
 
     dev = x.device
     b, h, w, _ = x.shape
+    f32 = x.dtype == torch.float32
+    if f32:  # f32 as they are (any strides), a cast otherwise
+        kernels = [k.float() for k in kernels]
     kernels, wptrs, wstrides, w_f32 = _weight_args(kernels)
     biases = [b_.to(torch.float32).contiguous() for b_ in biases]
     bptrs = (ctypes.c_void_p * 5)(*(b_.data_ptr() for b_ in biases))
-    wpack = torch.empty(_FWD_BF16_WPACK[lib_name], dtype=torch.bfloat16,
-                        device=dev)
     lib = load_library(lib_name)
-    entry = getattr(lib, _FWD_BF16_ENTRY[lib_name])
+    if f32:
+        wpack = torch.empty(_FWD_TF32_WPACK, dtype=torch.float32, device=dev)
+        entry = getattr(lib, _FWD_TF32_ENTRY[lib_name])
+        flag = ()
+    else:
+        wpack = torch.empty(_FWD_BF16_WPACK[lib_name], dtype=torch.bfloat16,
+                            device=dev)
+        entry = getattr(lib, _FWD_BF16_ENTRY[lib_name])
+        flag = (int(w_f32),)
     errstr = getattr(lib, "rdb_error_string" if lib_name == "rdb_fwd"
                      else f"{lib_name}_error_string")
     _raise_on(entry(
         x.data_ptr(), feat.data_ptr(), out.data_ptr(), ctypes.addressof(wptrs),
-        ctypes.addressof(wstrides), int(w_f32), ctypes.addressof(bptrs),
+        ctypes.addressof(wstrides), *flag, ctypes.addressof(bptrs),
         wpack.data_ptr(), b, h, w, float(scale_ratio), dev.index,
         torch.cuda.current_stream(dev).cuda_stream), errstr,
-        f"{lib_name} bf16 forward")
+        f"{lib_name} {'f32' if f32 else 'bf16'} forward")
 
 
 def flipped_kernel(k: torch.Tensor) -> torch.Tensor:
@@ -1132,9 +1283,7 @@ def rdb_fwd_ext_cuda(
     launches filled: x and the four grown slices on each image's data
     rows, the pad row above and below each image zero.  W must be a
     multiple of 16."""
-    global RDB_FWD_EXT_LAUNCHES
-    from torchsr_tpu_torch.ops._build import load_library
-
+    global RDB_FWD_EXT_LAUNCHES, RDB_FWD_EXT_F32_LAUNCHES
     kernels, biases = tuple(kernels), tuple(biases)
     _check(x, kernels, biases)
     _cuda_operands(x, (*kernels, *biases), "rdb_fwd_ext_cuda")
@@ -1143,26 +1292,11 @@ def rdb_fwd_ext_cuda(
     x = x.contiguous()
     feat = torch.empty((b, h + 2, w, FEAT), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    if x.dtype == torch.bfloat16:
-        _fwd_bf16("rdb_ext", x, kernels, biases, scale_ratio, feat, out)
+    _fwd_launch("rdb_ext", x, kernels, biases, scale_ratio, feat, out)
+    if x.dtype == torch.float32:
+        RDB_FWD_EXT_F32_LAUNCHES += 5
+    else:
         RDB_FWD_EXT_LAUNCHES += 5
-        return out, feat
-    kernels = [_aligned(k, x.dtype) for k in kernels]
-    biases = [b_.to(torch.float32).contiguous() for b_ in biases]
-    feat[:, 0].zero_()
-    feat[:, h + 1].zero_()
-    feat[:, 1:h + 1, :, :CHANNELS].copy_(x)
-
-    lib = load_library("rdb_ext")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    for i in range(5):
-        err = lib.rdb_ext_fwd_f32_launch(
-            i, feat.data_ptr(), kernels[i].data_ptr(), biases[i].data_ptr(),
-            out.data_ptr(), b, h, w, float(scale_ratio), x.device.index,
-            stream,
-        )
-        _raise_on(err, lib.rdb_ext_error_string, f"rdb_fwd_ext conv {i + 1}")
-        RDB_FWD_EXT_LAUNCHES += 1
     return out, feat
 
 
@@ -1427,7 +1561,7 @@ def rdb_fwd_ilv_cuda(
     buf = torch.empty((b, h, w, 3 * FEAT), dtype=dt, device=x.device)
     out = torch.empty_like(x)
     if dt == torch.bfloat16:
-        _fwd_bf16("rdb_ilv", x, kernels, biases, scale_ratio, buf, out)
+        _fwd_launch("rdb_ilv", x, kernels, biases, scale_ratio, buf, out)
         RDB_FWD_ILV_LAUNCHES += 5
         return out, buf
     weights = [_aligned(repack_ilv(pack_kernel(k.to(dt)), ci), dt)

@@ -2,7 +2,8 @@
 
     python torchsr_tpu_torch/tools/bench_rdb.py [--root TREE] [--bwd]
         [--gan-profile] [--serve-profile] [--serve-ilv-profile]
-        [--pair-synth] [--seed N]
+        [--serve-f32-profile] [--eval-f32] [--pair-synth] [--hashes]
+        [--seed N]
 
 The counterpart of the JAX package's ``tools/bench_rdb.py``.  ``--root``
 names the checkout whose ``torchsr_tpu_torch`` is imported (by default
@@ -14,13 +15,17 @@ card.  The script builds that tree's kernels into its own
 It prints, for the block forward ``rdb_fwd_cuda`` (B1) and
 ``rdb_fwd_ext_cuda`` (B7) at the serving shape (16, 64, 64, 64) and the
 training shape (64, 32, 32, 64), and ``rdb_fwd_ilv_cuda`` (B6) at the
-serving shape and the ragged (3, 37, 45, 64), bf16 and f32: the median
-time of a call
+serving shape and the ragged (3, 37, 45, 64), bf16 and f32, and B1 at
+that ragged shape and at ``eval``'s whole 44 x 44 LR image (1, 44, 44,
+64; the quality corpus's 176 x 176 eval images): the median time of a
+call
 over 30 calls (CUDA events, 3 warm-ups), and the device time of each
 kernel a call launches, by its position in the call, over 10 calls under
 ``torch.profiler``, with the kernels a call launches.  The weights are
 contiguous in the working dtype; ``b1_bf16_f32views`` also times B1 in
 bf16 with f32 permuted views of OIHW weights, as the trainer hands them.
+The f32 block's plain version (``rdb_reference``: five ``F.conv2d``,
+TF32 off) is timed at the serving and training shapes the same way.
 ``--bwd`` adds the backward, ``rdb_bwd_cuda`` (B2) and
 ``rdb_bwd_ext_cuda`` (B8), at the training shape the same way.
 ``--gan-profile`` profiles one GAN step of the full-width trainer at
@@ -28,12 +33,20 @@ batch 64 and ``--serve-profile`` three (16, 64, 64, 3) tile batches of
 the 23-RRDB generator in bf16: the RDB forward's (and backward's)
 device time, the kernels per step or batch, the device's busy share of
 the span; ``--serve-ilv-profile`` the same tile batches with
-``TORCHSR_RDB_ILV``'s variant (B6) selected.  ``--pair-synth`` times
+``TORCHSR_RDB_ILV``'s variant (B6) selected; ``--serve-f32-profile``
+the same tile batches in f32 (TF32 off), the path of ``eval`` and of the
+trainer's validation and renders.  ``--eval-f32`` times ``eval``'s
+``run_eval`` (f32, whole images, TF32 off, as the subcommand runs it)
+over 24 seeded 176 x 176 PNGs with a seeded 23-RRDB checkpoint: the
+wall time of the second of two runs.  ``--pair-synth`` times
 the pair synthesis kernel (B3, ``synthesize_pair_cuda``) at the bench
 tool's shape (64, 96, 96, 3), a call (CUDA events) and its device time,
 and runs ``tools/bench_preprocess.py``'s measurement (median and p90 µs
-a synthesized batch) on that tree.  One JSON line on stdout, the card's
-name and power limit in it.  It needs a CUDA card and the CUDA toolkit.
+a synthesized batch) on that tree.  ``--hashes`` prints digests of B1's
+and B7's outputs and feature buffers at nine shapes in both dtypes, so
+that two trees can be shown to compute the same bits.  One JSON line
+on stdout, the card's name and power limit in it.  It needs a CUDA card
+and the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -48,6 +61,9 @@ import sys
 SERVE_SHAPE = (16, 64, 64, 64)  # a serving tile batch of 64 x 64 LR tiles
 TRAIN_SHAPE = (64, 32, 32, 64)  # batch 64 of 32 x 32 LR crops
 RAGGED_SHAPE = (3, 37, 45, 64)  # a whole image's blocks, as `test` gives
+EVAL_SHAPE = (1, 44, 44, 64)  # `eval` on a 176 x 176 image: one at a time
+EVAL_IMAGES = 24  # the quality corpus's eval set: 24 images of 176 x 176
+EVAL_HW = (176, 176)
 SYNTH_SHAPE = (64, 96, 96, 3)  # tools/bench_preprocess.py's defaults
 SCALE = 0.2
 GAN_BATCH = 64
@@ -186,6 +202,66 @@ def bench_forward(torch, rdb_ops, seed: int) -> dict:
                 out[f"{where}_b6_{name}"] = _timed(
                     torch, lambda: rdb_ops.rdb_fwd_ilv_cuda(
                         xd, kd, bs, scale_ratio=SCALE))
+        for where, shape in (("ragged", RAGGED_SHAPE), ("eval", EVAL_SHAPE)):
+            x = (torch.randn(shape, generator=gen) * 0.5).cuda()
+            out[f"{where}_b1_float32"] = _timed(
+                torch, lambda: rdb_ops.rdb_fwd_cuda(x, ks, bs,
+                                                    scale_ratio=SCALE))
+        cudnn_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for where, shape in (("serve", SERVE_SHAPE),
+                                 ("train", TRAIN_SHAPE)):
+                x = (torch.randn(shape, generator=gen) * 0.5).cuda()
+                out[f"{where}_plain_float32"] = _timed(
+                    torch, lambda: rdb_ops.rdb_reference(
+                        x, ks, bs, scale_ratio=SCALE))
+        finally:
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    return out
+
+
+# The shapes ``--hashes`` runs B1 at (B7 where the width is a multiple of
+# 16): chip_smoke.py's rdb_fwd shapes, a one-pixel-wide and a 65-wide one.
+HASH_SHAPES = {"serve": SERVE_SHAPE, "ragged": RAGGED_SHAPE,
+               "wide": (2, 6, 140, 64), "ext_wide": (2, 6, 144, 64),
+               "train": TRAIN_SHAPE, "eval": EVAL_SHAPE,
+               "ext_ragged": (3, 37, 48, 64), "w1": (2, 5, 1, 64),
+               "w65": (2, 9, 65, 64)}
+
+
+def forward_hashes(torch, rdb_ops, seed: int) -> dict:
+    """The first 16 hex digits of the SHA-256 of B1's and B7's output and
+    feature buffer (B7: its data rows) at each of ``HASH_SHAPES``, in
+    bf16 (also with f32 views of the weights) and f32, on seeded inputs:
+    two trees whose kernels compute the same bits print the same
+    hashes."""
+    import hashlib
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                              .numpy().tobytes()).hexdigest()[:16]
+
+    gen, ks, bs = _weights(torch, rdb_ops, seed)
+    views = [k.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+             for k in ks]
+    out = {}
+    with torch.inference_mode():
+        for where, shape in HASH_SHAPES.items():
+            x = (torch.randn(shape, generator=gen) * 0.5).cuda()
+            for name, dtype, kd in (
+                    ("bfloat16", torch.bfloat16,
+                     [k.to(torch.bfloat16) for k in ks]),
+                    ("bf16_f32views", torch.bfloat16, views),
+                    ("float32", torch.float32, ks)):
+                xd = x.to(dtype)
+                y, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
+                out[f"{where}_b1_{name}"] = [digest(y), digest(feat)]
+                if shape[2] % 16 == 0:
+                    y, feat = rdb_ops.rdb_fwd_ext_cuda(xd, kd, bs,
+                                                       scale_ratio=SCALE)
+                    out[f"{where}_b7_{name}"] = [digest(y),
+                                                 digest(feat[:, 1:-1])]
     return out
 
 
@@ -288,18 +364,19 @@ def gan_profile(torch, root: str, seed: int) -> dict:
     return _summary(_profile(torch, step, 1, key=_rdb_class), "step")
 
 
-def serve_profile(torch, seed: int) -> dict:
+def serve_profile(torch, seed: int, dtype=None) -> dict:
     """Three tile batches (16, 64, 64, 3) of the 23-RRDB generator (seeded
-    random weights) in bf16 under ``torch.inference_mode``, after two
-    unprofiled ones, under the profiler: per batch.  The RDB variant is
-    the one ``ops.rdb``'s knobs select."""
+    random weights) in ``dtype`` (bf16 by default) under
+    ``torch.inference_mode``, after two unprofiled ones, under the
+    profiler: per batch.  The RDB variant is the one ``ops.rdb``'s knobs
+    select."""
     from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
 
     gen = ESRGANGenerator(
         num_rrdb_blocks=NUM_RRDB,
         generator=torch.Generator().manual_seed(seed)).cuda()
     gen.requires_grad_(False)
-    gen.compute_dtype = torch.bfloat16
+    gen.compute_dtype = dtype or torch.bfloat16
     x = torch.rand(TILE_BATCH, generator=torch.Generator().manual_seed(
         seed + 1)).cuda()
     with torch.inference_mode():
@@ -307,6 +384,51 @@ def serve_profile(torch, seed: int) -> dict:
         row.update(_summary(_profile(torch, lambda: gen(x), 3,
                                      key=_rdb_class), "batch"))
     return row
+
+
+def eval_f32(torch, root: str, seed: int) -> dict:
+    """``run_eval`` in f32 on whole images (``eval``'s default; TF32 off)
+    over ``EVAL_IMAGES`` seeded PNGs of ``EVAL_HW`` with a seeded 23-RRDB
+    checkpoint: the wall time of the second of two runs (the first
+    builds and warms up), and the RDB forward launches it made."""
+    import contextlib
+    import io
+    import time
+    from argparse import Namespace
+
+    import numpy as np
+    from PIL import Image
+
+    from torchsr_tpu_torch.infer.evaluate import run_eval
+    from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
+    from torchsr_tpu_torch.ops import rdb as rdb_ops
+    from torchsr_tpu_torch.utils.checkpoint import save_checkpoint
+
+    folder = os.path.join(root, "build", "bench_rdb", "eval")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(EVAL_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (*EVAL_HW, 3), np.uint8)).save(
+            os.path.join(folder, f"img{i:02d}.png"))
+    gen = ESRGANGenerator(num_rrdb_blocks=NUM_RRDB,
+                          generator=torch.Generator().manual_seed(seed))
+    ckpt = os.path.join(root, "build", "bench_rdb", "eval_gen.pth")
+    save_checkpoint(ckpt, 1, "gan", gen.state_dict())
+    args = Namespace(image_dir=folder, model="esrgan", checkpoint=ckpt,
+                     crop=None, tile=0, tile_overlap=16, tile_batch=8,
+                     bf16=False, save_sr=False, report=None, device="cuda")
+    walls = []
+    for _ in range(2):
+        before = rdb_ops.RDB_FWD_F32_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = run_eval(args, ESRGANGenerator)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return {"images": report["images"], "wall_s": walls[-1],
+            "first_wall_s": walls[0],
+            "rdb_fwd_f32_launches": rdb_ops.RDB_FWD_F32_LAUNCHES - before}
 
 
 def main(argv=None) -> None:
@@ -318,7 +440,10 @@ def main(argv=None) -> None:
     parser.add_argument("--gan-profile", action="store_true")
     parser.add_argument("--serve-profile", action="store_true")
     parser.add_argument("--serve-ilv-profile", action="store_true")
+    parser.add_argument("--serve-f32-profile", action="store_true")
+    parser.add_argument("--eval-f32", action="store_true")
     parser.add_argument("--pair-synth", action="store_true")
+    parser.add_argument("--hashes", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -346,10 +471,20 @@ def main(argv=None) -> None:
         rdb_ops.ILV_KERNEL = True
         row["serve_ilv_tile_batch"] = serve_profile(torch, args.seed)
         rdb_ops.ILV_KERNEL = False
+    if args.serve_f32_profile:
+        cudnn_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        row["serve_f32_tile_batch"] = serve_profile(torch, args.seed,
+                                                    torch.float32)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    if args.eval_f32:
+        row["eval_f32"] = eval_f32(torch, root, args.seed)
     if args.gan_profile:
         row["gan_step_batch64"] = gan_profile(torch, root, args.seed)
     if args.pair_synth:
         row["pair_synth"] = bench_pair_synth(torch, args.seed)
+    if args.hashes:
+        row["hashes"] = forward_hashes(torch, rdb_ops, args.seed)
     print(json.dumps(row), flush=True)
 
 

@@ -30,6 +30,12 @@ process:
    inputs; its per-image report is written beside the others and the
    summary sets its margin over bicubic beside JAX's.
 
+``--plain-rdb`` runs the whole tool under ``ops.rdb.plain_forward()``:
+every residual dense block is its plain version (five ``F.conv2d``,
+differentiated by autograd), so that neither RDB kernel, forward or
+backward, runs; the summary records ``"rdb_fwd": "plain"`` and the
+RDB launch counters the run left.
+
 It writes each report, the training metrics, and ``summary.json`` (the
 reports' headline numbers beside the JAX reports', the per-epoch eval
 PSNR beside the JAX curve at epochs 1, 5, 10, 20, 40 and 60 of each
@@ -38,7 +44,7 @@ card's name and power limit) under ``--out``.
 
 Usage: python -m torchsr_tpu_torch.tools.quality_run --model esrgan
        [--out build/quality/reports] [--device cuda|cpu] [--seed N]
-       [--f32] [--bf16-operands] [--vgg-weights PATH]
+       [--f32] [--plain-rdb] [--bf16-operands] [--vgg-weights PATH]
        [--pretrain-epochs N --epochs N --batch-size N
         --dataset-multiplier N --gen-blocks N --vgg-convs N]
 (the last flags shrink the recipe for a rehearsal on the CPU).
@@ -143,6 +149,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--f32", action="store_true",
                         help="train in f32 (train's --disable-amp) with "
                              "TF32 off for the whole run")
+    parser.add_argument("--plain-rdb", action="store_true",
+                        help="train and evaluate with every residual "
+                             "dense block as its plain version (no RDB "
+                             "kernel, forward or backward)")
     parser.add_argument("--bf16-operands", action="store_true",
                         help="also score psnr-best with the LR and the "
                              "bicubic baseline synthesized at the JAX "
@@ -150,10 +160,12 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     from torchsr_tpu_torch.infer.evaluate import tf32_allowed
+    from torchsr_tpu_torch.ops.rdb import plain_forward
 
     # --f32 turns TF32 off for the whole run; otherwise PyTorch's
     # defaults hold (cuDNN TF32 on, matmul TF32 off)
-    with tf32_allowed(False) if args.f32 else contextlib.nullcontext():
+    with (tf32_allowed(False) if args.f32 else contextlib.nullcontext(),
+          plain_forward() if args.plain_rdb else contextlib.nullcontext()):
         return _run(args)
 
 
@@ -162,6 +174,7 @@ def _run(args) -> dict:
 
     from torchsr_tpu_torch import cli
     from torchsr_tpu_torch.infer.evaluate import run_eval
+    from torchsr_tpu_torch.ops import rdb
     from torchsr_tpu_torch.registry import select_test_model
     from torchsr_tpu_torch.tools import make_quality_dataset
 
@@ -251,7 +264,11 @@ def _run(args) -> dict:
         "f32": args.f32,
         "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                  "matmul": torch.backends.cuda.matmul.allow_tf32},
-        "rdb_bwd": os.environ.get("TORCHSR_RDB_BWD", "pallas"),
+        "rdb_fwd": "plain" if args.plain_rdb else "kernel",
+        "rdb_bwd": ("plain" if args.plain_rdb
+                    else os.environ.get("TORCHSR_RDB_BWD", "pallas")),
+        "rdb_launches": {name: getattr(rdb, name)
+                         for name in rdb.LAUNCH_COUNTERS},
         "dataset_multiplier": args.dataset_multiplier,
         "train_wall_s": train_s, "wall_s": time.time() - t0,
         "reports": {k: _headline(v) for k, v in reports.items()},
