@@ -14,6 +14,7 @@ the drives that name them.  Each path's launch counters
 (``ops.rdb.RDB_*_LAUNCHES``, ``ops.preprocess.PAIR_SYNTH_LAUNCHES``,
 ``ops.pair_conv.PAIR_FWD_LAUNCHES``, ``PAIR_BWD_LAUNCHES``, and the
 f32 kernels' own ``RDB_FWD_F32_LAUNCHES``, ``RDB_FWD_EXT_F32_LAUNCHES``,
+``RDB_BWD_F32_LAUNCHES``, ``RDB_BWD_EXT_F32_LAUNCHES``,
 ``PAIR_FWD_F32_LAUNCHES``, ``PAIR_BWD_F32_LAUNCHES``) are set
 to 0 just before it and must read exactly what its steps, evals,
 renders, tile batches or tool calls imply, every other counter (the
@@ -69,16 +70,25 @@ renders, tile batches or tool calls imply, every other counter (the
    ilv_schedule`` mirrors.  Routing: a forward that a backward follows
    goes to B1.
 6. rdb_bwd (B2): the RDB backward at the training shape (64, 32, 32, 64),
-   a ragged one and, in bf16, the ``--scale 2`` and ``--scale 8`` LR
-   batches (16, 64, 64, 64) and (16, 16, 16, 64); every stage (each cotangent dy_j of the kernel's DY
-   buffer, dx, each dW and db) held against a plain computation of the
-   kernel's own inputs to it, the whole against ``rdb_bwd_reference``,
-   beside five wrong kernels; dW and db bit-equal over two backwards; a
-   call's profile holding only its own kernels (at most eight in bf16),
-   with its device time by kernel.
+   a ragged one and the ``--scale 2`` and ``--scale 8`` LR batches (16,
+   64, 64, 64) and (16, 16, 16, 64), f32 and bf16; every stage (each
+   cotangent dy_j of the kernel's DY buffer, dx, each dW and db) held
+   against a plain computation of the kernel's own inputs to it, the
+   whole against ``rdb_bwd_reference``, beside five wrong kernels; dW
+   and db bit-equal over two backwards; a call's profile holding only
+   its own kernels (at most eight in bf16), with its device time by
+   kernel.  In f32 (the 3xTF32 kernels, ``ops/csrc/
+   rdb_bwd_tf32_sm90.cuh``) also plain TF32 and 3xTF32 without lo.hi
+   (``WRONG_BWD_TF32``), which must fail, what the emulated 3xTF32
+   backward reads (beside the launch's: drift on the tensor core shows
+   as a launch reading more), a call's profile exactly eight kernels,
+   the schedule the launches run the one ``ops.rdb.bwd_tf32_schedule``
+   mirrors, and the 3xTF32 bound printed beside the FMA one.
 7. rdb_bwd_ext (B8): the row-extended backward, checked as rdb_bwd on
-   the data rows, DY's pad rows zero, the whole against B2 on the same
-   feature buffer, beside two wrong kernels proper to the padded layout.
+   the data rows (in f32 also at the two ``--scale`` batches), DY's pad
+   rows zero, the whole against B2 on the same feature buffer (in f32
+   bit for bit: one 3xTF32 code path), beside two wrong kernels proper
+   to the padded layout (and in f32 rdb_bwd's).
 8. pair_synth (B3): the fused pair synthesis at the bench tool's shape
    (64, 96, 96, 3), the training crops' (64, 128, 128, 3), an odd size
    (3, 148, 148, 3) with each flip and (5, 100, 100, 3), whose 25 LR rows
@@ -104,8 +114,9 @@ renders, tile batches or tool calls imply, every other counter (the
     calls imply.
 11. train_grad, train_grad_ext, train_grad_xla: one L1 backward of the
     23-RRDB generator, every parameter gradient of the kernel path
-    against the plain path: on B1/B2, with ``EXT_KERNEL`` on B7/B8, and
-    with ``BWD_XLA`` on B1 and the plain backward (its own counter).
+    against the plain path, f32 and bf16 (each dtype on its own
+    counters): on B1/B2, with ``EXT_KERNEL`` on B7/B8, and with
+    ``BWD_XLA`` on B1 and the plain backward (its own counter).
 12. generator: the 23-RRDB ESRGAN (seeded random weights) on one tile
     batch, kernel path against plain path in f32 and bf16 (generators
     with wrong blocks must read over the f32 limit; one whose blocks
@@ -146,6 +157,11 @@ renders, tile batches or tool calls imply, every other counter (the
     32x32 crops and the 48x64 sample are eligible), then ``test`` on
     its gan-best whole-image (W = 140 is not: B1) and tiled (64x64
     tiles: B7).
+20a. train_f32, train_f32_ext: the train drive with ``--disable-amp``
+    (TF32 off): every step's forward and backward, every eval and render
+    on the f32 (3xTF32) B1 and B2 (``rdb_fwd_f32``, ``rdb_bwd_f32``; with
+    ``EXT_KERNEL`` B7 and B8), no bf16 launch; then ``test`` on its
+    gan-best (bf16: B1, and with ``EXT_KERNEL`` tiled on B7).
 21. eval: ``python -m torchsr_tpu_torch eval`` (in this process) on
     the train phase's gan-best over seeded PNGs of mixed sizes (one
     width not a multiple of 4, one image below the SSIM window, which
@@ -243,15 +259,17 @@ renders, tile batches or tool calls imply, every other counter (the
     through the loader, their time and the device's busy share.
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
-power limit again, a ``kernels`` JSON line (all eight kernels), and as
+power limit again, a ``kernels`` JSON line (all eight kernels, f32
+paths of B1, B2, B4, B5, B7 and B8 in rows of their own), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no last line.
 ``--only`` runs the named phases after probe and build (for kernel
 work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
 pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
-train_grad_ext, train_grad_xla, train, train_ext, train_speed, eval and
-interp (each after train), srgan_train, multistep, bench, serve_graph,
-export, batching, external, shard_tiles, halo (these six on a seeded
+train_grad_ext, train_grad_xla, train, train_ext, train_f32,
+train_f32_ext, train_speed, eval and interp (each after train),
+srgan_train, multistep, bench, serve_graph, export, batching,
+external, shard_tiles, halo (these six on a seeded
 23-RRDB generator), pack_train, scale, preempt, fast_compile,
 subpixel_head, ddp_train, prefetch; and multi_card, on a machine with several
 cards only (``torchrun --nproc-per-node N`` training for both models,
@@ -358,9 +376,11 @@ COUNTERS = {
     "rdb_fwd": (rdb_ops, "RDB_FWD_LAUNCHES"),
     "rdb_fwd_f32": (rdb_ops, "RDB_FWD_F32_LAUNCHES"),
     "rdb_bwd": (rdb_ops, "RDB_BWD_LAUNCHES"),
+    "rdb_bwd_f32": (rdb_ops, "RDB_BWD_F32_LAUNCHES"),
     "rdb_fwd_ext": (rdb_ops, "RDB_FWD_EXT_LAUNCHES"),
     "rdb_fwd_ext_f32": (rdb_ops, "RDB_FWD_EXT_F32_LAUNCHES"),
     "rdb_bwd_ext": (rdb_ops, "RDB_BWD_EXT_LAUNCHES"),
+    "rdb_bwd_ext_f32": (rdb_ops, "RDB_BWD_EXT_F32_LAUNCHES"),
     "rdb_fwd_ilv": (rdb_ops, "RDB_FWD_ILV_LAUNCHES"),
     "rdb_bwd_xla": (rdb_ops, "RDB_BWD_XLA_LAUNCHES"),
     "pair_synth": (ps_ops, "PAIR_SYNTH_LAUNCHES"),
@@ -434,9 +454,16 @@ BWD_BLOCK_LIMITS = {torch.float32: (1e-4, 1e-4),
 # the farthest cotangent (dy_4), dx's conv reading all of DY.
 WRONG_BWD = ("dw3_zero", "lrelu_one", "taps_unflipped", "conv5_dropped",
              "dy_suffix_short")
-# At most this many kernels in one bf16 backward call's profile: prep,
-# four slot convs, dx, wgrad, reduce (no flip or cast beside them).
+# The f32 backward's products short of a term (plain TF32, and 3xTF32
+# without lo.hi), emulated by ``rdb_bwd_3xtf32_reference``: each must
+# read over the f32 limits.
+WRONG_BWD_TF32 = {"tf32_once": (("hi", "hi"),),
+                  "cross_term_dropped": (("hi", "hi"), ("hi", "lo"))}
+# At most this many kernels in one bf16 backward call's profile, and
+# exactly this many in an f32 one: prep, four slot convs, dx, wgrad,
+# reduce (no flip or cast beside them).
 BWD_BF16_KERNELS = 8
+BWD_F32_KERNELS = 8
 # train_grad: one L1 backward of the 23-RRDB generator, every parameter
 # gradient of the kernel path against the plain path (autograd through
 # rdb_reference), as max|kernel - plain| / max|plain| per tensor.
@@ -480,8 +507,9 @@ def read_counters() -> dict:
 
 
 def fwd_counter(kernel: str, dtype: torch.dtype) -> str:
-    """The counter of forward ``kernel`` ("rdb_fwd" or "rdb_fwd_ext") in
-    ``dtype``: f32 runs the 3xTF32 kernels, counted apart."""
+    """The counter of RDB ``kernel`` ("rdb_fwd", "rdb_fwd_ext", "rdb_bwd"
+    or "rdb_bwd_ext") in ``dtype``: f32 runs the 3xTF32 kernels, counted
+    apart."""
     return f"{kernel}_f32" if dtype == torch.float32 else kernel
 
 
@@ -1366,7 +1394,9 @@ def phase_rdb_variant(seed: int, variant: str) -> dict:
 
 def rdb_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
     """The backward's bound: reads feat, g and the kernels once, writes
-    dx, dW and db once; dgrad + wgrad operations."""
+    dx, dW and db once; dgrad + wgrad operations, in f32 as three TF32
+    products at the TF32 peak (``rdb_bwd_ffma_ms``: one f32 product at
+    the FMA peak)."""
     b, h, w, c = shape
     px = b * h * w
     item = torch.finfo(dtype).bits // 8
@@ -1374,9 +1404,18 @@ def rdb_bwd_bound_ms(shape, dtype) -> tuple[float, str]:
     nbytes = (px * (rdb_ops.FEAT + 2 * c) * item + weights * (item + 4)
               + 4 * sum(rdb_ops.COUT))
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = px * RDB_BWD_FLOP_PER_PX / PEAK_FLOPS[dtype]
+    t_ops = (3 * px * RDB_BWD_FLOP_PER_PX / TF32_FLOPS
+             if dtype == torch.float32
+             else px * RDB_BWD_FLOP_PER_PX / PEAK_FLOPS[dtype])
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes > t_ops else "operations")
+
+
+def rdb_bwd_ffma_ms(shape) -> float:
+    """The f32 backward's operations at the 67 TFLOP/s FMA peak (the
+    bound of the FFMA kernels the 3xTF32 ones replaced)."""
+    return 1e3 * math.prod(shape[:3]) * RDB_BWD_FLOP_PER_PX / PEAK_FLOPS[
+        torch.float32]
 
 
 # Profiler windows a profile may take: torch.profiler now and then
@@ -1444,12 +1483,13 @@ def hold_rdb_bwd(x: torch.Tensor, ks, bs, g: torch.Tensor) -> dict:
     computations, beside what the ``WRONG_BWD`` kernels read; a second
     run's dW and db bit-equal to the first's."""
     _, feat = rdb_ops.rdb_fwd_cuda(x, ks, bs, scale_ratio=SCALE)
-    before = rdb_ops.RDB_BWD_LAUNCHES
+    module, attr = COUNTERS[fwd_counter("rdb_bwd", x.dtype)]
+    before = getattr(module, attr)
     got = rdb_ops.rdb_bwd_cuda(g, feat, ks, scale_ratio=SCALE)
     again = rdb_ops.rdb_bwd_cuda(g, feat, ks, scale_ratio=SCALE)
     torch.cuda.synchronize()
-    check(rdb_ops.RDB_BWD_LAUNCHES == before + 2,
-          "rdb_bwd_cuda counted one backward a call")
+    check(getattr(module, attr) == before + 2,
+          f"rdb_bwd_cuda counted one backward a call in {attr}")
     check(all(bool(torch.isfinite(t).all())
               for t in (got[0], *got[1], *got[2], got[3])),
           "rdb_bwd outputs finite")
@@ -1457,10 +1497,28 @@ def hold_rdb_bwd(x: torch.Tensor, ks, bs, g: torch.Tensor) -> dict:
     row["dw_db_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
         (*got[1], *got[2]), (*again[1], *again[2])))
     row["worst"] = _worst(row)
-    row["wrong"] = {fault: _worst(bwd_scores(
+    row.update(bwd_wrong(g, feat, ks))
+    return row
+
+
+def bwd_wrong(g, feat, ks) -> dict:
+    """What the ``WRONG_BWD`` kernels (and in f32 the ``WRONG_BWD_TF32``
+    products) read under the limits, and in f32 what the emulated
+    3xTF32 backward itself reads (``emulated``: the same products summed
+    in f32; a launch reading more than it drifts on the tensor core)."""
+    wrong = {fault: _worst(bwd_scores(
         g, feat, ks, emulated_bwd(g, feat, ks, SCALE, fault)))
         for fault in WRONG_BWD}
-    return row
+    out = {"wrong": wrong}
+    if feat.dtype == torch.float32:
+        for fault, terms in WRONG_BWD_TF32.items():
+            wrong[fault] = _worst(bwd_scores(
+                g, feat, ks, rdb_ops.rdb_bwd_3xtf32_reference(
+                    g, feat, ks, SCALE, terms=terms)))
+        out["emulated"] = _worst(bwd_scores(
+            g, feat, ks, rdb_ops.rdb_bwd_3xtf32_reference(g, feat, ks,
+                                                          SCALE)))
+    return out
 
 
 def check_bwd_row(row: dict, name: str) -> None:
@@ -1475,10 +1533,15 @@ def check_bwd_row(row: dict, name: str) -> None:
 
 def check_bwd_profile(prof: dict, dtype, name: str) -> None:
     """A bf16 backward call launches at most ``BWD_BF16_KERNELS`` kernels,
-    all its own (no flip or cast beside them)."""
-    if dtype != torch.bfloat16:
-        return
+    all its own (no flip or cast beside them); an f32 one exactly
+    ``BWD_F32_KERNELS``, all the 3xTF32 backward's."""
     names = [n for n, _ in prof["by_launch"]]
+    if dtype == torch.float32:
+        check(prof["kernels_per_call"] == BWD_F32_KERNELS
+              and all("rdb_bwd_tf32" in n for n in names),
+              f"{name}: one f32 call launches only its own kernels, "
+              f"{BWD_F32_KERNELS}: {names}")
+        return
     check(prof["kernels_per_call"] <= BWD_BF16_KERNELS
           and all("rdb_bwd_" in n for n in names),
           f"{name}: one bf16 call launches only its own kernels, at most "
@@ -1498,33 +1561,42 @@ def phase_rdb_bwd(seed: int) -> dict:
     rows = {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
             xd, gd = x.to(dtype), g.to(dtype)
             kd = [k.to(dtype) for k in ks]
             row = hold_rdb_bwd(xd, kd, bs, gd)
             row["ragged"] = hold_rdb_bwd(xd[:b, :h, :w], kd, bs,
                                          gd[:b, :h, :w])
-            if dtype == torch.bfloat16:
-                for name, (xs, gs) in scaled.items():
-                    xs, gs = xs.to(dtype), gs.to(dtype)
-                    row[name] = hold_rdb_bwd(xs, kd, bs, gs)
-                    _, fs = rdb_ops.rdb_fwd_cuda(xs, kd, bs,
-                                                 scale_ratio=SCALE)
-                    row[name]["ms"] = median_ms(
-                        lambda: rdb_ops.rdb_bwd_cuda(gs, fs, kd,
-                                                     scale_ratio=SCALE))
-                    row[name]["bound_ms"] = rdb_bwd_bound_ms(
-                        SCALE_RDB_SHAPES[name], dtype)[0]
+            for name, (xs, gs) in scaled.items():
+                xs, gs = xs.to(dtype), gs.to(dtype)
+                row[name] = hold_rdb_bwd(xs, kd, bs, gs)
+                _, fs = rdb_ops.rdb_fwd_cuda(xs, kd, bs, scale_ratio=SCALE)
+                row[name]["ms"] = median_ms(
+                    lambda: rdb_ops.rdb_bwd_cuda(gs, fs, kd,
+                                                 scale_ratio=SCALE))
+                row[name]["bound_ms"] = rdb_bwd_bound_ms(
+                    SCALE_RDB_SHAPES[name], dtype)[0]
+            if f32:  # the launches' schedule is the one the wrapper sizes
+                row["schedules_mirrored"] = all(
+                    {k: v for k, v in rdb_ops.bwd_tf32_schedule(*sh).items()
+                     if k != "prep_blocks"}
+                    == rdb_ops.bwd_tf32_kernel_schedule(*sh)
+                    for sh in (TRAIN_RDB_SHAPE[:3], RAGGED, WIDE,
+                               *(v[:3] for v in SCALE_RDB_SHAPES.values())))
             _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
 
             def call():
                 return rdb_ops.rdb_bwd_cuda(gd, feat, kd, scale_ratio=SCALE)
 
             row["ms"] = median_ms(call)
-            row["profile"] = bwd_profile(call)
+            row["profile"] = bwd_profile(
+                call, kernels=BWD_F32_KERNELS if f32 else None)
             row["plain_ms"] = median_ms(
                 lambda: rdb_ops.rdb_bwd_reference(gd, feat, kd, SCALE))
             row["bound_ms"], row["bound_by"] = rdb_bwd_bound_ms(
                 TRAIN_RDB_SHAPE, dtype)
+            if f32:
+                row["ffma_bound_ms"] = rdb_bwd_ffma_ms(TRAIN_RDB_SHAPE)
             px = TRAIN_RDB_SHAPE[0] * TRAIN_RDB_SHAPE[1] * TRAIN_RDB_SHAPE[2]
             row["tflops"] = px * RDB_BWD_FLOP_PER_PX / row["ms"] / 1e9
             name = str(dtype).removeprefix("torch.")
@@ -1539,6 +1611,10 @@ def phase_rdb_bwd(seed: int) -> dict:
                     check_bwd_row(row[where], f"rdb_bwd {name} {where}")
             check_bwd_row(row, f"rdb_bwd {name} training")
             check_bwd_profile(row["profile"], dtype, f"rdb_bwd {name}")
+            if f32:
+                check(row["schedules_mirrored"],
+                      "rdb_bwd float32: the launches run the schedule "
+                      "bwd_tf32_schedule mirrors")
     return rows
 
 
@@ -1568,12 +1644,13 @@ def hold_rdb_bwd_ext(x: torch.Tensor, ks, bs, g: torch.Tensor) -> dict:
     the same feature buffer; beside the ``WRONG_BWD_EXT`` kernels."""
     dt = x.dtype
     _, featp = rdb_ops.rdb_fwd_ext_cuda(x, ks, bs, scale_ratio=SCALE)
-    before = rdb_ops.RDB_BWD_EXT_LAUNCHES
+    module, attr = COUNTERS[fwd_counter("rdb_bwd_ext", dt)]
+    before = getattr(module, attr)
     got = rdb_ops.rdb_bwd_ext_cuda(g, featp, ks, scale_ratio=SCALE)
     again = rdb_ops.rdb_bwd_ext_cuda(g, featp, ks, scale_ratio=SCALE)
     torch.cuda.synchronize()
-    check(rdb_ops.RDB_BWD_EXT_LAUNCHES == before + 2,
-          "rdb_bwd_ext_cuda counted one backward a call")
+    check(getattr(module, attr) == before + 2,
+          f"rdb_bwd_ext_cuda counted one backward a call in {attr}")
     dx, dws, dbs, dyp = got
     check(all(bool(torch.isfinite(t).all()) for t in (dx, *dws, *dbs, dyp)),
           "rdb_bwd_ext outputs finite")
@@ -1584,39 +1661,53 @@ def hold_rdb_bwd_ext(x: torch.Tensor, ks, bs, g: torch.Tensor) -> dict:
     row["dy_pad_rows_max_abs"] = float(dyp[:, [0, -1]].float().abs().max())
     limits = BWD_BLOCK_LIMITS[dt]
     b2 = rdb_ops.rdb_bwd_cuda(g, feat.contiguous(), ks, scale_ratio=SCALE)
+    if dt == torch.float32:  # one 3xTF32 code path: the same bits
+        row["b2_bit_equal"] = all(torch.equal(a, r) for a, r in zip(
+            (dx, *dws, *dbs, dyp[:, 1:-1]), (b2[0], *b2[1], *b2[2], b2[3])))
     row["vs_b2"] = max(
         excess(dx, b2[0], limits), excess(dyp[:, 1:-1], b2[3], limits),
         *(excess(a, r, limits) for a, r in zip((*dws, *dbs),
                                                (*b2[1], *b2[2]))))
     row["vs_b2_dx_max_abs"] = float((dx.float() - b2[0].float()).abs().max())
     row["worst"] = max(_worst(row), row["vs_b2"])
-    row["wrong"] = {}
+    row["wrong"] = bwd_wrong(g, feat, ks)["wrong"] if dt == torch.float32 \
+        else {}
     for fault in WRONG_BWD_EXT:
         *grads, wrong_dyp = emulated_bwd_ext(g, featp, ks, SCALE, fault)
         row["wrong"][fault] = _worst(bwd_scores(
             g, feat, ks, (*grads, wrong_dyp[:, 1:-1])))
     check(row["dy_pad_rows_max_abs"] == 0,
           f"rdb_bwd_ext {dt} {tuple(x.shape)}: DY's pad rows zero")
+    check(row.get("b2_bit_equal", True),
+          f"rdb_bwd_ext {dt} {tuple(x.shape)}: B8 equals B2 bit for bit")
     return row
 
 
 def phase_rdb_bwd_ext(seed: int) -> dict:
     """B8 at the training shape and a row-ragged eligible one, f32 and
-    bf16, on the inputs of ``phase_rdb_bwd``."""
+    bf16, and in f32 at the ``--scale 2`` and ``--scale 8`` LR batches,
+    on the inputs of ``phase_rdb_bwd``."""
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(seed + 3)
     ks, bs = _rdb_weights(gen, dev)
     x = (torch.randn(TRAIN_RDB_SHAPE, generator=gen) * 0.5).to(dev)
     g = (torch.randn(TRAIN_RDB_SHAPE, generator=gen) * 0.1).to(dev)
+    scaled = {name: ((torch.randn(shape, generator=gen) * 0.5).to(dev),
+                     (torch.randn(shape, generator=gen) * 0.1).to(dev))
+              for name, shape in SCALE_RDB_SHAPES.items()}
     b, h, w = EXT_RAGGED
     rows = {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
             xd, gd = x.to(dtype), g.to(dtype)
             kd = [k.to(dtype) for k in ks]
             row = hold_rdb_bwd_ext(xd, kd, bs, gd)
             row["ragged"] = hold_rdb_bwd_ext(xd[:b, :h, :w], kd, bs,
                                              gd[:b, :h, :w])
+            if f32:
+                for name, (xs, gs) in scaled.items():
+                    row[name] = hold_rdb_bwd_ext(xs, kd, bs, gs)
             _, featp = rdb_ops.rdb_fwd_ext_cuda(xd, kd, bs, scale_ratio=SCALE)
             _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
 
@@ -1625,7 +1716,8 @@ def phase_rdb_bwd_ext(seed: int) -> dict:
                                                 scale_ratio=SCALE)
 
             row["ms"] = median_ms(call)
-            row["profile"] = bwd_profile(call)
+            row["profile"] = bwd_profile(
+                call, kernels=BWD_F32_KERNELS if f32 else None)
             row["b2_ms"] = median_ms(lambda: rdb_ops.rdb_bwd_cuda(
                 gd, feat, kd, scale_ratio=SCALE))
             row["plain_ms"] = median_ms(lambda: rdb_ops.rdb_bwd_ext_reference(
@@ -1641,8 +1733,10 @@ def phase_rdb_bwd_ext(seed: int) -> dict:
                 stage_limits=BWD_STAGE_LIMITS[dtype],
                 dy_limits=DY_LIMITS[dtype],
                 block_limits=BWD_BLOCK_LIMITS[dtype], **row)
-            for r, where in ((row, "training"), (row["ragged"], "ragged")):
-                check_bwd_row(r, f"rdb_bwd_ext {name} {where}")
+            for where in ("training", "ragged", *SCALE_RDB_SHAPES):
+                if where == "training" or where in row:
+                    check_bwd_row(row if where == "training" else row[where],
+                                  f"rdb_bwd_ext {name} {where}")
             check_bwd_profile(row["profile"], dtype, f"rdb_bwd_ext {name}")
     return rows
 
@@ -2176,7 +2270,9 @@ def _train_grad(seed: int, phase: str, kernels: tuple,
         torch.cuda.synchronize()
         counts = read_counters()
         fwd = fwd_counter(kernels[0], dtype)
-        launches = (counts[fwd], counts[kernels[1]])
+        bwd = kernels[1] if kernels[1] == "rdb_bwd_xla" else fwd_counter(
+            kernels[1], dtype)
+        launches = (counts[fwd], counts[bwd])
         ref = grads(lambda t: plain_generator(gen, t))
         bad = grads(lambda t: plain_generator(gen, t, wrong))
         rel, rel_wrong = _rel_grads(got, ref), _rel_grads(bad, ref)
@@ -2196,7 +2292,7 @@ def _train_grad(seed: int, phase: str, kernels: tuple,
             lr_hw=lr, kernels=list(kernels), **row)
         check_counts(f"{phase} {name}: one kernel forward and backward "
                      f"per block", counts, **{fwd: 5 * 3 * NUM_RRDB,
-                                              kernels[1]: 3 * NUM_RRDB})
+                                              bwd: 3 * NUM_RRDB})
         check(row["max_rel"] <= TOL_GRAD[dtype],
               f"{phase} {name}: gradients within {TOL_GRAD[dtype]}")
         check(row["wrong_lrelu_one_max_rel"] > TOL_GRAD[dtype],
@@ -2205,11 +2301,9 @@ def _train_grad(seed: int, phase: str, kernels: tuple,
     return rows
 
 
-# The RDB backward's kernels: bf16 (csrc/rdb_bwd_sm90.cuh, every name
-# holding "rdb_bwd_") and f32 (rdb_bwd.cu's FFMA kernels and the shared
-# reduce).
-_RDB_BWD_KERNELS = ("rdb_bwd_", "wgrad_f32", "dgrad_f32", "reduce_partials",
-                    "::prep<")
+# The RDB backward's kernels: bf16 (csrc/rdb_bwd_sm90.cuh) and f32
+# (csrc/rdb_bwd_tf32_sm90.cuh), every name holding "rdb_bwd_".
+_RDB_BWD_KERNELS = ("rdb_bwd_",)
 
 
 def _kernel_class(name: str) -> str:
@@ -2824,17 +2918,20 @@ def _finite_metrics(path: str) -> dict:
     return last
 
 
-def phase_train(seed: int, ext: bool = False) -> dict:
+def phase_train(seed: int, ext: bool = False, f32: bool = False) -> dict:
     """``python -m torchsr_tpu_torch train`` (in this process) on seeded
     random PNGs, then ``test`` on the GAN phase's best checkpoint: on
     B1/B2, or with ``ext`` (``EXT_KERNEL`` set) on B7/B8, with ``test``
-    run whole-image (W = 140 is not eligible: B1) and tiled (B7)."""
-    phase = "train_ext" if ext else "train"
+    run whole-image (W = 140 is not eligible: B1) and tiled (B7); with
+    ``f32``, ``train --disable-amp`` (TF32 off, as ``main`` sets it):
+    every step, eval and render on the f32 (3xTF32) B1 and B2 (with
+    ``ext`` B7 and B8)."""
+    phase = "train" + ("_f32" if f32 else "") + ("_ext" if ext else "")
     with knob("EXT_KERNEL", ext):
-        return _train(seed, phase, ext)
+        return _train(seed, phase, ext, f32)
 
 
-def _train(seed: int, phase: str, ext: bool) -> dict:
+def _train(seed: int, phase: str, ext: bool, f32: bool = False) -> dict:
     import shutil
 
     workdir = os.path.join(ROOT, "build", "chip_smoke", phase)
@@ -2851,13 +2948,16 @@ def _train(seed: int, phase: str, ext: bool) -> dict:
     steps = (TRAIN_IMAGES - n_eval) // TRAIN_BATCH  # per epoch
     evals = -(-n_eval // TRAIN_BATCH)
     # two epochs (pretrain, GAN): steps run the kernels forward and
-    # backward in bf16; evals and sample renders forward only, in f32
+    # backward in bf16 (f32 with ``f32``); evals and sample renders
+    # forward only, in f32
     fwd, bwd = ("rdb_fwd_ext", "rdb_bwd_ext") if ext else ("rdb_fwd",
                                                             "rdb_bwd")
-    want = {fwd: 5 * 3 * NUM_RRDB * 2 * steps,
-            fwd_counter(fwd, torch.float32): 5 * 3 * NUM_RRDB * 2
-            * (evals + 1),
-            bwd: 3 * NUM_RRDB * 2 * steps}
+    step_dt = torch.float32 if f32 else torch.bfloat16
+    want = {fwd_counter(fwd, torch.float32): 5 * 3 * NUM_RRDB * 2
+            * (evals + 1)}
+    want[fwd_counter(fwd, step_dt)] = want.get(
+        fwd_counter(fwd, step_dt), 0) + 5 * 3 * NUM_RRDB * 2 * steps
+    want[fwd_counter(bwd, step_dt)] = 3 * NUM_RRDB * 2 * steps
     h, w = TEST_IMAGE
     tiles = (len(_positions(h, 64, 48)) * len(_positions(w, 64, 48)))
     # test: whole-image (B1 either way), and under ext tiled at 64 (B7)
@@ -2877,7 +2977,8 @@ def _train(seed: int, phase: str, ext: bool) -> dict:
         with contextlib.redirect_stdout(log):
             cli.main(["train", "--train-dir", "ds", "--pretrain-epochs", "1",
                       "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
-                      "--seed", str(seed), "--metrics-file", "metrics.jsonl"])
+                      "--seed", str(seed), "--metrics-file", "metrics.jsonl",
+                      *(["--disable-amp"] if f32 else [])])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         counts = read_counters()
@@ -5127,12 +5228,16 @@ KERNELS = (
      "float32", SERVE_RDB_SHAPE),
     ("rdb_bwd", "rdb_bwd.cu", "rdb.py:495", "rdb_bwd", "bfloat16",
      TRAIN_RDB_SHAPE),
+    ("rdb_bwd_f32", "rdb_bwd_tf32_sm90.cuh", "rdb.py:495", "rdb_bwd",
+     "float32", TRAIN_RDB_SHAPE),
     ("rdb_fwd_ext", "rdb_ext.cu", "rdb.py:299", "rdb_fwd_ext", "bfloat16",
      SERVE_RDB_SHAPE),
     ("rdb_fwd_ext_f32", "rdb_fwd_tf32_sm90.cuh", "rdb.py:299",
      "rdb_fwd_ext", "float32", SERVE_RDB_SHAPE),
     ("rdb_bwd_ext", "rdb_ext.cu", "rdb.py:594", "rdb_bwd_ext", "bfloat16",
      TRAIN_RDB_SHAPE),
+    ("rdb_bwd_ext_f32", "rdb_bwd_tf32_sm90.cuh", "rdb.py:594",
+     "rdb_bwd_ext", "float32", TRAIN_RDB_SHAPE),
     ("rdb_fwd_ilv", "rdb_ilv.cu", "rdb.py:223", "rdb_fwd_ilv", "bfloat16",
      SERVE_RDB_SHAPE),
     ("pair_synth", "pair_synth.cu", "preprocess.py:45", "pair_synth",
@@ -5199,7 +5304,8 @@ def main() -> None:
              "kernel work; prints no kernels or final line): rdb_fwd, "
              "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, pair_synth, "
              "pair_conv, bench_preprocess, bench_pair_conv, train_grad, "
-             "train_grad_ext, train_grad_xla, train, train_ext, "
+             "train_grad_ext, train_grad_xla, train, train_ext, train_f32, "
+             "train_f32_ext, "
              "train_speed, eval, interp (both after train), srgan_train, "
              "multistep, bench, serve_graph, export, batching, external, "
              "pack_train, scale, preempt, fast_compile, subpixel_head, "
@@ -5249,6 +5355,8 @@ def main() -> None:
             "train_grad_xla": lambda s: phase_train_grad(s, "xla"),
             "train": phase_train,
             "train_ext": lambda s: phase_train(s, ext=True),
+            "train_f32": lambda s: phase_train(s, f32=True),
+            "train_f32_ext": lambda s: phase_train(s, ext=True, f32=True),
             "train_speed": phase_train_speed, "eval": phase_eval,
             "interp": phase_interp, "srgan_train": phase_srgan_train,
             "multistep": phase_multistep, "bench": phase_bench,
@@ -5300,8 +5408,11 @@ def main() -> None:
     paths.update(run("halo", phase_halo, gen, ckpt, seed))
     del gen
     paths.update(run("subpixel_head", phase_subpixel_head, seed))
-    for phase, ext in (("train", False), ("train_ext", True)):
-        row = run(phase, phase_train, seed, ext=ext)
+    for phase, ext, f32 in (("train", False, False),
+                            ("train_ext", True, False),
+                            ("train_f32", False, True),
+                            ("train_f32_ext", True, True)):
+        row = run(phase, phase_train, seed, ext=ext, f32=f32)
         paths[phase] = row["launches"]
         for t in row["test"]:
             paths[" ".join([f"{phase}: test", *t["args"]])] = t["launches"]

@@ -300,3 +300,201 @@ def test_bwd_schedule_covers_every_pixel_and_slot_once(shape):
     for s, k0 in enumerate(rdb_ops._BWD_SLOT_K0):
         assert 64 * (rdb_ops._BWD_SLOT_CHUNKS[s] - 1) < rdb_ops.FEAT - k0 \
             <= 64 * rdb_ops._BWD_SLOT_CHUNKS[s]
+
+
+# The f32 backward (3xTF32, csrc/rdb_bwd_tf32_sm90.cuh): its arithmetic
+# in plain PyTorch (``rdb_bwd_3xtf32_reference``) held as chip_smoke.py
+# holds the kernel's whole backward, per element: |got - ref| <= rel
+# |ref| + frac max|ref| with chip_smoke.py's BWD_BLOCK_LIMITS[f32].
+BWD_BLOCK_LIMITS_F32 = (1e-4, 1e-4)
+
+
+def _excess(got, ref, limits=BWD_BLOCK_LIMITS_F32) -> float:
+    rel, frac = limits
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    diff = np.abs(got - ref)
+    bound = rel * np.abs(ref) + frac * np.abs(ref).max()
+    return float(np.where(diff == 0, 0.0, diff / bound).max())
+
+
+def _ref_cotangents(g, feat, kernels, dfeat):
+    """The cotangents [dy_0 | ... | dy_4] (B, H, W, 192) of the plain
+    backward: its dense gradient's slots times LeakyReLU', then scale
+    g."""
+    dys = [dfeat[..., rdb_ops._slot(j)] * (
+        0.2 + 0.8 * (feat[..., rdb_ops._slot(j)] > 0).float())
+        for j in range(4)]
+    return torch.cat([*dys, g * 0.2], dim=-1)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_3xtf32_backward_matches_pallas_interpret(shape):
+    """``rdb_bwd_3xtf32_reference`` on the feature buffer the JAX
+    forward saved against the JAX custom VJP's backward rule (the Pallas
+    kernel ``_rdb_bwd_kernel`` in interpret mode, f32): dx, each dW and
+    db within BWD_BLOCK_LIMITS_F32; its DY against the cotangents of the
+    plain backward on the same buffer."""
+    x, ks, bs, g = _inputs(shape, sum(shape))
+    _, residuals = jax_rdb._fused_rdb_fwd(
+        jnp.asarray(x), tuple(jnp.asarray(k) for k in ks),
+        tuple(jnp.asarray(b) for b in bs), 0.2, True)
+    dx, dks, dbs = jax_rdb._fused_rdb_bwd(0.2, True, residuals,
+                                          jnp.asarray(g))
+    want = [np.asarray(a, np.float32) for a in (dx, *dks, *dbs)]
+    feat = torch.from_numpy(np.array(residuals[0]).reshape(
+        *shape[:3], rdb_ops.FEAT))
+    kt, gt = [torch.from_numpy(k) for k in ks], torch.from_numpy(g)
+    got_dx, got_dw, got_db, got_dy = rdb_ops.rdb_bwd_3xtf32_reference(
+        gt, feat, kt, 0.2)
+    got = [t.numpy() for t in (got_dx, *got_dw, *got_db)]
+    assert [a.shape for a in got] == [b.shape for b in want]
+    assert max(_excess(a, b) for a, b in zip(got, want)) <= 1
+    ref = rdb_ops.rdb_bwd_reference(gt, feat, kt, 0.2, return_dfeat=True)
+    assert _excess(got_dy, _ref_cotangents(gt, feat, kt, ref[3])) <= 1
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_3xtf32_backward_matches_plain_backward(shape):
+    """The same reference against ``rdb_bwd_reference`` in f32 on the
+    port's own feature buffer: dx, dW, db and DY within the limits; plain
+    TF32 (one product) reads over them."""
+    x, ks, bs, g = _inputs(shape, sum(shape) + 1)
+    kt = [torch.from_numpy(k) for k in ks]
+    _, feat = rdb_ops._rdb_plain(torch.from_numpy(x), kt,
+                                 [torch.from_numpy(b) for b in bs], 0.2)
+    gt = torch.from_numpy(g)
+    ref = rdb_ops.rdb_bwd_reference(gt, feat, kt, 0.2, return_dfeat=True)
+    ref_dy = _ref_cotangents(gt, feat, kt, ref[3])
+
+    def worst(got):
+        return max(_excess(got[0], ref[0]), _excess(got[3], ref_dy),
+                   *(_excess(a, b) for a, b in zip(got[1], ref[1])),
+                   *(_excess(a, b) for a, b in zip(got[2], ref[2])))
+
+    got = rdb_ops.rdb_bwd_3xtf32_reference(gt, feat, kt, 0.2)
+    assert all(t.dtype == torch.float32 for t in (got[0], *got[1], *got[2],
+                                                   got[3]))
+    assert worst(got) <= 1
+    once = rdb_ops.rdb_bwd_3xtf32_reference(gt, feat, kt, 0.2,
+                                            terms=(("hi", "hi"),))
+    assert worst(once) > 1
+
+
+def test_3xtf32_padded_form_matches_the_ext_reference():
+    """The padded form (feat and DY in the (B, H + 2, W, 192) layout, DY's
+    pad rows zero) against ``rdb_bwd_ext_reference`` on the same
+    row-extended buffer, and equal to the unpadded form on its data
+    rows."""
+    shape = (2, 6, 16, 64)
+    x, ks, bs, g = _inputs(shape, 3)
+    kt, gt = [torch.from_numpy(k) for k in ks], torch.from_numpy(g)
+    _, featp = rdb_ops.rdb_ext_reference(torch.from_numpy(x), kt,
+                                         [torch.from_numpy(b) for b in bs])
+    dx, dws, dbs, dyp = rdb_ops.rdb_bwd_3xtf32_reference(gt, featp, kt, 0.2,
+                                                         padded=True)
+    assert dyp.shape == featp.shape and not dyp[:, [0, -1]].any()
+    want = rdb_ops.rdb_bwd_ext_reference(gt, featp, kt, 0.2)
+    got = (dx, *dws, *dbs)
+    assert max(_excess(a, b) for a, b in zip(
+        got, (want[0], *want[1], *want[2]))) <= 1
+    flat = rdb_ops.rdb_bwd_3xtf32_reference(gt, featp[:, 1:-1], kt, 0.2)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (flat[0], *flat[1], *flat[2], flat[3]), (*got, dyp[:, 1:-1])))
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 32), (3, 37, 45), (2, 3, 130),
+                                   (1, 63, 63)], ids=str)
+def test_bwd_tf32_schedule_covers_every_pixel_and_slot_once(shape):
+    """The mirror of the f32 backward's schedule: every slot conv (dx's
+    two halves included) takes every (run, K chunk) item once, its runs
+    (the f32 forward's) cover every pixel once; every wgrad tile's CTAs
+    and ky take every run once (one wave of CTAs); the K chunks of each
+    slot cover the DY suffix it reads; each kernel's shared memory fits
+    the H100's."""
+    b, h, w = shape
+    sched = rdb_ops.bwd_tf32_schedule(b, h, w)
+    runs = rdb_ops.fwd_runs(b, h, w, rdb_ops._FWD_TF32_WIDE_M)
+    assert sched["runs"] == len(runs)
+    covered = np.zeros((b, h * w), dtype=np.int64)
+    for img, p0, n, *_ in runs:
+        covered[img, p0:p0 + n] += 1
+        assert n <= 128
+    assert (covered == 1).all()
+    for slot in range(6):
+        walks = rdb_ops.bwd_tf32_walk(b, h, w, slot)
+        items = sorted(it for walk in walks for it in walk)
+        nch = rdb_ops._BWD_TF32_SLOT_CHUNKS[slot]
+        assert items == [(t, c) for t in range(len(runs))
+                         for c in range(nch)]
+        assert 32 * nch == rdb_ops.FEAT - rdb_ops._BWD_SLOT_K0[slot]
+        assert len(walks) == sched["conv_ctas" if slot < 4 else "dx_ctas"]
+    ctas = sched["wgrad_ctas"]
+    assert sorted(t for c in range(ctas)
+                  for t in range(c, len(runs), ctas)) == list(
+        range(len(runs)))
+    assert 3 * ctas * rdb_ops._BWD_WGRAD_TILES <= rdb_ops._BWD_CTAS
+    assert sched["smem"] <= rdb_ops.SMEM_LIMIT - 4352
+    assert sched["wgrad_smem"] <= rdb_ops.SMEM_LIMIT
+    assert sched["prep_blocks"] * rdb_ops._BWD_TF32_PREP_PIXELS >= b * h * w
+
+
+@pytest.mark.parametrize("layout", ["f32_views", "f32_contiguous"])
+def test_bwd_tf32_weight_packing_round_trips(layout):
+    """The f32 backward prep's planes (``bwd_tf32_pack_weights``, the
+    flipped, transposed kernels as TF32 hi and lo planes) unpack to the
+    caller's kernels exactly, from contiguous HWIO kernels or the HWIO
+    views of OIHW parameters the trainer hands over; every hi holds only
+    TF32 bits, and hi + lo is the weight."""
+    rng = np.random.default_rng(7)
+    ks = [torch.from_numpy(rng.normal(0, 0.05, (3, 3, ci, co))
+                           .astype(np.float32))
+          for ci, co in zip(rdb_ops.CIN, rdb_ops.COUT)]
+    if layout == "f32_views":
+        ks = [k.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+              for k in ks]
+    packed = rdb_ops.bwd_tf32_pack_weights(ks)
+    assert packed.numel() == rdb_ops._BWD_TF32_WPACK
+    planes = packed.view(-1, 2, 3 * rdb_ops.GROWTH * 32)
+    assert not (planes[:, 0].view(torch.int32) & 0x1FFF).any()
+    back = rdb_ops.bwd_tf32_unpack_weights(packed)
+    assert all(torch.equal(a, b) for a, b in zip(back, ks))
+
+
+@pytest.mark.parametrize("entry", ["rdb_bwd_cuda", "rdb_bwd_ext_cuda"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_counts_its_launches_by_dtype(monkeypatch, entry, dtype):
+    """A backward call adds one to its own dtype's counter (f32: the
+    3xTF32 kernels' ``RDB_BWD*_F32_LAUNCHES``) and to no other.  The
+    launch itself is stubbed: the CPU has no kernel."""
+    monkeypatch.setattr(rdb_ops, "_cuda_operands", lambda *a: None)
+    monkeypatch.setattr(rdb_ops, "_bwd_launches", lambda *a: None)
+    for name in rdb_ops.LAUNCH_COUNTERS:
+        monkeypatch.setattr(rdb_ops, name, 0)
+    dt = getattr(torch, dtype)
+    ext = entry == "rdb_bwd_ext_cuda"
+    feat = torch.zeros((1, 4 if ext else 2, 16, rdb_ops.FEAT), dtype=dt)
+    g = torch.zeros((1, 2, 16, 64), dtype=dt)
+    ks = [torch.zeros((3, 3, ci, co), dtype=dt)
+          for ci, co in zip(rdb_ops.CIN, rdb_ops.COUT)]
+    getattr(rdb_ops, entry)(g, feat, ks)
+    tag = "_EXT" if ext else ""
+    want = f"RDB_BWD{tag}_F32_LAUNCHES" if dt == torch.float32 else \
+        f"RDB_BWD{tag}_LAUNCHES"
+    assert {n: getattr(rdb_ops, n) for n in rdb_ops.LAUNCH_COUNTERS} == {
+        n: 1 if n == want else 0 for n in rdb_ops.LAUNCH_COUNTERS}
+
+
+def test_backward_refuses_too_many_pixels(monkeypatch):
+    """The kernels count a call's buffer pixels in 32-bit ints: a call
+    over that many is refused before any launch (the shape check reads
+    the shape only)."""
+    monkeypatch.setattr(rdb_ops, "_cuda_operands", lambda *a: None)
+    monkeypatch.setattr(rdb_ops, "_bwd_launches", lambda *a: pytest.fail(
+        "launched"))
+    b = rdb_ops._MAX_BWD_PIXELS // (64 * 64) + 1
+    feat = torch.zeros((1, 1, 1, rdb_ops.FEAT)).expand(b, 64, 64, -1)
+    g = torch.zeros((1, 1, 1, 64)).expand(b, 64, 64, -1)
+    ks = [torch.zeros((3, 3, ci, co))
+          for ci, co in zip(rdb_ops.CIN, rdb_ops.COUT)]
+    with pytest.raises(ValueError, match="buffer pixels"):
+        rdb_ops.rdb_bwd_cuda(g, feat, ks)

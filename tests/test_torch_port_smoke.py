@@ -289,6 +289,51 @@ def test_bwd_limits_catch_each_wrong_kernel(dtype, fault):
     assert smoke._worst(row) > 1, row
 
 
+@pytest.mark.parametrize("shape", [SHAPE, (1, 5, 7, 64)], ids=str)
+def test_bwd_limits_pass_3xtf32_and_fail_plain_tf32(shape):
+    """The f32 backward's arithmetic (``rdb_bwd_3xtf32_reference``: every
+    product as three TF32 ones) passes every f32 stage, cotangent and
+    block limit of chip_smoke's backward check; plain TF32 and 3xTF32
+    without lo.hi (``WRONG_BWD_TF32``) read over them."""
+    g, feat, ks = _bwd_inputs(torch.float32, shape)
+    row = smoke.bwd_scores(g, feat, ks, rdb_ops.rdb_bwd_3xtf32_reference(
+        g, feat, ks, smoke.SCALE))
+    assert smoke._worst(row) <= 1, row
+    for fault, terms in smoke.WRONG_BWD_TF32.items():
+        bad = smoke.bwd_scores(g, feat, ks, rdb_ops.rdb_bwd_3xtf32_reference(
+            g, feat, ks, smoke.SCALE, terms=terms))
+        assert smoke._worst(bad) > 1, (fault, bad)
+
+
+def test_bwd_wrong_rows_hold_the_f32_products():
+    """chip_smoke's ``bwd_wrong`` in f32: every ``WRONG_BWD`` and
+    ``WRONG_BWD_TF32`` kernel reads over the limits, the emulated 3xTF32
+    backward within them."""
+    g, feat, ks = _bwd_inputs(torch.float32)
+    row = smoke.bwd_wrong(g, feat, ks)
+    assert set(row["wrong"]) == {*smoke.WRONG_BWD, *smoke.WRONG_BWD_TF32}
+    assert min(row["wrong"].values()) > 1 and row["emulated"] <= 1, row
+
+
+def test_bwd_profile_check_holds_f32_to_its_eight_kernels():
+    """An f32 backward call's profile passes with the 3xTF32 prep, five
+    slot convs, wgrad and reduce, and fails one kernel short, with a bf16
+    kernel in it, or with a copy beside them."""
+    own = ([["rdb_bwd_tf32::rdb_bwd_tf32_prep", 0.01]]
+           + [["rdb_bwd_tf32::rdb_bwd_tf32_slot_conv", 0.05]] * 5
+           + [["rdb_bwd_tf32::rdb_bwd_tf32_wgrad", 0.7],
+              ["rdb_bwd_tf32::rdb_bwd_tf32_reduce", 0.01]])
+    smoke.check_bwd_profile({"kernels_per_call": 8, "by_launch": own},
+                            torch.float32, "ok")
+    bf16 = own[:7] + [["rdb_bwd_sm90::rdb_bwd_reduce", 0.01]]
+    copy = own[:7] + [["at::native::elementwise_kernel<copy_>", 0.01]]
+    for bad in ({"kernels_per_call": 7, "by_launch": own[:7]},
+                {"kernels_per_call": 8, "by_launch": bf16},
+                {"kernels_per_call": 8, "by_launch": copy}):
+        with pytest.raises(RuntimeError, match="own kernels"):
+            smoke.check_bwd_profile(bad, torch.float32, "bad")
+
+
 def test_train_grad_limit_catches_a_wrong_backward():
     """The generator-gradient comparison of chip_smoke.py's train_grad
     phase, on the CPU at 1 RRDB: the plain path through the Function
@@ -326,8 +371,9 @@ def test_train_grad_limit_catches_a_wrong_backward():
     ("void rdb_bwd_sm90::rdb_bwd_prep<float>(...)", "rdb_bwd"),
     ("void (anonymous namespace)::tensor_core::wgrad_bf16(...)",
      "other_conv"),
-    ("void (anonymous namespace)::reduce_partials(...)", "rdb_bwd"),
-    ("void (anonymous namespace)::prep<4, __nv_bfloat16>(...)", "rdb_bwd"),
+    ("void rdb_bwd_tf32::rdb_bwd_tf32_wgrad(float const*, ...)", "rdb_bwd"),
+    ("void rdb_bwd_tf32::rdb_bwd_tf32_slot_conv(CUtensorMap_st, ...)",
+     "rdb_bwd"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel"
      "<...>(...)", "optimizer"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",

@@ -37,6 +37,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # device, stream.
 _BWD_BF16 = (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
              _I, _I, _I, _I, _I, _I, _P)
+# The f32 block backward's one entry (rdb_bwd.cu, rdb_ext.cu): as
+# _BWD_BF16 without w_f32 (the kernels are f32), nb_dy for nblocks.
+_BWD_TF32 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+             _I, _I, _I, _I, _I, _I, _P)
 # The bf16 block forward's one entry (rdb_fwd.cu, rdb_ext.cu, rdb_ilv.cu):
 # x, feat (rdb_ilv.cu: the interleaved buffer),
 # out, the kernels' pointer and stride arrays, w_f32, the biases' pointer
@@ -55,34 +59,15 @@ SIGNATURES = {
     },
     "rdb_bwd": {
         "rdb_bwd_bf16_launch": (_I, _BWD_BF16),
-        "rdb_bwd_prep_launch": (_I, (_I, _P, _P, _P, _P, _I, _I, _F, _I, _P)),
-        "rdb_bwd_wgrad_launch": (
-            _I, (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
-        ),
-        "rdb_bwd_reduce_launch": (
-            _I, (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P)
-        ),
-        "rdb_bwd_dgrad_launch": (
-            _I, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-        ),
+        "rdb_bwd_tf32_launch": (_I, _BWD_TF32),
+        "rdb_bwd_tf32_schedule": (_I, (_I, _I, _I, _P)),
         "rdb_bwd_error_string": (ctypes.c_char_p, (_I,)),
     },
     "rdb_ext": {
         "rdb_ext_fwd_bf16_launch": (_I, _FWD_BF16),
         "rdb_ext_fwd_tf32_launch": (_I, _FWD_TF32),
         "rdb_ext_bwd_bf16_launch": (_I, _BWD_BF16),
-        "rdb_ext_prep_launch": (
-            _I, (_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P)
-        ),
-        "rdb_ext_wgrad_launch": (
-            _I, (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
-        ),
-        "rdb_ext_reduce_launch": (
-            _I, (_P, _I, _I, _P, _I, _I, _P, _P, _I, _P)
-        ),
-        "rdb_ext_dgrad_launch": (
-            _I, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-        ),
+        "rdb_ext_bwd_tf32_launch": (_I, _BWD_TF32),
         "rdb_ext_error_string": (ctypes.c_char_p, (_I,)),
     },
     "rdb_ilv": {

@@ -553,10 +553,12 @@ rdb_bwd_wgrad(const __nv_bfloat16* __restrict__ feat,
 // dw (flat: conv i's HWIO at dw_ofs(i)) and db (conv i's at 32 i) from
 // the wgrad's G partials of each tile and the db partials: n_slot rows
 // for convs 0-3, n_prep for conv 4; each a sum in a fixed order.
-__global__ void __launch_bounds__(256)
-rdb_bwd_reduce(const float* __restrict__ part, int G,
-               const float* __restrict__ db_part, int P, int n_slot,
-               int n_prep, float* __restrict__ dw, float* __restrict__ db) {
+// (The body of the reduce, shared with the f32 backward's, whose wgrad
+// writes its partials in the same tiles and layout.)
+__device__ __forceinline__ void reduce_partials_of(
+    const float* __restrict__ part, int G, const float* __restrict__ db_part,
+    int P, int n_slot, int n_prep, float* __restrict__ dw,
+    float* __restrict__ db) {
   const int e = blockIdx.x * 256 + threadIdx.x;
   if (e < DW_TOTAL) {
     int i = 0;
@@ -590,6 +592,13 @@ rdb_bwd_reduce(const float* __restrict__ part, int G,
     for (int k = 0; k < n; ++k) s += db_part[((size_t)i * P + k) * CH + col];
     db[c] = s;
   }
+}
+
+__global__ void __launch_bounds__(256)
+rdb_bwd_reduce(const float* __restrict__ part, int G,
+               const float* __restrict__ db_part, int P, int n_slot,
+               int n_prep, float* __restrict__ dw, float* __restrict__ db) {
+  reduce_partials_of(part, G, db_part, P, n_slot, n_prep, dw, db);
 }
 
 // ------------------------------------------------------------- launches

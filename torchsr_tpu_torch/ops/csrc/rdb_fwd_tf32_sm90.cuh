@@ -265,6 +265,50 @@ __device__ __forceinline__ void chunk_mma(float (&sum)[48], float (&acc)[48],
   }
 }
 
+// The ring's barriers: per stage, its item has landed (full: one
+// arrival, the producer's, and the transaction bytes); both consumer
+// warpgroups are done with it (empty: one arrival a consumer warp).
+__device__ __forceinline__ void init_ring(uint32_t f_u, uint32_t e_u,
+                                          int nst) {
+  for (int k = 0; k < nst; ++k) {
+    hopper::mbar_init(f_u + 8 * k, 1);
+    hopper::mbar_init(e_u + 8 * k, 8);
+  }
+  hopper::mbar_init_fence();
+}
+
+// The producer of a conv's ring (one thread): item k, chunk k % nch of
+// the CTA's run k / nch, into stage k % nst once the consumers have
+// freed it: the run's halo box of channels k0 + KC c .. + KC of `in`
+// (one TMA load) and the chunk's hi and lo planes for the three ky from
+// `planes` (bulk copies), both completing the stage's full barrier.
+// Shared by the forward's convs (k0 = 0) and the backward's slot convs
+// (csrc/rdb_bwd_tf32_sm90.cuh: K is DY's suffix from channel k0).
+__device__ __forceinline__ void produce(const CUtensorMap* in,
+                                        const float* planes, int k0,
+                                        int nch, int nr, int nst,
+                                        const Layout& L, uint32_t x_u,
+                                        uint32_t f_u, uint32_t e_u) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(in))
+               : "memory");
+  const int sb = stage_bytes(L.W), hbytes = halo_bytes(L.W);
+  const int box = Runs::box_w(L.W) * Runs::box_h(L.W) * ROW;
+  const int G = gridDim.x;
+  for (int k = 0; k < nr * nch; ++k) {
+    const int st = k % nst, c = k % nch;
+    if (k >= nst) hopper::mbar_wait(e_u + 8 * st, (k / nst - 1) & 1);
+    const Run r = Runs::run_of(blockIdx.x + (k / nch) * G, L.H, L.W);
+    const uint32_t bar = f_u + 8 * st, dst = x_u + st * sb;
+    hopper::mbar_expect_tx(bar, box + W_CHUNK);
+    hopper::tma_load_4d(dst, in, bar, k0 + KC * c, r.hx0, r.r0 - 1, r.b);
+    const float* src = planes + c * (W_CHUNK / 4);
+    for (int j = 0; j < W_CHUNK / PLANE; ++j)
+      hopper::bulk_load(dst + hbytes + j * PLANE, src + j * (PLANE / 4),
+                        PLANE, bar);
+  }
+}
+
 // Conv `conv` (0..4) over gridDim.x persistent CTAs (see the header);
 // conv 4 takes slot 4 + blockIdx.y.  `in_map` is feat's image rows as a
 // (C, x, y, b) f32 tensor with the halo box (conv 0: x, which it also
@@ -299,37 +343,14 @@ rdb_fwd_tf32_conv(const __grid_constant__ CUtensorMap in_map, float* feat,
   const int runs = L.B * Runs::runs_per_image(L.H, L.W);
   const int nr = (int)blockIdx.x < runs ? (runs - 1 - blockIdx.x) / G + 1 : 0;
 
-  if (tid == 0) {
-    for (int k = 0; k < nst; ++k) {
-      hopper::mbar_init(f_u + 8 * k, 1);
-      hopper::mbar_init(e_u + 8 * k, 8);
-    }
-    hopper::mbar_init_fence();
-  }
+  if (tid == 0) init_ring(f_u, e_u, nst);
   __syncthreads();  // the barriers are initialised
 
-  if (warp >= 8) {  // the producer: item k into stage k % nst
+  if (warp >= 8) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (warp == 8 && lane == 0) {
-      const CUtensorMap* in = &in_map;
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(in))
-                   : "memory");
-      const int box = Runs::box_w(L.W) * Runs::box_h(L.W) * ROW;
-      const float* planes = wpack + slot_wofs(s);
-      for (int k = 0; k < nr * nch; ++k) {
-        const int st = k % nst, c = k % nch;
-        if (k >= nst) hopper::mbar_wait(e_u + 8 * st, (k / nst - 1) & 1);
-        const Run r = Runs::run_of(blockIdx.x + (k / nch) * G, L.H, L.W);
-        const uint32_t bar = f_u + 8 * st, dst = x_u + st * sb;
-        hopper::mbar_expect_tx(bar, box + W_CHUNK);
-        hopper::tma_load_4d(dst, in, bar, KC * c, r.hx0, r.r0 - 1, r.b);
-        const float* src = planes + c * (W_CHUNK / 4);
-        for (int j = 0; j < W_CHUNK / PLANE; ++j)
-          hopper::bulk_load(dst + hbytes + j * PLANE, src + j * (PLANE / 4),
-                            PLANE, bar);
-      }
-    }
+    if (warp == 8 && lane == 0)
+      produce(&in_map, wpack + slot_wofs(s), 0, nch, nr, nst, L, x_u, f_u,
+              e_u);
     return;
   }
 

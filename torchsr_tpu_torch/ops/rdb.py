@@ -24,8 +24,10 @@ in the backward,
 ``csrc/rdb_bwd_sm90.cuh``, where each slot's dense gradient is one conv
 over the later convs' cotangents, held in one working-dtype buffer DY
 (``rdb_bwd_dy_reference`` is that data flow in plain PyTorch); in f32
-twenty FFMA launches through an f32 dense gradient (design and bound in
-the headers).  A CPU tensor runs the plain versions, ``rdb_reference``
+the same data flow in the eight launches of ``csrc/rdb_bwd_tf32_sm90.cuh``,
+each product taken as three TF32 ones (``rdb_bwd_3xtf32_reference`` is
+that arithmetic; design and bound in the headers).  A CPU tensor runs
+the plain versions, ``rdb_reference``
 and ``rdb_bwd_reference``, through the same Function.  There is no
 fallback: on CUDA the kernel runs or the call raises.  A forward that no
 backward follows (grad mode off, or nothing requires grad) runs the same
@@ -57,9 +59,9 @@ from the saved buffer instead of a kernel.
 Precision (the TPU kernels' contract): products take working-dtype
 operands (bf16 under AMP, else f32; the f32 forward takes each f32
 product as three TF32 ones, ~2^-21 of it lost, the order of an f32
-FMA's rounding) and accumulate in f32; biases, dW,
-db and every sum stay f32 (the f32 backward's dense gradient too); dx
-and the cotangents dy_i are stored in the working dtype.  The weight
+FMA's rounding; the f32 backward likewise) and accumulate in f32;
+biases, dW, db and every sum stay f32; dx and the cotangents dy_i are
+stored in the working dtype.  The weight
 gradients reach the f32 parameters in f32, never rounded through bf16.
 """
 
@@ -86,15 +88,19 @@ FEAT = CIN[-1]
 RDB_FWD_LAUNCHES = 0
 RDB_FWD_F32_LAUNCHES = 0
 # Block backwards run by the backward kernels on CUDA: one per block
-# backward (eight launches of csrc/rdb_bwd.cu in bf16, twenty in f32).
+# backward (eight launches of csrc/rdb_bwd.cu), in bf16 here and in f32
+# (the 3xTF32 kernels) in RDB_BWD_F32_LAUNCHES.
 RDB_BWD_LAUNCHES = 0
+RDB_BWD_F32_LAUNCHES = 0
 # The row-extended forward (five launches per block; f32 in
 # RDB_FWD_EXT_F32_LAUNCHES) and backward (one per block backward, eight
-# or twenty launches), and the interleaved forward (five conv launches
-# per block; its one prep or grow launch is not counted).
+# launches; f32 in RDB_BWD_EXT_F32_LAUNCHES), and the interleaved forward
+# (five conv launches per block; its one prep or grow launch is not
+# counted).
 RDB_FWD_EXT_LAUNCHES = 0
 RDB_FWD_EXT_F32_LAUNCHES = 0
 RDB_BWD_EXT_LAUNCHES = 0
+RDB_BWD_EXT_F32_LAUNCHES = 0
 RDB_FWD_ILV_LAUNCHES = 0
 # Block backwards run on CUDA by the TORCHSR_RDB_BWD=xla backend
 # (rdb_bwd_reference, no kernel); 0 on every default path.
@@ -102,8 +108,9 @@ RDB_BWD_XLA_LAUNCHES = 0
 # Every counter above, by name (train/graphs.py adds a captured step's
 # share of each once per replay).
 LAUNCH_COUNTERS = ("RDB_FWD_LAUNCHES", "RDB_FWD_F32_LAUNCHES",
-                   "RDB_BWD_LAUNCHES", "RDB_FWD_EXT_LAUNCHES",
-                   "RDB_FWD_EXT_F32_LAUNCHES", "RDB_BWD_EXT_LAUNCHES",
+                   "RDB_BWD_LAUNCHES", "RDB_BWD_F32_LAUNCHES",
+                   "RDB_FWD_EXT_LAUNCHES", "RDB_FWD_EXT_F32_LAUNCHES",
+                   "RDB_BWD_EXT_LAUNCHES", "RDB_BWD_EXT_F32_LAUNCHES",
                    "RDB_FWD_ILV_LAUNCHES", "RDB_BWD_XLA_LAUNCHES")
 
 # The JAX package's knobs, names and defaults (torchsr_tpu/ops/pallas/
@@ -114,24 +121,19 @@ BWD_XLA = os.environ.get("TORCHSR_RDB_BWD", "pallas") == "xla"
 # The JAX package's single-image row cap (rdb.py:68), which its ext gate
 # reads.
 _MAX_IMAGE_ROWS = 4096
-# The row-extended kernels' tiles are 16 columns wide; rows of the tall
-# buffer (B * (H + 2)) go in gridDim.y, 8 per f32 CTA.
+# The JAX package's ext gate admits widths that are multiples of 16.
 _EXT_TILE_W = 16
-_EXT_MAX_ROWS = 65535 * 8
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# CUDA's limit on gridDim.z
-_MAX_GRID_Z = 65535
-# The f32 backward's dgrad launches carry batch x (C_in / 32) CTAs in z
-_MAX_BWD_BATCH = _MAX_GRID_Z // (FEAT // 32)
-# Buffer pixels summed into one partial of db by an f32 prep block, and
-# into one partial of db_4 by a bf16 one (csrc/rdb_bwd_sm90.cuh
-# PREP_PIXELS: 256 blocks at the training shape, two an SM)
-_PREP_PIXELS = 1024
+# The backward kernels count a call's buffer pixels (B * H * W, or B * (H
+# + 2) * W row-extended) in 32-bit ints (prep blocks, runs).
+_MAX_BWD_PIXELS = 2**31 - 1
+# Buffer pixels summed into one partial of db_4 by a bf16 prep block
+# (csrc/rdb_bwd_sm90.cuh PREP_PIXELS: 256 blocks at the training shape,
+# two an SM), and image pixels by an f32 one (rdb_bwd_tf32_sm90.cuh:
+# image pixels, so that B8's partials are B2's)
 _BWD_PREP_PIXELS = 256
-# CTAs of an f32 wgrad launch, each writing an f32 partial of dW over
-# its share of the 8 x 32-pixel tiles: two per SM of the H100's 132
-_WGRAD_CTAS = 264
+_BWD_TF32_PREP_PIXELS = 256
 # The bf16 backward's schedule (csrc/rdb_bwd_sm90.cuh): runs of up to
 # _BWD_RUN output pixels of one image, across row ends where W <=
 # _BWD_NARROW_W, else inside one row (ops/pair_conv.py's runs).  Each slot
@@ -161,6 +163,23 @@ SMEM_LIMIT = 232448
 # Each library's one entry of the bf16 backward
 _BWD_BF16_ENTRY = {"rdb_bwd": "rdb_bwd_bf16_launch",
                    "rdb_ext": "rdb_ext_bwd_bf16_launch"}
+# The f32 backward (3xTF32, csrc/rdb_bwd_tf32_sm90.cuh; mirrored by
+# bwd_tf32_schedule): slot convs on the f32 forward's runs, ring and
+# grids (slot j as convs 1-4, dx's halves as conv 5's), K chunks of 32
+# DY channels from slot_k0, chunk 0 first; the prep's hi and lo planes of
+# the flipped, transposed kernels (f32 elements: per chunk 3 ky x 2 x 96
+# x 32, 26 chunks as the forward's); the wgrad on the same runs and the
+# bf16 wgrad's seven 64 x 64 tiles and partials, min(runs,
+# _BWD_TF32_WGRAD_CTAS) CTAs for each tile and ky (the three taps of one
+# ky a CTA), two stages of two halo boxes (the run's rows, box_h - 2 of
+# them, 32 channels) and of DY^T's hi and lo planes (4 x 64 rows of 128
+# bytes each).
+_BWD_TF32_SLOT_CHUNKS = tuple((FEAT - k0) // 32 for k0 in _BWD_SLOT_K0)
+_BWD_TF32_WPACK = sum(_BWD_TF32_SLOT_CHUNKS) * 3 * 2 * 3 * GROWTH * 32
+_BWD_TF32_WGRAD_CTAS = 6
+_BWD_TF32_GT_PLANE = 4 * CHANNELS * 128
+_BWD_TF32_ENTRY = {"rdb_bwd": "rdb_bwd_tf32_launch",
+                   "rdb_ext": "rdb_ext_bwd_tf32_launch"}
 # The bf16 forward's schedule, as the launches compute it
 # (csrc/rdb_fwd_sm90.cuh; mirrored here for the plain emulation and the
 # tests, held against the kernel's own on the card): a run has at most
@@ -1093,11 +1112,11 @@ def _fwd_launch(lib_name, x, kernels, biases, scale_ratio, feat, out):
         f"{lib_name} {'f32' if f32 else 'bf16'} forward")
 
 
-def flipped_kernel(k: torch.Tensor) -> torch.Tensor:
-    """The kernel of the transposed conv (dgrad) as a direct conv: HWIO
-    (3, 3, C_in, C_out) -> taps flipped, channels swapped (3, 3, C_out,
-    C_in)."""
-    return k.flip(0, 1).transpose(2, 3)
+def _bwd_shape(b: int, hp: int, w: int) -> None:
+    if b * hp * w > _MAX_BWD_PIXELS:
+        raise ValueError(
+            f"the RDB backward takes at most {_MAX_BWD_PIXELS} buffer "
+            f"pixels per call, got {b * hp * w}")
 
 
 def rdb_bwd_cuda(
@@ -1112,8 +1131,9 @@ def rdb_bwd_cuda(
     five f32 HWIO dW, five f32 db, and DY, the (B, H, W, 192) buffer of
     every conv's cotangent [dy_0 | ... | dy_4] in ``feat.dtype``, so that
     each stage can be held against a plain computation of the kernel's
-    own inputs."""
-    global RDB_BWD_LAUNCHES
+    own inputs.  f32 runs 3xTF32 on the tensor cores, whatever
+    ``torch.backends``' TF32 switches say."""
+    global RDB_BWD_LAUNCHES, RDB_BWD_F32_LAUNCHES
     kernels = tuple(kernels)
     if feat.dim() != 4 or feat.shape[-1] != FEAT:
         raise ValueError(
@@ -1126,16 +1146,12 @@ def rdb_bwd_cuda(
         )
     _check_kernels(kernels)
     _cuda_operands(feat, (g, *kernels), "rdb_bwd_cuda")
-    b, h, w, _ = feat.shape
-    if b > _MAX_BWD_BATCH:
-        raise ValueError(
-            f"the RDB backward takes at most {_MAX_BWD_BATCH} images per "
-            f"call, got {b}"
-        )
-    out = _bwd_launches(
-        "rdb_bwd", g, feat, kernels, scale_ratio,
-        n_tiles=b * -(-h // 8) * -(-w // 32), prep_dims=(b * h * w,))
-    RDB_BWD_LAUNCHES += 1
+    _bwd_shape(*feat.shape[:3])
+    out = _bwd_launches("rdb_bwd", g, feat, kernels, scale_ratio)
+    if feat.dtype == torch.float32:
+        RDB_BWD_F32_LAUNCHES += 1
+    else:
+        RDB_BWD_LAUNCHES += 1
     return out
 
 
@@ -1161,70 +1177,244 @@ def bwd_walk(b: int, h: int, w: int, slot: int) -> list:
              for c in range(nch)] for cta in range(ctas)]
 
 
-def _bwd_launches(lib_name: str, g, feat, kernels, scale_ratio, *,
-                  n_tiles: int, prep_dims: tuple):
+@functools.cache
+def bwd_tf32_schedule(b: int, h: int, w: int) -> dict:
+    """The f32 backward's persistent grids and buffers at (b, h, w): its
+    slot convs' runs, grids (``conv_ctas`` each of slots 0-3,
+    ``dx_ctas`` each of dx's halves), halo box, ring stage and stages and
+    dynamic shared memory (the f32 forward's, ``fwd_tf32_schedule``);
+    the wgrad's CTAs a tile (on the same runs) and shared memory; the
+    prep's blocks of db_4 partials (``prep_blocks``).  A
+    mirror of what the launches run (``bwd_schedule_of`` in
+    ``csrc/rdb_bwd_tf32_sm90.cuh``; the card's smoke test holds it
+    against :func:`bwd_tf32_kernel_schedule`)."""
+    fwd = fwd_tf32_schedule(b, h, w)
+    bw, bh = fwd["box"]
+    return {"runs": fwd["runs"], "conv_ctas": fwd["conv_ctas"],
+            "dx_ctas": fwd["c5_ctas"], "box": fwd["box"],
+            "stage_bytes": fwd["stage_bytes"],
+            "halo_bytes": fwd["halo_bytes"], "stages": fwd["stages"],
+            "smem": fwd["smem"],
+            "wgrad_ctas": min(fwd["runs"], _BWD_TF32_WGRAD_CTAS),
+            "wgrad_smem": 1024 + 4 * _BWD_TF32_GT_PLANE + 4 * -(
+                -bw * (bh - 2) * 128 // 1024) * 1024,
+            "prep_blocks": -(-b * h * w // _BWD_TF32_PREP_PIXELS)}
+
+
+def bwd_tf32_kernel_schedule(b: int, h: int, w: int) -> dict:
+    """The schedule the f32 backward's launches run at (b, h, w), as the
+    built library reports it (``rdb_bwd_tf32_schedule``), in the form of
+    :func:`bwd_tf32_schedule` without ``prep_blocks`` (the wrapper's)."""
+    import ctypes
+
+    from torchsr_tpu_torch.ops._build import load_library
+
+    v = (ctypes.c_int * 11)()
+    load_library("rdb_bwd").rdb_bwd_tf32_schedule(b, h, w, v)
+    return {"runs": v[0], "conv_ctas": v[1], "dx_ctas": v[2],
+            "box": (v[3], v[4]), "stage_bytes": v[5], "halo_bytes": v[6],
+            "stages": v[7], "smem": v[8], "wgrad_ctas": v[9],
+            "wgrad_smem": v[10]}
+
+
+def bwd_tf32_walk(b: int, h: int, w: int, slot: int) -> list:
+    """The (run, K chunk) items each CTA of slot ``slot``'s f32 conv
+    takes, in order (chunk 0 first): one list per CTA (dx's halves,
+    slots 4 and 5, one grid each)."""
+    sched = bwd_tf32_schedule(b, h, w)
+    ctas = sched["conv_ctas" if slot < 4 else "dx_ctas"]
+    return [[(t, c) for t in range(cta, sched["runs"], ctas)
+             for c in range(_BWD_TF32_SLOT_CHUNKS[slot])]
+            for cta in range(ctas)]
+
+
+def _bwd_tf32_ci0(s: int) -> int:
+    """Slot s's first output channel of feat (slots 0-3: conv s's output
+    slot; 4, 5: dx's halves)."""
+    return _BWD_SLOT_K0[s] + GROWTH if s < 4 else GROWTH * (s - 4)
+
+
+def _bwd_tf32_slot_weight(kernels, s: int) -> torch.Tensor:
+    """Slot s's kernel as the f32 backward's slot conv takes it: OIHW
+    (32, 192 - k0, 3, 3), W'[n][d][ky][kx] = K_k[2 - ky][2 - kx][ci0 +
+    n][co] for DY channel d = k0 + ... of conv k's cotangent channel co
+    (``_slot_weight``'s 32 output channels from ci0)."""
+    return _slot_weight(kernels, _bwd_tf32_ci0(s), _BWD_SLOT_K0[s],
+                        torch.float32, torch.float32)[:GROWTH]
+
+
+def bwd_tf32_pack_weights(kernels) -> torch.Tensor:
+    """The five HWIO kernels flipped, transposed and split into TF32 hi
+    and lo planes as the f32 backward's prep launch writes them
+    (``rdb_bwd_tf32_prep``): per slot (slots 0-3, dx's two halves), per K
+    chunk c of 32 DY channels, per ky, a hi plane then a lo plane of 96
+    rows (kx * 32 + n) of 32 columns (DY channel k0 + 32 c + k) in the
+    128-byte swizzle, the order in which the slot conv CTAs stage them;
+    lo is the exact f32 rest."""
+    from torchsr_tpu_torch.ops.tf32 import tf32_split
+
+    order = _swizzle128(3 * GROWTH)
+    parts = []
+    for s, nch in enumerate(_BWD_TF32_SLOT_CHUNKS):
+        wt = _bwd_tf32_slot_weight(kernels, s).permute(2, 3, 1, 0)
+        hi = tf32_split(wt)[0]
+        # (chunk, ky, row kx * 32 + n, k)
+        planes = [t.reshape(3, 3, nch, 32, GROWTH).permute(2, 0, 1, 4, 3)
+                  .reshape(nch, 3, -1) for t in (hi, wt - hi)]
+        parts.append(torch.stack(planes, dim=2)[..., order].reshape(-1))
+    return torch.cat(parts)
+
+
+def bwd_tf32_unpack_weights(packed: torch.Tensor) -> tuple:
+    """Inverse of :func:`bwd_tf32_pack_weights`: the five HWIO kernels as
+    hi + lo (each element lies in the one slot whose output channels
+    hold its C_in index)."""
+    inverse = torch.argsort(_swizzle128(3 * GROWTH))
+    ks = [packed.new_zeros((3, 3, ci, co)) for ci, co in zip(CIN, COUT)]
+    o = 0
+    for s, nch in enumerate(_BWD_TF32_SLOT_CHUNKS):
+        n = nch * 3 * 2 * 3 * GROWTH * 32
+        t = packed[o:o + n].view(nch, 3, 2, -1)[..., inverse]
+        t = (t[:, :, 0] + t[:, :, 1]).view(nch, 3, 3, GROWTH, 32)
+        wt = t.permute(1, 2, 0, 4, 3).reshape(3, 3, 32 * nch, GROWTH)
+        ci0 = _bwd_tf32_ci0(s)
+        d = 0
+        for k in range(min(_BWD_SLOT_K0[s] // GROWTH, 4), 5):
+            co = COUT[k]
+            ks[k][:, :, ci0:ci0 + GROWTH] = wt[:, :, d:d + co].flip(
+                0, 1).transpose(2, 3)
+            d += co
+        o += n
+    return tuple(ks)
+
+
+def rdb_bwd_3xtf32_reference(
+    g: torch.Tensor, feat: torch.Tensor, kernels, scale_ratio: float = 0.2,
+    *, terms=None, padded: bool = False,
+):
+    """The f32 backward kernels' arithmetic in plain PyTorch (3xTF32,
+    ``csrc/rdb_bwd_tf32_sm90.cuh``), with the bf16 backward's data flow
+    (``rdb_bwd_dy_reference``): dy_4 = scale g; for slot j = 3..0 the
+    f32 convs of the TF32 parts (``ops/tf32.py`` ``tf32_parts``) of DY's
+    suffix (A, split in registers) and of the slot's flipped kernels (B,
+    the prep's planes) that ``terms`` names (``TF32_TERMS``, the default:
+    hi.lo, lo.hi, hi.hi; fewer terms: a wrong kernel), times LeakyReLU',
+    into DY unrounded; dx the same conv of all of DY plus g; dW_i the
+    products of feat's parts (A) and dy_i's (B), db_i the f32 sum of
+    da_i.  ``padded``: ``feat`` is the row-extended (B, H + 2, W, 192)
+    buffer and DY comes back in that layout, its pad rows zero.  Returns
+    ``(dx, dws, dbs, dy)`` in f32."""
+    from torchsr_tpu_torch.ops.tf32 import TF32_TERMS, tf32_parts
+
+    if padded:
+        dx, dws, dbs, dy = rdb_bwd_3xtf32_reference(
+            g, feat[:, 1:-1], kernels, scale_ratio, terms=terms)
+        return dx, dws, dbs, F.pad(dy, (0, 0, 0, 0, 1, 1))
+    if feat.dim() != 4 or feat.shape[-1] != FEAT:
+        raise ValueError(
+            f"feat must be NHWC (B, H, W, {FEAT}), got {tuple(feat.shape)}")
+    if tuple(g.shape) != (*feat.shape[:3], CHANNELS):
+        raise ValueError(
+            f"g must be (B, H, W, {CHANNELS}) beside feat "
+            f"{tuple(feat.shape)}, got {tuple(g.shape)}")
+    _check_kernels(kernels)
+    terms = TF32_TERMS if terms is None else terms
+    f32 = torch.float32
+    f = feat.permute(0, 3, 1, 2).float()
+    g32 = g.permute(0, 3, 1, 2).float()
+    dy = torch.zeros_like(f)
+
+    def conv(src, s):
+        xs, ws = tf32_parts(src), tf32_parts(_bwd_tf32_slot_weight(kernels,
+                                                                   s))
+        return sum(F.conv2d(xs[a], ws[b_], padding=1) for a, b_ in terms)
+
+    das = [None] * 5
+    das[4] = g32 * scale_ratio
+    dy[:, 4 * GROWTH:] = das[4]
+    for j in reversed(range(4)):
+        sl = _slot(j)
+        das[j] = conv(dy[:, _BWD_SLOT_K0[j]:], j) * (
+            0.2 + 0.8 * (f[:, sl] > 0).to(f32))
+        dy[:, GROWTH * j:GROWTH * (j + 1)] = das[j]
+    dx = torch.cat([conv(dy, 4), conv(dy, 5)], dim=1) + g32
+    fs = tf32_parts(f)
+    dws, dbs = [], []
+    for i, (cin, cout) in enumerate(zip(CIN, COUT)):
+        ds = tf32_parts(dy[:, GROWTH * i:GROWTH * i + cout])
+        dws.append(sum(torch.nn.grad.conv2d_weight(
+            fs[a][:, :cin], (cout, cin, 3, 3), ds[b_], padding=1)
+            for a, b_ in terms).permute(2, 3, 1, 0))
+        dbs.append(das[i].sum(dim=(0, 2, 3)))
+    return (dx.permute(0, 2, 3, 1).contiguous(), tuple(dws), tuple(dbs),
+            dy.permute(0, 2, 3, 1).contiguous())
+
+
+def _bwd_launches(lib_name: str, g, feat, kernels, scale_ratio):
     """One block backward in library ``lib_name`` (``rdb_bwd`` on the (B,
     H, W, 192) ``feat``, or ``rdb_ext`` on the (B, H + 2, W, 192)
-    row-extended one), into DY shaped like ``feat``.  bf16: one call of
-    the library's eight launches (``_bwd_bf16``).  f32: the twenty FFMA
-    launches, per conv in reverse: prep (da -> dy_i into DY, db
-    partials), wgrad (f32 dW partials over ``n_tiles`` tiles), the
-    fixed-order reduce, and dgrad into an f32 dense gradient shaped like
-    ``feat``; ``prep_dims`` are the prep launch's size arguments.
-    Returns ``(dx, dws, dbs, dy)``."""
+    row-extended one), into DY shaped like ``feat``: one call of the
+    library's eight launches for the working dtype (``_bwd_bf16``, or
+    ``_bwd_tf32`` in f32).  Returns ``(dx, dws, dbs, dy)``."""
     from torchsr_tpu_torch.ops._build import load_library
 
     dt, dev = feat.dtype, feat.device
     feat = feat.contiguous()
     g = _aligned(g, dt)
     b, h, w, _ = g.shape
-    npix = feat.numel() // FEAT
     dx = torch.empty((b, h, w, CHANNELS), dtype=dt, device=dev)
     dy = torch.empty(feat.shape, dtype=dt, device=dev)
     lib = load_library(lib_name)
-    errstr = getattr(lib, f"{lib_name}_error_string")
     stream = torch.cuda.current_stream(dev).cuda_stream
     if dt == torch.bfloat16:
+        npix = feat.numel() // FEAT
         return _bwd_bf16(lib, lib_name, g, feat, kernels, scale_ratio, dx,
                          dy, -(-npix // _BWD_PREP_PIXELS), stream)
+    return _bwd_tf32(lib, lib_name, g, feat, kernels, scale_ratio, dx, dy,
+                     stream)
 
-    nblocks = -(-npix // _PREP_PIXELS)
 
-    wts = [_aligned(flipped_kernel(k), dt) for k in kernels]
-    dfeat = torch.empty(feat.shape, dtype=torch.float32, device=dev)
-    db_part = torch.empty((nblocks, CHANNELS), dtype=torch.float32,
-                          device=dev)
-    groups = [min(n_tiles, max(1, _WGRAD_CTAS // (cin // 32)))
-              for cin in CIN]
-    dw_part = torch.empty(
-        max(gr * 9 * ci * co for gr, ci, co in zip(groups, CIN, COUT)),
-        dtype=torch.float32, device=dev)
-    dws = [torch.empty((3, 3, ci, co), dtype=torch.float32, device=dev)
-           for ci, co in zip(CIN, COUT)]
-    dbs = [torch.empty((co,), dtype=torch.float32, device=dev)
-           for co in COUT]
-    fn = {stage: getattr(lib, f"{lib_name}_{stage}_launch")
-          for stage in ("prep", "wgrad", "reduce", "dgrad")}
-    idx = dev.index
-    for i in reversed(range(5)):
-        src = g if i == 4 else dfeat
-        _raise_on(fn["prep"](
-            i, src.data_ptr(), feat.data_ptr(), dy.data_ptr(),
-            db_part.data_ptr(), *prep_dims, nblocks, float(scale_ratio),
-            idx, stream), errstr, f"{lib_name} prep {i + 1}")
-        _raise_on(fn["wgrad"](
-            i, feat.data_ptr(), dy.data_ptr(), dw_part.data_ptr(), b, h, w,
-            groups[i], idx, stream), errstr, f"{lib_name} wgrad {i + 1}")
-        _raise_on(fn["reduce"](
-            dw_part.data_ptr(), groups[i], dws[i].numel(),
-            db_part.data_ptr(), nblocks, COUT[i], dws[i].data_ptr(),
-            dbs[i].data_ptr(), idx, stream), errstr,
-            f"{lib_name} reduce {i + 1}")
-        _raise_on(fn["dgrad"](
-            i, dy.data_ptr(), wts[i].data_ptr(), dfeat.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), b, h, w, idx, stream), errstr,
-            f"{lib_name} dgrad {i + 1}")
-    return dx, tuple(dws), tuple(dbs), dy
+def _flat_grads(dw: torch.Tensor, db: torch.Tensor) -> tuple:
+    """The five HWIO dW and five db, views of the flat outputs the
+    backward entries write (dW conv by conv, db at 32 i)."""
+    dws, o = [], 0
+    for ci, co in zip(CIN, COUT):
+        dws.append(dw[o:o + 9 * ci * co].view(3, 3, ci, co))
+        o += 9 * ci * co
+    return tuple(dws), tuple(db[GROWTH * i:GROWTH * i + co]
+                             for i, co in enumerate(COUT))
+
+
+def _bwd_tf32(lib, lib_name, g, feat, kernels, scale_ratio, dx, dy,
+              stream):
+    """The f32 backward's one entry: the kernels go as they are (f32,
+    any strides; the prep launch flips and splits them), the scratch and
+    the flat dW / db come from here, sized by ``bwd_tf32_schedule``."""
+    import ctypes
+
+    dev = feat.device
+    b, h, w, _ = g.shape
+    sched = bwd_tf32_schedule(b, h, w)
+    parts = max(sched["prep_blocks"], sched["conv_ctas"])
+    f32 = torch.float32
+    kernels, ptrs, strides, _ = _weight_args([k.float() for k in kernels])
+    wpack = torch.empty(_BWD_TF32_WPACK, dtype=f32, device=dev)
+    dw_part = torch.empty((_BWD_WGRAD_TILES, sched["wgrad_ctas"], 9,
+                           CHANNELS, CHANNELS), dtype=f32, device=dev)
+    db_part = torch.empty((5, parts, CHANNELS), dtype=f32, device=dev)
+    dw = torch.empty(sum(9 * ci * co for ci, co in zip(CIN, COUT)),
+                     dtype=f32, device=dev)
+    db = torch.empty(FEAT, dtype=f32, device=dev)
+    entry = getattr(lib, _BWD_TF32_ENTRY[lib_name])
+    _raise_on(entry(
+        g.data_ptr(), feat.data_ptr(), ctypes.addressof(ptrs),
+        ctypes.addressof(strides), dy.data_ptr(), dx.data_ptr(),
+        wpack.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), b, h, w, float(scale_ratio),
+        sched["prep_blocks"], parts, sched["conv_ctas"], sched["dx_ctas"],
+        sched["wgrad_ctas"], dev.index, stream),
+        getattr(lib, f"{lib_name}_error_string"), f"{lib_name} f32 backward")
+    return (dx, *_flat_grads(dw, db), dy)
 
 
 def _bwd_bf16(lib, lib_name, g, feat, kernels, scale_ratio, dx, dy,
@@ -1256,12 +1446,7 @@ def _bwd_bf16(lib, lib_name, g, feat, kernels, scale_ratio, dx, dy,
         parts, sched["conv_ctas"], sched["dx_ctas"], sched["wgrad_ctas"],
         dev.index, stream), getattr(lib, f"{lib_name}_error_string"),
         f"{lib_name} bf16 backward")
-    dws, o = [], 0
-    for ci, co in zip(CIN, COUT):
-        dws.append(dw[o:o + 9 * ci * co].view(3, 3, ci, co))
-        o += 9 * ci * co
-    dbs = tuple(db[GROWTH * i:GROWTH * i + co] for i, co in enumerate(COUT))
-    return dx, tuple(dws), dbs, dy
+    return (dx, *_flat_grads(dw, db), dy)
 
 
 def _ext_shape(b: int, h: int, w: int) -> None:
@@ -1269,10 +1454,6 @@ def _ext_shape(b: int, h: int, w: int) -> None:
         raise ValueError(
             f"the row-extended RDB kernels take widths that are multiples "
             f"of {_EXT_TILE_W} (_ext_eligible), got {w}")
-    if b * (h + 2) > _EXT_MAX_ROWS:
-        raise ValueError(
-            f"the row-extended RDB kernels take at most {_EXT_MAX_ROWS} "
-            f"buffer rows (B * (H + 2)), got {b * (h + 2)}")
 
 
 def rdb_fwd_ext_cuda(
@@ -1311,7 +1492,7 @@ def rdb_bwd_ext_cuda(
 
     Returns ``(dx, dws, dbs, dy)`` as :func:`rdb_bwd_cuda` does, with DY
     in the buffer's (B, H + 2, W, 192) layout, its pad rows zero."""
-    global RDB_BWD_EXT_LAUNCHES
+    global RDB_BWD_EXT_LAUNCHES, RDB_BWD_EXT_F32_LAUNCHES
     kernels = tuple(kernels)
     if feat_padded.dim() != 4 or feat_padded.shape[-1] != FEAT:
         raise ValueError(
@@ -1326,10 +1507,12 @@ def rdb_bwd_ext_cuda(
     _check_kernels(kernels)
     _cuda_operands(feat_padded, (g, *kernels), "rdb_bwd_ext_cuda")
     _ext_shape(b, h, w)
-    out = _bwd_launches(
-        "rdb_ext", g, feat_padded, kernels, scale_ratio,
-        n_tiles=-(-(b * (h + 2)) // 16) * (w // 16), prep_dims=(b, h, w))
-    RDB_BWD_EXT_LAUNCHES += 1
+    _bwd_shape(b, hp, w)
+    out = _bwd_launches("rdb_ext", g, feat_padded, kernels, scale_ratio)
+    if feat_padded.dtype == torch.float32:
+        RDB_BWD_EXT_F32_LAUNCHES += 1
+    else:
+        RDB_BWD_EXT_LAUNCHES += 1
     return out
 
 

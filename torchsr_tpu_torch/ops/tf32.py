@@ -2,8 +2,8 @@
 plain PyTorch: each f32 operand split into a TF32 high and low part
 (``tf32_split``, as ``csrc/hopper.cuh`` splits it), each product taken
 as the three TF32 products ``TF32_TERMS``.  The f32 pair conv
-(``ops/pair_conv.py``) and the f32 RDB forward (``ops/rdb.py``) emulate
-their kernels with these."""
+(``ops/pair_conv.py``) and the f32 RDB forward and backward
+(``ops/rdb.py``) emulate their kernels with these."""
 
 from __future__ import annotations
 
@@ -14,8 +14,10 @@ _TF32_DROP = 0x1FFF
 _TF32_HALF = 0x1000
 # The three TF32 products of a 3xTF32 f32 product, (A's part, B's part),
 # in the kernels' order (the small terms first): A is the operand the
-# kernels split in registers (the activations; g in the pair conv's
-# dgrad), B the one staged as two planes (the weights; g in its wgrad).
+# kernels split in registers, B the one staged as two planes.  A: the
+# activations (feat in the RDB wgrad), the cotangents in a dgrad (g in
+# the pair conv's, DY in the RDB backward's slot convs); B: the weights
+# (flipped in a dgrad), the cotangents in a wgrad (g^T, DY^T).
 TF32_TERMS = (("hi", "lo"), ("lo", "hi"), ("hi", "hi"))
 
 

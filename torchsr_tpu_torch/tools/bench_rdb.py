@@ -1,9 +1,9 @@
 """Time the RDB kernels (B1, B7, B6; with --bwd B2, B8) on one CUDA card.
 
     python torchsr_tpu_torch/tools/bench_rdb.py [--root TREE] [--bwd]
-        [--gan-profile] [--serve-profile] [--serve-ilv-profile]
-        [--serve-f32-profile] [--eval-f32] [--pair-synth] [--hashes]
-        [--seed N]
+        [--gan-profile] [--gan-profile-f32] [--serve-profile]
+        [--serve-ilv-profile] [--serve-f32-profile] [--eval-f32]
+        [--pair-synth] [--hashes] [--seed N]
 
 The counterpart of the JAX package's ``tools/bench_rdb.py``.  ``--root``
 names the checkout whose ``torchsr_tpu_torch`` is imported (by default
@@ -27,9 +27,13 @@ bf16 with f32 permuted views of OIHW weights, as the trainer hands them.
 The f32 block's plain version (``rdb_reference``: five ``F.conv2d``,
 TF32 off) is timed at the serving and training shapes the same way.
 ``--bwd`` adds the backward, ``rdb_bwd_cuda`` (B2) and
-``rdb_bwd_ext_cuda`` (B8), at the training shape the same way.
+``rdb_bwd_ext_cuda`` (B8), bf16 and f32, at the training shape and at
+the LR batches of ``train --scale 2`` and ``--scale 8`` (16, 64, 64, 64)
+and (16, 16, 16, 64) the same way.
 ``--gan-profile`` profiles one GAN step of the full-width trainer at
-batch 64 and ``--serve-profile`` three (16, 64, 64, 3) tile batches of
+batch 64 (bf16), ``--gan-profile-f32`` one at batch 32 with
+``disable_amp`` and TF32 off (crop 128, the f32 quality runs' recipe),
+and ``--serve-profile`` three (16, 64, 64, 3) tile batches of
 the 23-RRDB generator in bf16: the RDB forward's (and backward's)
 device time, the kernels per step or batch, the device's busy share of
 the span; ``--serve-ilv-profile`` the same tile batches with
@@ -43,8 +47,9 @@ the pair synthesis kernel (B3, ``synthesize_pair_cuda``) at the bench
 tool's shape (64, 96, 96, 3), a call (CUDA events) and its device time,
 and runs ``tools/bench_preprocess.py``'s measurement (median and p90 µs
 a synthesized batch) on that tree.  ``--hashes`` prints digests of B1's
-and B7's outputs and feature buffers at nine shapes in both dtypes, so
-that two trees can be shown to compute the same bits.  One JSON line
+and B7's outputs and feature buffers at nine shapes in both dtypes, and
+of B2's and B8's bf16 outputs (dx, dW, db, DY) at five, so that two
+trees can be shown to compute the same bits.  One JSON line
 on stdout, the card's name and power limit in it.  It needs a CUDA card
 and the CUDA toolkit.
 """
@@ -67,6 +72,7 @@ EVAL_HW = (176, 176)
 SYNTH_SHAPE = (64, 96, 96, 3)  # tools/bench_preprocess.py's defaults
 SCALE = 0.2
 GAN_BATCH = 64
+GAN_F32_BATCH = 32  # the f32 quality runs' batch (tools/quality_run.py)
 TILE_BATCH = (16, 64, 64, 3)
 NUM_RRDB = 23
 
@@ -281,34 +287,84 @@ def bench_pair_synth(torch, seed: int) -> dict:
     return row
 
 
+# The backward's shapes: the training batch, and the LR batches of
+# ``train --scale 2`` and ``--scale 8`` at crop 128 and batch 16.
+BWD_SHAPES = {"train": TRAIN_SHAPE, "scale2": (16, 64, 64, 64),
+              "scale8": (16, 16, 16, 64)}
+
+
 def bench_backward(torch, rdb_ops, seed: int) -> dict:
+    """B2 and B8, bf16 and f32, at ``BWD_SHAPES``: a call's median time
+    and its device time by launch (``_timed``)."""
     gen, ks, bs = _weights(torch, rdb_ops, seed)
-    x = (torch.randn(TRAIN_SHAPE, generator=gen) * 0.5).cuda()
-    g = (torch.randn(TRAIN_SHAPE, generator=gen) * 0.1).cuda()
     out = {}
     with torch.no_grad():
-        for dtype in (torch.bfloat16, torch.float32):
-            xd, gd = x.to(dtype), g.to(dtype)
-            kd = [k.to(dtype) for k in ks]
-            _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
-            _, featp = rdb_ops.rdb_fwd_ext_cuda(xd, kd, bs, scale_ratio=SCALE)
-            calls = {
-                "b2": lambda: rdb_ops.rdb_bwd_cuda(gd, feat, kd,
-                                                   scale_ratio=SCALE),
-                "b8": lambda: rdb_ops.rdb_bwd_ext_cuda(gd, featp, kd,
-                                                       scale_ratio=SCALE),
-            }
-            name = str(dtype).removeprefix("torch.")
-            for k, fn in calls.items():
-                out[f"{k}_{name}"] = {"ms": _median_ms(torch, fn),
-                                      **_profile(torch, fn, 10)}
+        for where, shape in BWD_SHAPES.items():
+            x = (torch.randn(shape, generator=gen) * 0.5).cuda()
+            g = (torch.randn(shape, generator=gen) * 0.1).cuda()
+            for dtype in (torch.bfloat16, torch.float32):
+                xd, gd = x.to(dtype), g.to(dtype)
+                kd = [k.to(dtype) for k in ks]
+                _, feat = rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE)
+                _, featp = rdb_ops.rdb_fwd_ext_cuda(xd, kd, bs,
+                                                    scale_ratio=SCALE)
+                name = str(dtype).removeprefix("torch.")
+                out[f"{where}_b2_{name}"] = _timed(
+                    torch, lambda: rdb_ops.rdb_bwd_cuda(gd, feat, kd,
+                                                        scale_ratio=SCALE))
+                out[f"{where}_b8_{name}"] = _timed(
+                    torch, lambda: rdb_ops.rdb_bwd_ext_cuda(
+                        gd, featp, kd, scale_ratio=SCALE))
+    return out
+
+
+# The shapes ``--hashes`` runs the bf16 backward at (B8 where the width
+# is a multiple of 16).
+BWD_HASH_SHAPES = {"train": TRAIN_SHAPE, "ragged": RAGGED_SHAPE,
+                   "scale8": (16, 16, 16, 64), "ext_ragged": (3, 37, 48, 64),
+                   "w65": (2, 9, 65, 64)}
+
+
+def backward_hashes(torch, rdb_ops, seed: int) -> dict:
+    """As ``forward_hashes`` for the bf16 backward: digests of B2's (and
+    B8's) dx, dW, db and DY (B8: its data rows) at ``BWD_HASH_SHAPES``,
+    on the feature buffer B1 (B7) filled from seeded inputs."""
+    import hashlib
+
+    def digest(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()[:16]
+
+    gen, ks, bs = _weights(torch, rdb_ops, seed + 1)
+    kd = [k.to(torch.bfloat16) for k in ks]
+    out = {}
+    with torch.no_grad():
+        for where, shape in BWD_HASH_SHAPES.items():
+            x = (torch.randn(shape, generator=gen) * 0.5).cuda().bfloat16()
+            g = (torch.randn(shape, generator=gen) * 0.1).cuda().bfloat16()
+            _, feat = rdb_ops.rdb_fwd_cuda(x, kd, bs, scale_ratio=SCALE)
+            dx, dws, dbs, dy = rdb_ops.rdb_bwd_cuda(g, feat, kd,
+                                                    scale_ratio=SCALE)
+            out[f"{where}_b2"] = [digest([dx]), digest(dws), digest(dbs),
+                                  digest([dy])]
+            if shape[2] % 16 == 0:
+                _, featp = rdb_ops.rdb_fwd_ext_cuda(x, kd, bs,
+                                                    scale_ratio=SCALE)
+                dx, dws, dbs, dy = rdb_ops.rdb_bwd_ext_cuda(
+                    g, featp, kd, scale_ratio=SCALE)
+                out[f"{where}_b8"] = [digest([dx]), digest(dws),
+                                      digest(dbs), digest([dy[:, 1:-1]])]
     return out
 
 
 def _rdb_class(name: str) -> str:
     """``rdb_fwd``, ``rdb_bwd`` or ``other``: the RDB forward's kernels
     (an older tree's direct ``conv3x3_*``, the Hopper ``rdb_fwd_sm90``
-    ones, B6's) and the backward's (both generations)."""
+    ones, B6's) and the backward's (every generation: an older tree's
+    FFMA f32 kernels too)."""
     if any(k in name for k in ("conv3x3_", "rdb_fwd_", "ilv_conv_",
                                "grow_x")):
         return "rdb_fwd"
@@ -327,9 +383,12 @@ def _summary(prof: dict, what: str) -> dict:
             "busy_share_of_span": prof["busy_share_of_span"]}
 
 
-def gan_profile(torch, root: str, seed: int) -> dict:
-    """One GAN step at batch 64 (bf16, 23 RRDBs, crop 128) under the
-    profiler, after two unprofiled steps, on 40 seeded 160 x 160 PNGs."""
+def gan_profile(torch, root: str, seed: int, batch: int = GAN_BATCH,
+                f32: bool = False) -> dict:
+    """One GAN step at ``batch`` (bf16, or with ``f32`` in f32: the
+    trainer's ``disable_amp``, TF32 off; 23 RRDBs, crop 128) under the
+    profiler, after two unprofiled steps, on 40 seeded 160 x 160 PNGs;
+    the step's median host time over 5 steps beside it."""
     from argparse import Namespace
 
     import numpy as np
@@ -345,23 +404,35 @@ def gan_profile(torch, root: str, seed: int) -> dict:
     for i in range(40):
         Image.fromarray(rng.integers(0, 256, (160, 160, 3), np.uint8)).save(
             os.path.join(ds, f"img{i:03d}.png"))
-    args = Namespace(batch_size=GAN_BATCH, epochs=1, pretrain_epochs=1,
-                     seed=seed, skip_image_save=True, disable_amp=False,
+    args = Namespace(batch_size=batch, epochs=1, pretrain_epochs=1,
+                     seed=seed, skip_image_save=True, disable_amp=f32,
                      metrics_file=None)
     trainer = ESRGANTrainer(
-        args, *initialize_datasets(ds, GAN_BATCH, 128, seed=seed),
+        args, *initialize_datasets(ds, batch, 128, seed=seed),
         device=torch.device("cuda"), logger=Logger())
     gen = torch.Generator().manual_seed(seed)
-    crops = torch.randint(0, 256, (GAN_BATCH, 128, 128, 3), generator=gen,
+    crops = torch.randint(0, 256, (batch, 128, 128, 3), generator=gen,
                           dtype=torch.uint8).cuda()
-    flips = torch.randint(0, 2, (GAN_BATCH, 2), generator=gen).bool().cuda()
+    flips = torch.randint(0, 2, (batch, 2), generator=gen).bool().cuda()
 
     def step():
         trainer.gan_step(crops, flips, 1e-4, 1e-4)
 
-    for _ in range(2):
-        step()
-    return _summary(_profile(torch, step, 1, key=_rdb_class), "step")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    if f32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for _ in range(2):
+            step()
+        row = _summary(_profile(torch, step, 1, key=_rdb_class), "step")
+        row["step_ms"] = _median_ms(torch, step, reps=5, warmup=1)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    row["rdb_bwd_share"] = row["rdb_bwd_device_ms"] / row["step_device_ms"]
+    return {"batch": batch, "f32": f32, **row}
 
 
 def serve_profile(torch, seed: int, dtype=None) -> dict:
@@ -438,6 +509,7 @@ def main(argv=None) -> None:
     parser.add_argument("--root", default=here)
     parser.add_argument("--bwd", action="store_true")
     parser.add_argument("--gan-profile", action="store_true")
+    parser.add_argument("--gan-profile-f32", action="store_true")
     parser.add_argument("--serve-profile", action="store_true")
     parser.add_argument("--serve-ilv-profile", action="store_true")
     parser.add_argument("--serve-f32-profile", action="store_true")
@@ -481,10 +553,14 @@ def main(argv=None) -> None:
         row["eval_f32"] = eval_f32(torch, root, args.seed)
     if args.gan_profile:
         row["gan_step_batch64"] = gan_profile(torch, root, args.seed)
+    if args.gan_profile_f32:
+        row["gan_step_f32_batch32"] = gan_profile(
+            torch, root, args.seed, GAN_F32_BATCH, f32=True)
     if args.pair_synth:
         row["pair_synth"] = bench_pair_synth(torch, args.seed)
     if args.hashes:
         row["hashes"] = forward_hashes(torch, rdb_ops, args.seed)
+        row["bwd_hashes"] = backward_hashes(torch, rdb_ops, args.seed)
     print(json.dumps(row), flush=True)
 
 
