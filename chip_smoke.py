@@ -14,7 +14,8 @@ the drives that name them.  Each path's launch counters
 (``ops.rdb.RDB_*_LAUNCHES``, ``ops.preprocess.PAIR_SYNTH_LAUNCHES``,
 ``ops.pair_conv.PAIR_FWD_LAUNCHES``, ``PAIR_BWD_LAUNCHES``, and the
 f32 kernels' own ``RDB_FWD_F32_LAUNCHES``, ``RDB_FWD_EXT_F32_LAUNCHES``,
-``RDB_BWD_F32_LAUNCHES``, ``RDB_BWD_EXT_F32_LAUNCHES``,
+``RDB_FWD_ILV_F32_LAUNCHES``, ``RDB_BWD_F32_LAUNCHES``,
+``RDB_BWD_EXT_F32_LAUNCHES``,
 ``PAIR_FWD_F32_LAUNCHES``, ``PAIR_BWD_F32_LAUNCHES``) are set
 to 0 just before it and must read exactly what its steps, evals,
 renders, tile batches or tool calls imply, every other counter (the
@@ -60,15 +61,20 @@ renders, tile batches or tool calls imply, every other counter (the
 5. rdb_fwd_ilv (B6): the interleaved forward, checked as rdb_fwd on the
    mid copies of its buffer (the up and dn copies must equal the rows
    above and below, zeros at the image edges), at the serving shape, the
-   ragged one, the wide (2, 6, 140) and (4, 1, 9), where every row is an
-   image's first and last, in f32 and bf16, against B1, beside three wrong
-   kernels (``WRONG_ILV``: one chunk's up and dn copies swapped, the
-   image-edge zeroing skipped, a run's end halo pixel dropped), each where
-   it can show.  In bf16 a call with f32 views of the weights must equal
-   the bf16 one bit for bit, its profile must hold six kernels, all its
-   own, and the schedule the launches run the one ``ops.rdb.
-   ilv_schedule`` mirrors.  Routing: a forward that a backward follows
-   goes to B1.
+   ragged one, the wide (2, 6, 140), (4, 1, 9), where every row is an
+   image's first and last, and ``eval``'s (1, 44, 44), in f32 and bf16,
+   against B1, beside three wrong kernels (``WRONG_ILV``: one chunk's up
+   and dn copies swapped, the image-edge zeroing skipped, a run's end
+   halo pixel dropped), each where it can show.  A call's profile must
+   hold six kernels, all its own, and the schedule the launches run the
+   one ``ops.rdb.ilv_schedule`` mirrors (f32: ``ilv_tf32_schedule``).
+   In bf16 a call with f32 views of the weights must equal the bf16 one
+   bit for bit.  In f32 (the 3xTF32 kernels, ``ops/csrc/
+   rdb_ilv_tf32_sm90.cuh``) plain TF32 and 3xTF32 without lo.hi
+   (``WRONG_PAIR_TF32``) must each fail at some shape, launch and block,
+   and no launch may read more than ``ILV_DRIFT`` times the emulated
+   3xTF32 forward (``rdb_ilv_3xtf32_reference``: the kernel's chains
+   summed in f32) at that shape, the ratio printed.  Routing: a forward that a backward follows goes to B1.
 6. rdb_bwd (B2): the RDB backward at the training shape (64, 32, 32, 64),
    a ragged one and the ``--scale 2`` and ``--scale 8`` LR batches (16,
    64, 64, 64) and (16, 16, 16, 64), f32 and bf16; every stage (each
@@ -173,6 +179,13 @@ renders, tile batches or tool calls imply, every other counter (the
     must read over that limit; what one whose blocks multiply in plain
     TF32 reads is printed); the f32 report
     again with TF32 allowed, and the difference printed.
+21a. eval_ilv: eval's four runs with ``ILV_KERNEL`` set: B6 5 x 69
+    launches a generator forward (f32 on ``rdb_fwd_ilv_f32``, bf16 on
+    ``rdb_fwd_ilv``), B1's counters 0; each report recomputed in float64;
+    every SR within the generator's tolerance of B1's (the same runs
+    first, on B1) and each per-image PSNR within what that can move it.
+    Under ``--only`` without the train phase it scores the seeded 23-RRDB
+    generator.
 22. interp: ``interp`` of the train phase's psnr-best and gan-best at
     alpha 0.2 (alpha 0 and 1 must return the inputs bit for bit), then
     ``eval`` of the blend (B1).
@@ -260,7 +273,7 @@ renders, tile batches or tool calls imply, every other counter (the
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
 power limit again, a ``kernels`` JSON line (all eight kernels, f32
-paths of B1, B2, B4, B5, B7 and B8 in rows of their own), and as
+paths of B1, B2, B4, B5, B6, B7 and B8 in rows of their own), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no last line.
 ``--only`` runs the named phases after probe and build (for kernel
@@ -268,7 +281,7 @@ work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
 pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
 train_grad_ext, train_grad_xla, train, train_ext, train_f32,
 train_f32_ext, train_speed, eval and interp (each after train),
-srgan_train, multistep, bench, serve_graph, export, batching,
+eval_ilv, srgan_train, multistep, bench, serve_graph, export, batching,
 external, shard_tiles, halo (these six on a seeded
 23-RRDB generator), pack_train, scale, preempt, fast_compile,
 subpixel_head, ddp_train, prefetch; and multi_card, on a machine with several
@@ -382,6 +395,7 @@ COUNTERS = {
     "rdb_bwd_ext": (rdb_ops, "RDB_BWD_EXT_LAUNCHES"),
     "rdb_bwd_ext_f32": (rdb_ops, "RDB_BWD_EXT_F32_LAUNCHES"),
     "rdb_fwd_ilv": (rdb_ops, "RDB_FWD_ILV_LAUNCHES"),
+    "rdb_fwd_ilv_f32": (rdb_ops, "RDB_FWD_ILV_F32_LAUNCHES"),
     "rdb_bwd_xla": (rdb_ops, "RDB_BWD_XLA_LAUNCHES"),
     "pair_synth": (ps_ops, "PAIR_SYNTH_LAUNCHES"),
     "pair_fwd": (pc_ops, "PAIR_FWD_LAUNCHES"),
@@ -507,9 +521,9 @@ def read_counters() -> dict:
 
 
 def fwd_counter(kernel: str, dtype: torch.dtype) -> str:
-    """The counter of RDB ``kernel`` ("rdb_fwd", "rdb_fwd_ext", "rdb_bwd"
-    or "rdb_bwd_ext") in ``dtype``: f32 runs the 3xTF32 kernels, counted
-    apart."""
+    """The counter of RDB ``kernel`` ("rdb_fwd", "rdb_fwd_ext",
+    "rdb_fwd_ilv", "rdb_bwd" or "rdb_bwd_ext") in ``dtype``: f32 runs the
+    3xTF32 kernels, counted apart."""
     return f"{kernel}_f32" if dtype == torch.float32 else kernel
 
 
@@ -906,6 +920,11 @@ def phase_build() -> None:
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and m.group(1) != "0":
                 regs.append(f"{name}:SPILL{m.group(1)}")
+            m = re.search(r"\((C75\d\d)\)", line)
+            if m:  # ptxas serialized a function's wgmmas
+                f = re.search(r"function '([^']+)'", line)
+                regs.append(f"{f.group(1) if f else name}:SERIALIZED_"
+                            f"{m.group(1)}")
         report[lib] = {"nvcc_seconds": round(info["seconds"], 3),
                        "ptxas": regs}
     for lib in _build.SIGNATURES:
@@ -1142,12 +1161,27 @@ def hold_rdb_ext(x: torch.Tensor, ks, bs, ks32=None) -> dict:
 # its last row the next image's first row); a run's end halo pixel
 # dropped, so that its last output loses y2 of the pixel after it.
 WRONG_ILV = ("up_dn_swapped", "edge_zero_skipped", "halo_dropped")
-# The interleaved forward at the serving shape, the ragged and wide ones
-# and one where every row is an image's first and last: (4, 1, 9).
+# The interleaved forward at the serving shape, the ragged and wide ones,
+# ``eval``'s block and one where every row is an image's first and last:
+# (4, 1, 9).
 ILV_EDGE = (4, 1, 9)
-# At most (and, in bf16, exactly) this many kernels in one bf16 call of
-# the interleaved forward: prep and five convs.
+# Exactly this many kernels in one call of the interleaved forward, all
+# its own: prep and five convs (f32: the 3xTF32 kernels,
+# ``rdb_fwd_ilv_tf32``).
 ILV_BF16_KERNELS = 6
+ILV_F32_KERNELS = 6
+# A launch of the interleaved f32 forward beside the emulated 3xTF32
+# forward (``rdb_ilv_3xtf32_reference``: the kernel's products and
+# chains, each chain summed in f32): its worst excess may be at most
+# ILV_DRIFT times the emulation's at the same shape.  The two differ only
+# in how a chain's products are summed (the tensor core's accumulation
+# against f32 FMA); on an NVIDIA H100 80GB HBM3 at 700 W a launch read
+# 0.82-1.29x the emulation at this phase's shapes and three weight
+# seeds, and chains of a K stage or of a group of two k steps 0.82-1.10x
+# (in 11-27% more time), so no chain length puts every launch under it.
+# A tensor-core chain over all of C_in, the drift this limit is for, read
+# 6-9x the emulation in the f32 slot forward's first design.
+ILV_DRIFT = 2.0
 
 
 def ilv_emulated_fwd(x, ks, bs, fault=None):
@@ -1246,18 +1280,40 @@ def ilv_copies_exact(buf: torch.Tensor) -> bool:
     return ok
 
 
+def ilv_tf32_excess(x, ks, bs) -> dict:
+    """What the interleaved f32 forward reads under the f32 limits (its
+    largest launch excess and its block excess) with each
+    ``WRONG_PAIR_TF32`` product (plain TF32, 3xTF32 without lo.hi), and,
+    as ``emulated``, with the kernel's own: all emulated by
+    ``rdb_ilv_3xtf32_reference``, the kernel's chains summed in f32 (a
+    launch that reads more than ``emulated`` drifts on the tensor
+    core)."""
+    rows = {}
+    for fault, terms in (*WRONG_PAIR_TF32.items(), ("emulated", None)):
+        out, buf = rdb_ops.rdb_ilv_3xtf32_reference(x, ks, bs, SCALE,
+                                                    terms=terms)
+        row = rdb_scores(x, ks, bs, out, ilv_mid(buf))
+        rows[fault] = {"stage": max(row["stage_excess"]),
+                       "block": row["block_excess"]}
+    return rows
+
+
 def hold_rdb_ilv(x: torch.Tensor, ks, bs, ks32=None) -> dict:
     """One interleaved forward (B6): each launch and the block held as
     ``hold_rdb`` holds B1, on the buffer's mid copies; the up and dn
     copies exact; the block against B1 on the same inputs; beside what
-    the ``WRONG_ILV`` kernels read.  In bf16 also the call with f32 views
-    of ``ks32`` bit-equal, and the schedule the launches run the one
-    ``ops.rdb.ilv_schedule`` mirrors."""
+    the ``WRONG_ILV`` kernels read; the schedule the launches run the one
+    ``ops.rdb`` mirrors (``ilv_schedule``, f32 ``ilv_tf32_schedule``).
+    In bf16 also the call with f32 views of ``ks32`` bit-equal; in f32
+    what the 3xTF32 forward short of a term reads (``tf32``, held across
+    shapes by the phase) and no launch over ``ILV_DRIFT`` times the
+    emulated 3xTF32 forward's worst excess."""
     dt = x.dtype
-    before = rdb_ops.RDB_FWD_ILV_LAUNCHES
+    counter = fwd_counter("rdb_fwd_ilv", dt)
+    before = read_counters()[counter]
     out, buf = rdb_ops.rdb_fwd_ilv_cuda(x, ks, bs, scale_ratio=SCALE)
-    check(rdb_ops.RDB_FWD_ILV_LAUNCHES == before + 5,
-          "rdb_fwd_ilv_cuda launched its conv kernel five times")
+    check(read_counters()[counter] == before + 5,
+          f"rdb_fwd_ilv_cuda launched its conv kernel five times ({counter})")
     check(bool(torch.isfinite(out).all()), "rdb_fwd_ilv output finite")
     row = rdb_scores(x, ks, bs, out, ilv_mid(buf))
     row["copies_exact"] = ilv_copies_exact(buf)
@@ -1275,7 +1331,18 @@ def hold_rdb_ilv(x: torch.Tensor, ks, bs, ks32=None) -> dict:
           and min(row["block_wrong_excess"].values()) > 1
           and all(v["stage"] > 1 for v in row["ilv_wrong"].values()),
           f"{name}: the limits see a wrong kernel: {row}")
-    if dt == torch.bfloat16:
+    b, h, w, _ = x.shape
+    if dt == torch.float32:
+        row["tf32"] = ilv_tf32_excess(x, ks, bs)
+        row["vs_emulated"] = (max(row["stage_excess"])
+                              / row["tf32"]["emulated"]["stage"])
+        check(row["vs_emulated"] <= ILV_DRIFT,
+              f"{name}: no launch reads more than {ILV_DRIFT}x the emulated "
+              f"3xTF32 forward (its chains summed in f32): "
+              f"{row['stage_excess']} vs {row['tf32']['emulated']}")
+        sched, mirror = (rdb_ops.ilv_tf32_kernel_schedule(b, h, w),
+                         rdb_ops.ilv_tf32_schedule(b, h, w))
+    else:
         if ks32 is not None:
             out32, buf32 = rdb_ops.rdb_fwd_ilv_cuda(x, f32_views(ks32), bs,
                                                     scale_ratio=SCALE)
@@ -1283,13 +1350,24 @@ def hold_rdb_ilv(x: torch.Tensor, ks, bs, ks32=None) -> dict:
                                               and torch.equal(buf32, buf))
             check(row["f32_views_bit_equal"],
                   f"{name}: f32 weight views give the bf16 weights' block")
-        b, h, w, _ = x.shape
-        sched = rdb_ops.ilv_kernel_schedule(b, h, w)
-        row["schedule"] = sched
-        check(sched == rdb_ops.ilv_schedule(b, h, w),
-              f"{name}: the kernel runs the schedule ilv_schedule mirrors: "
-              f"{sched} vs {rdb_ops.ilv_schedule(b, h, w)}")
+        sched, mirror = (rdb_ops.ilv_kernel_schedule(b, h, w),
+                         rdb_ops.ilv_schedule(b, h, w))
+    row["schedule"] = sched
+    check(sched == mirror, f"{name}: the kernel runs the schedule its "
+                           f"mirror gives: {sched} vs {mirror}")
     return row
+
+
+def check_ilv_profile(prof: dict, dtype) -> None:
+    """One call of the interleaved forward launches exactly its six
+    kernels, all its own (f32: all the 3xTF32 forward's)."""
+    names = [n for n, _ in prof["by_launch"]]
+    own = "rdb_fwd_ilv_tf32" if dtype == torch.float32 else "rdb_fwd_ilv_"
+    want = ILV_F32_KERNELS if dtype == torch.float32 else ILV_BF16_KERNELS
+    check(prof["kernels_per_call"] == want
+          and all(own in n for n in names),
+          f"rdb_fwd_ilv {dtype}: one call launches only its own kernels, "
+          f"{want}: {names}")
 
 
 def ilv_traffic_ms(shape, dtype) -> float:
@@ -1314,7 +1392,8 @@ def routing_check(path: str, x: torch.Tensor, ks, bs, **want) -> None:
 def phase_rdb_variant(seed: int, variant: str) -> dict:
     """B7 (``variant="ext"``) or B6 (``"ilv"``) at the serving shape, a
     ragged and a wide one (B7: and the training shape; B6: and
-    ``ILV_EDGE``), in f32 and bf16, on the weights of ``phase_rdb``."""
+    ``ILV_EDGE`` and ``eval``'s block), in f32 and bf16, on the weights
+    of ``phase_rdb``."""
     dev = torch.device(DEVICE)
     g = torch.Generator().manual_seed(seed)
     ks, bs = _rdb_weights(g, dev)
@@ -1324,6 +1403,7 @@ def phase_rdb_variant(seed: int, variant: str) -> dict:
           * 0.5).to(dev)
     xt = ((torch.randn(TRAIN_RDB_SHAPE if ext else (*ILV_EDGE, 64),
                        generator=g) * 0.5).to(dev))
+    xe = (torch.randn(EVAL_RDB_SHAPE, generator=g) * 0.5).to(dev)
     hold, cuda_fn, plain_fn = (
         (hold_rdb_ext, rdb_ops.rdb_fwd_ext_cuda, rdb_ops.rdb_ext_reference)
         if ext else
@@ -1342,23 +1422,38 @@ def phase_rdb_variant(seed: int, variant: str) -> dict:
                 check("run_edge_lost" in row["wide"]["kxpack_wrong_excess"],
                       "rdb_fwd_ext: the wide shape holds run_edge_lost")
             else:
+                row["eval"] = hold(xe.to(dtype), kd, bs, ks)
                 check(set(row["ilv_wrong"]) == set(WRONG_ILV)
                       and "edge_zero_skipped" in row["edge"]["ilv_wrong"],
                       "rdb_fwd_ilv: every wrong kernel shows at some shape")
+                if dtype == torch.float32:
+                    held = [row, *(row[k] for k in ("ragged", "wide", "edge",
+                                                    "eval"))]
+                    check(all(any(min(r["tf32"][fault].values()) > 1
+                                  for r in held)
+                              for fault in WRONG_PAIR_TF32),
+                          "rdb_fwd_ilv float32: plain TF32 and 3xTF32 "
+                          "without lo.hi each read over the limits, launch "
+                          "and block, at some shape: "
+                          f"{[r['tf32'] for r in held]}")
+            f32 = dtype == torch.float32
             row["ms"] = median_ms(
                 lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE))
             row["profile"] = bwd_profile(
                 lambda: cuda_fn(xd, kd, bs, scale_ratio=SCALE),
-                kernels=(FWD_F32_KERNELS if ext and dtype == torch.float32
-                         else None))
-            if ext or dtype == torch.bfloat16:
+                kernels=(FWD_F32_KERNELS if ext and f32 else ILV_F32_KERNELS
+                         if f32 else None))
+            if ext:
                 check_fwd_profile(row["profile"], f"rdb_fwd_{variant} "
                                   f"{dtype}", dtype)
-                if not ext:
-                    check(row["profile"]["kernels_per_call"]
-                          == ILV_BF16_KERNELS,
-                          f"rdb_fwd_ilv bfloat16: {ILV_BF16_KERNELS} kernels "
-                          f"a call: {row['profile']}")
+            else:
+                check_ilv_profile(row["profile"], dtype)
+                if f32:  # eval's whole 44 x 44 image, a block a call
+                    xed = xe.to(dtype)
+                    row["eval"]["ms"] = median_ms(
+                        lambda: cuda_fn(xed, kd, bs, scale_ratio=SCALE))
+                    row["eval"]["bound_ms"] = rdb_bound_ms(EVAL_RDB_SHAPE,
+                                                           dtype)[0]
             row["b1_ms"] = median_ms(
                 lambda: rdb_ops.rdb_fwd_cuda(xd, kd, bs, scale_ratio=SCALE))
             row["plain_ms"] = median_ms(
@@ -1368,6 +1463,8 @@ def phase_rdb_variant(seed: int, variant: str) -> dict:
             if not ext:
                 row["buffer_traffic_ms"] = ilv_traffic_ms(SERVE_RDB_SHAPE,
                                                           dtype)
+            if f32:
+                row["ffma_bound_ms"] = rdb_ffma_ms(SERVE_RDB_SHAPE)
             row["tflops"] = (SERVE_RDB_SHAPE[0] * 64 * 64 * RDB_FLOP_PER_PX
                              / row["ms"] / 1e9)
             name = str(dtype).removeprefix("torch.")
@@ -3234,6 +3331,53 @@ def _check_report(report: dict, what: str, model: str = "esrgan") -> None:
           f"{what}: sides cropped to multiples of 4")
 
 
+def _eval_hr(folder: str) -> dict:
+    from torchsr_tpu_torch.utils import image_io
+
+    return {f"img{i}.png": image_io.load_image(os.path.join(folder,
+                                                            f"img{i}.png"))
+            for i in range(len(EVAL_SIZES))}
+
+
+def _eval_runs(ckpt: str, hr: dict, path: str, kernel: str) -> tuple:
+    """``EVAL_RUNS``' four ``eval`` calls (the CLI's ``main``, in this
+    process, in the eval workdir) on ``ckpt``, the counters set to 0
+    before each: RDB ``kernel`` ("rdb_fwd" B1, "rdb_fwd_ilv" B6) in the
+    run's dtype 5 x 69 launches a generator forward, every other counter
+    0; each report recomputed in float64.  Returns the rows, the
+    launches by path (``path`` and the run's name), the reports and the
+    saved SRs, by run."""
+    rows, paths, reports, srs = {}, {}, {}, {}
+    for name, extra in EVAL_RUNS:
+        reset_counters()
+        t0 = time.perf_counter()
+        with saved_sr({}) as got, contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["eval", "val", "--checkpoint", ckpt, "--save-sr",
+                      "--report", f"{path}_{name}.json", *extra])
+        wall_s = time.perf_counter() - t0
+        paths[f"{path} {name}"] = counts = read_counters()
+        with open(f"{path}_{name}.json") as fh:
+            reports[name] = report = json.load(fh)
+        srs[name] = got
+        excess = [report_excess(r, got[f"upres-{r['image']}"],
+                                hr[r["image"]])
+                  for r in report["per_image"]]
+        rows[name] = {"wall_s": wall_s, "launches": counts,
+                      **_headline(report),
+                      "recompute_excess": max(
+                          max(e["psnr"], e["ssim"]) for e in excess)}
+        _check_report(report, f"{path} {name}")
+        fwd = fwd_counter(kernel, torch.bfloat16 if "--bf16" in extra
+                          else torch.float32)
+        check_counts(f"{path} {name}", counts, **{fwd: 5 * 3 * NUM_RRDB
+                     * eval_forwards(EVAL_SIZES, extra)})
+        check(rows[name]["recompute_excess"] <= 1,
+              f"{path} {name}: the report's PSNR/SSIM equal float64 "
+              f"numpy's of the saved SR to the report's rounding: "
+              f"{excess}")
+    return rows, paths, reports, srs
+
+
 def phase_eval(seed: int) -> dict:
     """``eval`` (the CLI's ``main``, in this process) on the train
     phase's gan-best: whole-image and tiled, f32 and bf16; B1 5 x 69
@@ -3245,46 +3389,16 @@ def phase_eval(seed: int) -> dict:
     from torchsr_tpu_torch.infer.evaluate import run_eval, tf32_allowed
     from torchsr_tpu_torch.infer.runner import load_trained_generator
     from torchsr_tpu_torch.ops.resize import bicubic_resize
-    from torchsr_tpu_torch.utils import image_io
 
     ckpt = os.path.join(ROOT, "build", "chip_smoke", "train",
                         "esrgan-gan-best.pth")
     folder = _eval_images(seed)
     workdir = os.path.dirname(folder)
-    hr = {f"img{i}.png": image_io.load_image(os.path.join(folder,
-                                                          f"img{i}.png"))
-          for i in range(len(EVAL_SIZES))}
-    rows, paths, reports, srs = {}, {}, {}, {}
+    hr = _eval_hr(folder)
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
-        for name, extra in EVAL_RUNS:
-            reset_counters()
-            t0 = time.perf_counter()
-            with saved_sr({}) as got, contextlib.redirect_stdout(
-                    io.StringIO()):
-                cli.main(["eval", "val", "--checkpoint", ckpt, "--save-sr",
-                          "--report", f"{name}.json", *extra])
-            wall_s = time.perf_counter() - t0
-            paths[f"eval {name}"] = counts = read_counters()
-            with open(f"{name}.json") as fh:
-                reports[name] = report = json.load(fh)
-            srs[name] = got
-            excess = [report_excess(r, got[f"upres-{r['image']}"],
-                                    hr[r["image"]])
-                      for r in report["per_image"]]
-            rows[name] = {"wall_s": wall_s, "launches": counts,
-                          **_headline(report),
-                          "recompute_excess": max(
-                              max(e["psnr"], e["ssim"]) for e in excess)}
-            _check_report(report, f"eval {name}")
-            fwd = "rdb_fwd" if "--bf16" in extra else "rdb_fwd_f32"
-            check_counts(f"eval {name}", counts, **{fwd: 5 * 3 * NUM_RRDB
-                         * eval_forwards(EVAL_SIZES, extra)})
-            check(rows[name]["recompute_excess"] <= 1,
-                  f"eval {name}: the report's PSNR/SSIM equal float64 "
-                  f"numpy's of the saved SR to the report's rounding: "
-                  f"{excess}")
+        rows, paths, reports, srs = _eval_runs(ckpt, hr, "eval", "rdb_fwd")
         args = Namespace(image_dir="val", model="esrgan", checkpoint=ckpt,
                          crop=None, tile=0, tile_overlap=16, tile_batch=8,
                          bf16=False, save_sr=False, report=None,
@@ -3336,6 +3450,67 @@ def phase_eval(seed: int) -> dict:
     check(_dist(wrong, ref)["max"] > limit,
           "the eval limit sees a generator whose blocks lost conv5")
     _check_report(tf32, "eval f32 with TF32 allowed")
+    return paths
+
+
+# eval_ilv: eval's four runs on B6 (``TORCHSR_RDB_ILV``'s variant), each
+# SR held against B1's element by element, within the generator's
+# tolerance of the largest B1 output (f32 TOL_GEN_F32; bf16, whose blocks
+# round at other places, TOL_GEN_BF16), and each per-image PSNR within
+# what an SR that close can move it by: 20 log10(1 + tol / rmse) dB (the
+# RMSE moves by at most tol), plus each report's REPORT_SLACK.
+def _psnr_room(tol: float, psnr: float) -> float:
+    """The most a PSNR of ``psnr`` dB moves when every SR value moves by
+    at most ``tol``, with two reports' slack."""
+    rmse = 10.0 ** (-psnr / 20.0)
+    return 20.0 * math.log10(1.0 + tol / rmse) + 2 * REPORT_SLACK["psnr"]
+
+
+def phase_eval_ilv(seed: int) -> dict:
+    """``eval`` as ``phase_eval`` runs it on the train phase's gan-best
+    (under ``--only`` without it, on the seeded serving checkpoint), on
+    B1 and then with ``ILV_KERNEL`` set: B6 takes every block (f32 on
+    the 3xTF32 kernels, ``rdb_fwd_ilv_f32``; bf16 ``rdb_fwd_ilv``), 5 x
+    69 launches a generator forward, B1 and every other counter 0; each
+    report recomputed in float64; each SR and per-image PSNR held against
+    B1's."""
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "train",
+                        "esrgan-gan-best.pth")
+    if not os.path.exists(ckpt):
+        ckpt = serving_generator(seed)[1]
+    folder = _eval_images(seed)
+    hr = _eval_hr(folder)
+    cwd = os.getcwd()
+    os.chdir(os.path.dirname(folder))
+    try:
+        _, _, b1_reports, b1_srs = _eval_runs(ckpt, hr, "eval_b1",
+                                              "rdb_fwd")
+        with knob("ILV_KERNEL"):
+            rows, paths, reports, srs = _eval_runs(ckpt, hr, "eval_ilv",
+                                                   "rdb_fwd_ilv")
+    finally:
+        os.chdir(cwd)
+    for name, _ in EVAL_RUNS:
+        gen_tol = TOL_GEN_BF16 if name.startswith("bf16") else TOL_GEN_F32
+        worst = {"sr": 0.0, "psnr": 0.0, "ssim_abs": 0.0}
+        for got, ref in zip(reports[name]["per_image"],
+                            b1_reports[name]["per_image"]):
+            key = f"upres-{ref['image']}"
+            sr_ref = torch.from_numpy(b1_srs[name][key])
+            tol = gen_tol * float(sr_ref.abs().max())
+            diff = float((torch.from_numpy(srs[name][key]) - sr_ref).abs()
+                         .max())
+            worst["sr"] = max(worst["sr"], diff / tol)
+            worst["psnr"] = max(worst["psnr"], abs(got["psnr"] - ref["psnr"])
+                                / _psnr_room(tol, ref["psnr"]))
+            worst["ssim_abs"] = max(worst["ssim_abs"],
+                                    abs(got["ssim"] - ref["ssim"]))
+        rows[name]["vs_b1"] = worst
+        check(worst["sr"] <= 1 and worst["psnr"] <= 1,
+              f"eval_ilv {name}: the SRs within {gen_tol} of B1's largest "
+              f"value and the per-image PSNRs within what that moves: "
+              f"{worst}")
+    say("eval_ilv", checkpoint=os.path.relpath(ckpt, ROOT), runs=rows)
     return paths
 
 
@@ -5240,6 +5415,8 @@ KERNELS = (
      "rdb_bwd_ext", "float32", TRAIN_RDB_SHAPE),
     ("rdb_fwd_ilv", "rdb_ilv.cu", "rdb.py:223", "rdb_fwd_ilv", "bfloat16",
      SERVE_RDB_SHAPE),
+    ("rdb_fwd_ilv_f32", "rdb_ilv_tf32_sm90.cuh", "rdb.py:223",
+     "rdb_fwd_ilv", "float32", SERVE_RDB_SHAPE),
     ("pair_synth", "pair_synth.cu", "preprocess.py:45", "pair_synth",
      "uint8", (*PAIR_SYNTH_SHAPES[0], PAIR_SYNTH_SHAPES[0][1], 3)),
     ("pair_fwd", "pair_conv.cu", "pair_conv.py:134", "pair_fwd", "bfloat16",
@@ -5306,7 +5483,8 @@ def main() -> None:
              "pair_conv, bench_preprocess, bench_pair_conv, train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, train_f32, "
              "train_f32_ext, "
-             "train_speed, eval, interp (both after train), srgan_train, "
+             "train_speed, eval, interp (both after train), eval_ilv, "
+             "srgan_train, "
              "multistep, bench, serve_graph, export, batching, external, "
              "pack_train, scale, preempt, fast_compile, subpixel_head, "
              "ddp_train, prefetch, shard_tiles, halo; multi_card (on a "
@@ -5358,6 +5536,7 @@ def main() -> None:
             "train_f32": lambda s: phase_train(s, f32=True),
             "train_f32_ext": lambda s: phase_train(s, ext=True, f32=True),
             "train_speed": phase_train_speed, "eval": phase_eval,
+            "eval_ilv": phase_eval_ilv,
             "interp": phase_interp, "srgan_train": phase_srgan_train,
             "multistep": phase_multistep, "bench": phase_bench,
             "serve_graph": serving(
@@ -5417,6 +5596,7 @@ def main() -> None:
         for t in row["test"]:
             paths[" ".join([f"{phase}: test", *t["args"]])] = t["launches"]
     paths.update(run("eval", phase_eval, seed))
+    paths.update(run("eval_ilv", phase_eval_ilv, seed))
     paths.update(run("interp", phase_interp, seed))
     for name, fn in (("pack_train", phase_pack_train), ("scale", phase_scale),
                      ("preempt", phase_preempt),

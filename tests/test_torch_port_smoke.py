@@ -166,6 +166,67 @@ def test_fwd_profile_check_holds_f32_to_its_six_kernels():
             smoke.check_fwd_profile(bad, "bad", torch.float32)
 
 
+def test_ilv_profile_check_holds_each_dtype_to_its_six_kernels():
+    """An interleaved forward call's profile passes with its own prep and
+    five convs (f32: the 3xTF32 ones), and fails one kernel short, with
+    the other dtype's kernel in it, or with a cast beside them."""
+    for dtype, prep, conv, other in (
+            (torch.float32, "ilv_tf32::rdb_fwd_ilv_tf32_prep",
+             "ilv_tf32::rdb_fwd_ilv_tf32_conv", "ilv_sm90::rdb_fwd_ilv_conv"),
+            (torch.bfloat16, "ilv_sm90::rdb_fwd_ilv_prep<float>",
+             "ilv_sm90::rdb_fwd_ilv_conv", "rdb_fwd_sm90::rdb_fwd_conv")):
+        own = [[prep, 0.02]] + [[conv, 0.05]] * 5
+        smoke.check_ilv_profile({"kernels_per_call": 6, "by_launch": own},
+                                dtype)
+        cast = own[:5] + [["at::native::vectorized_elementwise_kernel", 0.1]]
+        for bad in ({"kernels_per_call": 5, "by_launch": own[:5]},
+                    {"kernels_per_call": 6, "by_launch": own[:5]
+                     + [[other, 0.05]]},
+                    {"kernels_per_call": 6, "by_launch": cast}):
+            with pytest.raises(RuntimeError, match="own kernels"):
+                smoke.check_ilv_profile(bad, dtype)
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (1, 4, 140, 64), (4, 1, 9, 64)],
+                         ids=str)
+def test_ilv_limits_pass_3xtf32_and_fail_plain_tf32(shape):
+    """The interleaved f32 forward's 3xTF32 arithmetic (emulated by
+    ``rdb_ilv_3xtf32_reference``, the kernel's chains) passes the f32
+    limits launch by launch and for the block, on the buffer's mid
+    copies, with exact up and dn copies; plain TF32 (hi.hi only) and
+    3xTF32 with lo.hi dropped read over both."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(0, 0.5, shape).astype(np.float32))
+    _, ks, bs = _inputs(torch.float32)
+    rows = smoke.ilv_tf32_excess(x, ks, bs)
+    assert set(rows) == {*smoke.WRONG_PAIR_TF32, "emulated"}
+    assert max(rows["emulated"].values()) <= 1, rows
+    assert min(min(rows[f].values()) for f in smoke.WRONG_PAIR_TF32) > 1, \
+        rows
+    _, buf = rdb_ops.rdb_ilv_3xtf32_reference(x, ks, bs, smoke.SCALE)
+    assert smoke.ilv_copies_exact(buf)
+
+
+def test_eval_ilv_psnr_room_bounds_a_shifted_sr():
+    """An SR moved by at most ``tol`` at every value moves the PSNR by no
+    more than ``_psnr_room`` allows (both ways), and twice that shift can
+    move it further."""
+    rng = np.random.default_rng(3)
+    hr = rng.random((40, 44, 3))
+    sr = np.clip(hr + rng.normal(0, 0.05, hr.shape), 0, 1)
+
+    def psnr(a):
+        return 10 * np.log10(1 / np.mean((a - hr) ** 2))
+
+    tol = 1e-3
+    err = sr - hr
+    room = smoke._psnr_room(tol, psnr(sr))
+    for moved in (sr + tol * np.sign(err), sr - tol * np.sign(err),
+                  sr + tol * rng.uniform(-1, 1, sr.shape)):
+        assert abs(psnr(moved) - psnr(sr)) <= room
+    assert abs(psnr(sr + 2 * tol * np.sign(err)) - psnr(sr)) > room
+
+
 def test_profile_runs_a_window_short_of_whole_calls_again(monkeypatch):
     """Where a call's kernels are known, a window that lost a multiple of
     ``calls`` events (50 of 60: whole calls by count) is run again, and
@@ -679,7 +740,7 @@ def test_kernels_line_reads_each_kernels_own_counter():
     assert got["rdb_fwd_ext_f32"] == {"serve": 0, "eval": 0}
 
 
-@pytest.mark.parametrize("kernel", ["rdb_fwd", "rdb_fwd_ext"])
+@pytest.mark.parametrize("kernel", ["rdb_fwd", "rdb_fwd_ext", "rdb_fwd_ilv"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwd_counter_names_the_dtypes_kernel(kernel, dtype):
     """The smoke's per-dtype forward counter is the one the wrapper of

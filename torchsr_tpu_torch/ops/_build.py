@@ -46,8 +46,8 @@ _BWD_TF32 = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
 # out, the kernels' pointer and stride arrays, w_f32, the biases' pointer
 # array, the packed-weight scratch, B, H, W, scale, device, stream.
 _FWD_BF16 = (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P)
-# The f32 block forward's one entry (rdb_fwd.cu, rdb_ext.cu): as
-# _FWD_BF16 without w_f32 (the kernels are f32).
+# The f32 block forward's one entry (rdb_fwd.cu, rdb_ext.cu, rdb_ilv.cu):
+# as _FWD_BF16 without w_f32 (the kernels are f32).
 _FWD_TF32 = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
 SIGNATURES = {
     "rdb_fwd": {
@@ -73,10 +73,8 @@ SIGNATURES = {
     "rdb_ilv": {
         "rdb_ilv_bf16_launch": (_I, _FWD_BF16),
         "rdb_ilv_bf16_schedule": (_I, (_I, _I, _I, _P)),
-        "rdb_ilv_f32_grow_launch": (_I, (_P, _P, _I, _I, _I, _I, _P)),
-        "rdb_ilv_f32_conv_launch": (
-            _I, (_I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
-        ),
+        "rdb_ilv_tf32_launch": (_I, _FWD_TF32),
+        "rdb_ilv_tf32_schedule": (_I, (_I, _I, _I, _P)),
         "rdb_ilv_error_string": (ctypes.c_char_p, (_I,)),
     },
     "pair_synth": {
@@ -133,7 +131,8 @@ def build_all(names=None) -> dict:
     default) whose library does not exist yet, one ``nvcc`` per source,
     all started together.  Returns ``{name: {"seconds", "ptxas"}}`` for
     the sources built now (``ptxas`` is the compiler's register/spill
-    report).  Raises with the compiler's output when a build fails."""
+    report, with its warnings that it serialized ``wgmma``s: C75xx).
+    Raises with the compiler's output when a build fails."""
     names = list(SIGNATURES if names is None else names)
     kernel_build_dir().mkdir(parents=True, exist_ok=True)
     started = {}
@@ -160,7 +159,7 @@ def build_all(names=None) -> dict:
             "seconds": time.perf_counter() - t0,
             "ptxas": [ln.strip() for ln in log.splitlines()
                       if "registers" in ln or "spill" in ln
-                      or "Compiling entry" in ln],
+                      or "Compiling entry" in ln or "(C75" in ln],
         }
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -172,36 +172,43 @@ inline size_t conv_smem(int W) {
 
 // ----------------------------------------------------------------- prep
 
+// Pack item r (< PACK_ITEMS) of the planes: four consecutive k of one
+// plane row, split.  Slot s, chunk c, tap ky: the hi plane at
+// slot_wofs(s) + (3 c + ky) 2 PLANE / 4 floats, the lo plane PLANE / 4
+// after it; in each, row n (= kx * 32 + co) and k at byte swz(n, k / 4) +
+// 4 (k % 4), the weight K[ky][n / 32][32 c + k][slot_co0(s) + n % 32] of
+// conv slot_conv(s).  The interleaved forward's prep writes the same
+// planes (csrc/rdb_ilv_tf32_sm90.cuh: its K stage 3 c + ky).
+__device__ __forceinline__ void pack_item(int r, const Weights<float>& w,
+                                          float* __restrict__ wpack) {
+  int s = 0;
+  while (r >= slot_chunks(s) * 3 * N * 8) r -= slot_chunks(s++) * 3 * N * 8;
+  const int c = r / (3 * N * 8), ky = r / (N * 8) % 3;
+  const int n = r / 8 % N, k4 = r % 8, i = slot_conv(s);
+  const float* src = w.p[i] + ky * w.s[i][0] + (n / 32) * w.s[i][1] +
+                     (KC * c + 4 * k4) * w.s[i][2] +
+                     (slot_co0(s) + n % 32) * w.s[i][3];
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    hopper::tf32_split(src[e * w.s[i][2]], hi[e], lo[e]);
+  float* d = wpack + slot_wofs(s) + (3 * c + ky) * (2 * PLANE / 4) +
+             swz(n, k4) / 4;
+  *reinterpret_cast<uint4*>(d) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(d + PLANE / 4) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
 // Blocks [0, nblocks): zeros over the row-extended layout's pad rows,
 // PREP_PIXELS pad pixels a block (192 channels); the rest: one pack item
-// a thread, four consecutive k of one plane row, split.  Slot s, chunk
-// c, tap ky: the hi plane at slot_wofs(s) + (3 c + ky) 2 PLANE / 4
-// floats, the lo plane PLANE / 4 after it; in each, row n (= kx * 32 +
-// co) and k at byte swz(n, k / 4) + 4 (k % 4), the weight K[ky][n / 32]
-// [32 c + k][slot_co0(s) + n % 32] of conv slot_conv(s).
+// a thread (pack_item).
 __global__ void __launch_bounds__(PREP_NT)
 rdb_fwd_tf32_prep(float* __restrict__ feat, Layout L, int nblocks,
                   Weights<float> w, float* __restrict__ wpack) {
   const int tid = threadIdx.x;
   if ((int)blockIdx.x >= nblocks) {
-    int r = (blockIdx.x - nblocks) * PREP_NT + tid;
-    if (r >= PACK_ITEMS) return;
-    int s = 0;
-    while (r >= slot_chunks(s) * 3 * N * 8) r -= slot_chunks(s++) * 3 * N * 8;
-    const int c = r / (3 * N * 8), ky = r / (N * 8) % 3;
-    const int n = r / 8 % N, k4 = r % 8, i = slot_conv(s);
-    const float* src = w.p[i] + ky * w.s[i][0] + (n / 32) * w.s[i][1] +
-                       (KC * c + 4 * k4) * w.s[i][2] +
-                       (slot_co0(s) + n % 32) * w.s[i][3];
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      hopper::tf32_split(src[e * w.s[i][2]], hi[e], lo[e]);
-    float* d = wpack + slot_wofs(s) + (3 * c + ky) * (2 * PLANE / 4) +
-               swz(n, k4) / 4;
-    *reinterpret_cast<uint4*>(d) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(d + PLANE / 4) =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    const int r = (blockIdx.x - nblocks) * PREP_NT + tid;
+    if (r < PACK_ITEMS) pack_item(r, w, wpack);
     return;
   }
   // pad pixel p: image p / (2 W), its row above (0) or below (1)

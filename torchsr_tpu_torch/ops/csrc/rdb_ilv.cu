@@ -66,8 +66,9 @@
 //     only chunk 2 + i and reads only chunks below it: no CTA waits on
 //     another.  Conv 5 stores x + scale * out with one box, x read
 //     from the block input.
-// f32: a grow launch and five FFMA launches (cuda_core below), one CTA
-// per 64 GEMM rows, each new slice stored three times through grow.
+// f32: six launches a block, the same runs and stores with each product
+// taken as three TF32 ones on wgmma (csrc/rdb_ilv_tf32_sm90.cuh; design,
+// bound and the drift of long tensor-core chains there).
 //
 // Bound on this card (H100 SXM).  The function is B1's: at the serving
 // shape (16, 64, 64, 64), 31.4 GFLOP, 0.0318 ms at 989 TFLOP/s bf16
@@ -78,172 +79,17 @@
 // in the 50 MB L2: in bf16 the layout, not the tensor cores, bounds it.
 
 #include "hopper.cuh"
+#include "rdb_ilv_tf32_sm90.cuh"
 #include "rdb_mma.cuh"
 
 namespace {
 
 using rdb::allow_smem;
-using rdb::from_f;
-using rdb::leaky;
-using rdb::to_f;
 
 constexpr int CH = 64;       // block input/output channels
 constexpr int G = 32;        // growth: channels per chunk
 constexpr int STRIDE = 3 * G;        // columns per chunk: [up | mid | dn]
 constexpr int ILV = 6 * STRIDE;      // 576 buffer columns
-constexpr int NT = 256;              // f32: threads a CTA,
-constexpr int TM = 64;               // GEMM rows a CTA,
-constexpr int OUT_PER_CTA = TM - 2;  // outputs a CTA (one-pixel halo)
-
-// ------------------------------------------------------------------- f32
-
-// Store v (the value of chunk column c at pixel m) as mid at m, up at
-// m + W and dn at m - W; zero the up slot on an image's first row and
-// the dn slot on its last.
-template <typename T>
-__device__ __forceinline__ void grow(T* buf, size_t m, int chunk, int c, T v,
-                                     int H, int W) {
-  const int y = (int)((m / W) % H);
-  T* row = buf + m * ILV + chunk * STRIDE;
-  row[G + c] = v;
-  if (y + 1 < H) row[(size_t)W * ILV + c] = v;
-  if (y == 0) row[c] = from_f<T>(0.f);
-  if (y > 0) row[2 * G + c - (ptrdiff_t)W * ILV] = v;
-  if (y == H - 1) row[2 * G + c] = from_f<T>(0.f);
-}
-
-// x (M, 64) -> chunks 0 and 1 of the buffer.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-grow_x(const T* __restrict__ x, T* __restrict__ buf, size_t M, int H, int W) {
-  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
-  if (e >= M * CH) return;
-  const size_t m = e / CH;
-  const int c = (int)(e % CH);
-  grow(buf, m, c / G, c % G, x[e], H, W);
-}
-
-// The f32 conv's epilogue: y_s holds y for the CTA's 64 GEMM rows
-// (pixel m0 - 1 + i at row i), LDY floats apart.
-template <typename T, int CIN, int COUT, bool LAST, int LDY>
-__device__ __forceinline__ void reduce_taps(
-    const float* y_s, size_t m0, size_t M, int H, int W,
-    const float* __restrict__ bias, T* buf, const T* __restrict__ x,
-    T* __restrict__ out, float scale) {
-  for (int e = threadIdx.x; e < OUT_PER_CTA * COUT; e += NT) {
-    const int i = 1 + e / COUT, co = e % COUT;
-    const size_t m = m0 + (i - 1);
-    if (m >= M) break;  // e grows with m: the rest are past the end too
-    const int col = (int)(m % W);
-    float v = y_s[i * LDY + COUT + co] + bias[co];
-    if (col > 0) v += y_s[(i - 1) * LDY + co];
-    if (col < W - 1) v += y_s[(i + 1) * LDY + 2 * COUT + co];
-    if constexpr (LAST) {
-      out[m * CH + co] = from_f<T>(v * scale + to_f(x[m * CH + co]));
-    } else {
-      grow(buf, m, CIN / G, co, from_f<T>(leaky(v)), H, W);
-    }
-  }
-}
-
-namespace cuda_core {
-
-constexpr int KC = 32;       // K columns per stage
-constexpr int LDA = TM + 4;  // a_s is stored [k][row]
-
-template <int N>
-__host__ __device__ constexpr int ldy() { return N + 4; }
-
-template <int COUT>
-constexpr size_t smem_bytes() {
-  constexpr int N = 3 * COUT;
-  return (size_t)(KC * LDA + KC * N + TM * ldy<N>()) * sizeof(float);
-}
-
-// Conv (CIN -> COUT) on the interleaved buffer in f32 FFMA; w (3 CIN,
-// 3 COUT) in repack_ilv order.  One CTA computes 64 consecutive GEMM
-// rows, pixels m0 - 1 .. m0 + 62, and writes the 62 outputs m0 ..
-// m0 + 61; thread t owns GEMM rows 4 (t % 16) .. + 3 and columns
-// (t / 16) N / 16 .. + N / 16 - 1.
-template <int CIN, int COUT, bool LAST>
-__global__ void __launch_bounds__(NT)
-ilv_conv_f32(float* buf, const float* __restrict__ w,
-             const float* __restrict__ bias, const float* __restrict__ x,
-             float* __restrict__ out, size_t M, int H, int W, float scale) {
-  constexpr int N = 3 * COUT;
-  constexpr int LDY = ldy<N>();
-  constexpr int CPT = N / 16;  // columns per thread (6 or 12)
-  extern __shared__ __align__(16) float smem_f[];
-  float* a_s = smem_f;            // [KC][LDA]
-  float* b_s = a_s + KC * LDA;    // [KC][N]
-  float* y_s = b_s + KC * N;      // [TM][LDY]
-
-  const int tid = threadIdx.x;
-  const int rg = tid % 16, cg = tid / 16;
-  const size_t m0 = (size_t)blockIdx.x * OUT_PER_CTA;
-  const long long mb = (long long)m0 - 1;
-
-  float acc[4][CPT];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
-
-  for (int k0 = 0; k0 < 3 * CIN; k0 += KC) {
-    __syncthreads();
-    for (int i = tid; i < TM * KC; i += NT) {
-      const int row = i / KC, k = i % KC;
-      const long long m = mb + row;
-      a_s[k * LDA + row] = (m >= 0 && m < (long long)M)
-                               ? buf[(size_t)m * ILV + k0 + k]
-                               : 0.f;
-    }
-    for (int i = tid; i < KC * N; i += NT)
-      b_s[i] = w[(size_t)k0 * N + i];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(a_s + k * LDA +
-                                                        4 * rg);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      float bv[CPT];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) bv[c] = b_s[k * N + cg * CPT + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      y_s[(4 * rg + r) * LDY + cg * CPT + c] = acc[r][c];
-  __syncthreads();
-  reduce_taps<float, CIN, COUT, LAST, LDY>(y_s, m0, M, H, W, bias, buf, x,
-                                           out, scale);
-}
-
-}  // namespace cuda_core
-
-template <int CIN, int COUT, bool LAST>
-cudaError_t launch_conv(void* buf, const void* w, const void* bias,
-                        const void* x, void* out, size_t M, int H, int W,
-                        float scale, cudaStream_t s) {
-  const unsigned grid = (unsigned)((M + OUT_PER_CTA - 1) / OUT_PER_CTA);
-  auto kernel = cuda_core::ilv_conv_f32<CIN, COUT, LAST>;
-  constexpr size_t smem = cuda_core::smem_bytes<COUT>();
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, NT, smem, s>>>(
-      static_cast<float*>(buf), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(x),
-      static_cast<float*>(out), M, H, W, scale);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------------------ bf16
 
@@ -819,37 +665,29 @@ int rdb_ilv_bf16_schedule(int B, int H, int W, int* out) {
   return 0;
 }
 
-// f32: x (B, H, W, 64) -> chunks 0 and 1 ([up | mid | dn] each) of the
-// (B*H*W, 576) buffer.
-int rdb_ilv_f32_grow_launch(const void* x, void* buf, int B, int H, int W,
-                            int device, void* stream) {
+// The f32 block forward (3xTF32, csrc/rdb_ilv_tf32_sm90.cuh): x (B, H,
+// W, 64) -> the (B*H*W, 576) buffer and out (B, H, W, 64).  The five f32
+// kernels come as pointers and (ky, kx, ci, co) element strides, the
+// biases as f32 pointers; `wpack` is scratch for ilv_tf32::WPACK f32.
+int rdb_ilv_tf32_launch(const void* x, void* buf, void* out,
+                        const void* const* wptr, const long long* wstride,
+                        const void* const* bptr, void* wpack, int B, int H,
+                        int W, float scale, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t M = (size_t)B * H * W;
-  const unsigned blocks = (unsigned)((M * CH + NT - 1) / NT);
-  grow_x<float><<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(buf), M, H, W);
-  return (int)cudaGetLastError();
+  const float* bias[5];
+  for (int i = 0; i < 5; ++i) bias[i] = static_cast<const float*>(bptr[i]);
+  return (int)ilv_tf32::launch_tf32(
+      static_cast<const float*>(x), static_cast<float*>(buf),
+      static_cast<float*>(out), rdb::weights_of<float>(wptr, wstride), bias,
+      static_cast<float*>(wpack), B, H, W, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
-// f32 conv `stage` of a block: stages 0..3 write chunk 2 + stage, stage
-// 4 writes out (B, H, W, 64) = x + scale * conv5; w in repack_ilv order.
-int rdb_ilv_f32_conv_launch(int stage, void* buf, const void* w,
-                            const void* bias, const void* x, void* out,
-                            int B, int H, int W, float scale, int device,
-                            void* stream) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t M = (size_t)B * H * W;
-  switch (stage) {
-    case 0: return (int)launch_conv<64, 32, false>(buf, w, bias, x, out, M, H, W, scale, s);
-    case 1: return (int)launch_conv<96, 32, false>(buf, w, bias, x, out, M, H, W, scale, s);
-    case 2: return (int)launch_conv<128, 32, false>(buf, w, bias, x, out, M, H, W, scale, s);
-    case 3: return (int)launch_conv<160, 32, false>(buf, w, bias, x, out, M, H, W, scale, s);
-    case 4: return (int)launch_conv<192, 64, true>(buf, w, bias, x, out, M, H, W, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// The f32 forward's schedule at (B, H, W) (ilv_tf32::schedule_of).
+int rdb_ilv_tf32_schedule(int B, int H, int W, int* out) {
+  ilv_tf32::schedule_of(B, H, W, out);
+  return 0;
 }
 
 const char* rdb_ilv_error_string(int err) {

@@ -47,9 +47,11 @@ a test may flip the module flags):
   plain versions ``rdb_ext_reference`` / ``rdb_bwd_ext_reference``.
 * ``TORCHSR_RDB_ILV=1``: a forward that no backward follows, and that
   the ext variant did not take, runs on a chunk-interleaved buffer
-  (B*H*W, 576) (``csrc/rdb_ilv.cu``, for ``_rdb_fwd_kernel_ilv`` :223);
-  plain version ``rdb_ilv_reference``, and ``rdb_ilv_runs_reference``
-  with the bf16 kernels' data flow (runs of 128 pixels, three stores).
+  (B*H*W, 576) (``csrc/rdb_ilv.cu``, for ``_rdb_fwd_kernel_ilv`` :223;
+  in f32 the 3xTF32 kernels of ``csrc/rdb_ilv_tf32_sm90.cuh``); plain
+  version ``rdb_ilv_reference``, ``rdb_ilv_runs_reference`` with the
+  bf16 kernels' data flow (runs of 128 pixels, three stores) and
+  ``rdb_ilv_3xtf32_reference`` with the f32 kernels' arithmetic.
 
 The backward takes its variant from what the forward saved, never from
 the knobs.  ``TORCHSR_RDB_BWD=xla`` (``BWD_XLA``), the JAX package's
@@ -95,13 +97,14 @@ RDB_BWD_F32_LAUNCHES = 0
 # The row-extended forward (five launches per block; f32 in
 # RDB_FWD_EXT_F32_LAUNCHES) and backward (one per block backward, eight
 # launches; f32 in RDB_BWD_EXT_F32_LAUNCHES), and the interleaved forward
-# (five conv launches per block; its one prep or grow launch is not
-# counted).
+# (five conv launches per block, its prep not counted; f32, the 3xTF32
+# kernels, in RDB_FWD_ILV_F32_LAUNCHES).
 RDB_FWD_EXT_LAUNCHES = 0
 RDB_FWD_EXT_F32_LAUNCHES = 0
 RDB_BWD_EXT_LAUNCHES = 0
 RDB_BWD_EXT_F32_LAUNCHES = 0
 RDB_FWD_ILV_LAUNCHES = 0
+RDB_FWD_ILV_F32_LAUNCHES = 0
 # Block backwards run on CUDA by the TORCHSR_RDB_BWD=xla backend
 # (rdb_bwd_reference, no kernel); 0 on every default path.
 RDB_BWD_XLA_LAUNCHES = 0
@@ -111,7 +114,8 @@ LAUNCH_COUNTERS = ("RDB_FWD_LAUNCHES", "RDB_FWD_F32_LAUNCHES",
                    "RDB_BWD_LAUNCHES", "RDB_BWD_F32_LAUNCHES",
                    "RDB_FWD_EXT_LAUNCHES", "RDB_FWD_EXT_F32_LAUNCHES",
                    "RDB_BWD_EXT_LAUNCHES", "RDB_BWD_EXT_F32_LAUNCHES",
-                   "RDB_FWD_ILV_LAUNCHES", "RDB_BWD_XLA_LAUNCHES")
+                   "RDB_FWD_ILV_LAUNCHES", "RDB_FWD_ILV_F32_LAUNCHES",
+                   "RDB_BWD_XLA_LAUNCHES")
 
 # The JAX package's knobs, names and defaults (torchsr_tpu/ops/pallas/
 # rdb.py:386, :403, :753), read once at import.
@@ -246,7 +250,23 @@ _FWD_TF32_SLOT_CHUNKS = tuple(ci // _FWD_TF32_KC for ci in (*CIN, CIN[4]))
 # the prep's hi and lo planes (f32 elements)
 _FWD_TF32_WPACK = sum(_FWD_TF32_SLOT_CHUNKS) * _FWD_TF32_W_CHUNK // 4
 _FWD_TF32_ENTRY = {"rdb_fwd": "rdb_fwd_tf32_launch",
-                   "rdb_ext": "rdb_ext_fwd_tf32_launch"}
+                   "rdb_ext": "rdb_ext_fwd_tf32_launch",
+                   "rdb_ilv": "rdb_ilv_tf32_launch"}
+# The interleaved f32 forward (3xTF32, csrc/rdb_ilv_tf32_sm90.cuh;
+# mirrored by ilv_tf32_schedule): bf16's runs and grids; a K stage is
+# _ILV_TF32_KC prefix columns (a 128-byte f32 row), one (chunk, dy) of
+# the repack_ilv order, taken in order; a ring item is one K stage of
+# one run, its box (_ILV_RUN rows of 128 bytes) and the stage's hi and lo
+# weight planes (2 x 96 rows of 128 bytes: the f32 slot forward's planes
+# of chunk kk // 3, ky kk % 3); the ring holds as many items as fit, at
+# most _ILV_MAX_STAGES.  The tensor core's accumulation chain is added
+# into f32 sums after each _ILV_TF32_CHAIN prefix columns (a chunk).
+_ILV_TF32_KC = 32
+_ILV_TF32_CHAIN = 96
+_ILV_TF32_STAGE = _ILV_RUN * 128 + 2 * 3 * GROWTH * 128
+_ILV_TF32_SLOT_KST = tuple(3 * ci // _ILV_TF32_KC for ci in (*CIN, CIN[4]))
+_ILV_TF32_STAGES = min(_ILV_MAX_STAGES,
+                       (_FWD_SMEM_DYN - 1024) // _ILV_TF32_STAGE)
 
 
 def _check_kernels(kernels) -> None:
@@ -452,24 +472,27 @@ def rdb_ilv_reference(x: torch.Tensor, kernels, biases,
     dt, acc = x.dtype, _acc_dtype(x.dtype)
     b, h, w, _ = x.shape
     buf = x.new_zeros((b, h, w, 3 * FEAT))
-
-    def grow(v, chunk0):
-        up = F.pad(v[:, :-1], (0, 0, 0, 0, 1, 0))
-        dn = F.pad(v[:, 1:], (0, 0, 0, 0, 0, 1))
-        for j in range(v.shape[-1] // GROWTH):
-            sl = slice(j * GROWTH, (j + 1) * GROWTH)
-            for part, src in enumerate((up, v, dn)):
-                buf[..., ilv_columns(chunk0 + j, part)] = src[..., sl]
-
-    grow(x, 0)
+    _ilv_grow(buf, x, 0)
     out = None
     for i, (cin, cout) in enumerate(zip(CIN, COUT)):
         wi = repack_ilv(pack_kernel(kernels[i].to(dt)), cin).to(acc)
         out = _reduce_taps(buf[..., :3 * cin].to(acc) @ wi, cout) + \
             biases[i].to(acc)
         if i < 4:
-            grow(F.leaky_relu(out, 0.2).to(dt), cin // GROWTH)
+            _ilv_grow(buf, F.leaky_relu(out, 0.2).to(dt), cin // GROWTH)
     return (out * scale_ratio + x.to(acc)).to(dt), buf
+
+
+def _ilv_grow(buf: torch.Tensor, v: torch.Tensor, chunk0: int) -> None:
+    """Store NHWC ``v``'s 32-channel chunks as chunks ``chunk0`` ... of the
+    interleaved ``buf``: [up | mid | dn], the rows above and below (zeros
+    past the image's top and bottom)."""
+    up = F.pad(v[:, :-1], (0, 0, 0, 0, 1, 0))
+    dn = F.pad(v[:, 1:], (0, 0, 0, 0, 0, 1))
+    for j in range(v.shape[-1] // GROWTH):
+        sl = slice(j * GROWTH, (j + 1) * GROWTH)
+        for part, src in enumerate((up, v, dn)):
+            buf[..., ilv_columns(chunk0 + j, part)] = src[..., sl]
 
 
 def _slot(i: int) -> slice:
@@ -1074,8 +1097,8 @@ def _weight_args(kernels):
 def _fwd_launch(lib_name, x, kernels, biases, scale_ratio, feat, out):
     """The forward's one entry in library ``lib_name`` for x's dtype
     (``rdb_fwd`` on the (B, H, W, 192) ``feat``, ``rdb_ext`` on the
-    row-extended one; in bf16 also ``rdb_ilv`` on the interleaved (B, H,
-    W, 576) one): a prep launch packs the kernels (in f32: splits them
+    row-extended one, ``rdb_ilv`` on the interleaved (B, H, W, 576) one):
+    a prep launch packs the kernels (in f32: splits them
     into TF32 hi and lo planes; and zeroes ``feat``'s pad rows, or
     writes x's chunks and the edge zeros into the interleaved buffer),
     five conv launches fill ``feat`` (B1's and B7's first copies x into
@@ -1564,14 +1587,50 @@ def ilv_walk(b: int, h: int, w: int, slot: int) -> list:
     """The (run, K stage) items each CTA of slot ``slot``'s conv takes, in
     order: one list per CTA (conv 5's halves, slots 4 and 5, one grid
     each, on the same items)."""
-    sched = ilv_schedule(b, h, w)
-    ctas = sched["conv_ctas" if slot < 4 else "c5_ctas"]
-    return [[(t, kk) for t in range(cta, sched["runs"], ctas)
-             for kk in range(_ILV_SLOT_KST[slot])] for cta in range(ctas)]
+    return _fwd_walk(ilv_schedule(b, h, w), slot,
+                     range(_ILV_SLOT_KST[slot]))
+
+
+@functools.cache
+def ilv_tf32_schedule(b: int, h: int, w: int) -> dict:
+    """The interleaved f32 forward's persistent grids (as bf16's), ring
+    item (bytes), ring stages, dynamic shared memory (bytes) and each
+    slot's K stages of 32 prefix columns: a mirror of what its launches
+    compute (``schedule_of`` in ``csrc/rdb_ilv_tf32_sm90.cuh``; the card's
+    smoke test holds it against :func:`ilv_tf32_kernel_schedule`)."""
+    runs = -(-(b * h * w) // _ILV_OUTS)
+    return {"runs": runs, "conv_ctas": max(1, min(runs, _ILV_CTAS)),
+            "c5_ctas": max(1, min(runs, _ILV_CTAS // 2)),
+            "stage_bytes": _ILV_TF32_STAGE, "stages": _ILV_TF32_STAGES,
+            "smem": 1024 + _ILV_TF32_STAGES * _ILV_TF32_STAGE,
+            "chain_cols": _ILV_TF32_CHAIN, "kstages": _ILV_TF32_SLOT_KST}
+
+
+def ilv_tf32_kernel_schedule(b: int, h: int, w: int) -> dict:
+    """The schedule the interleaved f32 forward's launches run at (b, h,
+    w), as the built library reports it (``rdb_ilv_tf32_schedule``), in
+    the form of :func:`ilv_tf32_schedule`, which mirrors it."""
+    import ctypes
+
+    from torchsr_tpu_torch.ops._build import load_library
+
+    v = (ctypes.c_int * 13)()
+    load_library("rdb_ilv").rdb_ilv_tf32_schedule(b, h, w, v)
+    return {"runs": v[0], "conv_ctas": v[1], "c5_ctas": v[2],
+            "stage_bytes": v[3], "stages": v[4], "smem": v[5],
+            "chain_cols": v[6], "kstages": tuple(v[7:13])}
+
+
+def ilv_tf32_walk(b: int, h: int, w: int, slot: int) -> list:
+    """The (run, K stage) items each CTA of slot ``slot``'s f32 conv takes,
+    in order (a run's stages from the first): one list per CTA."""
+    return _fwd_walk(ilv_tf32_schedule(b, h, w), slot,
+                     range(_ILV_TF32_SLOT_KST[slot]))
 
 
 def ilv_stores(b: int, h: int, w: int) -> dict:
-    """What each conv of the interleaved bf16 forward, and its prep, write
+    """What each conv of the interleaved forward (bf16 and f32 alike), and
+    its prep, write
     into the buffer's slots of a grown chunk: ``{"mid", "up", "dn"}`` ->
     ``(dest, src)`` row tensors, one pair per element row written, where
     ``src`` is the pixel whose value lands at row ``dest`` (-1: a zero).
@@ -1654,9 +1713,40 @@ def ilv_unpack_weights(packed: torch.Tensor) -> tuple:
                           .reshape(3 * GROWTH, rows).T)
             o += n
         halves.append(torch.cat(stages))
+    return _ilv_conv5(halves)
+
+
+def _ilv_conv5(halves: list) -> tuple:
+    """Four convs' weights and conv 5's two 32-channel halves (3 C_in, 96)
+    -> the five ``repack_ilv`` weights, conv 5's columns (dx, co)."""
     k = 3 * CIN[4]
     c5 = torch.cat([h.reshape(k, 3, GROWTH) for h in halves[4:]], dim=-1)
     return (*halves[:4], c5.reshape(k, 3 * COUT[4]))
+
+
+def ilv_tf32_pack_weights(kernels) -> torch.Tensor:
+    """The five HWIO kernels split into TF32 hi and lo planes as the
+    interleaved f32 forward's prep writes them: K stage kk of a slot
+    (``repack_ilv`` rows 32 kk .. 32 kk + 31: chunk kk // 3, dy kk % 3)
+    is a hi plane then a lo plane of 96 rows (dx * 32 + co) of its 32 K
+    values in the 128-byte swizzle.  These are the f32 slot forward's
+    planes (:func:`fwd_tf32_pack_weights`: its chunk kk // 3, ky kk %
+    3), the same floats in the same places."""
+    return fwd_tf32_pack_weights(kernels)
+
+
+def ilv_tf32_unpack_weights(packed: torch.Tensor) -> tuple:
+    """Inverse of :func:`ilv_tf32_pack_weights`: each conv's
+    ``repack_ilv`` weight (3 C_in, 3 C_out) as hi + lo."""
+    inverse = torch.argsort(_swizzle128(3 * GROWTH))
+    halves, o = [], 0
+    for nk in _ILV_TF32_SLOT_KST:
+        n = nk * 2 * 3 * GROWTH * _ILV_TF32_KC
+        t = packed[o:o + n].view(nk, 2, -1)[..., inverse]
+        t = (t[:, 0] + t[:, 1]).view(nk, 3 * GROWTH, _ILV_TF32_KC)
+        halves.append(t.transpose(1, 2).reshape(-1, 3 * GROWTH))
+        o += n
+    return _ilv_conv5(halves)
 
 
 def rdb_ilv_runs_reference(x: torch.Tensor, kernels, biases,
@@ -1717,20 +1807,55 @@ def rdb_ilv_runs_reference(x: torch.Tensor, kernels, biases,
     return out.reshape(b, h, w, CHANNELS), buf.reshape(b, h, w, 3 * FEAT)
 
 
+def rdb_ilv_3xtf32_reference(x: torch.Tensor, kernels, biases,
+                             scale_ratio: float = 0.2, *, terms=None):
+    """The interleaved f32 forward kernels' arithmetic in plain PyTorch
+    (3xTF32, ``csrc/rdb_ilv_tf32_sm90.cuh``): the (B, H, W, 576) buffer of
+    ``rdb_ilv_reference`` in f32; per conv, per 32-channel chunk of its
+    prefix (the kernel's chain: 96 columns, the chunk's up, mid and dn),
+    the products of the TF32 parts (``ops/tf32.py`` ``tf32_split``) of
+    the prefix (A, split in registers) and of the ``repack_ilv`` weight
+    (B, the prep's planes) that ``terms`` names (``TF32_TERMS``, the
+    default: hi.lo, lo.hi, hi.hi; fewer terms: a wrong kernel), summed in
+    f32; the chains added into f32 sums in order, as the kernel adds them
+    (its tensor-core chain summed in f32 here); the taps
+    reduced with the column masks, the bias, LeakyReLU into the next
+    chunk (nothing rounded) or x + scale * conv5.  Returns the block
+    output and the buffer."""
+    from torchsr_tpu_torch.ops.tf32 import TF32_TERMS, tf32_parts
+
+    _check(x, kernels, biases)
+    terms = TF32_TERMS if terms is None else terms
+    xf = x.float()
+    b, h, w, _ = x.shape
+    buf = xf.new_zeros((b, h, w, 3 * FEAT))
+    _ilv_grow(buf, xf, 0)
+    for i, (cin, cout) in enumerate(zip(CIN, COUT)):
+        a = tf32_parts(buf[..., :3 * cin])
+        k = tf32_parts(repack_ilv(pack_kernel(kernels[i].float()), cin))
+        y = 0
+        for c in range(0, 3 * cin, _ILV_TF32_CHAIN):
+            cols = slice(c, c + _ILV_TF32_CHAIN)
+            y = y + sum(a[p][..., cols] @ k[q][cols] for p, q in terms)
+        acc = _reduce_taps(y, cout) + biases[i].float()
+        if i < 4:
+            _ilv_grow(buf, F.leaky_relu(acc, 0.2), cin // GROWTH)
+    return (acc * scale_ratio + xf).contiguous(), buf
+
+
 def rdb_fwd_ilv_cuda(
     x: torch.Tensor, kernels, biases, *, scale_ratio: float = 0.2
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The interleaved forward on a CUDA ``x`` (``csrc/rdb_ilv.cu``).
     Returns the block output and the (B, H, W, 576) buffer the launches
     filled (chunk j's [up | mid | dn] in columns ``ilv_columns``), so that
-    each launch can be held against its own convolution.  In bf16 the
-    kernels go to the kernel as they are (f32 or bf16, any strides): a
-    prep launch and five convs, the data flow of
-    :func:`rdb_ilv_runs_reference`; in f32 a grow launch and five FFMA
-    convs on the ``repack_ilv`` weights."""
-    global RDB_FWD_ILV_LAUNCHES
-    from torchsr_tpu_torch.ops._build import load_library
-
+    each launch can be held against its own convolution.  The kernels go
+    to the kernel as they are (f32, or in bf16 also bf16; any strides): a
+    prep launch and five convs.  bf16 has the data flow of
+    :func:`rdb_ilv_runs_reference`; f32 the same runs and stores with
+    each product taken as three TF32 ones (:func:`rdb_ilv_3xtf32_reference`
+    is that arithmetic), whatever ``torch.backends``' TF32 switches say."""
+    global RDB_FWD_ILV_LAUNCHES, RDB_FWD_ILV_F32_LAUNCHES
     kernels, biases = tuple(kernels), tuple(biases)
     _check(x, kernels, biases)
     _cuda_operands(x, (*kernels, *biases), "rdb_fwd_ilv_cuda")
@@ -1739,28 +1864,12 @@ def rdb_fwd_ilv_cuda(
         raise ValueError(
             f"the interleaved RDB forward takes fewer than 2**31 pixels a "
             f"call, got {b * h * w}")
-    dt = x.dtype
     x = x.contiguous()
-    buf = torch.empty((b, h, w, 3 * FEAT), dtype=dt, device=x.device)
+    buf = torch.empty((b, h, w, 3 * FEAT), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    if dt == torch.bfloat16:
-        _fwd_launch("rdb_ilv", x, kernels, biases, scale_ratio, buf, out)
+    _fwd_launch("rdb_ilv", x, kernels, biases, scale_ratio, buf, out)
+    if x.dtype == torch.float32:
+        RDB_FWD_ILV_F32_LAUNCHES += 5
+    else:
         RDB_FWD_ILV_LAUNCHES += 5
-        return out, buf
-    weights = [_aligned(repack_ilv(pack_kernel(k.to(dt)), ci), dt)
-               for k, ci in zip(kernels, CIN)]
-    biases = [b_.to(torch.float32).contiguous() for b_ in biases]
-    lib = load_library("rdb_ilv")
-    errstr = lib.rdb_ilv_error_string
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    idx = x.device.index
-    _raise_on(lib.rdb_ilv_f32_grow_launch(x.data_ptr(), buf.data_ptr(), b, h,
-                                          w, idx, stream),
-              errstr, "rdb_fwd_ilv grow")
-    for i in range(5):
-        _raise_on(lib.rdb_ilv_f32_conv_launch(
-            i, buf.data_ptr(), weights[i].data_ptr(), biases[i].data_ptr(),
-            x.data_ptr(), out.data_ptr(), b, h, w, float(scale_ratio), idx,
-            stream), errstr, f"rdb_fwd_ilv conv {i + 1}")
-        RDB_FWD_ILV_LAUNCHES += 1
     return out, buf

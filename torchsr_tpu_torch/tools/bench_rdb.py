@@ -2,8 +2,9 @@
 
     python torchsr_tpu_torch/tools/bench_rdb.py [--root TREE] [--bwd]
         [--gan-profile] [--gan-profile-f32] [--serve-profile]
-        [--serve-ilv-profile] [--serve-f32-profile] [--eval-f32]
-        [--pair-synth] [--hashes] [--seed N]
+        [--serve-ilv-profile] [--serve-f32-profile]
+        [--serve-ilv-f32-profile] [--eval-f32] [--pair-synth] [--hashes]
+        [--seed N]
 
 The counterpart of the JAX package's ``tools/bench_rdb.py``.  ``--root``
 names the checkout whose ``torchsr_tpu_torch`` is imported (by default
@@ -15,7 +16,8 @@ card.  The script builds that tree's kernels into its own
 It prints, for the block forward ``rdb_fwd_cuda`` (B1) and
 ``rdb_fwd_ext_cuda`` (B7) at the serving shape (16, 64, 64, 64) and the
 training shape (64, 32, 32, 64), and ``rdb_fwd_ilv_cuda`` (B6) at the
-serving shape and the ragged (3, 37, 45, 64), bf16 and f32, and B1 at
+serving shape, the ragged (3, 37, 45, 64) and ``eval``'s whole 44 x 44
+LR image (1, 44, 44, 64), bf16 and f32, and B1 at
 that ragged shape and at ``eval``'s whole 44 x 44 LR image (1, 44, 44,
 64; the quality corpus's 176 x 176 eval images): the median time of a
 call
@@ -39,15 +41,16 @@ device time, the kernels per step or batch, the device's busy share of
 the span; ``--serve-ilv-profile`` the same tile batches with
 ``TORCHSR_RDB_ILV``'s variant (B6) selected; ``--serve-f32-profile``
 the same tile batches in f32 (TF32 off), the path of ``eval`` and of the
-trainer's validation and renders.  ``--eval-f32`` times ``eval``'s
+trainer's validation and renders, and ``--serve-ilv-f32-profile`` those
+f32 tile batches with B6 selected.  ``--eval-f32`` times ``eval``'s
 ``run_eval`` (f32, whole images, TF32 off, as the subcommand runs it)
 over 24 seeded 176 x 176 PNGs with a seeded 23-RRDB checkpoint: the
 wall time of the second of two runs.  ``--pair-synth`` times
 the pair synthesis kernel (B3, ``synthesize_pair_cuda``) at the bench
 tool's shape (64, 96, 96, 3), a call (CUDA events) and its device time,
 and runs ``tools/bench_preprocess.py``'s measurement (median and p90 µs
-a synthesized batch) on that tree.  ``--hashes`` prints digests of B1's
-and B7's outputs and feature buffers at nine shapes in both dtypes, and
+a synthesized batch) on that tree.  ``--hashes`` prints digests of B1's,
+B7's and B6's outputs and feature buffers at nine shapes in both dtypes, and
 of B2's and B8's bf16 outputs (dx, dW, db, DY) at five, so that two
 trees can be shown to compute the same bits.  One JSON line
 on stdout, the card's name and power limit in it.  It needs a CUDA card
@@ -199,7 +202,7 @@ def bench_forward(torch, rdb_ops, seed: int) -> dict:
                 torch, lambda: rdb_ops.rdb_fwd_cuda(xb, views, bs,
                                                     scale_ratio=SCALE))
         for where, shape in (("serve", SERVE_SHAPE),
-                             ("ragged", RAGGED_SHAPE)):
+                             ("ragged", RAGGED_SHAPE), ("eval", EVAL_SHAPE)):
             x = (torch.randn(shape, generator=gen) * 0.5).cuda()
             for dtype in (torch.bfloat16, torch.float32):
                 xd = x.to(dtype)
@@ -237,11 +240,11 @@ HASH_SHAPES = {"serve": SERVE_SHAPE, "ragged": RAGGED_SHAPE,
 
 
 def forward_hashes(torch, rdb_ops, seed: int) -> dict:
-    """The first 16 hex digits of the SHA-256 of B1's and B7's output and
-    feature buffer (B7: its data rows) at each of ``HASH_SHAPES``, in
-    bf16 (also with f32 views of the weights) and f32, on seeded inputs:
-    two trees whose kernels compute the same bits print the same
-    hashes."""
+    """The first 16 hex digits of the SHA-256 of B1's, B7's and B6's
+    output and feature buffer (B7: its data rows; B6: its interleaved
+    buffer) at each of ``HASH_SHAPES``, in bf16 (also with f32 views of
+    the weights) and f32, on seeded inputs: two trees whose kernels
+    compute the same bits print the same hashes."""
     import hashlib
 
     def digest(t):
@@ -268,6 +271,9 @@ def forward_hashes(torch, rdb_ops, seed: int) -> dict:
                                                        scale_ratio=SCALE)
                     out[f"{where}_b7_{name}"] = [digest(y),
                                                  digest(feat[:, 1:-1])]
+                y, buf = rdb_ops.rdb_fwd_ilv_cuda(xd, kd, bs,
+                                                  scale_ratio=SCALE)
+                out[f"{where}_b6_{name}"] = [digest(y), digest(buf)]
     return out
 
 
@@ -513,6 +519,7 @@ def main(argv=None) -> None:
     parser.add_argument("--serve-profile", action="store_true")
     parser.add_argument("--serve-ilv-profile", action="store_true")
     parser.add_argument("--serve-f32-profile", action="store_true")
+    parser.add_argument("--serve-ilv-f32-profile", action="store_true")
     parser.add_argument("--eval-f32", action="store_true")
     parser.add_argument("--pair-synth", action="store_true")
     parser.add_argument("--hashes", action="store_true")
@@ -543,12 +550,17 @@ def main(argv=None) -> None:
         rdb_ops.ILV_KERNEL = True
         row["serve_ilv_tile_batch"] = serve_profile(torch, args.seed)
         rdb_ops.ILV_KERNEL = False
-    if args.serve_f32_profile:
-        cudnn_tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        row["serve_f32_tile_batch"] = serve_profile(torch, args.seed,
-                                                    torch.float32)
-        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    for flag, ilv in ((args.serve_f32_profile, False),
+                      (args.serve_ilv_f32_profile, True)):
+        if flag:
+            cudnn_tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            rdb_ops.ILV_KERNEL = ilv
+            row["serve_ilv_f32_tile_batch" if ilv
+                else "serve_f32_tile_batch"] = serve_profile(
+                    torch, args.seed, torch.float32)
+            rdb_ops.ILV_KERNEL = False
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
     if args.eval_f32:
         row["eval_f32"] = eval_f32(torch, root, args.seed)
     if args.gan_profile:
