@@ -310,6 +310,29 @@ def test_server_big_frame_bypasses_batcher(batching_servers):
     assert _metrics(batching_servers["on"])["batched_tiles"] == before
 
 
+def test_batched_forwards_are_timed_as_device_calls(tmp_path, srgan):
+    """The batcher's worker takes the device lock for each forward: its
+    wait and hold count in lock_wait_ms_mean and device_ms_mean."""
+    from torchsr_tpu_torch.infer.server import CheckpointUpscaleService
+    from torchsr_tpu_torch.utils.checkpoint import save_checkpoint
+
+    path = str(tmp_path / "srgan-gan-best.pth")
+    save_checkpoint(path, 1, "gan", srgan.state_dict())
+    service = CheckpointUpscaleService(
+        model="srgan", checkpoint=path, tile=16, tile_batch=4,
+        batch_requests=True, batch_wait_ms=1.0, device="cpu")
+    try:
+        frame = np.zeros((12, 14, 3), np.uint8)  # one tile: batched
+        for _ in range(2):
+            assert service._guarded_upscale(frame, None).shape == (48, 56, 3)
+        m = service.metrics()
+    finally:
+        service.close()
+    assert m["batched_calls"] >= 2
+    assert service._device_calls == m["batched_calls"]
+    assert m["device_ms_mean"] > 0 and m["lock_wait_ms_mean"] >= 0
+
+
 def test_batched_meta_metrics_and_cli_flags(batching_servers):
     with urllib.request.urlopen(batching_servers["on"] + "/metadata",
                                 timeout=30) as resp:

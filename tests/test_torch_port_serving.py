@@ -223,10 +223,26 @@ def test_server_answers_like_the_jax_service(served):
         metrics = json.loads(resp.read())
     assert metrics["requests"] >= 1 and metrics["errors"] == 0
     assert metrics["ready"] is True
+    # the device lock's hold and wait, and the process's tile and graph
+    # counters (no CUDA graph on the CPU)
+    assert metrics["device_ms_mean"] > 0
+    assert metrics["lock_wait_ms_mean"] >= 0
+    assert metrics["tile_slots"] >= metrics["tiles"] >= 1
+    assert 0 < metrics["tile_useful_pct"] <= 100
+    assert metrics["graph_captures"] == metrics["graph_replays"] == 0
+    assert metrics["kernel_builds"] == 0  # no nvcc on the CPU
     with urllib.request.urlopen(base + "/metrics?format=prometheus",
                                 timeout=30) as resp:
         text = resp.read().decode()
     assert f"torchsr_requests {metrics['requests']}" in text
+    for name, kind in (("lock_wait_ms_mean", "gauge"), ("tiles", "counter"),
+                       ("tile_slots", "counter"),
+                       ("tile_useful_pct", "gauge"),
+                       ("graph_captures", "counter"),
+                       ("graph_replays", "counter"),
+                       ("kernel_builds", "counter")):
+        assert f"# HELP torchsr_{name} " in text
+        assert f"# TYPE torchsr_{name} {kind}" in text
     with urllib.request.urlopen(base + "/metadata", timeout=30) as resp:
         meta = json.loads(resp.read())
     assert meta["device"] == "cpu" and meta["tile"] == 16

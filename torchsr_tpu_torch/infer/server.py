@@ -19,8 +19,10 @@ Endpoints:
 
 - ``GET /healthz``: 200 once the warmup forward has run, 503 before.
 - ``GET /metadata``: the serving configuration as JSON.
-- ``GET /metrics``: request counters, JSON (or Prometheus text with
-  ``?format=prometheus`` or ``Accept: text/plain``).
+- ``GET /metrics``: request counters, the time device calls held and
+  waited for the device lock, the process's tiling and CUDA graph
+  counters, JSON (or Prometheus text with ``?format=prometheus`` or
+  ``Accept: text/plain``).
 - ``POST /upscale``: an encoded image in (anything Pillow decodes); the
   super-resolved image out, PNG by default, ``?format=jpeg|webp`` with
   ``&quality=N``, ``?compress=N`` (PNG zlib level), ``?overlap=N``
@@ -35,6 +37,7 @@ the device calls.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import threading
@@ -43,6 +46,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from torchsr_tpu_torch.utils import trace
 
 _FORMATS = {
     "png": "PNG", "jpeg": "JPEG", "jpg": "JPEG", "webp": "WEBP",
@@ -88,14 +93,23 @@ class _Service:
         self._requests = 0
         self._errors = 0
         self._total_ms = 0.0
-        self._device_ms = 0.0
         self._last_ms = 0.0
+        # device calls made under _lock (a frame's tiled forward, or a
+        # batcher's forward): their time holding it, and the time they
+        # waited for it (the service's queue)
+        self._device_calls = 0
+        self._device_ms = 0.0
+        self._lock_wait_ms = 0.0
 
     def metrics(self) -> dict:
         """Counters since startup: request/error totals, mean and last
-        wall latency, the device-locked share of the mean, uptime."""
+        wall latency, the mean time a device call held and waited for
+        the device lock, uptime; and the process's tiling, CUDA graph
+        and kernel build counters (``utils/trace.py``)."""
+        counts = trace.counters()
+        slot_px = counts.get("tile_slot_px", 0)
         with self._stats_lock:
-            n = self._requests
+            n, calls = self._requests, self._device_calls
             with self._admission_lock:
                 in_flight, shed = self._in_flight, self._shed
             return {
@@ -107,7 +121,18 @@ class _Service:
                 "shed": shed,
                 "latency_ms_mean": round(self._total_ms / n, 1) if n else None,
                 "latency_ms_last": round(self._last_ms, 1) if n else None,
-                "device_ms_mean": round(self._device_ms / n, 1) if n else None,
+                "device_ms_mean":
+                    round(self._device_ms / calls, 1) if calls else None,
+                "lock_wait_ms_mean":
+                    round(self._lock_wait_ms / calls, 3) if calls else None,
+                "tiles": counts.get("tiles", 0),
+                "tile_slots": counts.get("tile_slots", 0),
+                "tile_useful_pct": round(
+                    100.0 * counts.get("tile_lr_px", 0) / slot_px, 2)
+                if slot_px else None,
+                "graph_captures": counts.get("graph_captures", 0),
+                "graph_replays": counts.get("graph_replays", 0),
+                "kernel_builds": counts.get("kernel_builds", 0),
             }
 
     def admit(self) -> bool:
@@ -126,11 +151,25 @@ class _Service:
     def _upscale(self, arr: np.ndarray, overlap: int | None) -> np.ndarray:
         raise NotImplementedError
 
+    @contextlib.contextmanager
+    def _device_lock(self):
+        """Hold the device lock for one device call, timing the wait for
+        it and the hold."""
+        t0 = time.perf_counter()
+        with self._lock:
+            t1 = time.perf_counter()
+            yield
+            t2 = time.perf_counter()
+        with self._stats_lock:
+            self._device_calls += 1
+            self._lock_wait_ms += (t1 - t0) * 1e3
+            self._device_ms += (t2 - t1) * 1e3
+
     def _guarded_upscale(self, arr: np.ndarray,
                          overlap: int | None) -> np.ndarray:
         """Device-access policy around ``_upscale``: one forward at a
         time.  The batching backend routes small frames elsewhere."""
-        with self._lock:
+        with self._device_lock():
             return self._upscale(arr, overlap)
 
     def warmup(self) -> None:
@@ -173,11 +212,9 @@ class _Service:
                     f"{self.max_input_pixels / 1e6:g} MP"
                 )
             arr = np.asarray(img.convert("RGB"), np.uint8)
-            t_dev = time.perf_counter()
             sr = self._guarded_upscale(
                 arr, overlap if overlap is not None else self.overlap
             )
-            dev_ms = (time.perf_counter() - t_dev) * 1e3
             out = Image.fromarray(np.asarray(sr, np.uint8))
             buf = io.BytesIO()
             if pil_fmt == "PNG":
@@ -194,7 +231,6 @@ class _Service:
             self._requests += 1
             self._last_ms = (time.perf_counter() - t0) * 1e3
             self._total_ms += self._last_ms
-            self._device_ms += dev_ms
         return buf.getvalue(), ctype
 
 
@@ -337,7 +373,7 @@ class CheckpointUpscaleService(_Service):
         """The batcher's device call: the graphed tile forward, under
         the service lock (taken here, by the batcher's worker, so that
         request threads never hold it while they wait on their tiles)."""
-        with self._lock, torch.inference_mode():
+        with self._device_lock(), torch.inference_mode():
             x = torch.from_numpy(batch).to(self.device)
             return self._forward(x).float().cpu().numpy()
 
@@ -352,7 +388,7 @@ class CheckpointUpscaleService(_Service):
             h, w = arr.shape[:2]
             if count_tiles(h, w, self.tile, ov) < self.tile_batch:
                 return self._upscale_batched(arr, ov)
-        with self._lock:
+        with self._device_lock():
             return self._upscale(arr, overlap)
 
     def _upscale_batched(self, arr: np.ndarray, overlap: int) -> np.ndarray:
@@ -384,19 +420,25 @@ class CheckpointUpscaleService(_Service):
         from torchsr_tpu_torch.infer.multichip import tiled_upscale_sharded
         from torchsr_tpu_torch.infer.tiled import tiled_upscale
 
-        x = torch.tensor(arr, device=self.device).float() / 255.0
-        kw = {"scale": self.scale, "tile": self.tile,
-              "overlap": self._resolve_overlap(overlap),
-              "tile_batch": self.tile_batch}
-        if self._shard is not None:
-            devices, forwards = self._shard
-            out = tiled_upscale_sharded(forwards, x, devices, **kw)
-        else:
-            out = tiled_upscale(self._forward, x, **kw)
-        # round to uint8 on the device: the host copy moves 4x fewer
-        # bytes than the f32 frame
-        u8 = (out.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
-        return u8.cpu().numpy()
+        h, w = arr.shape[:2]
+        with trace.span("serve.request", lr_h=h, lr_w=w):
+            with trace.span("serve.upload"):
+                x = torch.tensor(arr, device=self.device).float() / 255.0
+            kw = {"scale": self.scale, "tile": self.tile,
+                  "overlap": self._resolve_overlap(overlap),
+                  "tile_batch": self.tile_batch}
+            with trace.span("serve.tiles"):
+                if self._shard is not None:
+                    devices, forwards = self._shard
+                    out = tiled_upscale_sharded(forwards, x, devices, **kw)
+                else:
+                    out = tiled_upscale(self._forward, x, **kw)
+            # round to uint8 on the device: the host copy moves 4x fewer
+            # bytes than the f32 frame
+            u8 = (out.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+            with trace.span("serve.copy_out", device=self.device):
+                u8 = u8.cpu()
+        return u8.numpy()
 
 
 _PROM_HELP = {
@@ -408,14 +450,26 @@ _PROM_HELP = {
     "shed": "requests rejected 503 by load shedding",
     "latency_ms_mean": "mean request wall latency",
     "latency_ms_last": "last request wall latency",
-    "device_ms_mean": "mean device-locked share of latency",
+    "device_ms_mean": "mean time a device call held the device lock",
+    "lock_wait_ms_mean": "mean time a device call waited for the device "
+                         "lock (the service's queue)",
+    "tiles": "tiles cut on the device from frames by this process "
+             "(frames through the batcher count in batched_tiles)",
+    "tile_slots": "device tile batch slots run, padding included",
+    "tile_useful_pct": "frame LR pixels over device tile slot LR pixels, "
+                       "percent",
+    "graph_captures": "CUDA graphs captured by this process",
+    "graph_replays": "CUDA graph replays by this process",
+    "kernel_builds": "nvcc builds of the port's CUDA kernels by this "
+                     "process (a cold start's compiles)",
     "batched_calls": "dynamic batching: device forwards launched",
     "batched_tiles": "dynamic batching: tiles upscaled",
     "batch_fill_mean": "dynamic batching: mean batch fill fraction",
 }
 
 _PROM_COUNTERS = {"requests", "errors", "shed", "batched_calls",
-                  "batched_tiles"}
+                  "batched_tiles", "tiles", "tile_slots", "graph_captures",
+                  "graph_replays", "kernel_builds"}
 
 
 def _prometheus(metrics: dict) -> str:

@@ -25,6 +25,12 @@ beyond one copy in and one copy out a tile batch:
   device ops, so a frame is a few times K^2 of them whatever its tile
   count, and the result is the same bytes from call to call (no
   atomics).
+
+While a profiler records, a frame's cut, each tile batch and the blend
+are the spans ``tiled.cut`` (with the frame's tiles, slots and LR
+pixels), ``tiled.batch`` and ``tiled.blend`` (``utils/trace.py``); the
+counters ``tiles``, ``tile_slots``, ``tile_slot_px`` and ``tile_lr_px``
+are always on.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ import threading
 
 import numpy as np
 import torch
+
+from torchsr_tpu_torch.utils import trace
 
 # LR tile size per model for serving (the JAX package's defaults).
 DEFAULT_SERVING_TILE = {"esrgan": 64, "srgan": 256}
@@ -172,23 +180,30 @@ def cut_tiles(image: torch.Tensor, tile: int, overlap: int,
         )
     device = image.device
     h, w = image.shape[:2]
-    if h < tile or w < tile:
-        rows = _reflect_index(max(h, tile), h, device)
-        cols = _reflect_index(max(w, tile), w, device)
-        image = image[rows[:, None], cols[None, :]]
-    ph, pw = image.shape[:2]
+    ph, pw = max(h, tile), max(w, tile)
     stride = tile - overlap
-    grid = [(y, x) for y in _positions(ph, tile, stride)
-            for x in _positions(pw, tile, stride)]
-    n_tiles = len(grid)
+    ys, xs = _positions(ph, tile, stride), _positions(pw, tile, stride)
+    n_tiles = len(ys) * len(xs)
     n_padded = -(-n_tiles // tile_batch) * tile_batch
-    starts = torch.tensor(
-        grid + [(0, 0)] * (n_padded - n_tiles), device=device
-    )
-    ar = torch.arange(tile, device=device)
-    rows = starts[:, 0, None] + ar  # (N, tile)
-    cols = starts[:, 1, None] + ar
-    return image[rows[:, :, None], cols[:, None, :]], n_tiles, (ph, pw)
+    trace.count("tiles", n_tiles)
+    trace.count("tile_slots", n_padded)
+    trace.count("tile_slot_px", n_padded * tile * tile)
+    trace.count("tile_lr_px", h * w)
+    with trace.span("tiled.cut", tiles=n_tiles, slots=n_padded,
+                    slot_px=n_padded * tile * tile, lr_px=h * w):
+        if h < tile or w < tile:
+            rows = _reflect_index(ph, h, device)
+            cols = _reflect_index(pw, w, device)
+            image = image[rows[:, None], cols[None, :]]
+        grid = [(y, x) for y in ys for x in xs]
+        starts = torch.tensor(
+            grid + [(0, 0)] * (n_padded - n_tiles), device=device
+        )
+        ar = torch.arange(tile, device=device)
+        rows = starts[:, 0, None] + ar  # (N, tile)
+        cols = starts[:, 1, None] + ar
+        tiles = image[rows[:, :, None], cols[:, None, :]]
+    return tiles, n_tiles, (ph, pw)
 
 
 def tiled_upscale(
@@ -211,10 +226,12 @@ def tiled_upscale(
         t4 = tile * scale
         sr = torch.empty((len(tiles), t4, t4, 3), device=image.device)
         for first in range(0, len(tiles), tile_batch):
-            sr[first:first + tile_batch] = infer_fn(
-                tiles[first:first + tile_batch])
+            with trace.span("tiled.batch"):
+                sr[first:first + tile_batch] = infer_fn(
+                    tiles[first:first + tile_batch])
         # padded entries (index >= n_tiles) carry weight 0: left out
-        out = blend_tiles(sr[:n_tiles], padded, tile, overlap, scale)
+        with trace.span("tiled.blend"):
+            out = blend_tiles(sr[:n_tiles], padded, tile, overlap, scale)
     return out[: h * scale, : w * scale]
 
 
@@ -246,9 +263,10 @@ class TileForward:
                 # a capture stream of this device: torch.cuda.graph's
                 # default one is made once, on whichever device was
                 # current then
-                with graphs.gc_paused(), torch.cuda.graph(
-                        self.graph, stream=torch.cuda.Stream(self.device),
-                        capture_error_mode="thread_local"):
+                with trace.span("graph.capture"), graphs.gc_paused(), \
+                        torch.cuda.graph(
+                            self.graph, stream=torch.cuda.Stream(self.device),
+                            capture_error_mode="thread_local"):
                     self.output = module(self.input)
             except RuntimeError as exc:
                 raise RuntimeError(
@@ -258,6 +276,7 @@ class TileForward:
                 after = graphs.launch_counts()
                 graphs.add_launch_counts(
                     {k: before[k] - after[k] for k in before})
+        trace.count("graph_captures")
         self.launches = {k: after[k] - before[k] for k in before}
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -270,6 +289,7 @@ class TileForward:
             self.input.copy_(x)
             self.graph.replay()
         graphs.add_launch_counts(self.launches)
+        trace.count("graph_replays")
         return self.output
 
 

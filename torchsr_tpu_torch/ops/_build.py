@@ -22,6 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
+from torchsr_tpu_torch.utils import trace
 from torchsr_tpu_torch.utils.compile_cache import kernel_build_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -129,9 +130,11 @@ def library_path(name: str) -> Path:
 def build_all(names=None) -> dict:
     """Compile every ``csrc/<name>.cu`` (all of ``SIGNATURES`` by
     default) whose library does not exist yet, one ``nvcc`` per source,
-    all started together.  Returns ``{name: {"seconds", "ptxas"}}`` for
-    the sources built now (``ptxas`` is the compiler's register/spill
-    report, with its warnings that it serialized ``wgmma``s: C75xx).
+    all started together, each counted in the process counter
+    ``kernel_builds`` (``utils/trace.py``).  Returns ``{name:
+    {"seconds", "ptxas"}}`` for the sources built now (``ptxas`` is the
+    compiler's register/spill report, with its warnings that it
+    serialized ``wgmma``s: C75xx).
     Raises with the compiler's output when a build fails."""
     names = list(SIGNATURES if names is None else names)
     kernel_build_dir().mkdir(parents=True, exist_ok=True)
@@ -146,6 +149,7 @@ def build_all(names=None) -> dict:
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        trace.count("kernel_builds")
         started[name] = (proc, tmp, out, time.perf_counter())
     built, failed = {}, []
     for name, (proc, tmp, out, t0) in started.items():

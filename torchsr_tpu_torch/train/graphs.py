@@ -19,7 +19,12 @@ checkpoint into the optimizers) drops the graph and captures anew.
 The launch counters of ``ops/rdb.py`` advance in Python, at capture and
 not at replay: ``StepGraph`` records what a capture added, takes it back
 (a capture runs nothing), and adds it once per replay, so that every
-counter still states launches that ran.
+counter still states launches that ran.  The process counters
+``graph_captures`` and ``graph_replays`` (``utils/trace.py``) count the
+captures and replays themselves, of these steps and of the tile
+forwards; a capture in steady state is a graph built again.  A replay
+is the span ``train.replay``, timed on the device: nothing inside a
+replayed graph can carry a host span.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import gc
 import torch
 
 from torchsr_tpu_torch.ops import rdb as rdb_ops
+from torchsr_tpu_torch.utils import trace
 
 
 def launch_counts() -> dict:
@@ -88,7 +94,8 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         try:
-            with gc_paused(), torch.cuda.graph(self.graph):
+            with trace.span("graph.capture"), gc_paused(), \
+                    torch.cuda.graph(self.graph):
                 self.out = body(self.crops, self.flips)
         except RuntimeError as exc:
             raise RuntimeError(
@@ -97,6 +104,7 @@ class StepGraph:
         finally:
             after = launch_counts()
             add_launch_counts({k: before[k] - after[k] for k in before})
+        trace.count("graph_captures")
         self.launches = {k: after[k] - before[k] for k in before}
 
     def replay(self, crops: torch.Tensor,
@@ -105,6 +113,8 @@ class StepGraph:
         (overwritten by the next replay)."""
         self.crops.copy_(crops)
         self.flips.copy_(flips)
-        self.graph.replay()
+        with trace.span("train.replay", device=self.crops.device):
+            self.graph.replay()
         add_launch_counts(self.launches)
+        trace.count("graph_replays")
         return self.out

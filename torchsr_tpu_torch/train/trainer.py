@@ -33,7 +33,10 @@ captured CUDA graph of the step K times (``train/graphs.py``): the
 first call of a phase runs its first step eagerly on a side stream and
 captures the step after it.  The epoch's ragged tail replays the same
 graph once a batch.  On the CPU a K-step call runs K eager steps, with
-the same parameters and checkpoints.  ``--fast-compile`` (the JAX
+the same parameters and checkpoints.  While a profiler records, a call
+is the span ``train.call`` (``utils/trace.py``; timed on the device,
+with ``phase`` and ``k``), its warm-up and capture ``train.capture``,
+and each replay ``train.replay``.  ``--fast-compile`` (the JAX
 package's shorter XLA compile) changes nothing: the port has no long
 compile to shorten, so the trainer logs one line and captures as
 without it.  Losses reach the host only when the logger consumes them,
@@ -106,7 +109,7 @@ from torchsr_tpu_torch.train.state import (
     set_lr,
     step_lr_schedule,
 )
-from torchsr_tpu_torch.utils import image_io
+from torchsr_tpu_torch.utils import image_io, trace
 from torchsr_tpu_torch.utils.checkpoint import (
     AsyncCheckpointWriter,
     find_checkpoint,
@@ -347,17 +350,21 @@ class GANTrainer:
                             flips_k: torch.Tensor) -> torch.Tensor:
         """K PSNR-phase steps on a stacked (K, B, ...) device batch;
         returns the (K,) losses."""
-        return self._multi("psnr", self._pretrain_body, crops_k,
-                           flips_k)[:, 0]
+        with trace.span("train.call", device=self.device, phase="psnr",
+                        k=int(crops_k.shape[0])):
+            return self._multi("psnr", self._pretrain_body, crops_k,
+                               flips_k)[:, 0]
 
     def gan_step_multi(self, crops_k: torch.Tensor, flips_k: torch.Tensor,
                        gen_lr: float, disc_lr: float) -> dict:
         """K adversarial steps on a stacked device batch, at one pair of
         learning rates; returns the (K,) discriminator and generator
         losses."""
-        self._set_gan_lrs(gen_lr, disc_lr)
-        out = self._multi("gan", self._gan_body, crops_k, flips_k)
-        return {"disc_loss": out[:, 0], "gen_loss": out[:, 1]}
+        with trace.span("train.call", device=self.device, phase="gan",
+                        k=int(crops_k.shape[0])):
+            self._set_gan_lrs(gen_lr, disc_lr)
+            out = self._multi("gan", self._gan_body, crops_k, flips_k)
+            return {"disc_loss": out[:, 0], "gen_loss": out[:, 1]}
 
     def _multi(self, phase: str, body, crops_k: torch.Tensor,
                flips_k: torch.Tensor) -> torch.Tensor:
@@ -376,11 +383,13 @@ class GANTrainer:
         graph = self._graphs.get(key)
         outs = []
         if graph is None:
-            outs.append(warm_up(body, crops_k[0], flips_k[0]))
-            for opt in self.opt.all():
-                opt.zero_grad(set_to_none=True)
-            graph = self._graphs[key] = StepGraph(
-                f"{self.model_name} {phase}", body, crops_k[0], flips_k[0])
+            with trace.span("train.capture"):
+                outs.append(warm_up(body, crops_k[0], flips_k[0]))
+                for opt in self.opt.all():
+                    opt.zero_grad(set_to_none=True)
+                graph = self._graphs[key] = StepGraph(
+                    f"{self.model_name} {phase}", body, crops_k[0],
+                    flips_k[0])
         for i in range(len(outs), k):
             outs.append(graph.replay(crops_k[i], flips_k[i]).clone())
         self.step += k
