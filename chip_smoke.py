@@ -118,6 +118,18 @@ renders, tile batches or tool calls imply, every other counter (the
     bench_pair_conv again with ``--dtype f32``), in this process,
     printing their own lines; the pair counters must read what their
     calls imply.
+10a. bn_act: the SRGAN generator's BatchNorm with its PReLU or skip add
+    (``ops/bn_act.py``, two launches each way) at the tower's shape
+    (128, 24, 24, 64): each variant in bf16 and f32, training and eval,
+    forward and backward, against its plain version (the module
+    composition on cuDNN) within ``BN_ACT_LIMITS``, beside a float64
+    restatement of the formulas and an emulated fault (dx without its
+    mean(dz * xhat) term) that must read over them; the calls timed
+    beside their bytes bound, the plain version and cuDNN's
+    ``F.batch_norm``, per kernel; the pretrain
+    at batch 128: a captured step stands for 33 forward and 33 backward
+    calls, a call of 8 replays counts 8 times that, and the kernels'
+    device time a step.
 11. train_grad, train_grad_ext, train_grad_xla: one L1 backward of the
     23-RRDB generator, every parameter gradient of the kernel path
     against the plain path, f32 and bf16 (each dtype on its own
@@ -193,8 +205,10 @@ renders, tile batches or tool calls imply, every other counter (the
     96, the full VGG19), one epoch per phase at batch 16, then ``test``
     (whole-image and tiled), ``serve`` (two requests at the SRGAN
     serving tile 256, held against the generator's own tiling) and
-    ``eval`` on its gan-best, every counter 0 on each (SRGAN reaches no
-    kernel); the two steps' times at batch 16.
+    ``eval`` on its gan-best, bn_act's counters at SRGAN_BN calls a
+    generator pass (bf16 steps, ``test`` and ``serve``, f32 evals,
+    renders and ``eval``), every other counter 0 on each; the two steps'
+    times at batch 16.
 24. multistep: the trainer's K-step programs, whose calls replay one
     captured CUDA graph a step: K = 2 ESRGAN GAN steps and K = 8 SRGAN
     pretrain steps (full width, batch 16) from one saved state against
@@ -205,8 +219,9 @@ renders, tile batches or tool calls imply, every other counter (the
     learning rate at capture, after the call set a new one); the real
     graph at the new rate; a resume from a checkpoint (the trainer drops
     its graphs) and replays against eager steps again; a captured step's
-    launch counts (B1 345, B2 69) and the counters at replays x that;
-    eager and replayed step times, kernels and busy shares.
+    launch counts (B1 345, B2 69; SRGAN's bn_act 33 and 33) and the
+    counters at replays x that; eager and replayed step times, kernels
+    and busy shares.
 25. bench: ``torchsr_tpu_torch/tools/bench.py``'s five metrics in its
     order at its configurations (ESRGAN GAN batch 64, SRGAN GAN and
     pretrain batch 128, tiled 1080p -> 4K for both, through the graphed
@@ -273,12 +288,14 @@ renders, tile batches or tool calls imply, every other counter (the
 
 Then a ``seconds`` line (each phase's wall time), the card's name and
 power limit again, a ``kernels`` JSON line (all eight kernels, f32
-paths of B1, B2, B4, B5, B6, B7 and B8 in rows of their own), and as
+paths of B1, B2, B4, B5, B6, B7 and B8 in rows of their own, and
+bn_act's forward and backward in bf16 and f32), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no last line.
 ``--only`` runs the named phases after probe and build (for kernel
 work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
-pair_synth, pair_conv, bench_preprocess, bench_pair_conv, train_grad,
+pair_synth, pair_conv, bench_preprocess, bench_pair_conv, bn_act,
+train_grad,
 train_grad_ext, train_grad_xla, train, train_ext, train_f32,
 train_f32_ext, train_speed, eval and interp (each after train),
 eval_ilv, srgan_train, multistep, bench, serve_graph, export, batching,
@@ -329,7 +346,9 @@ from torchsr_tpu_torch.data.preprocess import (  # noqa: E402
     _apply_flips,
     synthesize_pair,
 )
+from torchsr_tpu_torch import ops as ops_pkg  # noqa: E402
 from torchsr_tpu_torch.ops import _build  # noqa: E402
+from torchsr_tpu_torch.ops import bn_act as bn_ops  # noqa: E402
 from torchsr_tpu_torch.ops import pair_conv as pc_ops  # noqa: E402
 from torchsr_tpu_torch.ops import preprocess as ps_ops  # noqa: E402
 from torchsr_tpu_torch.ops import rdb as rdb_ops  # noqa: E402
@@ -382,21 +401,14 @@ NUM_RRDB = 23
 # The LR batches ``train --scale 2`` and ``--scale 8`` give the blocks at
 # crop 128 and batch 16 (scale 2's forward shape is the serving one).
 SCALE_RDB_SHAPES = {"scale2": (16, 64, 64, 64), "scale8": (16, 16, 16, 64)}
-# The launch counters, by kernel: (module, attribute).  "rdb_bwd_xla"
-# counts the TORCHSR_RDB_BWD=xla backward (no kernel), 0 on every path
-# here; the pair kernels run on the two bench tools' paths only.
+# The launch counters, by kernel: (module, attribute), the model kernels'
+# (``ops.MODEL_KERNELS``: RDB, bn_act) named after their attributes.
+# "rdb_bwd_xla" counts the TORCHSR_RDB_BWD=xla backward (no kernel), 0 on
+# every path here; the pair kernels run on the two bench tools' paths only.
 COUNTERS = {
-    "rdb_fwd": (rdb_ops, "RDB_FWD_LAUNCHES"),
-    "rdb_fwd_f32": (rdb_ops, "RDB_FWD_F32_LAUNCHES"),
-    "rdb_bwd": (rdb_ops, "RDB_BWD_LAUNCHES"),
-    "rdb_bwd_f32": (rdb_ops, "RDB_BWD_F32_LAUNCHES"),
-    "rdb_fwd_ext": (rdb_ops, "RDB_FWD_EXT_LAUNCHES"),
-    "rdb_fwd_ext_f32": (rdb_ops, "RDB_FWD_EXT_F32_LAUNCHES"),
-    "rdb_bwd_ext": (rdb_ops, "RDB_BWD_EXT_LAUNCHES"),
-    "rdb_bwd_ext_f32": (rdb_ops, "RDB_BWD_EXT_F32_LAUNCHES"),
-    "rdb_fwd_ilv": (rdb_ops, "RDB_FWD_ILV_LAUNCHES"),
-    "rdb_fwd_ilv_f32": (rdb_ops, "RDB_FWD_ILV_F32_LAUNCHES"),
-    "rdb_bwd_xla": (rdb_ops, "RDB_BWD_XLA_LAUNCHES"),
+    **{attr.removesuffix("_LAUNCHES").lower(): (module, attr)
+       for module in ops_pkg.MODEL_KERNELS
+       for attr in module.LAUNCH_COUNTERS},
     "pair_synth": (ps_ops, "PAIR_SYNTH_LAUNCHES"),
     "pair_fwd": (pc_ops, "PAIR_FWD_LAUNCHES"),
     "pair_bwd": (pc_ops, "PAIR_BWD_LAUNCHES"),
@@ -2293,6 +2305,317 @@ def phase_bench_pair_conv(seed: int) -> dict:
     return paths
 
 
+# bn_act: the SRGAN generator's BatchNorm with its PReLU or skip add
+# (ops/bn_act.py, csrc/bn_act.cu) at the pretrain cell's tower shape
+# against its plain version (the module composition: cuDNN's BatchNorm
+# in f32 between casts, then the epilogue), each variant forward and
+# backward, training and eval, bf16 and f32.  x has per-channel means and
+# scales, and dy leans on x so that both mean terms of dx matter: with dy
+# independent of x, mean(dz * xhat) is ~1 / sqrt(rows) of dz, below
+# bf16's rounding, and a kernel that dropped it would pass.
+BN_ACT_EPIS = ("prelu", "add", "none")
+# Limits, |got - ref| <= rel |ref| + atol at every element.  The sides
+# sum in other orders (cuDNN's kernels against per-CTA partials), so they
+# differ by f32 rounding; in bf16 a value rounded to bf16 can then fall
+# on the other side of a tie (one bf16 ulp, at most 2^-7 of it), which a
+# skip add carries into the sum (2^-7 of the largest output).  y, dx and
+# the running statistics: (rel, frac) with atol = frac * max|ref|.
+# dweight, dbias, dslope: atol = BN_SUM_ROUNDING * the sum of the terms'
+# magnitudes (an f32 sum of n terms errs by about log2(n) * 6e-8 of it,
+# ~1e-6 here), rel 2^-7 for the bf16-rounded dslope.
+BN_ACT_LIMITS = {
+    torch.bfloat16: {"y": (2**-7, 2**-7), "dx": (2**-7, 2**-7),
+                     "running": (1e-5, 1e-5)},
+    torch.float32: {"y": (1e-5, 1e-5), "dx": (1e-4, 1e-4),
+                    "running": (1e-5, 1e-5)},
+}
+BN_SUM_ROUNDING = 1e-5
+
+
+def bn_act_excess(got, ref, rel: float, atol) -> float:
+    """The largest |got - ref| / (rel |ref| + atol) (0 where equal)."""
+    got, ref = got.double(), ref.double()
+    diff = (got - ref).abs()
+    ratio = diff / (rel * ref.abs() + atol)
+    return float(torch.where(diff == 0, 0.0, ratio).max())
+
+
+def bn_act_scores(got: dict, ref: dict, mags: dict, dtype) -> dict:
+    """Each quantity's excess over its ``BN_ACT_LIMITS``; ``mags`` holds
+    the sums' magnitudes (``bn_act_formulas``' ``*_abs``)."""
+    lim, out = BN_ACT_LIMITS[dtype], {}
+    for key in ("y", "dx", "running_mean", "running_var"):
+        if key in ref:
+            rel, frac = lim["running" if key.startswith("running") else key]
+            out[key] = bn_act_excess(got[key], ref[key], rel,
+                                     frac * ref[key].double().abs().max())
+    for key in ("dweight", "dbias", "dslope"):
+        if key in ref:
+            rel = (2**-7 if key == "dslope" and dtype == torch.bfloat16
+                   else 0.0)
+            out[key] = bn_act_excess(
+                got[key], ref[key], rel,
+                BN_SUM_ROUNDING * mags[f"{key}_abs"].to(ref[key].device))
+    return out
+
+
+def bn_act_inputs(shape, dtype, seed: int):
+    """x, skip, dy, a BatchNorm in training mode and a PReLU, seeded."""
+    from torchsr_tpu_torch.models.layers import BatchNorm, PReLU
+
+    g = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    mean = torch.rand(c, generator=g) * 2 - 1
+    scale = torch.rand(c, generator=g) * 1.5 + 0.5
+    xn = torch.randn(shape, generator=g)
+    skip = torch.rand(shape, generator=g) * 2 - 1
+    dy = (0.5 * torch.randn(shape, generator=g) + 0.5 * xn
+          + 0.1 * (torch.rand(c, generator=g) - 0.5))
+    bn, prelu = BatchNorm(c), PReLU()
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(c, generator=g) + 0.5)
+        bn.bias.copy_(torch.rand(c, generator=g) - 0.5)
+        bn.running_mean.copy_(mean + 0.1 * torch.randn(c, generator=g))
+        bn.running_var.copy_(scale ** 2
+                             * (0.8 + 0.4 * torch.rand(c, generator=g)))
+        prelu.weight.fill_(0.2 + 0.1 * float(torch.rand(1, generator=g)))
+    device = DEVICE
+    return ((xn * scale + mean).to(device, dtype), skip.to(device, dtype),
+            dy.to(device, dtype), bn.to(device), prelu.to(device))
+
+
+def bn_act_run(fn, x, skip, dy, bn, prelu, epi: str, train: bool) -> dict:
+    """``fn`` (``bn_act`` or ``bn_act_reference``) on copies of the
+    module state, forward and backward: y, the gradients, the running
+    statistics (training)."""
+    import copy
+
+    bn, prelu = copy.deepcopy(bn).train(train), copy.deepcopy(prelu)
+    xr = x.clone().requires_grad_(True)
+    res = skip.clone().requires_grad_(True) if epi == "add" else None
+    y = fn(xr, bn, prelu=prelu if epi == "prelu" else None, residual=res)
+    leaves = [xr, bn.weight, bn.bias] + (
+        [prelu.weight] if epi == "prelu" else []) + (
+        [res] if epi == "add" else [])
+    grads = torch.autograd.grad(y, leaves, dy)
+    out = {"y": y.detach(), "dx": grads[0], "dweight": grads[1],
+           "dbias": grads[2]}
+    if epi == "prelu":
+        out["dslope"] = grads[3]
+    if epi == "add":
+        out["dskip"] = grads[3]
+    if train:
+        out.update(running_mean=bn.running_mean.clone(),
+                   running_var=bn.running_var.clone(),
+                   num_batches=int(bn.num_batches_tracked))
+    return out
+
+
+def bn_act_bound_ms(shape, dtype, epi: str, backward: bool) -> float:
+    """Bytes over HBM bandwidth: forward x in and out out (and the skip
+    in), backward x and dy in and dx out."""
+    tensors = 3 if backward or epi == "add" else 2
+    return (1e3 * tensors * math.prod(shape)
+            * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S)
+
+
+def _bn_act_timing(x, skip, dy, bn, prelu, epi: str) -> dict:
+    """The training-mode forward and backward calls (CUDA events),
+    profiled per kernel, beside their bytes bound, the plain version's
+    times and cuDNN's ``F.batch_norm`` on the NHWC tensor (the library
+    yardstick, which the port never calls): ``{"fwd": ..., "bwd": ...}``,
+    each side timed alone (a backward replays one graph built once, with
+    every gradient the kernels compute)."""
+    import copy
+
+    bn = copy.deepcopy(bn).train()
+    sl = prelu.weight if epi == "prelu" else None
+    res = skip if epi == "add" else None
+    code = {"prelu": bn_ops._EPI_PRELU, "add": bn_ops._EPI_ADD,
+            "none": bn_ops._EPI_NONE}[epi]
+    _, stats = bn_ops.bn_act_fwd_cuda(x, bn, slope=sl, residual=res,
+                                      epi=code)
+
+    def fwd():
+        return bn_ops.bn_act_fwd_cuda(x, bn, slope=sl, residual=res,
+                                      epi=code)
+
+    def bwd():
+        return bn_ops.bn_act_bwd_cuda(x, dy, bn.weight, bn.bias, stats,
+                                      slope=sl, epi=code, train=True)
+
+    plain = copy.deepcopy(bn)
+    pre = copy.deepcopy(prelu) if epi == "prelu" else None
+    xg = x.clone().requires_grad_(True)
+    y_plain = bn_ops.bn_act_reference(xg, plain, prelu=pre, residual=res)
+    plain_leaves = [xg, plain.weight, plain.bias] + (
+        [pre.weight] if pre is not None else [])
+
+    def plain_fwd():
+        return bn_ops.bn_act_reference(x, plain, prelu=pre, residual=res)
+
+    def plain_bwd():
+        return torch.autograd.grad(y_plain, plain_leaves, dy,
+                                   retain_graph=True)
+
+    lib_bn = copy.deepcopy(bn)
+    nchw = x.permute(0, 3, 1, 2)
+    xl = nchw.detach().clone().requires_grad_(True)
+    dyl = dy.permute(0, 3, 1, 2)
+
+    def lib(t):
+        return F.batch_norm(t, lib_bn.running_mean, lib_bn.running_var,
+                            lib_bn.weight, lib_bn.bias, True, 0.1, 1e-5)
+
+    y_lib = lib(xl)
+
+    def lib_bwd():
+        return torch.autograd.grad(y_lib, [xl, lib_bn.weight, lib_bn.bias],
+                                   dyl, retain_graph=True)
+
+    return {
+        "fwd": {"ms": median_ms(fwd),
+                "profile": profile_device_time(fwd, 10, _kernel_name),
+                "plain_ms": median_ms(plain_fwd),
+                "library_ms": median_ms(lambda: lib(nchw)),
+                "library_profile": profile_device_time(
+                    lambda: lib(nchw), 10, _kernel_name),
+                "bound_ms": bn_act_bound_ms(x.shape, x.dtype, epi, False),
+                "bound_by": "bytes"},
+        "bwd": {"ms": median_ms(bwd),
+                "profile": profile_device_time(bwd, 10, _kernel_name),
+                "plain_ms": median_ms(plain_bwd),
+                "library_ms": median_ms(lib_bwd),
+                "library_profile": profile_device_time(lib_bwd, 10,
+                                                       _kernel_name),
+                "bound_ms": bn_act_bound_ms(x.shape, x.dtype, epi, True),
+                "bound_by": "bytes"}}
+
+
+def _bn_act_pretrain(seed: int) -> dict:
+    """The SRGAN pretrain at the cell's batch (128 crops of 96, K = 8): a
+    captured step stands for SRGAN_BN forward and SRGAN_BN backward calls,
+    and a call's counters read K times that through the replay
+    accounting; the bn_act kernels' device time a step."""
+    from argparse import Namespace
+
+    from torchsr_tpu_torch.train import graphs
+    from torchsr_tpu_torch.train.trainer import SRGANTrainer
+    from torchsr_tpu_torch.utils.logging import Logger
+
+    os.environ["WANDB_MODE"] = "disabled"  # never a network sink
+    args = Namespace(batch_size=HEADLINE_BATCH, epochs=1, pretrain_epochs=1,
+                     seed=seed, skip_image_save=True, disable_amp=False,
+                     metrics_file=None)
+    tr = SRGANTrainer(args, Namespace(crop_size=HEADLINE_CROP), None, 1, 1,
+                      device=torch.device(DEVICE), logger=Logger())
+    k = tr.steps_per_call
+    crops, flips = _stacks(HEADLINE_BATCH, HEADLINE_CROP, k, seed + 5)
+    tr.pretrain_step_multi(crops, flips)  # captures
+    (graph,) = tr._graphs.values()
+    reset_counters()
+    tr.pretrain_step_multi(crops, flips)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    prof = profile_device_time(lambda: tr.pretrain_step_multi(crops, flips),
+                               1, _kernel_name)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {n: 0 for n in graphs.launch_counts()}
+    per_step.update(BN_ACT_FWD_LAUNCHES=SRGAN_BN,
+                    BN_ACT_BWD_LAUNCHES=SRGAN_BN)
+    check(graph.launches == per_step,
+          f"a captured pretrain step stands for {per_step}: "
+          f"{graph.launches}")
+    check_counts("bn_act: srgan pretrain call", counts,
+                 bn_act_fwd=k * SRGAN_BN, bn_act_bwd=k * SRGAN_BN)
+    bn_ms = {n: ms / k for n, ms in prof["device_ms_per_batch"].items()
+             if n.startswith("bn_")}
+    return {"steps_per_call": k, "graph_launches": graph.launches,
+            "call_launches": counts,
+            "bn_act_device_ms_per_step": sum(bn_ms.values()),
+            "bn_act_kernels_ms_per_step": bn_ms,
+            "device_ms_per_step": sum(prof["device_ms_per_batch"].values())
+            / k, "busy_share": prof["busy_share_of_span"],
+            "top_kernels_ms_per_step": {
+                n: ms / k for n, ms in list(
+                    prof["device_ms_per_batch"].items())[:12]}}
+
+
+def phase_bn_act(seed: int) -> dict:
+    """bn_act at the SRGAN tower's shape: each variant (PReLU, skip add,
+    none) in bf16 and f32, training and eval, forward and backward,
+    within ``BN_ACT_LIMITS`` of its plain version; the emulated fault
+    (dx without its xhat * mean(dz * xhat) term) over them; the training
+    calls timed beside their bounds, the plain version and cuDNN; the
+    pretrain path's counts through the replay accounting."""
+    rows, timed = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).removeprefix("torch.")
+        f32 = "_f32" if dtype == torch.float32 else ""
+        x, skip, dy, bn, prelu = bn_act_inputs(SRGAN_TOWER, dtype, seed + 40)
+        for epi in BN_ACT_EPIS:
+            sl = prelu.weight if epi == "prelu" else None
+            res = skip if epi == "add" else None
+            for train in (True, False):
+                name = f"{dt} {epi} {'train' if train else 'eval'}"
+                reset_counters()
+                got = bn_act_run(bn_ops.bn_act, x, skip, dy, bn, prelu, epi,
+                                 train)
+                torch.cuda.synchronize()
+                counts = read_counters()
+                ref = bn_act_run(bn_ops.bn_act_reference, x, skip, dy, bn,
+                                 prelu, epi, train)
+                bn.train(train)
+                f64 = bn_ops.bn_act_formulas(x, bn, slope=sl, residual=res,
+                                             dy=dy)
+                row = {"max_abs_err": float((got["y"].float()
+                                             - ref["y"].float()).abs().max()),
+                       "max_abs_err_dx": float(
+                           (got["dx"].float() - ref["dx"].float()).abs().max()),
+                       "excess": bn_act_scores(got, ref, f64, dtype),
+                       "excess_vs_float64": bn_act_scores(got, f64, f64,
+                                                          dtype),
+                       "plain_vs_float64": bn_act_scores(ref, f64, f64,
+                                                         dtype)}
+                if train:
+                    row["wrong_dzx"] = bn_act_scores(
+                        bn_ops.bn_act_formulas(x, bn, slope=sl,
+                                               residual=res, dy=dy,
+                                               drop="dzx"), ref, f64, dtype)
+                bn.train()
+                rows[name] = row
+                say(f"bn_act[{name}]", shape=list(SRGAN_TOWER), **row)
+                check_counts(f"bn_act {name}", counts,
+                             **{f"bn_act_fwd{f32}": 1, f"bn_act_bwd{f32}": 1})
+                check(max(row["excess"].values()) <= 1,
+                      f"bn_act {name} within its limits: {row['excess']}")
+                if train:
+                    check(got["num_batches"] == ref["num_batches"] == 1,
+                          f"bn_act {name}: num_batches_tracked moved once")
+                    check(row["wrong_dzx"]["dx"] > 1,
+                          f"bn_act {name}: the limits see a dropped "
+                          f"mean(dz * xhat) term: {row['wrong_dzx']}")
+                if epi == "add":
+                    check(torch.equal(got["dskip"], dy),
+                          f"bn_act {name}: the skip's gradient is dy")
+        for epi in BN_ACT_EPIS:
+            t = _bn_act_timing(x, skip, dy, bn, prelu, epi)
+            row = rows[f"{dt} {epi} train"]
+            t["fwd"]["max_abs_err"] = row["max_abs_err"]
+            t["bwd"]["max_abs_err"] = row["max_abs_err_dx"]
+            timed[(dt, epi)] = t
+            say(f"bn_act_time[{dt} {epi}]", **t)
+        del x, skip, dy
+    say("bn_act_pretrain", **_bn_act_pretrain(seed))
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        out[dt] = timed[(dt, "prelu")]["fwd"]
+        out[f"{dt}_bwd"] = timed[(dt, "prelu")]["bwd"]
+    return out
+
+
 class _WrongBwdBlock(torch.autograd.Function):
     """The plain block forward with the emulated backward carrying one
     of the ``WRONG_BWD`` faults."""
@@ -2404,6 +2727,8 @@ _RDB_BWD_KERNELS = ("rdb_bwd_",)
 
 
 def _kernel_class(name: str) -> str:
+    if any(k in name for k in ("bn_stats", "bn_apply", "bn_bwd_")):
+        return "bn_act"
     if "conv3x3_" in name or "rdb_fwd_" in name:
         return "rdb_fwd"
     if any(k in name for k in _RDB_BWD_KERNELS):
@@ -3203,6 +3528,9 @@ REPORT_SLACK = {"psnr": 5e-5 + 1e-5, "ssim": 5e-6 + 2e-6}
 # on seeded PNGs, batch 16, one epoch per phase; then test, serve (two
 # requests, one tiled at the SRGAN serving tile 256) and eval.
 SRGAN_BLOCKS = 16
+# bn_act calls in one pass of the generator: two a residual block and the
+# long skip's
+SRGAN_BN = 2 * SRGAN_BLOCKS + 1
 SRGAN_CROP = 96
 SRGAN_REQUESTS = ((64, 64), (120, 300))
 INTERP_ALPHA = 0.2
@@ -3573,6 +3901,11 @@ def _srgan_serve(ckpt: str, seed: int) -> tuple[dict, dict]:
     frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
               for h, w in SRGAN_REQUESTS]
     latencies, answers = [], []
+    tile, overlap = service.tile, service._resolve_overlap(None)
+    batches = sum(
+        -(-len(_positions(max(h, tile), tile, tile - overlap))
+          * len(_positions(max(w, tile), tile, tile - overlap))
+          // service.tile_batch) for h, w in SRGAN_REQUESTS)
     try:
         with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
             check(resp.status == 200, "srgan /healthz 200 after warmup")
@@ -3607,14 +3940,16 @@ def _srgan_serve(ckpt: str, seed: int) -> tuple[dict, dict]:
           f"srgan served frames within {TOL_SERVE_LEVELS} level of the "
           f"generator's own tiling: {levels}")
     return counts, {"request_ms": latencies, "vs_same_tiling_levels": levels,
-                    "meta": service.meta}
+                    "meta": service.meta, "tile_batches": batches}
 
 
 def phase_srgan_train(seed: int) -> dict:
     """``train --model srgan`` at full width on seeded PNGs (one epoch
     per phase, batch 16), then ``test`` whole-image and tiled, ``serve``
     and ``eval`` on its gan-best, and the two steps' times at batch 16.
-    SRGAN reaches no kernel of the port: every counter reads 0."""
+    SRGAN reaches one kernel pair of the port, bn_act (SRGAN_BN calls a
+    generator pass: bf16 in the steps, ``test`` and ``serve``, f32 in the
+    evals, renders and ``eval``); every other counter reads 0."""
     import shutil
     from argparse import Namespace
 
@@ -3636,6 +3971,22 @@ def phase_srgan_train(seed: int) -> dict:
     folder = _eval_images(seed)
     n_eval = -(-TRAIN_IMAGES // 10)
     steps = (TRAIN_IMAGES - n_eval) // TRAIN_BATCH
+    evals = -(-n_eval // TRAIN_BATCH)
+    h, w = TEST_IMAGE
+    tiles = len(_positions(h, 64, 48)) * len(_positions(w, 64, 48))
+    # two epochs (pretrain, GAN): each step a generator pass forward and
+    # backward in bf16, each eval batch and sample render one forward in
+    # f32; ``test`` in bf16, whole-image and tiled (the tile forward's
+    # capture adds CAPTURE_FORWARDS)
+    want = {"srgan_train": {"bn_act_fwd": SRGAN_BN * 2 * steps,
+                            "bn_act_bwd": SRGAN_BN * 2 * steps,
+                            "bn_act_fwd_f32": SRGAN_BN * 2 * (evals + 1)},
+            "srgan_train: test whole": {"bn_act_fwd": SRGAN_BN},
+            "srgan_train: test tiled": {
+                "bn_act_fwd": SRGAN_BN * (-(-tiles // 16)
+                                          + CAPTURE_FORWARDS)},
+            "srgan_train: eval": {
+                "bn_act_fwd_f32": SRGAN_BN * eval_forwards(EVAL_SIZES)}}
     paths = {}
     log = io.StringIO()
     cwd = os.getcwd()
@@ -3668,6 +4019,8 @@ def phase_srgan_train(seed: int) -> dict:
                 tests[name] = _unpng(fh.read()).shape
         paths["srgan_train: serve"], served = _srgan_serve(
             os.path.abspath("srgan-gan-best.pth"), seed)
+        want["srgan_train: serve"] = {
+            "bn_act_fwd": SRGAN_BN * served["tile_batches"]}
         reset_counters()
         with contextlib.redirect_stdout(log):
             cli.main(["eval", folder, "--model", "srgan", "--checkpoint",
@@ -3716,7 +4069,7 @@ def phase_srgan_train(seed: int) -> dict:
               "srgan test wrote a 4x image")
     _check_report(report, "srgan eval", model="srgan")
     for path, counts in paths.items():
-        check_counts(path, counts)
+        check_counts(path, counts, **want[path])
     return paths
 
 
@@ -3847,6 +4200,7 @@ def phase_multistep(seed: int) -> dict:
     eager and replayed step times and busy shares."""
     from argparse import Namespace
 
+    from torchsr_tpu_torch.train import graphs
     from torchsr_tpu_torch.train.graphs import StepGraph
     from torchsr_tpu_torch.train.trainer import ESRGANTrainer, SRGANTrainer
     from torchsr_tpu_torch.utils.logging import Logger
@@ -3856,7 +4210,7 @@ def phase_multistep(seed: int) -> dict:
                      metrics_file=None)
     per_step = {"RDB_FWD_LAUNCHES": 5 * 3 * NUM_RRDB,
                 "RDB_BWD_LAUNCHES": 3 * NUM_RRDB}
-    per_step = {k: per_step.get(k, 0) for k in rdb_ops.LAUNCH_COUNTERS}
+    per_step = {k: per_step.get(k, 0) for k in graphs.launch_counts()}
     row: dict = {"batch": MULTI_BATCH}
 
     # ESRGAN GAN, K = 2
@@ -3984,7 +4338,8 @@ def phase_multistep(seed: int) -> dict:
     for name, res in (("multistep: esrgan gan", gan),
                       ("multistep: esrgan gan resumed", resumed)):
         check_counts(name, res["launches"], **want)
-    check_counts("multistep: srgan pretrain", srgan["launches"])
+    check_counts("multistep: srgan pretrain", srgan["launches"],
+                 bn_act_fwd=k8 * SRGAN_BN, bn_act_bwd=k8 * SRGAN_BN)
     return {"multistep: esrgan gan": gan["launches"],
             "multistep: esrgan gan resumed": resumed["launches"],
             "multistep: srgan pretrain": srgan["launches"]}
@@ -4032,6 +4387,14 @@ def phase_bench(seed: int) -> dict:
         "bench_esrgan_tiled_inference": {
             "rdb_fwd": (3 * frame_batches + CAPTURE_FORWARDS)
             * 5 * 3 * NUM_RRDB},
+        # SRGAN: K = 8, one warm-up call and two phases of one call
+        "bench_srgan_gan": {"bn_act_fwd": 24 * SRGAN_BN,
+                            "bn_act_bwd": 24 * SRGAN_BN},
+        "bench_tiled_inference": {
+            "bn_act_fwd": (3 * bench_tile_batches(bench.FRAME_HW, 256, 16, 8)
+                           + CAPTURE_FORWARDS) * SRGAN_BN},
+        "bench_srgan_train": {"bn_act_fwd": 24 * SRGAN_BN,
+                              "bn_act_bwd": 24 * SRGAN_BN},
     }
     rows, paths = [], {}
     for metric, fn_name, kw in BENCH_SMOKE:
@@ -4137,15 +4500,24 @@ def _train_argv(data: dict, seed: int, *extra) -> list:
             *extra]
 
 
+# A generator pass's kernel calls, by model: (forward counter, calls a
+# forward, backward counter, calls a backward); the forward counter's
+# ``_f32`` twin counts the f32 passes.
+GEN_CALLS = {
+    "esrgan": ("rdb_fwd", 5 * 3 * NUM_RRDB, "rdb_bwd", 3 * NUM_RRDB),
+    "srgan": ("bn_act_fwd", SRGAN_BN, "bn_act_bwd", SRGAN_BN),
+}
+
+
 def _run_launches(phases: int = 2, steps: int = RUN_STEPS,
-                  renders: int = 1) -> dict:
-    """B1 and B2 launches of a run: each phase's steps forward (bf16)
-    and backward; its eval batches and its sample render forward only
-    (f32)."""
-    return {"rdb_fwd": 5 * 3 * NUM_RRDB * phases * steps,
-            "rdb_fwd_f32": 5 * 3 * NUM_RRDB * phases * (RUN_EVALS
-                                                        + renders),
-            "rdb_bwd": 3 * NUM_RRDB * phases * steps}
+                  renders: int = 1, model: str = "esrgan") -> dict:
+    """The model kernels' launches of a run (B1 and B2 for ESRGAN,
+    bn_act for SRGAN): each phase's steps forward (bf16) and backward;
+    its eval batches and its sample render forward only (f32)."""
+    fwd, per_fwd, bwd, per_bwd = GEN_CALLS[model]
+    return {fwd: per_fwd * phases * steps,
+            f"{fwd}_f32": per_fwd * phases * (RUN_EVALS + renders),
+            bwd: per_bwd * phases * steps}
 
 
 def _same_batches(a: list, b: list) -> bool:
@@ -4985,8 +5357,7 @@ import torch
 # the smoke's own settings: f32 convolutions and matmuls in full f32
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
-from torchsr_tpu_torch import cli
-from torchsr_tpu_torch.ops import rdb
+from torchsr_tpu_torch import cli, ops
 from torchsr_tpu_torch.tools.profile_gan_step import chained_ms
 from torchsr_tpu_torch.train.trainer import run_train
 from torchsr_tpu_torch.utils.preemption import PreemptionGuard
@@ -5002,8 +5373,9 @@ for job in sys.argv[3].split(","):
         os.environ.update(launcher)
     os.makedirs(os.path.join(run, model), exist_ok=True)  # every rank
     os.chdir(os.path.join(run, model))
-    for n in rdb.LAUNCH_COUNTERS:
-        setattr(rdb, n, 0)
+    for m in ops.MODEL_KERNELS:
+        for n in m.LAUNCH_COUNTERS:
+            setattr(m, n, 0)
     trainer = run_train(cli.parse_args([*sys.argv[4:], "--model", model]))
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -5011,7 +5383,7 @@ for job in sys.argv[3].split(","):
         *trainer.gen.state_dict().values(),
         *trainer.disc.state_dict().values())]
     row = {
-        "counts": {n: getattr(rdb, n) for n in rdb.LAUNCH_COUNTERS},
+        "counts": ops.launch_counts(),
         "fingerprint": [float(t.abs().sum()) for t in state],
         "finite": all(bool(torch.isfinite(t).all()) for t in state),
         "world": dist.get_world_size() if dist.is_initialized() else 1,
@@ -5205,11 +5577,13 @@ def phase_multi_card(seed: int) -> dict:
     rows["tiled_max_abs_err"] = float((tiled - mono).abs().max())
     say("multi_card", cards=n, rows=rows, launches=paths)
     for name, counts in paths.items():
-        if "esrgan" in name:
-            check_counts(name, counts, **_run_launches(steps=steps,
-                                                       renders=0))
-        else:
-            check_counts(name, counts)
+        model = "esrgan" if "esrgan" in name else "srgan"
+        # SRGAN's BatchNorms synchronise across the ranks in training (the
+        # module composition, no bn_act call in a step); its evals run
+        # bn_act in f32 as ESRGAN's run B1
+        check_counts(name, counts, **_run_launches(
+            steps=steps if model == "esrgan" else 0, renders=0,
+            model=model))
     check(rows["sharded_equals_single"],
           "multi_card: the frame over the cards equals one card's")
     check(rows["halo_max_abs_err"] <= rows["tiled_max_abs_err"],
@@ -5427,6 +5801,12 @@ KERNELS = (
      "float32", (*PAIR_CONV_SHAPES[0], 64)),
     ("pair_bwd_f32", "pair_conv.cu", "pair_conv.py:148", "pair_bwd",
      "float32", (*PAIR_CONV_SHAPES[0], 64)),
+    ("bn_act_fwd", "bn_act.cu", None, "bn_act", "bfloat16", SRGAN_TOWER),
+    ("bn_act_bwd", "bn_act.cu", None, "bn_act", "bfloat16_bwd",
+     SRGAN_TOWER),
+    ("bn_act_fwd_f32", "bn_act.cu", None, "bn_act", "float32", SRGAN_TOWER),
+    ("bn_act_bwd_f32", "bn_act.cu", None, "bn_act", "float32_bwd",
+     SRGAN_TOWER),
 )
 
 
@@ -5455,7 +5835,8 @@ def kernels_line(timed: dict, paths: dict) -> dict:
             "name": name,
             "route": "cuda",
             "source": f"torchsr_tpu_torch/ops/csrc/{source}",
-            "replaces": f"torchsr_tpu/ops/pallas/{replaces}",
+            "replaces": (None if replaces is None
+                         else f"torchsr_tpu/ops/pallas/{replaces}"),
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"],
@@ -5466,7 +5847,7 @@ def kernels_line(timed: dict, paths: dict) -> dict:
             "library_ms": row.get("library_ms"),
             "device_ms": _profiled_ms(row.get("profile")),
             "library_device_ms": _profiled_ms(row.get("library_profile")),
-            "dtype": key,
+            "dtype": key.removesuffix("_bwd"),
             "shape": list(shape),
         })
     return {"kernels": out}
@@ -5480,7 +5861,8 @@ def main() -> None:
         help="Comma-separated phases to run after probe and build (for "
              "kernel work; prints no kernels or final line): rdb_fwd, "
              "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, pair_synth, "
-             "pair_conv, bench_preprocess, bench_pair_conv, train_grad, "
+             "pair_conv, bench_preprocess, bench_pair_conv, bn_act, "
+             "train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, train_f32, "
              "train_f32_ext, "
              "train_speed, eval, interp (both after train), eval_ilv, "
@@ -5528,6 +5910,7 @@ def main() -> None:
             "pair_synth": phase_pair_synth, "pair_conv": phase_pair_conv,
             "bench_preprocess": phase_bench_preprocess,
             "bench_pair_conv": phase_bench_pair_conv,
+            "bn_act": phase_bn_act,
             "train_grad": phase_train_grad,
             "train_grad_ext": lambda s: phase_train_grad(s, "ext"),
             "train_grad_xla": lambda s: phase_train_grad(s, "xla"),
@@ -5565,7 +5948,8 @@ def main() -> None:
              "rdb_bwd": run("rdb_bwd", phase_rdb_bwd, seed),
              "rdb_bwd_ext": run("rdb_bwd_ext", phase_rdb_bwd_ext, seed),
              "pair_synth": run("pair_synth", phase_pair_synth, seed),
-             **run("pair_conv", phase_pair_conv, seed)}
+             **run("pair_conv", phase_pair_conv, seed),
+             "bn_act": run("bn_act", phase_bn_act, seed)}
     paths = {"bench_preprocess": run("bench_preprocess",
                                      phase_bench_preprocess, seed),
              **run("bench_pair_conv", phase_bench_pair_conv, seed)}

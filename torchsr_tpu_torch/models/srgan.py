@@ -11,12 +11,15 @@ on CUDA), BatchNorm statistics in f32, and the outputs cast to f32.
     LeakyReLU(0.2) (no BN on the first), flatten, Linear->1024,
     LeakyReLU, Linear->1, sigmoid in f32.
 
-No TPU kernel is on this path: every layer is a plain PyTorch op.  The
-9x9 64->3 head runs, as the JAX generator's ``fused_head`` does, in
-subpixel space (``ops/subpixel_conv.py``): at 4x the last upsample
-stage skips its pixel shuffle (its PReLU has one scalar slope, so it
-commutes) and the head consumes the pre-shuffle map through a
-partially folded kernel; at 2x and 8x it folds the HR map.  The
+No TPU kernel is on this path.  The BatchNorms of the residual blocks
+and of the long skip run with their PReLU or skip add as one hand-written
+kernel pair on CUDA (``ops/bn_act.py`` ``bn_act``; the module
+composition on the CPU), which replaces no TPU kernel; every other layer
+is a plain PyTorch op.  The 9x9 64->3 head runs, as the JAX generator's
+``fused_head`` does, in subpixel space (``ops/subpixel_conv.py``): at
+4x the last upsample stage skips its pixel shuffle (its PReLU has one
+scalar slope, so it commutes) and the head consumes the pre-shuffle map
+through a partially folded kernel; at 2x and 8x it folds the HR map.  The
 ``fused_head`` attribute picks it (None: the subpixel form on CUDA
 where ``FUSED_HEAD_ON_CUDA`` says so, the direct conv on the CPU);
 both compute the same conv with the same parameters.  ``state_dict`` keys are the
@@ -36,6 +39,7 @@ import torch
 from torch import nn
 
 from torchsr_tpu_torch.models.layers import BatchNorm, Conv, Dense, PReLU
+from torchsr_tpu_torch.ops.bn_act import bn_act
 from torchsr_tpu_torch.ops.pixel_shuffle import depth_to_space
 from torchsr_tpu_torch.ops.subpixel_conv import (
     conv_head_partially_folded,
@@ -47,6 +51,13 @@ CHANNELS = 64
 # the head's form on CUDA when ``fused_head`` is None (the faster one
 # on the H100: PERF.md)
 FUSED_HEAD_ON_CUDA = True
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the BatchNorm kernels take it on CUDA: contiguous NHWC (a
+    conv returns its input's layout, or cuDNN's NCHW choice for a batch of
+    one).  The CPU's plain version takes any layout: unchanged there."""
+    return t.contiguous() if t.is_cuda else t
 
 
 def _reset(module: nn.Module, generator: torch.Generator | None) -> None:
@@ -71,8 +82,8 @@ class ResidualBlock(nn.Module):
         self.bn2 = BatchNorm(channels, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.prelu(self.bn1(self.conv1(x)))
-        return self.bn2(self.conv2(out)) + x
+        out = bn_act(_nhwc(self.conv1(x)), self.bn1, prelu=self.prelu)
+        return bn_act(_nhwc(self.conv2(out)), self.bn2, residual=x)
 
 
 class SubpixelConv(nn.Module):
@@ -147,8 +158,12 @@ class SRGANGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] -> (B, sH, sW, 3) float32."""
-        conv1 = self.conv1(x.to(self.compute_dtype or torch.float32))
-        out = conv1 + self.conv2(self.blocks(conv1))
+        # NHWC from the input on (the trainer's LR batch is an NCHW-strided
+        # view): every conv then keeps that layout, and no copy is made
+        x = _nhwc(x.to(self.compute_dtype or torch.float32))
+        conv1 = _nhwc(self.conv1(x))
+        conv, bn = self.conv2
+        out = bn_act(_nhwc(conv(self.blocks(conv1))), bn, residual=conv1)
         return self.tail(out).float()
 
     def uses_fused_head(self, x: torch.Tensor) -> bool:

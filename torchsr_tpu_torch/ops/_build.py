@@ -84,6 +84,17 @@ SIGNATURES = {
         ),
         "pair_synth_error_string": (ctypes.c_char_p, (_I,)),
     },
+    "bn_act": {
+        "bn_act_fwd_launch": (
+            _I, (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                 _I, _I, _I, _F, _F, _I, _P)
+        ),
+        "bn_act_bwd_launch": (
+            _I, (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                 _I, _I, _I, _I, _P)
+        ),
+        "bn_act_error_string": (ctypes.c_char_p, (_I,)),
+    },
     "pair_conv": {
         "pair_conv_launch": (
             _I, (_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)

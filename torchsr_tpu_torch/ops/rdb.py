@@ -728,14 +728,17 @@ def fused_rdb(
 
 
 # ``plain_forward`` sets it (in its own thread and context only): every
-# ``fused_rdb`` runs ``rdb_reference``.
+# ``fused_rdb`` runs ``rdb_reference``, and every ``ops.bn_act.bn_act``
+# its module composition.
 _PLAIN = contextvars.ContextVar("torchsr_rdb_plain", default=False)
 
 
 @contextlib.contextmanager
 def plain_forward():
-    """Within the block every ``fused_rdb`` is its plain version, five
-    ``F.conv2d`` calls: what a portable (pure aten) export traces."""
+    """Within the block every model kernel is its plain version (a
+    ``fused_rdb`` five ``F.conv2d`` calls, a ``bn_act`` the BatchNorm
+    module and its epilogue): what a portable (pure aten) export
+    traces."""
     token = _PLAIN.set(True)
     try:
         yield

@@ -30,11 +30,14 @@ process:
    inputs; its per-image report is written beside the others and the
    summary sets its margin over bicubic beside JAX's.
 
-``--plain-rdb`` runs the whole tool under ``ops.rdb.plain_forward()``:
-every residual dense block is its plain version (five ``F.conv2d``,
-differentiated by autograd), so that neither RDB kernel, forward or
-backward, runs; the summary records ``"rdb_fwd": "plain"`` and the
-RDB launch counters the run left.
+``--plain-rdb`` runs the whole tool under ``ops.rdb.plain_forward()``,
+which takes every model kernel (``ops.MODEL_KERNELS``) off: every
+residual dense block is its plain version (five ``F.conv2d``,
+differentiated by autograd) and SRGAN's BatchNorms the module
+composition, so that no RDB or BatchNorm kernel, forward or backward,
+runs; the summary records ``"rdb_fwd": "plain"`` and ``"bn_act":
+"plain"``, and the model kernels' launch counters the run left
+(``"launches"``).
 
 It writes each report, the training metrics, and ``summary.json`` (the
 reports' headline numbers beside the JAX reports', the per-epoch eval
@@ -150,9 +153,10 @@ def main(argv=None) -> dict:
                         help="train in f32 (train's --disable-amp) with "
                              "TF32 off for the whole run")
     parser.add_argument("--plain-rdb", action="store_true",
-                        help="train and evaluate with every residual "
-                             "dense block as its plain version (no RDB "
-                             "kernel, forward or backward)")
+                        help="train and evaluate with every model "
+                             "kernel's plain version: residual dense "
+                             "blocks and SRGAN's BatchNorms (no RDB or "
+                             "BatchNorm kernel, forward or backward)")
     parser.add_argument("--bf16-operands", action="store_true",
                         help="also score psnr-best with the LR and the "
                              "bicubic baseline synthesized at the JAX "
@@ -174,7 +178,7 @@ def _run(args) -> dict:
 
     from torchsr_tpu_torch import cli
     from torchsr_tpu_torch.infer.evaluate import run_eval
-    from torchsr_tpu_torch.ops import rdb
+    from torchsr_tpu_torch.ops import launch_counts
     from torchsr_tpu_torch.registry import select_test_model
     from torchsr_tpu_torch.tools import make_quality_dataset
 
@@ -267,8 +271,8 @@ def _run(args) -> dict:
         "rdb_fwd": "plain" if args.plain_rdb else "kernel",
         "rdb_bwd": ("plain" if args.plain_rdb
                     else os.environ.get("TORCHSR_RDB_BWD", "pallas")),
-        "rdb_launches": {name: getattr(rdb, name)
-                         for name in rdb.LAUNCH_COUNTERS},
+        "bn_act": "plain" if args.plain_rdb else "kernel",
+        "launches": launch_counts(),
         "dataset_multiplier": args.dataset_multiplier,
         "train_wall_s": train_s, "wall_s": time.time() - t0,
         "reports": {k: _headline(v) for k, v in reports.items()},

@@ -16,13 +16,15 @@ optimizers' moments, step counts and learning-rate tensors
 graph's private memory pool.  Whoever replaces any of them (loading a
 checkpoint into the optimizers) drops the graph and captures anew.
 
-The launch counters of ``ops/rdb.py`` advance in Python, at capture and
+The launch counters of the model kernels (``ops.MODEL_KERNELS``:
+``ops/rdb.py`` and ``ops/bn_act.py``) advance in Python, at capture and
 not at replay: ``StepGraph`` records what a capture added, takes it back
 (a capture runs nothing), and adds it once per replay, so that every
-counter still states launches that ran.  The process counters
-``graph_captures`` and ``graph_replays`` (``utils/trace.py``) count the
-captures and replays themselves, of these steps and of the tile
-forwards; a capture in steady state is a graph built again.  A replay
+counter still states launches that ran.  The
+process counters ``graph_captures`` and ``graph_replays``
+(``utils/trace.py``) count the captures and replays themselves, of
+these steps and of the tile forwards; a capture in steady state is a
+graph built again.  A replay
 is the span ``train.replay``, timed on the device: nothing inside a
 replayed graph can carry a host span.
 """
@@ -34,18 +36,8 @@ import gc
 
 import torch
 
-from torchsr_tpu_torch.ops import rdb as rdb_ops
+from torchsr_tpu_torch.ops import add_launch_counts, launch_counts
 from torchsr_tpu_torch.utils import trace
-
-
-def launch_counts() -> dict:
-    """The RDB kernels' launch counters, by name."""
-    return {name: getattr(rdb_ops, name) for name in rdb_ops.LAUNCH_COUNTERS}
-
-
-def add_launch_counts(delta: dict, times: int = 1) -> None:
-    for name, n in delta.items():
-        setattr(rdb_ops, name, getattr(rdb_ops, name) + n * times)
 
 
 @contextlib.contextmanager
