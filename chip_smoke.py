@@ -5853,6 +5853,181 @@ def kernels_line(timed: dict, paths: dict) -> dict:
     return {"kernels": out}
 
 
+# ------------------------------------------------------------ HAT (HA)
+# HAT's serving tile batch: 8 tiles of 256x256 tokens, C = 180, 6 heads.
+HAT_SHAPE = (8, 256, 256, 180)
+HAT_HEADS = 6
+# The attention kernel against its plain composition (f32 from the same
+# bf16 qkv): the kernel rounds the softmax's probabilities to bf16 for the
+# P.V product (2^-9 of each term) and its output to bf16 (2^-9 of the
+# value), and sums in another order, so a result passes where
+#     |got - ref| <= 2^-7 |ref| + 2^-8 max|ref|
+# at every element (excess <= 1).  The planted fault, the bias table
+# dropped (zeros), must read above 1: the inputs give the bias a std of
+# 1 against scores of std ~1, so a dropped bias moves every output.
+HA_LIMITS = {"rel": 2.0 ** -7, "frac": 2.0 ** -8}
+# The graphed bf16 HAT tile batch against the plain f32 reference
+# (port_bench/reference/hat.py, TF32 off), in [0, 1] pixel units: bf16
+# activations through 42 blocks of a seeded network whose output spreads
+# ~0.1 around its mean; the limits are the serving check's order, 16 and
+# 2 levels of 255.
+HA_NET_LIMITS = {"max_abs": 16 / 255, "mean_abs": 2 / 255}
+
+
+def ha_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |got - ref| / (rel |ref| + frac max|ref|)."""
+    ref = ref.float()
+    d = (got.float() - ref).abs()
+    allow = HA_LIMITS["rel"] * ref.abs() + HA_LIMITS["frac"] * ref.abs().max()
+    return float((d / allow.clamp_min(1e-30)).max())
+
+
+def _ha_inputs(seed: int, overlap: bool):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w, c = HAT_SHAPE
+    qkv = torch.randn((b, h, w, 3 * c), device="cuda", generator=gen)
+    qkv = qkv.to(torch.bfloat16)
+    rows = (16 + 24 - 1) ** 2 if overlap else (2 * 16 - 1) ** 2
+    table = torch.randn((rows, HAT_HEADS), device="cuda", generator=gen)
+    return qkv, table
+
+
+def _ha_key(name: str) -> str:
+    """A kernel's short name for the HA profiles."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[(<]", name, maxsplit=1)[0][:60]
+
+
+def ha_bound_ms(overlap: bool) -> tuple[float, str]:
+    """q, k and v read once, the output written once (bf16), against the
+    two products' FLOPs at head dim 30."""
+    b, h, w, c = HAT_SHAPE
+    tokens = b * h * w
+    keys = 576 if overlap else 256
+    flops = 4.0 * tokens * keys * c
+    nbytes = tokens * 4 * c * 2.0
+    ops_ms, mem_ms = flops / 989e12 * 1e3, nbytes / 3.35e12 * 1e3
+    return (max(ops_ms, mem_ms),
+            "operations" if ops_ms > mem_ms else "bytes")
+
+
+def phase_window_attn(seed: int) -> dict:
+    """HA, HAT's attention kernel, at the serving tile batch: the HAB
+    unshifted and shifted and the OCAB against the plain composition
+    within ``HA_LIMITS``, the dropped-bias fault over them, the launch
+    counts, times beside the bound and the plain composition; then the
+    whole seeded HAT tile batch, graphed, against the f32 reference
+    within ``HA_NET_LIMITS``, with its launch, window and pad counts."""
+    from torchsr_tpu_torch.ops import window_attn as wa
+
+    rows = {}
+    for name, overlap, shift in (("hab", False, 0), ("hab_shifted", False, 8),
+                                 ("ocab", True, 0)):
+        qkv, table = _ha_inputs(seed + len(rows), overlap)
+        kw = ({"overlap": 24} if overlap else {"shift": shift})
+        kernel = wa.overlap_attn if overlap else wa.window_attn
+        plain = (wa.overlap_attn_reference if overlap
+                 else wa.window_attn_reference)
+        reset_counters()
+        got = kernel(qkv, table, heads=HAT_HEADS, window=16, **kw)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        ref = plain(qkv, table, heads=HAT_HEADS, window=16, **kw).float()
+        ref_f32 = plain(qkv.float(), table, heads=HAT_HEADS, window=16, **kw)
+        wrong = plain(qkv.float(), torch.zeros_like(table), heads=HAT_HEADS,
+                      window=16, **kw)
+        wins = HAT_SHAPE[0] * (HAT_SHAPE[1] // 16) * (HAT_SHAPE[2] // 16)
+        row = {"max_abs_err": float((got.float() - ref_f32).abs().max()),
+               "excess": ha_excess(got, ref_f32),
+               "wrong_no_bias": ha_excess(wrong, ref_f32),
+               "plain_bf16_out_excess": ha_excess(ref, ref_f32)}
+        del ref, wrong
+        bound, by = ha_bound_ms(overlap)
+        row["ms"] = median_ms(lambda: kernel(qkv, table, heads=HAT_HEADS,
+                                             window=16, **kw))
+        row["plain_ms"] = median_ms(
+            lambda: plain(qkv, table, heads=HAT_HEADS, window=16, **kw),
+            reps=3, warmup=1)
+        row.update(bound_ms=bound, bound_by=by,
+                   roofline_pct=100.0 * bound / row["ms"])
+        prof = profile_device_time(
+            lambda: kernel(qkv, table, heads=HAT_HEADS, window=16, **kw),
+            batches=3, key=_ha_key)
+        row["profile"] = prof
+        rows[name] = row
+        say(f"window_attn[{name}]", shape=list(HAT_SHAPE), **row)
+        launch = "overlap_attn" if overlap else "window_attn"
+        check_counts(f"window_attn {name}", counts,
+                     **{launch: 1,
+                        ("hat_windows_ocab" if overlap
+                         else "hat_windows_hab"): wins})
+        check(row["excess"] <= 1, f"window_attn {name} within its limits: "
+                                  f"{row['excess']}")
+        check(row["wrong_no_bias"] > 1, f"window_attn {name}: the limits "
+              f"see a dropped bias: {row['wrong_no_bias']}")
+        del qkv, table, got, ref_f32
+        torch.cuda.empty_cache()
+    with contextlib.suppress(NotImplementedError):
+        wa.window_attn(torch.zeros((1, 16, 16, 18), device="cuda"),
+                       torch.zeros((31 * 31, 1), device="cuda"), heads=1,
+                       window=16)
+        check(False, "window_attn refuses f32 on CUDA")
+    rows["net"] = _ha_network(seed)
+    return rows
+
+
+def _ha_network(seed: int) -> dict:
+    """The seeded HAT SRx4 tile batch through the graphed tile forward
+    (bf16) against port_bench's f32 reference, with its counts."""
+    from port_bench import weights as pb_weights
+    from port_bench.reference import hat as hat_ref
+    from port_bench.reference import ops as ref_ops
+    from torchsr_tpu_torch.infer.tiled import TileForward
+    from torchsr_tpu_torch.models.hat import HATGenerator
+
+    cfg = json.loads(open("port_bench/configs/hat.json").read())
+    w = pb_weights.make(hat_ref.generator_specs(cfg), seed + 7, "generator",
+                        "cuda")
+    gen = HATGenerator.sized_to(w, compute_dtype=torch.bfloat16,
+                                device="cuda")
+    pb_weights.load_into(gen, w)
+    gen.eval().requires_grad_(False)
+    check(sum(p.numel() for p in gen.parameters())
+          == cfg["generator_parameters"], "HAT SRx4's parameter count")
+    b = HAT_SHAPE[0]
+    x = torch.rand((b, 256, 256, 3), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(seed))
+    reset_counters()
+    fwd = TileForward(gen, (b, 256, 256, 3), torch.device("cuda"))
+    capture = read_counters()
+    reset_counters()
+    got = fwd(x).clone()
+    torch.cuda.synchronize()
+    replay = read_counters()
+    with ref_ops.exact_f32(), torch.no_grad():
+        ref = torch.cat([hat_ref.generator(w, x[i:i + 2].permute(0, 3, 1, 2),
+                                           cfg).permute(0, 2, 3, 1)
+                         for i in range(0, b, 2)])
+    d = (got.float().clamp(0, 1) - ref.clamp(0, 1)).abs()
+    row = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+           "ref_std": float(ref.std()),
+           "ref_clamped_share": float(((ref < 0) | (ref > 1)).float().mean()),
+           "ms": median_ms(lambda: fwd(x), reps=10, warmup=2),
+           "capture_counts": {k: v for k, v in capture.items() if v},
+           "replay_counts": {k: v for k, v in replay.items() if v}}
+    row["profile"] = profile_device_time(
+        lambda: fwd(x), batches=2, key=_ha_key)
+    say("window_attn[net]", **row)
+    wins = b * 16 * 16
+    check_counts("hat tile batch replay", replay, window_attn=36,
+                 overlap_attn=6, hat_windows_hab=36 * wins,
+                 hat_windows_ocab=6 * wins)
+    check(row["max_abs"] <= HA_NET_LIMITS["max_abs"]
+          and row["mean_abs"] <= HA_NET_LIMITS["mean_abs"],
+          f"the graphed HAT tile batch within {HA_NET_LIMITS}: {row}")
+    return row
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5862,6 +6037,7 @@ def main() -> None:
              "kernel work; prints no kernels or final line): rdb_fwd, "
              "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, pair_synth, "
              "pair_conv, bench_preprocess, bench_pair_conv, bn_act, "
+             "window_attn, "
              "train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, train_f32, "
              "train_f32_ext, "
@@ -5911,6 +6087,7 @@ def main() -> None:
             "bench_preprocess": phase_bench_preprocess,
             "bench_pair_conv": phase_bench_pair_conv,
             "bn_act": phase_bn_act,
+            "window_attn": phase_window_attn,
             "train_grad": phase_train_grad,
             "train_grad_ext": lambda s: phase_train_grad(s, "ext"),
             "train_grad_xla": lambda s: phase_train_grad(s, "xla"),

@@ -389,7 +389,7 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     serve.add_argument(
         "--tile", type=nonnegative_integer, default=0,
         help="Serving tile size (0 = the per-model default: 64 for "
-             "ESRGAN, 256 for SRGAN).",
+             "ESRGAN, 256 for SRGAN and HAT).",
     )
     serve.add_argument(
         "--tile-batch", type=positive_integer, default=16,

@@ -21,7 +21,8 @@ Endpoints:
 - ``GET /metadata``: the serving configuration as JSON.
 - ``GET /metrics``: request counters, the time device calls held and
   waited for the device lock, the process's tiling and CUDA graph
-  counters, JSON (or Prometheus text with ``?format=prometheus`` or
+  counters, the model kernels' launch counters (``ops.launch_counts``,
+  replays counted), JSON (or Prometheus text with ``?format=prometheus`` or
   ``Accept: text/plain``).
 - ``POST /upscale``: an encoded image in (anything Pillow decodes); the
   super-resolved image out, PNG by default, ``?format=jpeg|webp`` with
@@ -105,7 +106,10 @@ class _Service:
         """Counters since startup: request/error totals, mean and last
         wall latency, the mean time a device call held and waited for
         the device lock, uptime; and the process's tiling, CUDA graph
-        and kernel build counters (``utils/trace.py``)."""
+        and kernel build counters (``utils/trace.py``), and the model
+        kernels' counters (``ops.launch_counts``) by lower-case name."""
+        from torchsr_tpu_torch.ops import launch_counts
+
         counts = trace.counters()
         slot_px = counts.get("tile_slot_px", 0)
         with self._stats_lock:
@@ -133,6 +137,7 @@ class _Service:
                 "graph_captures": counts.get("graph_captures", 0),
                 "graph_replays": counts.get("graph_replays", 0),
                 "kernel_builds": counts.get("kernel_builds", 0),
+                **{k.lower(): v for k, v in launch_counts().items()},
             }
 
     def admit(self) -> bool:
@@ -473,7 +478,11 @@ _PROM_COUNTERS = {"requests", "errors", "shed", "batched_calls",
 
 
 def _prometheus(metrics: dict) -> str:
-    """Render the /metrics dict in Prometheus exposition format."""
+    """Render the /metrics dict in Prometheus exposition format; the
+    model kernels' counters take their help from their modules."""
+    from torchsr_tpu_torch.ops import counter_help
+
+    kernels = {k.lower(): v for k, v in counter_help().items()}
     lines = []
     for key, value in metrics.items():
         name = f"torchsr_{key}"
@@ -481,10 +490,11 @@ def _prometheus(metrics: dict) -> str:
             continue
         if isinstance(value, bool):
             value = int(value)
-        help_text = _PROM_HELP.get(key)
+        help_text = _PROM_HELP.get(key, kernels.get(key))
         if help_text:
             lines.append(f"# HELP {name} {help_text}")
-        kind = "counter" if key in _PROM_COUNTERS else "gauge"
+        kind = "counter" if key in _PROM_COUNTERS or key in kernels \
+            else "gauge"
         lines.append(f"# TYPE {name} {kind}")
         lines.append(f"{name} {value}")
     return "\n".join(lines) + "\n"

@@ -43,8 +43,9 @@ import torch
 
 from torchsr_tpu_torch.utils import trace
 
-# LR tile size per model for serving (the JAX package's defaults).
-DEFAULT_SERVING_TILE = {"esrgan": 64, "srgan": 256}
+# LR tile size per model for serving (the JAX package's defaults; HAT's
+# is its test configurations' tile_size, a whole number of its windows).
+DEFAULT_SERVING_TILE = {"esrgan": 64, "srgan": 256, "hat": 256}
 
 
 def _positions(size: int, tile: int, stride: int) -> list[int]:

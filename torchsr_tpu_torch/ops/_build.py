@@ -95,6 +95,12 @@ SIGNATURES = {
         ),
         "bn_act_error_string": (ctypes.c_char_p, (_I,)),
     },
+    "window_attn": {
+        "window_attn_launch": (
+            _I, (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P)
+        ),
+        "window_attn_error_string": (ctypes.c_char_p, (_I,)),
+    },
     "pair_conv": {
         "pair_conv_launch": (
             _I, (_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)

@@ -56,8 +56,13 @@ BN_ACT_FWD_LAUNCHES = 0
 BN_ACT_BWD_LAUNCHES = 0
 BN_ACT_FWD_F32_LAUNCHES = 0
 BN_ACT_BWD_F32_LAUNCHES = 0
-LAUNCH_COUNTERS = ("BN_ACT_FWD_LAUNCHES", "BN_ACT_BWD_LAUNCHES",
-                   "BN_ACT_FWD_F32_LAUNCHES", "BN_ACT_BWD_F32_LAUNCHES")
+COUNTER_HELP = {
+    "BN_ACT_FWD_LAUNCHES": "BatchNorm-activation forward calls, bf16",
+    "BN_ACT_BWD_LAUNCHES": "BatchNorm-activation backward calls, bf16",
+    "BN_ACT_FWD_F32_LAUNCHES": "BatchNorm-activation forward calls, f32",
+    "BN_ACT_BWD_F32_LAUNCHES": "BatchNorm-activation backward calls, f32",
+}
+LAUNCH_COUNTERS = tuple(COUNTER_HELP)
 
 MAX_C = 256
 # The kernels' grid (csrc/bn_act.cu): CTAs of _THREADS threads, C / 8 a

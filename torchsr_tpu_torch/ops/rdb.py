@@ -108,14 +108,23 @@ RDB_FWD_ILV_F32_LAUNCHES = 0
 # Block backwards run on CUDA by the TORCHSR_RDB_BWD=xla backend
 # (rdb_bwd_reference, no kernel); 0 on every default path.
 RDB_BWD_XLA_LAUNCHES = 0
-# Every counter above, by name (train/graphs.py adds a captured step's
-# share of each once per replay).
-LAUNCH_COUNTERS = ("RDB_FWD_LAUNCHES", "RDB_FWD_F32_LAUNCHES",
-                   "RDB_BWD_LAUNCHES", "RDB_BWD_F32_LAUNCHES",
-                   "RDB_FWD_EXT_LAUNCHES", "RDB_FWD_EXT_F32_LAUNCHES",
-                   "RDB_BWD_EXT_LAUNCHES", "RDB_BWD_EXT_F32_LAUNCHES",
-                   "RDB_FWD_ILV_LAUNCHES", "RDB_FWD_ILV_F32_LAUNCHES",
-                   "RDB_BWD_XLA_LAUNCHES")
+# Every counter above, by name, with the line that the service's
+# /metrics gives it (train/graphs.py adds a captured step's share of each
+# once per replay).
+COUNTER_HELP = {
+    "RDB_FWD_LAUNCHES": "RDB forward kernel launches, bf16",
+    "RDB_FWD_F32_LAUNCHES": "RDB forward kernel launches, f32",
+    "RDB_BWD_LAUNCHES": "RDB backward kernel launches, bf16",
+    "RDB_BWD_F32_LAUNCHES": "RDB backward kernel launches, f32",
+    "RDB_FWD_EXT_LAUNCHES": "row-extended RDB forward launches, bf16",
+    "RDB_FWD_EXT_F32_LAUNCHES": "row-extended RDB forward launches, f32",
+    "RDB_BWD_EXT_LAUNCHES": "row-extended RDB backward launches, bf16",
+    "RDB_BWD_EXT_F32_LAUNCHES": "row-extended RDB backward launches, f32",
+    "RDB_FWD_ILV_LAUNCHES": "interleaved RDB forward launches, bf16",
+    "RDB_FWD_ILV_F32_LAUNCHES": "interleaved RDB forward launches, f32",
+    "RDB_BWD_XLA_LAUNCHES": "RDB block backwards run without a kernel",
+}
+LAUNCH_COUNTERS = tuple(COUNTER_HELP)
 
 # The JAX package's knobs, names and defaults (torchsr_tpu/ops/pallas/
 # rdb.py:386, :403, :753), read once at import.

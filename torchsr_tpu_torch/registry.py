@@ -11,9 +11,11 @@ from argparse import Namespace
 
 def _generators() -> dict:
     from torchsr_tpu_torch.models.esrgan import ESRGANGenerator
+    from torchsr_tpu_torch.models.hat import HATGenerator
     from torchsr_tpu_torch.models.srgan import SRGANGenerator
 
-    return {"esrgan": ESRGANGenerator, "srgan": SRGANGenerator}
+    return {"esrgan": ESRGANGenerator, "srgan": SRGANGenerator,
+            "hat": HATGenerator}
 
 
 def _trainers() -> dict:
@@ -22,7 +24,9 @@ def _trainers() -> dict:
     return {"esrgan": ESRGANTrainer, "srgan": SRGANTrainer}
 
 
-MODEL_NAMES = ("esrgan", "srgan")
+MODEL_NAMES = ("esrgan", "srgan", "hat")
+# served and tested, not trained: the port has no HAT recipe
+INFERENCE_ONLY = ("hat",)
 
 # HR training crop per model (the reference registry's)
 CROP_SIZE = {"esrgan": 128, "srgan": 96}
@@ -40,6 +44,11 @@ def _lookup(args: Namespace, table: dict):
 
 def select_trainer_model(args: Namespace) -> tuple[type, int]:
     """Return (trainer class, crop size) for the requested model."""
+    if args.model.lower() in INFERENCE_ONLY:
+        raise RuntimeError(
+            f"{args.model} is served and tested only: the port has no "
+            f"training recipe or discriminator for it. Train one of "
+            f"{list(_trainers())}")
     name, trainer = _lookup(args, _trainers())
     return trainer, CROP_SIZE[name]
 

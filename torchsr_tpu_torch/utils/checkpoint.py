@@ -284,13 +284,14 @@ def load_checkpoint(path: str, model: str | None = None) -> dict | None:
     """Load a checkpoint as ``{"epoch", "phase", "state": state_dict}``
     (with ``extra`` where a training checkpoint has it, a ``.ckpt``'s
     converted by ``from_jax_training_state``); None when the file does
-    not exist.  ``model`` names the architecture (``esrgan`` or
-    ``srgan``); the keys or the tree tell their own (an ESRGAN's name
+    not exist.  ``model`` names the architecture (``esrgan``, ``srgan``
+    or ``hat``); the keys or the tree tell their own (an ESRGAN's name
     its RRDBs, in any scheme), so the name is only checked."""
-    if model is not None and model.lower() not in ("esrgan", "srgan"):
+    if model is not None and model.lower() not in ("esrgan", "srgan",
+                                                   "hat"):
         raise RuntimeError(
-            f"{model} checkpoints are not supported: choose esrgan or "
-            f"srgan"
+            f"{model} checkpoints are not supported: choose esrgan, "
+            f"srgan or hat"
         )
     if not path or not os.path.exists(path):
         return None
