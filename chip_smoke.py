@@ -295,7 +295,7 @@ raises, so the script exits non-zero and prints no last line.
 ``--only`` runs the named phases after probe and build (for kernel
 work): rdb_fwd, rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext,
 pair_synth, pair_conv, bench_preprocess, bench_pair_conv, bn_act,
-train_grad,
+window_attn and add_ln (HAT's kernels, in no default run), train_grad,
 train_grad_ext, train_grad_xla, train, train_ext, train_f32,
 train_f32_ext, train_speed, eval and interp (each after train),
 eval_ilv, srgan_train, multistep, bench, serve_graph, export, batching,
@@ -5976,13 +5976,11 @@ def phase_window_attn(seed: int) -> dict:
     return rows
 
 
-def _ha_network(seed: int) -> dict:
-    """The seeded HAT SRx4 tile batch through the graphed tile forward
-    (bf16) against port_bench's f32 reference, with its counts."""
+def _hat_seeded(seed: int):
+    """The seeded HAT SRx4 generator (bf16 on the card), its weights, its
+    configuration and a tile batch of inputs."""
     from port_bench import weights as pb_weights
     from port_bench.reference import hat as hat_ref
-    from port_bench.reference import ops as ref_ops
-    from torchsr_tpu_torch.infer.tiled import TileForward
     from torchsr_tpu_torch.models.hat import HATGenerator
 
     cfg = json.loads(open("port_bench/configs/hat.json").read())
@@ -5994,9 +5992,20 @@ def _ha_network(seed: int) -> dict:
     gen.eval().requires_grad_(False)
     check(sum(p.numel() for p in gen.parameters())
           == cfg["generator_parameters"], "HAT SRx4's parameter count")
-    b = HAT_SHAPE[0]
-    x = torch.rand((b, 256, 256, 3), device="cuda",
+    x = torch.rand((HAT_SHAPE[0], 256, 256, 3), device="cuda",
                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    return gen, w, cfg, x
+
+
+def _ha_network(seed: int) -> dict:
+    """The seeded HAT SRx4 tile batch through the graphed tile forward
+    (bf16) against port_bench's f32 reference, with its counts."""
+    from port_bench.reference import hat as hat_ref
+    from port_bench.reference import ops as ref_ops
+    from torchsr_tpu_torch.infer.tiled import TileForward
+
+    gen, w, cfg, x = _hat_seeded(seed)
+    b = HAT_SHAPE[0]
     reset_counters()
     fwd = TileForward(gen, (b, 256, 256, 3), torch.device("cuda"))
     capture = read_counters()
@@ -6021,11 +6030,167 @@ def _ha_network(seed: int) -> dict:
     wins = b * 16 * 16
     check_counts("hat tile batch replay", replay, window_attn=36,
                  overlap_attn=6, hat_windows_hab=36 * wins,
-                 hat_windows_ocab=6 * wins)
+                 hat_windows_ocab=6 * wins, add_ln=HAT_ADD_LN_CALLS,
+                 add_ln_terms=HAT_ADD_LN_TERMS)
     check(row["max_abs"] <= HA_NET_LIMITS["max_abs"]
           and row["mean_abs"] <= HA_NET_LIMITS["mean_abs"],
           f"the graphed HAT tile batch within {HA_NET_LIMITS}: {row}")
     return row
+
+
+# ------------------------------------------------------------ HAT (LN)
+# add_ln: HAT's residual adds and LayerNorm in one kernel (ops/add_ln.py,
+# csrc/add_ln.cu), on the serving tile batch's map.  Its forms, by name:
+# the scales of the terms folded in (patch_embed's LayerNorm has none, an
+# OCAB's norm2 and every norm1 one, a HAB's norm2 proj(a) and conv_scale *
+# conv).
+ADD_LN_FORMS = {"ln": (), "proj": (1.0,), "proj_conv": (1.0, 0.01)}
+# The kernel against the composition on the same bf16 inputs, as
+# ``excess`` reads it (base None: frac of the largest |ref|).  The stream
+# is the same adds at the same roundings; the normalised rows differ by
+# the order of the f32 statistics' sums (~2^-22 of a value) before their
+# rounding to bf16, so by a tie rounded the other way at most: one bf16
+# step, at most 2^-7 of the value; frac covers values near 0.  f32: the
+# plain version against float64 (the CPU tests).
+ADD_LN_LIMITS = {torch.bfloat16: (2.0 ** -7, 2.0 ** -12),
+                 torch.float32: (1e-6, 1e-6)}
+# A HAT SRx4 tile batch's calls and terms: patch_embed 1 (no term); in each
+# of the 6 groups 6 HABs x 2 and the OCAB's 2 calls, 3 terms a HAB and 2 the
+# OCAB (the first group's first norm1 has none); the final norm 1 and 1.
+HAT_ADD_LN_CALLS = 1 + 6 * (6 * 2 + 2) + 1
+HAT_ADD_LN_TERMS = 6 * (6 * 3 + 2) - 1 + 1
+
+
+def add_ln_inputs(shape, dtype, terms: int, seed: int, device="cuda"):
+    """x and ``terms`` maps ~N(0, 1), weight ~1 + N(0, 0.1^2) and bias
+    ~N(0, 0.1^2) (f32)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    maps = [torch.randn(shape, device=device, generator=gen).to(dtype)
+            for _ in range(1 + terms)]
+    c = shape[-1]
+    weight = 1 + 0.1 * torch.randn(c, device=device, generator=gen)
+    bias = 0.1 * torch.randn(c, device=device, generator=gen)
+    return maps[0], tuple(maps[1:]), weight, bias
+
+
+def add_ln_scores(got, ref, dtype) -> dict:
+    """``excess`` of the stream and the normalised rows."""
+    return {k: excess(g, r, ADD_LN_LIMITS[dtype])
+            for k, g, r in zip(("stream", "normed"), got, ref)}
+
+
+def add_ln_wrong(x, terms, scales, weight, bias):
+    """The planted fault: the composition with its first term dropped
+    (with no term, its bias dropped)."""
+    from torchsr_tpu_torch.ops.add_ln import add_layer_norm_reference
+
+    if terms:
+        return add_layer_norm_reference(x, terms[1:], scales[1:], weight,
+                                        bias)
+    return add_layer_norm_reference(x, (), (), weight,
+                                    torch.zeros_like(bias))
+
+
+def add_ln_bound_ms(shape, terms: int) -> float:
+    """x and the terms read once, the stream (with terms) and the
+    normalised rows written once, bf16, at 3.35 TB/s."""
+    maps = 1 + terms + (2 if terms else 1)
+    return 1e3 * maps * math.prod(shape) * 2 / HBM_BYTES_PER_S
+
+
+def phase_add_ln(seed: int) -> dict:
+    """add_ln at the serving tile batch's map: each form against the
+    composition within ``ADD_LN_LIMITS``, the planted fault over them, the
+    launch and term counts, times beside the bytes bound, the composition
+    and ``F.layer_norm`` on the bf16 map; then the seeded HAT tile batch
+    graphed (``_ha_network``: 86 launches a batch) and eager under the
+    profiler, where no LayerNorm and no cast of the map but the channel
+    attention's remain."""
+    from torchsr_tpu_torch.ops import add_ln
+
+    rows = {}
+    c = HAT_SHAPE[-1]
+    for name, scales in ADD_LN_FORMS.items():
+        k = len(scales)
+        x, terms, weight, bias = add_ln_inputs(HAT_SHAPE, torch.bfloat16, k,
+                                               seed + 50 + k)
+        reset_counters()
+        got = add_ln.add_layer_norm(x, terms, scales, weight=weight,
+                                    bias=bias)
+        torch.cuda.synchronize()
+        counts = read_counters()
+        ref = add_ln.add_layer_norm_reference(x, terms, scales, weight, bias)
+        row = {"excess": add_ln_scores(got, ref, torch.bfloat16),
+               "stream_bit_equal": bool(torch.equal(got[0], ref[0])),
+               "normed_equal_share": float(
+                   (got[1] == ref[1]).float().mean()),
+               "wrong": add_ln_scores(
+                   add_ln_wrong(x, terms, scales, weight, bias), ref,
+                   torch.bfloat16)}
+        del got, ref
+        torch.cuda.empty_cache()
+        w16, b16 = weight.bfloat16(), bias.bfloat16()
+
+        def kernel():
+            return add_ln.add_layer_norm(x, terms, scales, weight=weight,
+                                         bias=bias)
+        row["ms"] = median_ms(kernel)
+        row["plain_ms"] = median_ms(
+            lambda: add_ln.add_layer_norm_reference(x, terms, scales, weight,
+                                                    bias), reps=10)
+        row["library_ms"] = median_ms(
+            lambda: F.layer_norm(x, (c,), w16, b16, 1e-5))
+        prof = profile_device_time(kernel, batches=5, key=_ha_key)
+        device_ms = sum(prof["device_ms_per_batch"].values())
+        bound = add_ln_bound_ms(HAT_SHAPE, k)
+        row.update(profile=prof, device_ms=device_ms, bound_ms=bound,
+                   bound_by="bytes", roofline_pct=100.0 * bound / device_ms,
+                   call_roofline_pct=100.0 * bound / row["ms"])
+        rows[name] = row
+        say(f"add_ln[{name}]", shape=list(HAT_SHAPE), **row)
+        check_counts(f"add_ln {name}", counts, add_ln=1, add_ln_terms=k)
+        check(max(row["excess"].values()) <= 1,
+              f"add_ln {name} within its limits: {row['excess']}")
+        check(row["stream_bit_equal"] or not k,
+              f"add_ln {name}: the stream is the composition's")
+        check(row["wrong"]["normed"] > 1, f"add_ln {name}: the limits see "
+              f"the planted fault: {row['wrong']}")
+        del x, terms
+        torch.cuda.empty_cache()
+    with contextlib.suppress(NotImplementedError):
+        z = torch.zeros((2, c), device="cuda")
+        add_ln.add_layer_norm(z, weight=z[0], bias=z[0])
+        check(False, "add_ln refuses f32 on CUDA")
+    rows["net"] = _ha_network(seed)
+    rows["eager_ops"] = _hat_eager_ops(seed)
+    check(not any("layer_norm" in k.lower() or "rowwisemoments" in k.lower()
+                  for k in rows["net"]["profile"]["device_ms_per_batch"]),
+          "no PyTorch LayerNorm kernel in the replayed HAT tile batch")
+    return rows
+
+
+def _hat_eager_ops(seed: int) -> dict:
+    """One eager HAT tile batch under the profiler (host ops, shapes):
+    no ``aten::layer_norm`` and, of the map's casts, only the channel
+    attention's (one a HAB, its f32 pool)."""
+    gen, _, _, x = _hat_seeded(seed)
+    with torch.no_grad(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        gen(x)
+        torch.cuda.synchronize()
+    ops = {"layer_norm": 0, "map_casts": 0}
+    for e in prof.events():
+        if e.name in ("aten::layer_norm", "aten::native_layer_norm"):
+            ops["layer_norm"] += 1
+        elif (e.name == "aten::_to_copy" and e.input_shapes
+              and list(e.input_shapes[0]) == list(HAT_SHAPE)):
+            ops["map_casts"] += 1
+    say("add_ln[eager_ops]", **ops)
+    check(ops == {"layer_norm": 0, "map_casts": sum(gen.depths)},
+          f"an eager HAT tile batch: no LayerNorm, the map cast only for "
+          f"the channel attention's pool: {ops}")
+    return ops
 
 
 def main() -> None:
@@ -6037,7 +6202,7 @@ def main() -> None:
              "kernel work; prints no kernels or final line): rdb_fwd, "
              "rdb_fwd_ext, rdb_fwd_ilv, rdb_bwd, rdb_bwd_ext, pair_synth, "
              "pair_conv, bench_preprocess, bench_pair_conv, bn_act, "
-             "window_attn, "
+             "window_attn, add_ln, "
              "train_grad, "
              "train_grad_ext, train_grad_xla, train, train_ext, train_f32, "
              "train_f32_ext, "
@@ -6088,6 +6253,7 @@ def main() -> None:
             "bench_pair_conv": phase_bench_pair_conv,
             "bn_act": phase_bn_act,
             "window_attn": phase_window_attn,
+            "add_ln": phase_add_ln,
             "train_grad": phase_train_grad,
             "train_grad_ext": lambda s: phase_train_grad(s, "ext"),
             "train_grad_xla": lambda s: phase_train_grad(s, "xla"),

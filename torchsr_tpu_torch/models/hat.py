@@ -34,7 +34,20 @@ right to the next multiple and the output cropped, as HAT's
 
 Activations are in ``compute_dtype`` (bf16 under AMP on CUDA, f32 on the
 CPU), parameters in f32; LayerNorm's statistics, the channel-attention
-gate and the softmax run in f32.  ``state_dict`` keys are
+gate and the softmax run in f32.
+
+The residual stream is carried between blocks as ``(x, pending)``
+(``Stream``): the stream and the terms still to be added to it (a block's
+MLP output, a group's ``conv`` output).  Each LayerNorm adds the pending
+terms to the stream and normalises it in one call, so an add is no pass
+of its own (``ops/add_ln.py``: the kernel on CUDA, the adds and
+``F.layer_norm`` in the order above on the CPU).  A HAB's ``norm1`` adds
+the previous block's MLP output (or the group skip's ``conv`` output),
+its ``norm2`` adds ``proj(a)`` and ``conv_scale * c``; the stream after a
+group's last block is formed by a plain add before the group's ``conv``.
+The holder is mutable and the blocks drop what they have folded in, so
+that no frame keeps an old stream or a term alive: the tile graph's
+memory pool holds the peak.  ``state_dict`` keys are
 ``hat_arch.py``'s (``conv_first``, ``patch_embed.norm``,
 ``layers.{i}.residual_group.blocks.{j}.{norm1, attn.qkv,
 attn.relative_position_bias_table, attn.proj, conv_block.cab.{0, 2},
@@ -66,6 +79,7 @@ from torch import nn
 
 from torchsr_tpu_torch.models.layers import Conv, Dense, _draw
 from torchsr_tpu_torch.ops import window_attn as wa
+from torchsr_tpu_torch.ops.add_ln import add_layer_norm
 from torchsr_tpu_torch.ops.pixel_shuffle import depth_to_space
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -80,7 +94,8 @@ def _trunc_normal(param: torch.Tensor, std: float, generator) -> None:
 
 class LayerNorm(nn.Module):
     """``nn.LayerNorm`` (eps 1e-5) over the last axis, statistics in f32,
-    the result in the input's dtype."""
+    the result in the input's dtype, applied to the residual stream with
+    its pending terms added first."""
 
     def __init__(self, dim: int, *, device=None, dtype=None):
         super().__init__()
@@ -88,9 +103,36 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, **kw))
         self.bias = nn.Parameter(torch.zeros(dim, **kw))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight,
-                            self.bias, 1e-5).to(x.dtype)
+    def forward(self, x: torch.Tensor, *terms: torch.Tensor,
+                scales=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(stream, normed)``: ``x`` plus ``terms`` (times ``scales``,
+        1 by default), and that stream normalised."""
+        return add_layer_norm(x, terms, scales, weight=self.weight,
+                              bias=self.bias, eps=1e-5)
+
+
+class Stream:
+    """The residual stream ``x`` and its ``pending`` terms (scale 1)."""
+
+    def __init__(self, x: torch.Tensor):
+        self.x, self.pending = x, ()
+
+    def fold(self, norm: LayerNorm, *terms: torch.Tensor,
+             scales=None) -> torch.Tensor:
+        """Add the pending terms, then ``terms`` (times ``scales``), to the
+        stream, and return it normalised by ``norm``."""
+        if scales is not None:
+            scales = (1.0,) * len(self.pending) + tuple(scales)
+        self.x, normed = norm(self.x, *self.pending, *terms, scales=scales)
+        self.pending = ()
+        return normed
+
+    def add(self) -> torch.Tensor:
+        """Add the pending terms to the stream by plain adds."""
+        for t in self.pending:
+            self.x = self.x + t
+        self.pending = ()
+        return self.x
 
 
 class Mlp(nn.Module):
@@ -174,15 +216,22 @@ class HAB(nn.Module):
         self.norm2 = LayerNorm(dim, **kw)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = self.norm1(x)
+    def forward(self, s: Stream) -> torch.Tensor:
+        """Run the block on ``s``, leaving its MLP output pending; returns
+        the stream at the block's input (its pending terms added)."""
+        n = s.fold(self.norm1)
+        x_in = s.x
         conv = self.conv_block(n)
         attn = self.attn
         a = wa.window_attn(attn.qkv(n), attn.relative_position_bias_table,
                            heads=attn.heads, window=attn.window,
                            shift=self.shift)
-        x = x + attn.proj(a) + conv * self.conv_scale
-        return x + self.mlp(self.norm2(x))
+        del n
+        n = s.fold(self.norm2, attn.proj(a), conv,
+                   scales=(1.0, self.conv_scale))
+        del a, conv
+        s.pending = (self.mlp(n),)
+        return x_in
 
 
 class OCAB(nn.Module):
@@ -202,13 +251,17 @@ class OCAB(nn.Module):
         self.norm2 = LayerNorm(dim, **kw)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = wa.overlap_attn(self.qkv(self.norm1(x)),
+    def forward(self, s: Stream) -> torch.Tensor:
+        """As ``HAB.forward``."""
+        a = wa.overlap_attn(self.qkv(s.fold(self.norm1)),
                             self.relative_position_bias_table,
                             heads=self.heads, window=self.window,
                             overlap=self.overlap)
-        x = x + self.proj(a)
-        return x + self.mlp(self.norm2(x))
+        x_in = s.x
+        n = s.fold(self.norm2, self.proj(a))
+        del a
+        s.pending = (self.mlp(n),)
+        return x_in
 
 
 class AttenBlocks(nn.Module):
@@ -228,14 +281,19 @@ class AttenBlocks(nn.Module):
         self.overlap_attn = OCAB(dim, heads, window, overlap, mlp_ratio,
                                  **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for blk in self.blocks:
-            x = blk(x)
-        return self.overlap_attn(x)
+    def forward(self, s: Stream) -> torch.Tensor:
+        """As ``HAB.forward``, over the blocks in turn; returns the stream
+        at the group's input."""
+        blocks = (*self.blocks, self.overlap_attn)
+        x_in = blocks[0](s)
+        for blk in blocks[1:]:
+            blk(s)
+        return x_in
 
 
 class RHAG(nn.Module):
-    """A residual hybrid attention group: ``x + conv(residual_group(x))``."""
+    """A residual hybrid attention group: ``x + conv(residual_group(x))``,
+    the ``conv`` output left pending."""
 
     def __init__(self, dim: int, depth: int, heads: int, *, device=None,
                  dtype=None, **block):
@@ -244,8 +302,11 @@ class RHAG(nn.Module):
                                           dtype=dtype, **block)
         self.conv = Conv(dim, dim, 3, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.conv(self.residual_group(x))
+    def forward(self, s: Stream) -> None:
+        """Run the group on ``s``: the stream becomes the group's input,
+        with its ``conv`` output pending."""
+        x_in = self.residual_group(s)
+        s.x, s.pending = x_in, (self.conv(s.add()),)
 
 
 class _Norm(nn.Module):
@@ -256,7 +317,7 @@ class _Norm(nn.Module):
         self.norm = LayerNorm(dim, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(x)
+        return self.norm(x)[1]
 
 
 class HATGenerator(nn.Module):
@@ -381,16 +442,21 @@ class HATGenerator(nn.Module):
         x = ((x - mean) * self.img_range).to(self.compute_dtype or
                                               torch.float32)
         feat = self.conv_first(x)
-        t = self.patch_embed(feat)
-        for layer in self.layers:
-            t = layer(t)
-        t = self.conv_after_body(self.norm(t)) + feat
+        t = self.conv_after_body(self._body(feat)) + feat
         t = F.leaky_relu(self.conv_before_upsample["0"](t), 0.01)
         for k in range(len(self.upsample)):
             t = depth_to_space(self.upsample[str(2 * k)](t), 2)
         out = self.conv_last(t).float() / self.img_range + mean
         s = self.scale_factor
         return out[:, :h * s, :w * s]
+
+    def _body(self, feat: torch.Tensor) -> torch.Tensor:
+        """``patch_embed``, the groups and ``norm`` on the stream; the
+        stream is dropped on return."""
+        s = Stream(self.patch_embed(feat))
+        for layer in self.layers:
+            layer(s)
+        return s.fold(self.norm)
 
 
 def _add_indices(module, state: dict, prefix: str, _meta) -> None:

@@ -1,12 +1,13 @@
 """Tensor operations: the kernel wrappers (RDB, pair synthesis, 3x3 conv,
-BatchNorm with its PReLU or skip add, HAT's window attentions) and their
-plain versions, resizing.
+BatchNorm with its PReLU or skip add, HAT's window attentions and its
+residual adds with LayerNorm) and their plain versions, resizing.
 
 Importing the package registers the RDB forward operator
 (``torchsr_tpu_torch::rdb_fwd``, ``ops/rdb.py``), which a serving
 artifact exported with native kernels calls: such an artifact loads with
 this package and ``torch`` alone."""
 
+from torchsr_tpu_torch.ops import add_ln as add_ln
 from torchsr_tpu_torch.ops import bn_act as bn_act
 from torchsr_tpu_torch.ops import rdb as rdb  # (registers the op)
 from torchsr_tpu_torch.ops import window_attn as window_attn
@@ -15,9 +16,9 @@ from torchsr_tpu_torch.ops import window_attn as window_attn
 # module's ``LAUNCH_COUNTERS``) advance in Python: ``train/graphs.py``
 # adds a captured graph's share once per replay, and the tools report
 # them.  ``ops.rdb.plain_forward()`` takes the RDB and BatchNorm kernels
-# off; HAT's attention kernel (``window_attn``) has no such switch: its
-# plain version runs on CPU tensors only.
-MODEL_KERNELS = (rdb, bn_act, window_attn)
+# off; HAT's kernels (``window_attn``, ``add_ln``) have no such switch:
+# their plain versions run on CPU tensors only.
+MODEL_KERNELS = (rdb, bn_act, window_attn, add_ln)
 
 
 def launch_counts() -> dict:

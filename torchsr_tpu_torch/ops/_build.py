@@ -101,6 +101,12 @@ SIGNATURES = {
         ),
         "window_attn_error_string": (ctypes.c_char_p, (_I,)),
     },
+    "add_ln": {
+        "add_ln_launch": (
+            _I, (_P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _I, _I, _P)
+        ),
+        "add_ln_error_string": (ctypes.c_char_p, (_I,)),
+    },
     "pair_conv": {
         "pair_conv_launch": (
             _I, (_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
